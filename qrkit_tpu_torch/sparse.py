@@ -1,0 +1,223 @@
+"""Host-side sparse-matrix container and permutations (NumPy only).
+
+Counterpart of ``qrkit_tpu/sparse.py`` (``Permutation``, ``coo_to_csr`` and
+the ``SparseCSR`` surface the block-diagonal slice uses).  These are
+structure-plane objects: they live on the host, feed the structure analysis
+in :mod:`qrkit_tpu_torch.analysis`, and never touch the device.  The port
+keeps its own copy instead of importing ``qrkit_tpu.sparse`` because that
+import runs ``qrkit_tpu/__init__.py``, which imports jax.
+
+Conventions follow Eigen, exactly as in the reference package:
+
+* ``Permutation.indices[src] = dest`` — ``P @ v`` scatters ``v[i]`` to ``dest``.
+* ``A @ P`` gathers columns: new column ``i`` = old column ``indices[i]``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+from . import _native
+
+__all__ = ["Permutation", "SparseCSR", "coo_to_csr"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Permutation:
+    """Eigen-style permutation: ``indices[src] = dest``.
+
+    ``apply(v) == P * v`` (Eigen semantics, scatter), and ``inverse().apply``
+    undoes it.  ``permute_cols(M) == M * P`` (gather columns).
+    """
+
+    indices: np.ndarray  # int array, indices[src] = dest
+
+    def __post_init__(self):
+        object.__setattr__(self, "indices", np.asarray(self.indices, dtype=np.int64))
+
+    @staticmethod
+    def identity(n: int) -> "Permutation":
+        return Permutation(np.arange(n, dtype=np.int64))
+
+    @property
+    def size(self) -> int:
+        return int(self.indices.shape[0])
+
+    def is_identity(self) -> bool:
+        return bool(np.all(self.indices == np.arange(self.size)))
+
+    def inverse(self) -> "Permutation":
+        inv = np.empty_like(self.indices)
+        inv[self.indices] = np.arange(self.size)
+        return Permutation(inv)
+
+    def apply(self, v: np.ndarray) -> np.ndarray:
+        """P * v : out[indices[i]] = v[i] (rows scattered)."""
+        out = np.empty_like(v)
+        out[self.indices, ...] = v
+        return out
+
+    def apply_inverse(self, v: np.ndarray) -> np.ndarray:
+        """P^-1 * v : out[i] = v[indices[i]]."""
+        return v[self.indices, ...]
+
+    def permute_cols(self, m: np.ndarray) -> np.ndarray:
+        """M * P : out[:, i] = M[:, indices[i]]."""
+        return m[..., self.indices]
+
+    def then(self, other: "Permutation") -> "Permutation":
+        """Permutation equivalent to applying ``self`` first, then ``other``."""
+        return Permutation(other.indices[self.indices])
+
+    def gather_indices(self) -> np.ndarray:
+        """``src_of_dest`` array g with ``(P*v)[j] == v[g[j]]``."""
+        return self.inverse().indices
+
+
+def coo_to_csr(rows, cols, vals, shape) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Build CSR arrays from COO triplets, summing duplicates (Eigen setFromTriplets)."""
+    nrows, _ = shape
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if rows.size:
+        key_same = np.zeros(rows.size, dtype=bool)
+        key_same[1:] = (rows[1:] == rows[:-1]) & (cols[1:] == cols[:-1])
+        group = np.cumsum(~key_same) - 1
+        ur = np.empty(group[-1] + 1, dtype=np.int64)
+        uc = np.empty_like(ur)
+        uv = np.zeros(ur.shape, dtype=vals.dtype)
+        ur[group] = rows
+        uc[group] = cols
+        np.add.at(uv, group, vals)
+        rows, cols, vals = ur, uc, uv
+    indptr = np.zeros(nrows + 1, dtype=np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    indptr = np.cumsum(indptr)
+    return indptr, cols, vals
+
+
+class SparseCSR:
+    """Minimal host-side CSR matrix (float64 by default): triplet
+    construction, row permutation, block extraction to dense panels, and
+    dense conversion for tests."""
+
+    def __init__(self, shape, indptr, indices, data):
+        self.shape = (int(shape[0]), int(shape[1]))
+        self.indptr = np.asarray(indptr, dtype=np.int64)
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.data = np.asarray(data)
+
+    # --- constructors ---------------------------------------------------------------
+    @staticmethod
+    def from_triplets(rows, cols, vals, shape) -> "SparseCSR":
+        indptr, indices, data = coo_to_csr(rows, cols, vals, shape)
+        return SparseCSR(shape, indptr, indices, data)
+
+    @staticmethod
+    def from_dense(m: np.ndarray, tol: float = 0.0) -> "SparseCSR":
+        rows, cols = np.nonzero(np.abs(m) > tol)
+        return SparseCSR.from_triplets(rows, cols, m[rows, cols], m.shape)
+
+    @staticmethod
+    def from_scipy(m) -> "SparseCSR":
+        """Build from any ``scipy.sparse`` matrix in canonical CSR form
+        (sorted column indices, summed duplicates).  The input is never
+        mutated and the result shares no buffers with it."""
+        csr = m.tocsr()
+        if csr is m:
+            csr = csr.copy()
+        csr.sum_duplicates()
+        csr.sort_indices()
+        return SparseCSR(csr.shape, csr.indptr, csr.indices, np.array(csr.data))
+
+    # --- basic properties -----------------------------------------------------------
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.data.dtype if self.nnz else np.float64)
+        row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
+        out[row_ids, self.indices] = self.data
+        return out
+
+    def col_nnz(self) -> np.ndarray:
+        if _native.available():
+            return _native.col_nnz(self.indices, self.ncols)
+        counts = np.zeros(self.ncols, dtype=np.int64)
+        np.add.at(counts, self.indices, 1)
+        return counts
+
+    def row_ranges(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(start, end) column index of first/last nonzero per row; empty
+        rows get ``start = end = ncols`` (out of band)."""
+        if _native.available():
+            return _native.row_ranges(self.nrows, self.ncols, self.indptr, self.indices)
+        starts = np.full(self.nrows, self.ncols, dtype=np.int64)
+        ends = np.full(self.nrows, self.ncols, dtype=np.int64)
+        nonempty = np.diff(self.indptr) > 0
+        starts[nonempty] = self.indices[self.indptr[:-1][nonempty]]
+        ends[nonempty] = self.indices[self.indptr[1:][nonempty] - 1]
+        return starts, ends
+
+    def matvec(self, v: np.ndarray) -> np.ndarray:
+        row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
+        out = np.zeros(self.nrows, dtype=np.result_type(self.data, v))
+        np.add.at(out, row_ids, self.data * v[self.indices])
+        return out
+
+    # --- permutation / slicing ------------------------------------------------------
+    def permute_rows(self, perm: Permutation) -> "SparseCSR":
+        """P * A — row src goes to row perm.indices[src]."""
+        src_of_dest = perm.gather_indices()
+        if _native.available() and self.data.dtype == np.float64:
+            ip, ix, d = _native.permute_rows_csr(
+                self.nrows, self.indptr, self.indices, self.data, src_of_dest
+            )
+            return SparseCSR(self.shape, ip, ix, d)
+        counts = np.diff(self.indptr)[src_of_dest]
+        new_indptr = np.zeros(self.nrows + 1, dtype=np.int64)
+        new_indptr[1:] = np.cumsum(counts)
+        old_starts = self.indptr[:-1][src_of_dest]
+        pos = np.arange(self.nnz) - np.repeat(new_indptr[:-1], counts)
+        gather = np.repeat(old_starts, counts) + pos
+        return SparseCSR(self.shape, new_indptr, self.indices[gather], self.data[gather])
+
+    def block_dense(self, r0: int, c0: int, nr: int, nc: int) -> np.ndarray:
+        """Dense copy of the block [r0:r0+nr, c0:c0+nc]."""
+        out = np.zeros((nr, nc), dtype=self.data.dtype if self.nnz else np.float64)
+        for i in range(nr):
+            lo, hi = self.indptr[r0 + i], self.indptr[r0 + i + 1]
+            cols = self.indices[lo:hi]
+            sel = (cols >= c0) & (cols < c0 + nc)
+            out[i, cols[sel] - c0] = self.data[lo:hi][sel]
+        return out
+
+    def blocks_dense(self, blocks, pad_rows: int, pad_cols: int) -> np.ndarray:
+        """Stacked dense panels [nb, pad_rows, pad_cols] for a list of
+        (row, col, nrows, ncols) tuples; panels zero-padded to uniform shape."""
+        nb = len(blocks)
+        if _native.available() and nb and (self.nnz == 0 or self.data.dtype == np.float64):
+            return _native.extract_panels(
+                self.nrows, self.ncols, self.indptr, self.indices,
+                self.data.astype(np.float64, copy=False),
+                np.asarray([tuple(b) for b in blocks], dtype=np.int64),
+                pad_rows, pad_cols,
+            )
+        out = np.zeros((nb, pad_rows, pad_cols), dtype=self.data.dtype if self.nnz else np.float64)
+        for k, (r0, c0, nr, nc) in enumerate(blocks):
+            out[k, :nr, :nc] = self.block_dense(r0, c0, nr, nc)
+        return out

@@ -1,0 +1,145 @@
+"""The block-diagonal kernels' plain PyTorch versions against the Pallas
+kernels (interpret mode), and the CUDA kernels against the plain versions.
+
+The JAX side is fed the ``_pad_soa_identity``-padded operand its kernels
+require, and its pad columns are dropped before comparing.  Tolerances:
+packed R rtol/atol 1e-12, x atol 1e-9 (as tests/test_pallas_blockdiag_class.py).
+
+The CUDA case carries the ``cuda`` marker and skips without a card.  JAX is
+imported inside the helpers, so on a GPU machine without JAX the CUDA case
+runs alone with ``python -m pytest --noconftest -m cuda
+tests/test_torch_blockdiag_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from qrkit_tpu_torch import profiling
+from qrkit_tpu_torch.ops import blockdiag as bd
+
+SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4)]
+SHAPE_IDS = [f"{br}x{bc}" for br, bc in SHAPES]
+
+
+def _operands(seed, n, br, bc):
+    """SoA blocks uniform(0.5, 5), block 0 with a first column that is zero
+    below a nonzero diagonal (the degenerate sigma <= 0 path), rhs normal."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.uniform(0.5, 5.0, size=(n, br, bc))
+    blocks[0, 1:, 0] = 0.0
+    a_soa = np.ascontiguousarray(blocks.transpose(1, 2, 0).reshape(br * bc, n))
+    return blocks, a_soa, rng.normal(size=(br, n))
+
+
+def _jax_lstsq_soa(a_soa, b_soa, bc):
+    import jax.numpy as jnp
+    from qrkit_tpu.ops.pallas_blockdiag import (
+        _pad_soa_identity,
+        _pad_soa_zero,
+        pallas_block_diagonal_lstsq_soa,
+    )
+
+    n = a_soa.shape[1]
+    x = pallas_block_diagonal_lstsq_soa(
+        _pad_soa_identity(jnp.asarray(a_soa), bc, n),
+        _pad_soa_zero(jnp.asarray(b_soa), n),
+        interpret=True,
+    )
+    return np.asarray(x)[:, :n]
+
+
+def _jax_qr_r_soa(a_soa, br, bc):
+    import jax.numpy as jnp
+    from qrkit_tpu.ops.pallas_blockdiag import _pad_soa_identity, pallas_block_diagonal_qr_r_soa
+
+    n = a_soa.shape[1]
+    r = pallas_block_diagonal_qr_r_soa(
+        _pad_soa_identity(jnp.asarray(a_soa), bc, n), br, interpret=True
+    )
+    return np.asarray(r)[:, :n]
+
+
+@pytest.mark.parametrize("br,bc", SHAPES, ids=SHAPE_IDS)
+def test_lstsq_plain_matches_pallas(br, bc):
+    _, a_soa, b_soa = _operands(1, 37, br, bc)
+    x = bd.block_diagonal_lstsq_soa(torch.as_tensor(a_soa), torch.as_tensor(b_soa))
+    assert x.shape == (bc, 37)
+    np.testing.assert_allclose(x.numpy(), _jax_lstsq_soa(a_soa, b_soa, bc), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("br,bc", SHAPES, ids=SHAPE_IDS)
+def test_qr_r_plain_matches_pallas(br, bc):
+    _, a_soa, _ = _operands(2, 37, br, bc)
+    r = bd.block_diagonal_qr_r_soa(torch.as_tensor(a_soa), br)
+    assert r.shape == (bc * (bc + 1) // 2, 37)
+    np.testing.assert_allclose(r.numpy(), _jax_qr_r_soa(a_soa, br, bc), rtol=1e-12, atol=1e-12)
+
+
+def test_aos_wrappers_match_pallas_aos():
+    import jax.numpy as jnp
+    from qrkit_tpu.ops.pallas_blockdiag import (
+        pallas_block_diagonal_lstsq,
+        pallas_block_diagonal_qr_r,
+    )
+
+    blocks, _, b_soa = _operands(3, 21, 7, 2)
+    b = np.concatenate([b_soa.T.reshape(-1), [0.5, -1.0]])  # ignored tail rows
+    x = bd.block_diagonal_lstsq(torch.as_tensor(blocks), torch.as_tensor(b))
+    want = pallas_block_diagonal_lstsq(jnp.asarray(blocks), jnp.asarray(b), interpret=True)
+    np.testing.assert_allclose(x.numpy(), np.asarray(want), rtol=0, atol=1e-9)
+    r = bd.block_diagonal_qr_r(torch.as_tensor(blocks))
+    want_r = pallas_block_diagonal_qr_r(jnp.asarray(blocks), interpret=True)
+    np.testing.assert_allclose(r.numpy(), np.asarray(want_r), rtol=1e-12, atol=1e-12)
+
+
+def test_plain_solves_least_squares():
+    """Independent of JAX: the plain version's x is the per-block lstsq."""
+    blocks, a_soa, b_soa = _operands(4, 9, 7, 2)
+    x = bd.block_diagonal_lstsq_soa(torch.as_tensor(a_soa), torch.as_tensor(b_soa)).numpy()
+    for k in range(9):
+        want, *_ = np.linalg.lstsq(blocks[k], b_soa[:, k], rcond=None)
+        np.testing.assert_allclose(x[:, k], want, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "a_shape,b_shape,dtype,match",
+    [
+        ((14, 5), (7, 5), torch.int64, "float32 or float64"),
+        ((14, 5), (7, 4), torch.float64, "do not match"),
+        ((10, 5), (2, 5), torch.float64, "unsupported block shape"),
+        ((65, 5), (65, 5), torch.float64, "unsupported block shape"),
+    ],
+    ids=["dtype", "batch", "landscape", "too_many_entries"],
+)
+def test_wrapper_rejects_bad_operands(a_shape, b_shape, dtype, match):
+    a = torch.ones(a_shape, dtype=dtype)
+    b = torch.ones(b_shape, dtype=dtype)
+    with pytest.raises((TypeError, ValueError), match=match):
+        bd.block_diagonal_lstsq_soa(a, b)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ and have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_kernels_match_plain(cuda_device, dtype):
+    """Each CUDA kernel against its plain version on the card, every shape,
+    ragged batch sizes; built with --fmad=false, the two agree to the bit."""
+    profiling.reset_launch_counts()
+    for br, bc in SHAPES:
+        for n in (1, 1000, 10_007):
+            _, a_soa, b_soa = _operands(5, n, br, bc)
+            a = torch.as_tensor(a_soa, dtype=dtype, device=cuda_device)
+            b = torch.as_tensor(b_soa, dtype=dtype, device=cuda_device)
+            x = bd.block_diagonal_lstsq_soa(a, b)
+            r = bd.block_diagonal_qr_r_soa(a, br)
+            torch.cuda.synchronize()
+            assert torch.equal(x, bd._lstsq_soa_plain(a, b))
+            assert torch.equal(r, bd._qr_r_soa_plain(a, br))
+    n_cases = len(SHAPES) * 3
+    assert profiling.launch_counts() == {"blockdiag_lstsq": n_cases, "blockdiag_qr_r": n_cases}
