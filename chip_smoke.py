@@ -4,17 +4,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the block-diagonal main path from the sources
-in ``qrkit_tpu_torch/ops/csrc/`` with nvcc (sm_90a), checks each kernel
-against its plain PyTorch version on the card, drives the main path
-(``SparseCSR`` → ``BlockDiagonal`` → ``BlockDiagonalQR.compute`` → ``solve``)
-at the flagship size (10,000 blocks of 7×2) and at the 1M-block point,
-times the kernels against their plain versions with CUDA events, and checks
-the differentiable ``functional.block_diagonal_lstsq`` against the CPU.
+It builds every CUDA kernel from the sources in ``qrkit_tpu_torch/ops/csrc/``
+with nvcc (sm_90a), one nvcc per library, all started together, and then:
 
-Each phase prints one JSON line.  Any failure raises, so the script exits
-non-zero without the final line; it also fails when no CUDA device is
-visible.  The last two lines are the kernel summary
+* block-diagonal path (kernels B1, B2): checks each kernel against its plain
+  PyTorch version, drives ``SparseCSR`` → ``BlockDiagonal`` →
+  ``BlockDiagonalQR.compute`` → ``solve`` at the flagship size (10,000
+  blocks of 7×2) and at the 1M-block point, times the kernels against their
+  plain versions with CUDA events, and checks the differentiable
+  ``functional.block_diagonal_lstsq`` against the CPU;
+* banded path (kernels B3, B4, B5): checks each kernel against its plain
+  version at small shapes and at the shapes of BASELINE.json config 3 (a
+  99,960 × 10,000 banded matrix of 2,499 blocks of 40×8 overlapping by 4),
+  drives config 3 through ``SegmentedBandedQR`` (compute, solve,
+  ``factorize_values`` on device values) and ``BandedBlockedQR`` (compute,
+  solve) with the launch counters read around each path, and times the
+  kernels against their plain versions.
+
+Each phase prints one JSON line per case.  Any failure raises, so the script
+exits non-zero without the final line; it also fails when no CUDA device is
+visible.  The launch counters are set to 0 right before each main path and
+read right after it; launches made to compare a kernel with its plain
+version are not counted there.  The last two lines are the kernel summary
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -32,7 +43,9 @@ import torch
 import qrkit_tpu_torch as qt
 from qrkit_tpu_torch import functional, profiling
 from qrkit_tpu_torch.ops import _build
+from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
+from qrkit_tpu_torch.solvers import segmented_factorize
 
 SEED = 0
 DEVICE = "cuda"
@@ -42,6 +55,16 @@ BR, BC = 7, 2                       # the flagship block shape (BASELINE.json co
 NB_CONFIG2, NB_REAL = 10_000, 1_000_000
 RESID_GATE = 1e-4                   # fp32 relative residual gate (bench.py)
 SOURCE = "qrkit_tpu_torch/ops/csrc/blockdiag_qr.cu"
+BANDED_SOURCE = "qrkit_tpu_torch/ops/csrc/banded_chain.cu"
+BLOCKDIAG_KERNELS = ("blockdiag_lstsq", "blockdiag_qr_r")
+BANDED_KERNELS = {  # name -> TPU kernel replaced
+    "banded_segment_chains": "qrkit_tpu/ops/pallas_banded.py:61",
+    "banded_apply_w": "qrkit_tpu/ops/pallas_banded.py:148",
+    "banded_chain_qr": "qrkit_tpu/ops/pallas_banded.py:325",
+}
+# BASELINE.json config 3 (examples/bench_banded.py config3)
+C3_NB, C3_BR, C3_BC, C3_OV = 2499, 40, 8, 4
+C3_SEGMENT_BLOCKS = 32
 # name -> (TPU kernel replaced, kernel wrapper, plain version), both called (a, b, br)
 KERNELS = {
     "blockdiag_lstsq": (
@@ -66,9 +89,11 @@ def tolerance(dtype):
     return (1e-10, 0.0) if dtype == torch.float64 else (1e-4, 1e-5)
 
 
-def compare(out, ref, dtype):
-    """Worst errors of out against ref; raises if outside the tolerance."""
-    rtol, atol_rel = tolerance(dtype)
+def compare(out, ref, dtype, tol=None):
+    """Worst errors of out against ref; raises if outside the tolerance
+    (``tol``: (rtol, atol relative to max|reference|), default
+    :func:`tolerance`)."""
+    rtol, atol_rel = tol if tol is not None else tolerance(dtype)
     out64, ref64 = out.double(), ref.double()
     if not torch.isfinite(out64).all() or not torch.isfinite(ref64).all():
         raise AssertionError("non-finite kernel or plain output")
@@ -126,11 +151,17 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per library, all started together: the block-diagonal
+    library of each block shape and the single banded library, which takes
+    every banded shape (config 3's and the tests') as kernel arguments."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNEL_SHAPES)) as pool:
-        paths = list(pool.map(lambda s: _build.build(*s), KERNEL_SHAPES))
+    jobs = [lambda s=s: _build.build(*s) for s in KERNEL_SHAPES]
+    jobs.append(lambda: _build.build_source(_build.BANDED_SOURCE))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        paths = [f.result() for f in [pool.submit(job) for job in jobs]]
     for br, bc in KERNEL_SHAPES:
         _build.load(br, bc)
+    _build.load_banded()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "nvcc": _build.find_nvcc(), "flags": list(_build.NVCC_FLAGS),
@@ -189,10 +220,17 @@ def drive_main_path(label, mat, blocks_np, b_np, expect_kernels):
     resid = host_residual(blocks_np, x, b_np)
     if not resid < RESID_GATE:
         raise AssertionError(f"{label}: fp32 relative residual {resid} >= {RESID_GATE}")
+    if any(counts[name] for name in BANDED_KERNELS):
+        raise AssertionError(f"{label}: the block-diagonal path launched banded kernels {counts}")
+    blockdiag = lambda c: {name: c[name] for name in BLOCKDIAG_KERNELS}  # noqa: E731
     if expect_kernels:
         want_compute = {"blockdiag_lstsq": 0, "blockdiag_qr_r": 1}
         want = {"blockdiag_lstsq": 1, "blockdiag_qr_r": 1}
-        if not qr._kernel_mode or after_compute != want_compute or counts != want:
+        if (
+            not qr._kernel_mode
+            or blockdiag(after_compute) != want_compute
+            or blockdiag(counts) != want
+        ):
             raise AssertionError(
                 f"{label}: kernel tier not taken as expected (kernel_mode={qr._kernel_mode}, "
                 f"after compute {after_compute}, after solve {counts})"
@@ -296,6 +334,249 @@ def phase_gradient():
           "max_abs_err_cuda_vs_cpu": errs, "tol": 1e-9})
 
 
+BANDED_TOL64 = (1e-10, 1e-12)  # fp64: rtol, atol relative to max|reference|
+
+
+def banded_tolerance(dtype):
+    """Kernel vs plain for the banded kernels: fp64 rtol 1e-10 with atol
+    1e-12·max|·| (their reductions add in another order, so entries that
+    cancel to roundoff differ by roundoff); fp32 as :func:`tolerance`."""
+    return BANDED_TOL64 if dtype == torch.float64 else tolerance(dtype)
+
+
+def banded_matrix(rng, nb, br, bc, ov):
+    """Row-sorted banded matrix: nb blocks of br×bc overlapping ov columns,
+    uniform(0.5, 5) values (examples/bench_banded.py's layout)."""
+    step = bc - ov
+    ncols = step * nb + ov
+    i, r, c = np.meshgrid(np.arange(nb), np.arange(br), np.arange(bc), indexing="ij")
+    rows, cols = (i * br + r).ravel(), (i * step + c).ravel()
+    keep = cols < ncols
+    vals = rng.uniform(0.5, 5.0, size=rows.size)
+    return qt.SparseCSR.from_triplets(rows[keep], cols[keep], vals[keep], (br * nb, ncols))
+
+
+def banded_operands(rng, mat, L, suggested, dtype):
+    """Each banded kernel's operands at the shapes the main path gives it on
+    ``mat``: B3's gathered panels and B4's fed window rows from the
+    segmented plan (B4's Y and τ from B3's plain version), B5's panels from
+    the plain chain's plan, and random panels at the boundary chain's shape.
+    Returns {kernel: [(case, kernel call, plain call)]}."""
+    seg = qt.SegmentedBandedQR(suggested, L, use_kernel=False, device=DEVICE, dtype=dtype)
+    seg.analyze_pattern(mat)
+    seg._layout_maps(mat, mat)
+    vals = torch.as_tensor(mat.data, dtype=dtype, device=DEVICE)
+    pad = torch.cat([vals, vals.new_zeros(1)])
+    kw = seg._kw
+    ci, ci0_rest = seg._kernel_ci
+    panels = pad[seg._panel_gmap]
+    b3 = dict(mca=kw["max_carry"], me=kw["max_emit"], ci=ci, ci0_rest=ci0_rest)
+    y, tau, _ = bk._segment_chains_plain(panels, seg._kernel_act, **b3)
+    st = seg._p2w["statics"]
+    w = segmented_factorize.p2w_window_rows(seg, pad[seg._slab_gmap])
+    b4 = dict(mca=st["mca"], h=st["h"], wrows=st["wrows"])
+    ab = seg._p2w["ab"]
+    nbc = len(seg._chain_geom["ncols"])
+    ckw = seg._chain_kw
+    bpan = torch.as_tensor(
+        rng.uniform(0.5, 5.0, size=(nbc, ckw["max_active"], ckw["max_cols"])), dtype=dtype,
+        device=DEVICE,
+    )
+    bact = torch.ones(nbc, dtype=dtype, device=DEVICE)
+    plain = qt.BandedBlockedQR(suggested_block_cols=suggested, use_kernel=False, device=DEVICE, dtype=dtype)
+    plain.analyze_pattern(mat)
+    plain._layout_maps(mat, mat)
+    ppan = pad[plain._panel_gmap]
+    return {
+        "banded_segment_chains": [(
+            "segment_chains", lambda: bk.segment_chains(panels, seg._kernel_act, **b3),
+            lambda: bk._segment_chains_plain(panels, seg._kernel_act, **b3),
+        )],
+        "banded_apply_w": [(
+            "segment_apply_w", lambda: bk.segment_apply_w(y, tau, w, ab, **b4),
+            lambda: bk._segment_apply_w_plain(y, tau, w, ab, **b4),
+        )],
+        "banded_chain_qr": [
+            ("plain_chain", lambda: bk.chain_qr(ppan, plain._chain_act, **plain._chain_kernel),
+             lambda: bk._chain_qr_plain(ppan, plain._chain_act, **plain._chain_kernel)),
+            ("boundary_chain", lambda: bk.chain_qr(bpan, bact, **seg._chain_kernel),
+             lambda: bk._chain_qr_plain(bpan, bact, **seg._chain_kernel)),
+        ],
+    }, dict(
+        segment_chains=list(panels.shape), segment_apply_w=list(w.shape), plain_chain=list(ppan.shape),
+        boundary_chain=list(bpan.shape),
+    )
+
+
+def compare_outputs(out, ref, dtype):
+    """compare() over every output of a kernel; (worst abs error, bitwise)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    worst, bitwise = 0.0, True
+    for o, r in zip(outs, refs):
+        e, eq = compare(o, r, dtype, banded_tolerance(dtype))
+        worst, bitwise = max(worst, e), bitwise and eq
+    return worst, bitwise
+
+
+BANDED_SHAPES = {  # label -> (nb, br, bc, ov, segment_blocks, suggested_block_cols)
+    "small_64x10x4": (64, 10, 4, 2, 8, 4),
+    "config3": (C3_NB, C3_BR, C3_BC, C3_OV, C3_SEGMENT_BLOCKS, C3_BC),
+}
+
+
+def phase_banded_kernel_vs_plain(rng):
+    """B3, B4, B5 against their plain versions at a small shape and at the
+    config-3 shapes, fp32 and fp64.  Returns {kernel: worst error at the
+    config-3 shapes in fp32} and the fp32 config-3 operands for timing."""
+    worst, c3_ops = {}, None
+    for label, (nb, br, bc, ov, L, sug) in BANDED_SHAPES.items():
+        mat = banded_matrix(rng, nb, br, bc, ov)
+        for dtype in (torch.float32, torch.float64):
+            ops, shapes = banded_operands(rng, mat, L, sug, dtype)
+            if label == "config3" and dtype == torch.float32:
+                c3_ops = ops
+            for name, cases in ops.items():
+                for case, run_k, run_p in cases:
+                    out = run_k()
+                    torch.cuda.synchronize()
+                    err, bitwise = compare_outputs(out, run_p(), dtype)
+                    rtol, atol_rel = banded_tolerance(dtype)
+                    emit({
+                        "phase": "banded_kernel_vs_plain", "kernel": name, "case": case,
+                        "shape": label, "operand_shape": shapes[case],
+                        "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+                        "bitwise_equal": bitwise, "rtol": rtol, "atol_x_max_abs": atol_rel,
+                    })
+                    if label == "config3" and dtype == torch.float32:
+                        worst[name] = max(worst.get(name, 0.0), err)
+    return worst, c3_ops
+
+
+def host_residual_sparse(mat, x, b_np):
+    """fp64 relative residual ‖Ax − b‖/‖b‖ on the host, A sparse."""
+    xh = x.detach().cpu().double().numpy()
+    return float(np.linalg.norm(mat.matvec(xh) - b_np) / np.linalg.norm(b_np))
+
+
+def drive_banded(label, solver, mat, b_np, want, values=None):
+    """compute (or factorize_values) + solve with the counters read right
+    before and after: ``want`` is the launches the factorize must make,
+    the solve makes none; info(), the solution's shape and finiteness and
+    the fp32 residual gate are checked."""
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=DEVICE)
+    profiling.reset_launch_counts()
+    t0 = time.perf_counter()
+    if values is None:
+        solver.compute(mat)
+    else:
+        solver.factorize_values(values)
+    after_compute = profiling.launch_counts()
+    x = solver.solve(b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = profiling.launch_counts()
+    info = solver.info()
+    if info != qt.ComputationInfo.SUCCESS:
+        raise AssertionError(f"{label}: info() = {info}")
+    if tuple(x.shape) != (mat.ncols,) or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{label}: solution shape {tuple(x.shape)} or non-finite values")
+    resid = host_residual_sparse(mat, x, b_np)
+    if not resid < RESID_GATE:
+        raise AssertionError(f"{label}: fp32 relative residual {resid} >= {RESID_GATE}")
+    expected = {name: want.get(name, 0) for name in counts}
+    if after_compute != expected or counts != after_compute:
+        raise AssertionError(
+            f"{label}: launches after the factorize {after_compute} (want {expected}), "
+            f"after the solve {counts} (the solve launches none)"
+        )
+    emit({
+        "phase": "banded_main_path", "case": label, "shape": [mat.nrows, mat.ncols],
+        "nnz": mat.nnz, "rel_residual": resid, "info": info.name, "launches": counts,
+        "wall_s_incl_first_use": seconds,
+    })
+    return counts
+
+
+def wall_ms(step, reps):
+    """Median host wall time of ``step()`` (ending in synchronize), after
+    one warm-up step."""
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def phase_banded_main_path(rng, smi):
+    """Config 3 through SegmentedBandedQR (compute + solve, then
+    factorize_values on device values + solve) and BandedBlockedQR (compute
+    + solve), fp32 on the card; then the wall time of compute + solve."""
+    mat = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
+    x_true = rng.normal(size=mat.ncols)
+    b_np = mat.matvec(x_true)
+    seg = qt.SegmentedBandedQR(
+        suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, device=DEVICE,
+        dtype=torch.float32,
+    )
+    plain = qt.BandedBlockedQR(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32)
+    want_seg = {name: 1 for name in BANDED_KERNELS}
+    total = {name: 0 for name in BANDED_KERNELS}
+    runs = [("config3_segmented_compute", seg, mat, b_np, want_seg, None)]
+    scale = 0.5
+    scaled = qt.SparseCSR(mat.shape, mat.indptr, mat.indices, mat.data * scale)
+    device_values = torch.as_tensor(scaled.data, dtype=torch.float32, device=DEVICE)
+    runs.append(("config3_segmented_factorize_values", seg, scaled, b_np * scale, want_seg, device_values))
+    runs.append(("config3_plain_compute", plain, mat, b_np, {"banded_chain_qr": 1}, None))
+    for label, solver, m, b, want, values in runs:
+        counts = drive_banded(label, solver, m, b, want, values)
+        for name in total:
+            total[name] += counts[name]
+    if not (seg._fac_kernel and plain._fac_kernel and seg._p2w is not None and seg._chain_kernel):
+        raise AssertionError("config 3 did not take every banded kernel gate")
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=DEVICE)
+    wall = {}
+    for label, solver, reps in (("segmented", seg, 20), ("plain", plain, 3)):
+        ms, times = wall_ms(lambda: (solver.compute(mat), solver.solve(b)), reps)
+        wall[label] = ms
+        emit({
+            "phase": "banded_wall_time", "solver": label, "ms": ms, "times_ms": times,
+            "method": f"host wall time of compute + solve ending in synchronize, one "
+                      f"warm-up, median of {reps}", "gpu": smi,
+        })
+    return total, wall
+
+
+def phase_banded_timing(ops, smi):
+    """Kernel against plain at the config-3 shapes (fp32) with CUDA events,
+    in turns kernel, plain, plain, kernel; the kernels 10 warm-ups and a
+    median of 50 per round, the plain versions 1 warm-up and a median of 3."""
+    results = {}
+    for name, cases in ops.items():
+        for case, run_k, run_p in cases:
+            k_rounds, p_rounds = [], []
+            for rounds in (k_rounds, p_rounds, p_rounds, k_rounds):
+                if rounds is k_rounds:
+                    rounds.append(profiling.cuda_time_ms(run_k, warmup=10, reps=50))
+                else:
+                    rounds.append(profiling.cuda_time_ms(run_p, warmup=1, reps=3))
+            ms, plain_ms = statistics.mean(k_rounds), statistics.mean(p_rounds)
+            emit({
+                "phase": "banded_timing", "kernel": name, "case": case, "dtype": "float32",
+                "ms": ms, "plain_ms": plain_ms, "ms_rounds": k_rounds, "plain_ms_rounds": p_rounds,
+                "method": "CUDA events per call, synchronize before reading; rounds kernel, "
+                          "plain, plain, kernel; kernel 10 warm-up + median of 50, plain 1 "
+                          "warm-up + median of 3; mean of round medians",
+                "gpu": smi,
+            })
+            results.setdefault(name, (ms, plain_ms))  # the first case is the main path's
+    return results
+
+
 def main():
     rng = np.random.default_rng(SEED)
     smi = phase_device()
@@ -304,6 +585,9 @@ def main():
     counts10k = phase_config2(rng)
     counts1m, timings = phase_real_size(rng, smi)
     phase_gradient()
+    banded_worst, c3_ops = phase_banded_kernel_vs_plain(rng)
+    banded_counts, _ = phase_banded_main_path(rng, smi)
+    banded_timings = phase_banded_timing(c3_ops, smi)
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         ms, plain_ms, _ = timings[name][-1]  # the 1M-block point
@@ -311,6 +595,13 @@ def main():
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": counts10k[name] + counts1m[name],
             "max_abs_err": max([worst[(name, BR, BC)]] + [t[2] for t in timings[name]]),
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    for name, replaces in BANDED_KERNELS.items():
+        ms, plain_ms = banded_timings[name]  # config 3; B5 on the plain chain
+        kernels.append({
+            "name": name, "route": "cuda", "source": BANDED_SOURCE, "replaces": replaces,
+            "launches": banded_counts[name], "max_abs_err": banded_worst[name],
             "ms": ms, "plain_ms": plain_ms,
         })
     print(smi, flush=True)

@@ -2,7 +2,7 @@
 
 Counterpart of ``qrkit_tpu/analysis.py`` (``column_density``,
 ``as_banded_as_possible``, ``block_banded_info``,
-``from_block_diagonal_pattern``).  Pure pattern work over CSR index arrays,
+``from_block_diagonal_pattern``, ``from_block_banded_pattern``).  Pure pattern work over CSR index arrays,
 with the optional native C++ engine (:mod:`qrkit_tpu_torch._native`); it
 produces the same :class:`~qrkit_tpu_torch.plan.StructurePlan` as the
 reference package on the same input.
@@ -22,6 +22,7 @@ __all__ = [
     "as_banded_as_possible",
     "block_banded_info",
     "from_block_diagonal_pattern",
+    "from_block_banded_pattern",
 ]
 
 
@@ -149,3 +150,34 @@ def from_block_diagonal_pattern(
         for i in range(num_blocks)
     )
     return StructurePlan(nrows, ncols, blocks, num_blocks * block_rows * block_rows)
+
+
+def from_block_banded_pattern(
+    nrows: int,
+    ncols: int,
+    block_rows: int,
+    block_cols: int,
+    block_overlap: int,
+    suggested_block_cols: int = 2,
+) -> StructurePlan:
+    """Known block-banded structure with a fixed overlap.  The pattern must
+    tile the matrix: ``ncols == num_blocks * (block_cols - block_overlap)``
+    (the last block carries no trailing overlap) and ``nrows >= num_blocks *
+    block_rows``; anything else raises (use pattern analysis instead)."""
+    max_col_step = block_cols - block_overlap
+    num_blocks = ncols // max_col_step
+    if ncols % max_col_step != 0 or nrows < num_blocks * block_rows:
+        raise ValueError(
+            f"static block-banded pattern does not tile a {nrows}x{ncols} "
+            f"matrix: need ncols divisible by block_cols-block_overlap="
+            f"{max_col_step} and nrows >= num_blocks*block_rows "
+            f"({num_blocks}*{block_rows}); run pattern analysis instead"
+        )
+    blocks = []
+    for i in range(num_blocks):
+        nc = block_cols if i < num_blocks - 1 else block_cols - block_overlap
+        blocks.append(BlockInfo(i * block_rows, i * max_col_step, block_rows, nc))
+    merged = _merge_blocks(blocks, max_col_step, suggested_block_cols)
+    return StructurePlan(
+        nrows, ncols, tuple(merged), num_blocks * block_rows * block_rows
+    )

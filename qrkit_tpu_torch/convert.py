@@ -12,6 +12,19 @@ a ``qrkit_tpu`` object's arrays) and never import jax.
   XLA (``Q``, ``R``, local pivots) or Pallas (``_a_pad``, ``_r_soa``).  The
   Pallas tier pads its SoA batch axis to 1024/4096 lanes with identity
   blocks; the port does not pad, so those columns are dropped here.
+* :func:`banded_qr_from_numpy` — a computed ``qrkit_tpu.BandedBlockedQR``'s
+  factors → a computed port
+  :class:`~qrkit_tpu_torch.solvers.BandedBlockedQR` on the same matrix.
+* :func:`segmented_banded_qr_from_numpy` — a computed
+  ``qrkit_tpu.SegmentedBandedQR``'s factors → a computed port
+  :class:`~qrkit_tpu_torch.solvers.SegmentedBandedQR` on the same matrix.
+
+The banded converters re-run the port's own (host-only) pattern analysis on
+the matrix, which equals the reference's plan, and install the factors in
+the port's layouts: the reference stores per-segment factors with the
+segment axis last and flattens its WY blocks; the port keeps the segment
+axis first and 3-D blocks.  A converted solver solves, applies Q and
+exports R; ``factorize_values`` needs one ``compute`` first.
 """
 from __future__ import annotations
 
@@ -21,10 +34,19 @@ import numpy as np
 import torch
 
 from .containers import BlockDiagonal
+from .ops.compact_wy import TwoSegmentWYSeq
+from .solvers.banded_blocked import BandedBlockedQR
+from .solvers.base import _diag_health
 from .solvers.block_diagonal import BlockDiagonalQR, QFormat
-from .sparse import Permutation
+from .solvers.segmented_banded import SegmentedBandedQR
+from .sparse import Permutation, SparseCSR
 
-__all__ = ["block_diagonal_from_numpy", "block_diagonal_qr_from_numpy"]
+__all__ = [
+    "banded_qr_from_numpy",
+    "block_diagonal_from_numpy",
+    "block_diagonal_qr_from_numpy",
+    "segmented_banded_qr_from_numpy",
+]
 
 
 def block_diagonal_from_numpy(
@@ -107,4 +129,93 @@ def block_diagonal_qr_from_numpy(
         )
     qr._computed = True
     qr._set_success()
+    return qr
+
+
+def _wy_blocks(Yf, Tf, nb: int, A: int, C: int, like: torch.Tensor):
+    """Flattened WY blocks ``[nb, A*C]`` / ``[nb, C*C]`` → 3-D tensors."""
+    Y = torch.as_tensor(np.array(Yf), device=like.device, dtype=like.dtype).reshape(nb, A, C)
+    T = torch.as_tensor(np.array(Tf), device=like.device, dtype=like.dtype).reshape(nb, C, C)
+    return Y, T
+
+
+def banded_qr_from_numpy(
+    mat: SparseCSR,
+    state: Mapping[str, Any],
+    *,
+    suggested_block_cols: int = 2,
+    block_rows=None,
+    block_cols=None,
+    block_overlap=None,
+    device=None,
+    dtype=None,
+) -> BandedBlockedQR:
+    """A computed port ``BandedBlockedQR`` on ``mat`` from a reference
+    solver's factors.  ``state`` keys: ``Yf [nb, A*C]``, ``Tf [nb, C*C]``
+    (``q_seq.Yf`` / ``q_seq.Tf``) and ``r_panels_f [nb, me*mc]``; the
+    constructor arguments must be the reference solver's."""
+    qr = BandedBlockedQR(
+        block_rows, block_cols, block_overlap, suggested_block_cols, device=device, dtype=dtype
+    )
+    qr.analyze_pattern(mat)
+    nb = qr.plan.num_blocks
+    like = torch.empty(0, device=qr.device, dtype=qr.dtype)
+    Y, T = _wy_blocks(state["Yf"], state["Tf"], nb, qr._max_active, qr._max_cols, like)
+    g = qr._geom_dev
+    qr.q_seq = TwoSegmentWYSeq(
+        Y, T, g["cols"], g["rows"], g["carry_rows"], h1=qr._max_carry, m=qr.rows
+    )
+    qr._r_panels = torch.as_tensor(
+        np.array(state["r_panels_f"]), device=qr.device, dtype=qr.dtype
+    ).reshape(nb, qr._max_emit, qr._max_cols)
+    qr._set_success(_diag_health(qr.r_diagonal()))
+    return qr
+
+
+def segmented_banded_qr_from_numpy(
+    mat: SparseCSR,
+    state: Mapping[str, Any],
+    *,
+    suggested_block_cols: int = 8,
+    segment_blocks: int = SegmentedBandedQR.DEFAULT_SEGMENT_BLOCKS,
+    block_rows=None,
+    block_cols=None,
+    block_overlap=None,
+    device=None,
+    dtype=None,
+) -> SegmentedBandedQR:
+    """A computed port ``SegmentedBandedQR`` on ``mat`` from a reference
+    solver's factors.  ``state`` keys, in the reference's stored layouts:
+    ``Yws [L, ma, mc, S]``, ``Ts [L, mc, mc, S]``, ``r_panels [L, me, mc,
+    S]``, ``j2_top [S, 2o, nloc]``, ``Yb [rbot, 2o, S]``, ``Tb [S, 2o, 2o]``,
+    ``chain_Yf`` / ``chain_Tf`` (the boundary chain's ``TwoSegmentWYSeq``
+    leaves) and ``chain_r [nbc, me2, mc2]``.  Raises if the plan delegates
+    to the plain solver (convert that one with :func:`banded_qr_from_numpy`)."""
+    qr = SegmentedBandedQR(
+        suggested_block_cols, segment_blocks, block_rows, block_cols, block_overlap,
+        device=device, dtype=dtype,
+    )
+    qr.analyze_pattern(mat)
+    if qr._delegate is not None:
+        raise ValueError("this plan delegates to BandedBlockedQR; use banded_qr_from_numpy")
+
+    def tensor(x, *perm):
+        t = torch.as_tensor(np.array(x), device=qr.device, dtype=qr.dtype)
+        return t.permute(*perm).contiguous() if perm else t
+
+    qr._Yws = tensor(state["Yws"], 3, 0, 1, 2)
+    qr._Ts = tensor(state["Ts"], 3, 0, 1, 2)
+    qr._r_panels = tensor(state["r_panels"], 3, 0, 1, 2)
+    qr._j2_top = tensor(state["j2_top"], 0, 2, 1)
+    qr._Yb, qr._Tb = tensor(state["Yb"]), tensor(state["Tb"])
+    ckw, cg = qr._chain_kw, qr._chain_geom_dev
+    nbc = len(qr._chain_geom["ncols"])
+    Yc, Tc = _wy_blocks(
+        state["chain_Yf"], state["chain_Tf"], nbc, ckw["max_active"], ckw["max_cols"], qr._Yb
+    )
+    qr._chain_seq = TwoSegmentWYSeq(
+        Yc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=ckw["max_carry"], m=qr._nbot2
+    )
+    qr._chain_r = tensor(state["chain_r"])
+    qr._set_success(_diag_health(qr.r_diagonal()))
     return qr

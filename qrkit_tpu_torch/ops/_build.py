@@ -1,13 +1,18 @@
 """Build the CUDA sources under ``ops/csrc/`` with ``nvcc`` and load them.
 
 No counterpart in ``qrkit_tpu`` (Pallas kernels compile inside ``jax.jit``).
-Each block shape (br, bc) gets its own shared library, compiled at first use
-with ``-DQRK_BR=br -DQRK_BC=bc`` so the per-thread recurrence unrolls fully
-into registers; float and double launchers live in the same library.  The
-libraries are plain C (no PyTorch headers), so a build takes seconds, and
-are loaded with ctypes.  They go under ``build/qrkit_tpu_torch/`` at the
-root of the checkout, keyed by shape and a hash of the source and flags, so
-an edited source never loads a stale library.
+Each source is compiled at first use into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) and loaded with
+ctypes, its launchers' signatures set.  A library is keyed by its source,
+its ``-D`` defines and a hash of the source text, the defines and the
+flags, so an edited source never loads a stale library.  Libraries go under
+``build/qrkit_tpu_torch/`` at the root of the checkout.
+
+* ``blockdiag_qr.cu``: one library per block shape (br, bc), compiled with
+  ``-DQRK_BR=br -DQRK_BC=bc`` so the per-thread recurrence unrolls fully
+  into registers (:func:`build`, :func:`load`).
+* ``banded_chain.cu``: one library for every shape; the banded kernels take
+  their geometry as arguments (:func:`load_banded`).
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
@@ -22,19 +27,46 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Tuple
 
-__all__ = ["NVCC_FLAGS", "build", "find_nvcc", "load"]
+import torch
+
+__all__ = [
+    "NVCC_FLAGS", "build", "build_source", "find_nvcc", "launch", "load", "load_banded",
+    "load_source",
+]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCE = _CSRC / "blockdiag_qr.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qrkit_tpu_torch"
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's standard prefix
 
-# --fmad=false: see the numerics note in csrc/blockdiag_qr.cu.
+# --fmad=false: see the numerics notes in the csrc/ sources.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
+)
+
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+BLOCKDIAG_SOURCE = "blockdiag_qr.cu"
+BANDED_SOURCE = "banded_chain.cu"
+# launcher name -> argument types (each returns a cudaError_t as int)
+_BLOCKDIAG_SIGNATURES = tuple(
+    (f"qrk_blockdiag_{kind}_{dt}", args)
+    for dt in ("f32", "f64")
+    for kind, args in (
+        ("lstsq", (_PTR, _PTR, _PTR, _I64, _PTR)),
+        ("qr_r", (_PTR, _PTR, _I64, _PTR)),
+    )
+)
+_BANDED_SIGNATURES = tuple(
+    (f"qrk_banded_{kind}_{dt}", args)
+    for dt in ("f32", "f64")
+    for kind, args in (
+        ("segment_chains", (_PTR,) * 5 + (_I64,) * 8 + (_PTR,)),
+        ("chain_qr", (_PTR,) * 5 + (_I64,) * 7 + (_PTR,)),
+        ("apply_w", (_PTR,) * 5 + (_I64,) * 8 + (_PTR,)),
+    )
 )
 
 
@@ -58,16 +90,18 @@ def find_nvcc() -> str:
     )
 
 
-def _library_path(br: int, bc: int) -> Path:
-    h = hashlib.sha256(_SOURCE.read_bytes())
+def _library_path(source: str, defines: Tuple[Tuple[str, int], ...], tag: str) -> Path:
+    h = hashlib.sha256((_CSRC / source).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"blockdiag_qr_{br}x{bc}_{h.hexdigest()[:16]}.so"
+    h.update(repr(defines).encode())
+    return _BUILD_DIR / f"{Path(source).stem}{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build(br: int, bc: int) -> Path:
-    """Compile the block-diagonal kernels for one block shape (cached on
-    disk); returns the library's path."""
-    out = _library_path(br, bc)
+def build_source(source: str, defines: Tuple[Tuple[str, int], ...] = (), tag: str = "") -> Path:
+    """Compile ``csrc/<source>`` with ``-D<name>=<value>`` for each of
+    ``defines`` (cached on disk); returns the library's path.  ``tag`` goes
+    into the library's file name."""
+    out = _library_path(source, defines, tag)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -76,13 +110,13 @@ def build(br: int, bc: int) -> Path:
     # a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, f"-DQRK_BR={br}", f"-DQRK_BC={bc}", "-o", tmp, str(_SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines), "-o", tmp, str(_CSRC / source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {_SOURCE.name} for "
-                f"{br}x{bc} blocks:\n{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
+                f"nvcc failed (exit {proc.returncode}) building {source}{tag}:\n"
+                f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
             )
         os.replace(tmp, out)
     finally:
@@ -92,18 +126,53 @@ def build(br: int, bc: int) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(br: int, bc: int) -> ctypes.CDLL:
-    """Build (if needed) and load the kernels for one block shape, with the
-    launchers' ctypes signatures set."""
-    lib = ctypes.CDLL(str(build(br, bc)))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"qrk_blockdiag_lstsq_{dt}")
-        fn.argtypes = [ptr, ptr, ptr, i64, ptr]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"qrk_blockdiag_qr_r_{dt}")
-        fn.argtypes = [ptr, ptr, i64, ptr]
+def load_source(
+    source: str, defines: Tuple[Tuple[str, int], ...], signatures, tag: str = ""
+) -> ctypes.CDLL:
+    """Build (if needed) and load one library, with the ctypes argument
+    types of each launcher in ``signatures`` (``(name, argtypes)`` pairs)
+    set and ``qrk_error_string`` bound."""
+    lib = ctypes.CDLL(str(build_source(source, defines, tag)))
+    for name, argtypes in signatures:
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     lib.qrk_error_string.argtypes = [ctypes.c_int]
     lib.qrk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _blockdiag_defines(br: int, bc: int):
+    return (("QRK_BR", int(br)), ("QRK_BC", int(bc))), f"_{br}x{bc}"
+
+
+def build(br: int, bc: int) -> Path:
+    """Compile the block-diagonal kernels for one block shape (cached on
+    disk); returns the library's path."""
+    return build_source(BLOCKDIAG_SOURCE, *_blockdiag_defines(br, bc))
+
+
+def load(br: int, bc: int) -> ctypes.CDLL:
+    """Build (if needed) and load the block-diagonal kernels for one block
+    shape."""
+    defines, tag = _blockdiag_defines(br, bc)
+    return load_source(BLOCKDIAG_SOURCE, defines, _BLOCKDIAG_SIGNATURES, tag)
+
+
+def load_banded() -> ctypes.CDLL:
+    """Build (if needed) and load the banded-chain kernels (one library for
+    every shape)."""
+    return load_source(BANDED_SOURCE, (), _BANDED_SIGNATURES)
+
+
+def launch(fn, lib, device, *args) -> None:
+    """Call one ctypes launcher on the current stream of ``device`` (tensors
+    pass their data pointers, ints as they are) and raise on a non-zero
+    ``cudaGetLastError()``: a refused launch never runs, and a later
+    synchronize would not report it."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"{fn.__name__} launch failed: CUDA error {err} ({lib.qrk_error_string(err).decode()})"
+        )

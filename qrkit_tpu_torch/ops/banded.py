@@ -1,0 +1,309 @@
+"""Banded chain QR: the CUDA kernels that replace the three banded Pallas
+kernels, their plain PyTorch versions, and the general chain recurrence.
+
+Counterpart of ``qrkit_tpu/ops/pallas_banded.py`` and of the XLA chain body
+``_banded_factorize_chunk`` (``qrkit_tpu/solvers/banded_blocked.py:96``):
+
+* :func:`chain_factorize` ← ``_banded_factorize_chunk``, vmapped: B
+  independent chains of pre-shifted panels with any per-step column
+  increment.  Per step: add the R-overlap carry to the panel's first
+  ``mca`` rows, Householder QR (Eigen's β/τ, unit-diagonal Y), emit Y, τ and
+  ``triu(R)[:me]``, cut the next carry ``triu(R)[ci:ci+mca, ci:ci+mc]``;
+  inactive steps emit zeros and keep the carry.  The T factors are built
+  afterwards by one batched ``build_t_factor``, as in the reference's
+  kernel paths.
+* :func:`segment_chains` ← ``pallas_segment_chains_soa`` (kernel
+  ``_chain_kernel``, B3): S chains of L steps with one body increment
+  ``ci``; the first step of chains ≥ 1 cuts at ``ci0_rest``.
+* :func:`segment_apply_w` ← ``pallas_segment_apply_w`` (kernel
+  ``_apply_w_kernel``, B4): each segment's reflectors applied to ``ko``
+  operand columns through a position-indexed work buffer.
+* :func:`chain_qr` ← ``pallas_chain_qr`` (kernel ``_seq_chain_kernel``,
+  B5): one chain with a distinct first-step increment ``ci0``.
+
+Layouts, chain index first and nothing padded (the TPU's ``[8, 128]`` lane
+tiles, ``SEG_STEP`` padding, X-layout, ``nsub`` grouping and ``kg`` column
+groups have no counterpart): panels and Y ``[S, L, ma, mc]``, τ
+``[S, L, mc]``, R rows ``[S, L, me, mc]``, the apply's operand rows
+``[S, L, ma, ko]``; :func:`chain_qr` drops the leading S.
+
+Each kernel wrapper runs its CUDA kernel (``csrc/banded_chain.cu``) on a
+CUDA tensor, or raises; it runs its plain version only for a CPU tensor.
+The plain versions are batched torch ops, one column of the recurrence per
+small group of ops: :func:`chain_factorize` for B3/B5,
+:func:`_segment_apply_w_plain` for B4.  Each wrapper carries a ``launches``
+counter, incremented once per kernel launch and nowhere else.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .householder import householder_qr_unblocked
+
+__all__ = [
+    "chain_factorize",
+    "chain_qr",
+    "chain_smem_bytes",
+    "apply_w_smem_bytes",
+    "segment_apply_w",
+    "segment_chains",
+]
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SMEM_LIMIT = 48 * 1024  # dynamic shared memory a CTA gets without an opt-in
+
+
+def chain_smem_bytes(ma: int, mc: int, mca: int, itemsize: int) -> int:
+    """Shared memory of the chain kernel (B3/B5): panel, carry, reflector
+    and one scalar."""
+    return (ma * mc + mca * mc + ma + 1) * itemsize
+
+
+def apply_w_smem_bytes(ma: int, mc: int, ko: int, wrows: int, itemsize: int) -> int:
+    """Shared memory of the W-apply kernel (B4): work rows, window, Y, τ."""
+    return (wrows * ko + ma * ko + ma * mc + mc) * itemsize
+
+
+@torch.no_grad()
+def chain_factorize(
+    shifted: torch.Tensor, col_inc: torch.Tensor, active: torch.Tensor, mca: int, me: int
+):
+    """B independent banded chains, pre-shifted panels ``[B, n, ma, mc]``,
+    per-step column increments ``col_inc [B, n]`` (int64) and activity
+    ``active [B, n]`` (bool), all on one device.  Returns
+    ``(Y [B, n, ma, mc], taus [B, n, mc], R [B, n, me, mc])``."""
+    B, n, ma, mc = shifted.shape
+    dev = shifted.device
+    carry = shifted.new_zeros((B, mca, mc))
+    rows = torch.arange(mca, device=dev)
+    cols = torch.arange(mc, device=dev)
+    zero = shifted.new_zeros(())
+    ys, ts, vs = [], [], []
+    for l in range(n):
+        panel = shifted[:, l].clone()
+        panel[:, :mca] += carry
+        Y, taus, R = householder_qr_unblocked(panel)
+        R = torch.triu(R)
+        ci = col_inc[:, l, None]
+        ri, cj = ci + rows, ci + cols  # [B, mca], [B, mc]
+        cut = R.gather(1, ri.clamp(max=ma - 1)[..., None].expand(B, mca, mc))
+        cut = cut.gather(2, cj.clamp(max=mc - 1)[:, None, :].expand(B, mca, mc))
+        inside = (ri < ma)[:, :, None] & (cj < mc)[:, None, :]
+        act = active[:, l, None, None]
+        carry = torch.where(act & inside, cut, torch.where(act, zero, carry))
+        ys.append(torch.where(act, Y, zero))
+        ts.append(torch.where(active[:, l, None], taus, zero))
+        vs.append(torch.where(act, R[:, :me], zero))
+    return torch.stack(ys, 1), torch.stack(ts, 1), torch.stack(vs, 1)
+
+
+def _check(t: torch.Tensor, name: str, dim: int) -> None:
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: expected float32 or float64, got {t.dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} must have {dim} dimensions, got {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    if t.device.type == "cuda" and t.device.index not in (None, 0):
+        # the launchers' own CUDA runtime addresses device 0 only
+        raise ValueError(f"the CUDA kernels run on cuda:0, got {t.device}")
+
+
+def _check_like(ref: torch.Tensor, t: torch.Tensor, name: str, shape) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != ref.dtype or t.device != ref.device:
+        raise ValueError(
+            f"{name} {tuple(t.shape)} {t.dtype} {t.device} does not match "
+            f"{tuple(shape)} {ref.dtype} {ref.device}"
+        )
+
+
+def _check_chain(ma: int, mc: int, mca: int, me: int, itemsize: int) -> None:
+    if not (1 <= mc and 1 <= mca <= ma and 0 <= me <= ma):
+        raise ValueError(f"unsupported chain geometry ma={ma} mc={mc} mca={mca} me={me}")
+    smem = chain_smem_bytes(ma, mc, mca, itemsize)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"chain panel needs {smem} bytes of shared memory > {SMEM_LIMIT}")
+
+
+def _chain_outputs(panels: torch.Tensor, me: int):
+    *lead, ma, mc = panels.shape
+    return (
+        torch.empty_like(panels),
+        panels.new_empty((*lead, mc)),
+        panels.new_empty((*lead, me, mc)),
+    )
+
+
+def _segment_chains_plain(panels, act, *, mca, me, ci, ci0_rest):
+    """Plain version of :func:`segment_chains`."""
+    S, L = panels.shape[:2]
+    col_inc = torch.full((S, L), ci, dtype=torch.int64, device=panels.device)
+    col_inc[1:, 0] = ci0_rest
+    return chain_factorize(panels, col_inc, act > 0.5, mca, me)
+
+
+def segment_chains(
+    panels: torch.Tensor, act: torch.Tensor, *, mca: int, me: int, ci: int, ci0_rest: int
+):
+    """S independent banded chains of L steps (kernel B3).
+
+    ``panels [S, L, ma, mc]`` are pre-shifted (block rows below the carry
+    rows), ``act [S, L]`` (same dtype, > 0.5 = active).  Segment 0 cuts every
+    carry at ``ci``; segments ≥ 1 cut their first step's carry at
+    ``ci0_rest`` (their dropped leading overlap) and the rest at ``ci``.
+    Returns ``(Y [S, L, ma, mc], taus [S, L, mc], R [S, L, me, mc])``.  A
+    CUDA tensor runs the CUDA kernel (built at first use) or raises; a CPU
+    tensor runs the plain version."""
+    _check(panels, "panels", 4)
+    S, L, ma, mc = panels.shape
+    _check_like(panels, act, "act", (S, L))
+    _check_chain(ma, mc, mca, me, panels.element_size())
+    if not 0 <= ci <= mc or not 0 <= ci0_rest <= mc:
+        raise ValueError(f"column increments ci={ci} ci0_rest={ci0_rest} outside [0, {mc}]")
+    if panels.device.type == "cpu":
+        return _segment_chains_plain(panels, act, mca=mca, me=me, ci=ci, ci0_rest=ci0_rest)
+    if not (panels.is_contiguous() and act.is_contiguous()):
+        raise ValueError("panels and act must be contiguous")
+    y, tau, v = _chain_outputs(panels, me)
+    if S == 0 or L == 0:
+        return y, tau, v
+    lib = _build.load_banded()
+    _build.launch(
+        getattr(lib, f"qrk_banded_segment_chains_{_SUFFIX[panels.dtype]}"), lib, panels.device,
+        panels, act, y, tau, v, S, L, ma, mc, mca, me, ci, ci0_rest,
+    )
+    segment_chains.launches += 1
+    return y, tau, v
+
+
+segment_chains.launches = 0
+
+
+def _chain_qr_plain(panels, act, *, mca, me, ci, ci0):
+    """Plain version of :func:`chain_qr`."""
+    col_inc = torch.full((1, panels.shape[0]), ci, dtype=torch.int64, device=panels.device)
+    col_inc[0, 0] = ci0
+    y, t, v = chain_factorize(panels[None], col_inc, act[None] > 0.5, mca, me)
+    return y[0], t[0], v[0]
+
+
+def chain_qr(
+    panels: torch.Tensor, act: torch.Tensor, *, mca: int, me: int, ci: int, ci0: int
+):
+    """One sequential banded chain of ``nb`` steps in one launch (kernel B5).
+
+    ``panels [nb, ma, mc]`` pre-shifted, ``act [nb]``; the first step cuts
+    its carry at ``ci0``, the others at ``ci``.  Returns ``(Y [nb, ma, mc],
+    taus [nb, mc], R [nb, me, mc])``.  Same device rules as
+    :func:`segment_chains`."""
+    _check(panels, "panels", 3)
+    nb, ma, mc = panels.shape
+    _check_like(panels, act, "act", (nb,))
+    _check_chain(ma, mc, mca, me, panels.element_size())
+    if not 0 <= ci <= mc or not 0 <= ci0 <= mc:
+        raise ValueError(f"column increments ci={ci} ci0={ci0} outside [0, {mc}]")
+    if panels.device.type == "cpu":
+        return _chain_qr_plain(panels, act, mca=mca, me=me, ci=ci, ci0=ci0)
+    if not (panels.is_contiguous() and act.is_contiguous()):
+        raise ValueError("panels and act must be contiguous")
+    y, tau, v = _chain_outputs(panels, me)
+    if nb == 0:
+        return y, tau, v
+    lib = _build.load_banded()
+    _build.launch(
+        getattr(lib, f"qrk_banded_chain_qr_{_SUFFIX[panels.dtype]}"), lib, panels.device,
+        panels, act, y, tau, v, nb, ma, mc, mca, me, ci, ci0,
+    )
+    chain_qr.launches += 1
+    return y, tau, v
+
+
+chain_qr.launches = 0
+
+
+def _window_rows(ab: torch.Tensor, ma: int, mca: int, h: int):
+    """Per-step W rows of the window (``[L, ma]``: head rows at
+    ``min(a, h) + r``, tail rows at ``min(b, h) + r - mca``) and whether each
+    row's unclamped position lies below ``h`` (it is written back)."""
+    r = torch.arange(ma, device=ab.device)
+    head = r < mca
+    a, b = ab[:, :1].long(), ab[:, 1:].long()
+    pos = torch.where(head, a + r, b + r - mca)
+    row = torch.where(head, a.clamp(max=h) + r, b.clamp(max=h) + r - mca)
+    return row, pos < h
+
+
+@torch.no_grad()
+def _segment_apply_w_plain(y, tau, w, ab, *, mca, h, wrows):
+    """Plain version of :func:`segment_apply_w`."""
+    S, L, ma, mc = y.shape
+    W = w.new_zeros((S, wrows, w.shape[3]))
+    rows, written = _window_rows(ab, ma, mca, h)
+    out = []
+    for l in range(L):
+        idx = rows[l]
+        wl = W[:, idx] + w[:, l]  # [S, ma, ko]
+        for j in range(mc):
+            v = y[:, l, j:, j, None]  # [S, ma - j, 1]
+            s = tau[:, l, j, None] * (v * wl[:, j:]).sum(1)  # [S, ko]
+            wl[:, j:] -= v * s[:, None, :]
+        out.append(wl)
+        W[:, idx] = torch.where(written[l, None, :, None], wl, W[:, idx])
+    return torch.stack(out, 1)
+
+
+def segment_apply_w(
+    y: torch.Tensor,
+    tau: torch.Tensor,
+    w: torch.Tensor,
+    ab: torch.Tensor,
+    *,
+    mca: int,
+    h: int,
+    wrows: int,
+) -> torch.Tensor:
+    """Each segment's chain of reflectors applied to ``ko`` operand columns,
+    Qᵀ order (kernel B4).
+
+    ``y [S, L, ma, mc]`` and ``tau [S, L, mc]`` are :func:`segment_chains`'
+    outputs; ``w [S, L, ma, ko]`` holds, for each step's window row, the
+    pristine operand value of a position's first toucher and 0 otherwise;
+    ``ab [L, 2]`` (int32, on the same device) the per-step window starts.
+    Window row r of step l lives at work-buffer row ``min(a_l, h) + r``
+    (r < mca) or ``min(b_l, h) + r - mca``; rows whose unclamped position is
+    ≥ h are never written back, so they read 0.  Returns every step's
+    post-transform window rows ``[S, L, ma, ko]``; the caller composes the
+    result with its last-writer map (``solvers.segmented_plan.prepare_p2w``).
+    Same device rules as :func:`segment_chains`."""
+    _check(y, "y", 4)
+    S, L, ma, mc = y.shape
+    _check_like(y, tau, "tau", (S, L, mc))
+    if w.dim() != 4:
+        raise ValueError(f"w must be [S, L, ma, ko], got {tuple(w.shape)}")
+    ko = w.shape[3]
+    _check_like(y, w, "w", (S, L, ma, ko))
+    if ab.dtype != torch.int32 or tuple(ab.shape) != (L, 2) or ab.device != y.device:
+        raise ValueError(f"ab must be int32 [{L}, 2] on {y.device}, got {ab.dtype} {tuple(ab.shape)}")
+    if not (1 <= mca < ma and 0 <= h and wrows >= h + max(ma - mca, mca) and 1 <= ko <= 1024):
+        raise ValueError(f"unsupported W geometry ma={ma} mca={mca} h={h} wrows={wrows} ko={ko}")
+    smem = apply_w_smem_bytes(ma, mc, ko, wrows, y.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"W buffer needs {smem} bytes of shared memory > {SMEM_LIMIT}")
+    if y.device.type == "cpu":
+        return _segment_apply_w_plain(y, tau, w, ab, mca=mca, h=h, wrows=wrows)
+    if not all(t.is_contiguous() for t in (y, tau, w, ab)):
+        raise ValueError("y, tau, w and ab must be contiguous")
+    wq = torch.empty_like(w)
+    if S == 0 or L == 0:
+        return wq
+    lib = _build.load_banded()
+    _build.launch(
+        getattr(lib, f"qrk_banded_apply_w_{_SUFFIX[y.dtype]}"), lib, y.device,
+        y, tau, w, ab, wq, S, L, ma, mc, mca, ko, h, wrows,
+    )
+    segment_apply_w.launches += 1
+    return wq
+
+
+segment_apply_w.launches = 0

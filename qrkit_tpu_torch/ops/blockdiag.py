@@ -126,17 +126,6 @@ def _check_operand(a_soa: torch.Tensor, br: int) -> int:
     return bc
 
 
-def _launch(fn, lib, device: torch.device, *tensors_and_n) -> None:
-    """Call one ctypes launcher on the current stream and raise on a non-zero
-    ``cudaGetLastError()``."""
-    args = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tensors_and_n]
-    err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"{fn.__name__} launch failed: CUDA error {err} ({lib.qrk_error_string(err).decode()})"
-        )
-
-
 def block_diagonal_lstsq_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
     """Fused per-block QR + least-squares solve on SoA operands.
 
@@ -163,7 +152,7 @@ def block_diagonal_lstsq_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.
     if n == 0:
         return x
     lib = _build.load(br, bc)
-    _launch(getattr(lib, f"qrk_blockdiag_lstsq_{_SUFFIX[a_soa.dtype]}"), lib, x.device, a_soa, b_soa, x, n)
+    _build.launch(getattr(lib, f"qrk_blockdiag_lstsq_{_SUFFIX[a_soa.dtype]}"), lib, x.device, a_soa, b_soa, x, n)
     block_diagonal_lstsq_soa.launches += 1
     return x
 
@@ -187,7 +176,7 @@ def block_diagonal_qr_r_soa(a_soa: torch.Tensor, br: int) -> torch.Tensor:
     if n == 0:
         return r_soa
     lib = _build.load(br, bc)
-    _launch(getattr(lib, f"qrk_blockdiag_qr_r_{_SUFFIX[a_soa.dtype]}"), lib, r_soa.device, a_soa, r_soa, n)
+    _build.launch(getattr(lib, f"qrk_blockdiag_qr_r_{_SUFFIX[a_soa.dtype]}"), lib, r_soa.device, a_soa, r_soa, n)
     block_diagonal_qr_r_soa.launches += 1
     return r_soa
 

@@ -1,0 +1,221 @@
+"""Implicit Q as a sequence of compact-WY blocks, on torch tensors.
+
+Counterpart of ``qrkit_tpu/ops/compact_wy.py`` (``CompactWYSeq``,
+``TwoSegmentWYSeq``, ``_apply_seq``, ``_apply_two_seg``,
+``_apply_two_seg_cols``, ``_to_sparse_q``).  Block k applies
+``w += Y_k ((T_k or T_kᵀ) (Y_kᵀ w))`` to its rows of the operand; ``Qᵀ``
+runs the blocks forward, ``Q`` in reverse.  ``lax.scan`` becomes a Python
+loop of batched torch ops whose window offsets stay on the device (gather /
+scatter, no host sync).
+
+The reference has two layouts of the two-segment apply, row-major
+(``_apply_two_seg``) and lane-major for narrow operands
+(``_apply_two_seg_cols``), which differ only in TPU lane padding.  Here both
+are :func:`two_segment_apply`, batched over independent sequences so that
+the segmented solver's per-segment applies (``_segment_apply``,
+``_segment_apply_cols``) are the same function.  Y and T are stored 3-D
+(``[nb, A, C]``); the reference flattens them only against TPU lane padding.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .householder import highest_precision
+
+__all__ = ["CompactWYSeq", "TwoSegmentWYSeq", "two_segment_apply"]
+
+
+def _to_sparse_q(seq, chunk: int = 512, drop_tol: float = 0.0):
+    """Explicit sparse Q by application to unit-column slabs of ``chunk``
+    columns (Q·I, chunked): device memory O(m·chunk), host O(nnz(Q))."""
+    from ..sparse import SparseCSR
+
+    m = seq.m
+    rows_l, cols_l, vals_l = [], [], []
+    for c0 in range(0, m, chunk):
+        k = min(chunk, m - c0)
+        slab = seq.Y.new_zeros((m, k))
+        slab[c0 + torch.arange(k, device=slab.device), torch.arange(k, device=slab.device)] = 1
+        q_slab = seq.apply_q(slab).cpu().numpy()
+        r, c = np.nonzero(np.abs(q_slab) > drop_tol)
+        rows_l.append(r)
+        cols_l.append(c + c0)
+        vals_l.append(q_slab[r, c])
+    return SparseCSR.from_triplets(
+        np.concatenate(rows_l), np.concatenate(cols_l), np.concatenate(vals_l), (m, m)
+    )
+
+
+def _rows(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``M[b, idx[b, i], :]`` for ``M [B, m, k]`` and ``idx [B, n]``."""
+    return M.gather(1, idx[..., None].expand(-1, -1, M.shape[2]))
+
+
+@highest_precision()
+def two_segment_apply(
+    Y: torch.Tensor,
+    T: torch.Tensor,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    split: torch.Tensor,
+    M: torch.Tensor,
+    h1: int,
+    transpose: bool,
+) -> torch.Tensor:
+    """Q (or Qᵀ) of B independent two-segment sequences on ``M [B, m, k]``.
+
+    ``Y [B, n, A, C]`` and ``T [B, n, C, C]`` are in panel coordinates;
+    ``s1``, ``s2``, ``split`` ``[B, n]`` (int64, on M's device) give each
+    step's carry segment start, block segment start and the number of panel
+    rows taken from the carry segment.  Rows ``[0, split)`` of the panel
+    gather from ``s1 + r``, the rest from ``s2 + r - split``; after the
+    update the head is written back, then the tail, so a row shared by the
+    padded segments keeps the owning side's value.  A step with ``Y = T =
+    0`` (a padded, inactive step) is an exact no-op."""
+    B, n, A, _ = Y.shape
+    m, k = M.shape[1], M.shape[2]
+    dev = M.device
+    Mp = torch.cat([M, M.new_zeros((B, h1 + A, k))], dim=1)
+    jA = torch.arange(A, device=dev)
+    j1 = torch.arange(h1, device=dev)
+    head_rows = jA.clamp(max=h1 - 1)
+    back_rows = j1.clamp(max=A - 1)
+    order = range(n) if transpose else range(n - 1, -1, -1)
+    for l in order:
+        sp = split[:, l, None]  # [B, 1]
+        i1 = s1[:, l, None] + j1
+        i2 = s2[:, l, None] + jA
+        w1 = _rows(Mp, i1)
+        w2 = _rows(Mp, i2)
+        wg = torch.where(
+            (jA < sp)[..., None], w1[:, head_rows], _rows(w2, (jA - sp).clamp(0, A - 1))
+        )
+        Yk, Tk = Y[:, l], T[:, l]
+        Tt = Tk.mT if transpose else Tk
+        wg = wg + Yk @ (Tt @ (Yk.mT @ wg))
+        w1o = torch.where((j1 < sp)[..., None], wg[:, back_rows], w1)
+        w2o = torch.where(
+            (jA + sp < A)[..., None], _rows(wg, (jA + sp).clamp(max=A - 1)), w2
+        )
+        Mp.scatter_(1, i1[..., None].expand(-1, -1, k), w1o)
+        Mp.scatter_(1, i2[..., None].expand(-1, -1, k), w2o)
+    return Mp[:, :m]
+
+
+class TwoSegmentWYSeq:
+    """Compact-WY sequence in panel coordinates with a two-segment
+    gather/scatter (the reference's ``getVectorSegments`` /
+    ``setVectorSegments`` with ``numZeros`` gap rows).
+
+    Block k's panel ``Y[k]`` (``[A, C]``, A = carry pad + block rows) acts on
+    the carry segment at ``s1[k]`` (``split[k]`` rows live) and the block
+    segment at ``s2[k]``; the store is O(nb·A·C) however long the chain."""
+
+    def __init__(self, Y, T, s1, s2, split, *, h1: int, m: int):
+        self.Y, self.T = Y, T
+        dev = Y.device
+        self.s1, self.s2, self.split = (
+            torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (s1, s2, split)
+        )
+        self.h1, self.m = int(h1), int(m)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.Y.shape[0]
+
+    def _apply(self, M: torch.Tensor, transpose: bool) -> torch.Tensor:
+        vec = M.dim() == 1
+        M2 = M[:, None] if vec else M
+        out = two_segment_apply(
+            self.Y[None], self.T[None], self.s1[None], self.s2[None], self.split[None],
+            M2[None], self.h1, transpose,
+        )[0]
+        return out[:, 0] if vec else out
+
+    def apply_q(self, M: torch.Tensor) -> torch.Tensor:
+        return self._apply(M, transpose=False)
+
+    def apply_qt(self, M: torch.Tensor) -> torch.Tensor:
+        return self._apply(M, transpose=True)
+
+    def to_dense_q(self) -> torch.Tensor:
+        return self.apply_q(torch.eye(self.m, dtype=self.Y.dtype, device=self.Y.device))
+
+    def to_sparse_q(self, chunk: int = 512, drop_tol: float = 0.0):
+        return _to_sparse_q(self, chunk, drop_tol)
+
+
+class CompactWYSeq:
+    """Stacked compact-WY blocks in window coordinates: ``Y [nb, W, C]``,
+    ``T [nb, C, C]``, ``start [nb]``; block k updates rows
+    ``[start[k], start[k] + W)`` of the operand (gap rows are zero rows of
+    Y).  Padding rows and columns of Y and T are zero."""
+
+    def __init__(self, Y, T, start, m: int):
+        self.Y, self.T = Y, T
+        self.start = torch.as_tensor(start, dtype=torch.int64, device=Y.device)
+        self.m = int(m)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.Y.shape[0]
+
+    @property
+    def window(self) -> int:
+        return self.Y.shape[1]
+
+    @highest_precision()
+    def _apply(self, M: torch.Tensor, transpose: bool) -> torch.Tensor:
+        vec = M.dim() == 1
+        M2 = M[:, None] if vec else M
+        W = self.window
+        Mp = torch.cat([M2, M2.new_zeros((W, M2.shape[1]))])
+        rows = torch.arange(W, device=M.device)
+        order = range(self.num_blocks) if transpose else range(self.num_blocks - 1, -1, -1)
+        for k in order:
+            idx = self.start[k] + rows
+            w = Mp[idx]
+            Tt = self.T[k].mT if transpose else self.T[k]
+            Mp[idx] = w + self.Y[k] @ (Tt @ (self.Y[k].mT @ w))
+        out = Mp[: self.m]
+        return out[:, 0] if vec else out
+
+    def apply_q(self, M: torch.Tensor) -> torch.Tensor:
+        """Q · M: blocks in reverse order."""
+        return self._apply(M, transpose=False)
+
+    def apply_qt(self, M: torch.Tensor) -> torch.Tensor:
+        """Qᵀ · M: blocks in forward order."""
+        return self._apply(M, transpose=True)
+
+    def to_dense_q(self) -> torch.Tensor:
+        return self.apply_q(torch.eye(self.m, dtype=self.Y.dtype, device=self.Y.device))
+
+    def to_sparse_q(self, chunk: int = 512, drop_tol: float = 0.0):
+        return _to_sparse_q(self, chunk, drop_tol)
+
+    @staticmethod
+    def single(Y: torch.Tensor, T: torch.Tensor, start: int, m: int) -> "CompactWYSeq":
+        return CompactWYSeq(Y[None], T[None], [start], m)
+
+    @staticmethod
+    def concat(a: "CompactWYSeq", b: "CompactWYSeq") -> "CompactWYSeq":
+        """a's blocks then b's (Qᵀ order), padded to the common window and
+        panel width."""
+        if a.m != b.m:
+            raise ValueError(f"sequences act on {a.m} and {b.m} rows")
+        W = max(a.window, b.window)
+        C = max(a.Y.shape[2], b.Y.shape[2])
+
+        def pad(seq):
+            Y = seq.Y.new_zeros((seq.num_blocks, W, C))
+            Y[:, : seq.window, : seq.Y.shape[2]] = seq.Y
+            T = seq.T.new_zeros((seq.num_blocks, C, C))
+            T[:, : seq.T.shape[1], : seq.T.shape[2]] = seq.T
+            return Y, T
+
+        (Ya, Ta), (Yb, Tb) = pad(a), pad(b)
+        return CompactWYSeq(
+            torch.cat([Ya, Yb]), torch.cat([Ta, Tb]), torch.cat([a.start, b.start]), a.m
+        )

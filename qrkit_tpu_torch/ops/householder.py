@@ -3,7 +3,7 @@
 Counterpart of ``qrkit_tpu/ops/householder.py`` (``panel_qr_yt``,
 ``householder_qr_unblocked``, ``build_t_factor``, ``_combine_t``,
 ``form_q``, ``apply_wy``, ``colpiv_householder_qr`` in its unrolled form,
-``rank_from_diag``, ``rank_masked_triangular_solve``).  Where JAX wrote one
+``rank_from_diag``, ``rank_masked_triangular_solve``, ``panel_qr_yt_soa``).  Where JAX wrote one
 block and ``vmap``-ed it, every function here takes any number of leading
 batch dimensions (``[..., m, n]``); the per-column loop is unrolled in
 Python, and the trailing updates are batched matmuls.
@@ -28,6 +28,7 @@ __all__ = [
     "householder_qr_unblocked",
     "build_t_factor",
     "panel_qr_yt",
+    "panel_qr_yt_soa",
     "colpiv_householder_qr",
     "apply_wy",
     "form_q",
@@ -149,6 +150,22 @@ def panel_qr_yt(
     Y2, T2, A2r = panel_qr_yt(A2, offset + n1, panel_width)
     Y = torch.cat([Y1, Y2], dim=-1)
     return Y, _combine_t(T1, T2, Y1, Y2), torch.cat([A1, A2r], dim=-1)
+
+
+@highest_precision()
+def panel_qr_yt_soa(
+    A: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched unblocked QR of a batch stored batch-last, ``A [m, n, B]``
+    (the reference's lane-major layout, which its CAQR stage keeps).
+    Returns ``(Y [m, n, B], T [n, n, B], R_top [n, n, B])``, R_top being the
+    leading n rows of the reduced matrix; same conventions as
+    :func:`householder_qr_unblocked` + :func:`build_t_factor`, which it
+    runs on the batch-first view."""
+    n = A.shape[1]
+    Y, taus, Ared = householder_qr_unblocked(A.permute(2, 0, 1))
+    T = build_t_factor(Y, taus)
+    return Y.permute(1, 2, 0), T.permute(1, 2, 0), Ared[:, :n].permute(1, 2, 0)
 
 
 _COLPIV_UNROLL_MAX = 48

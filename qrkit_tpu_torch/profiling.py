@@ -5,7 +5,8 @@ device, work is enqueued asynchronously, so every timer here ends in a real
 ``torch.cuda.synchronize()``; :func:`cuda_time_ms` times device work with
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
-:mod:`qrkit_tpu_torch.ops.blockdiag` keep.
+:mod:`qrkit_tpu_torch.ops.blockdiag` and :mod:`qrkit_tpu_torch.ops.banded`
+keep.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .ops import blockdiag
+from .ops import banded, blockdiag
 
 __all__ = ["Timer", "cuda_time_ms", "launch_counts", "reset_launch_counts", "timed"]
 
@@ -25,6 +26,9 @@ __all__ = ["Timer", "cuda_time_ms", "launch_counts", "reset_launch_counts", "tim
 _KERNEL_WRAPPERS = {
     "blockdiag_lstsq": blockdiag.block_diagonal_lstsq_soa,
     "blockdiag_qr_r": blockdiag.block_diagonal_qr_r_soa,
+    "banded_segment_chains": banded.segment_chains,
+    "banded_apply_w": banded.segment_apply_w,
+    "banded_chain_qr": banded.chain_qr,
 }
 
 

@@ -1,0 +1,464 @@
+"""Banded-blocked QR: the sequential chain, on torch tensors.
+
+Counterpart of ``qrkit_tpu/solvers/banded_blocked.py`` (``banded_geometry``,
+``banded_factorize``, ``_shift_panels``, ``_banded_solve_chunk``,
+``banded_solve_r``, ``_rdiag_from_panels``, ``BandedBlockedQR``).  The
+chain's left-to-right block loop carries the unsolved overlap rows of each
+block's R into the next block's panel; Q stays implicit as a
+:class:`~qrkit_tpu_torch.ops.compact_wy.TwoSegmentWYSeq` in panel
+coordinates.
+
+The factorize runs the whole chain either in one launch of the chain kernel
+(``ops.banded.chain_qr``, kernel B5, when the plan has one body column
+increment and the panel fits the kernel's shared memory) or through the
+general recurrence ``ops.banded.chain_factorize``, whose per-step increments
+may vary.  The panel row shift by each step's carry depth (the reference's
+``_shift_panels`` on the device) is folded into the host-built gather map,
+so a factorize is one gather of the value vector plus the chain.  The
+reference's ``_CHUNK`` compile-bounding loop has no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
+from ..ops.banded import SMEM_LIMIT, chain_factorize, chain_qr, chain_smem_bytes
+from ..ops.compact_wy import TwoSegmentWYSeq, _rows
+from ..ops.householder import build_t_factor, highest_precision
+from ..plan import StructurePlan
+from ..sparse import Permutation, SparseCSR
+from .base import ComputationInfo, QRSolver, _diag_health
+
+__all__ = [
+    "BandedBlockedQR",
+    "banded_factorize",
+    "banded_geometry",
+    "banded_solve_r",
+    "device_values",
+    "shifted_gather_map",
+    "upload_values",
+    "value_perm",
+]
+
+
+def banded_geometry(plan: StructurePlan):
+    """Per-step chain geometry of a plan: ``carry_rows[i]`` rows of the
+    previous R carried into step i, ``col_inc[i]`` the column shift that
+    cuts the next carry, ``num_zeros[i]`` the gap rows between the carry and
+    block segments, ``emit_rows[i]`` the R rows block i owns (host NumPy,
+    identical to the reference)."""
+    nb = plan.num_blocks
+    rows_, cols_, nrows_, ncols_ = plan.as_arrays()
+    carry_rows = np.zeros(nb, dtype=np.int64)
+    num_zeros = np.zeros(nb, dtype=np.int64)
+    col_inc = np.zeros(nb, dtype=np.int64)
+    active = np.zeros(nb, dtype=np.int64)
+    active[0] = nrows_[0]
+    for i in range(nb - 1):
+        overlap = (cols_[i] + ncols_[i]) - cols_[i + 1]
+        ci = ncols_[i] - overlap
+        col_inc[i] = ci
+        # the carry holds R's live unsolved rows (at most min(active, ncols)
+        # - ci) and reserves window space so the panel's top ncols rows map
+        # onto the R positions of the next block
+        live = max(min(active[i], ncols_[i]) - ci, 0)
+        gapcap = rows_[i + 1] - cols_[i + 1]
+        carry_rows[i + 1] = max(live, min(ncols_[i + 1], gapcap))
+        active[i + 1] = carry_rows[i + 1] + nrows_[i + 1]
+        nz = rows_[i + 1] - carry_rows[i + 1] - cols_[i + 1]
+        num_zeros[i + 1] = max(nz, 0)
+    solved = np.asarray(plan.solved_rows(), dtype=np.int64)
+    emit_rows = np.minimum(solved, ncols_)
+    return {
+        "carry_rows": carry_rows,
+        "col_inc": col_inc,
+        "num_zeros": num_zeros,
+        "active": active,
+        "emit_rows": emit_rows,
+        "nrows": nrows_,
+        "ncols": ncols_,
+        "cols": cols_,
+        "rows": rows_,
+    }
+
+
+def shifted_gather_map(
+    gm: np.ndarray, carry_rows: np.ndarray, nrows: np.ndarray, max_active: int, sentinel: int
+) -> np.ndarray:
+    """Fold each panel's row shift by its carry depth into a gather map:
+    ``gm [nb, mR, mc]`` → ``[nb, max_active, mc]`` whose row ``r`` is panel
+    row ``r - carry_rows`` (``sentinel`` outside ``[0, nrows)``) — the
+    reference's ``_shift_panels``, done once on the host."""
+    nb, mR = gm.shape[:2]
+    src = np.arange(max_active)[None, :] - np.asarray(carry_rows)[:, None]
+    valid = (src >= 0) & (src < np.asarray(nrows)[:, None])
+    out = np.take_along_axis(gm, np.clip(src, 0, max(mR - 1, 0))[:, :, None], axis=1)
+    return np.where(valid[:, :, None], out, sentinel)
+
+
+def banded_factorize(
+    shifted: torch.Tensor, geom: dict, *, max_carry: int, max_emit: int, m: int
+):
+    """Banded-chain factorization of pre-shifted panels ``[nb, ma, mc]``
+    with the general recurrence.  ``geom`` holds int64 tensors ``col_inc``,
+    ``cols``, ``rows``, ``carry_rows`` on the panels' device.  Returns
+    ``(TwoSegmentWYSeq, R panels [nb, max_emit, mc])``."""
+    nb = shifted.shape[0]
+    active = torch.ones((1, nb), dtype=torch.bool, device=shifted.device)
+    Y, taus, V = chain_factorize(shifted[None], geom["col_inc"][None], active, max_carry, max_emit)
+    return _wy_seq(Y[0], taus[0], geom, max_carry, m), V[0]
+
+
+def _wy_seq(Y, taus, geom, max_carry: int, m: int) -> TwoSegmentWYSeq:
+    return TwoSegmentWYSeq(
+        Y, build_t_factor(Y, taus), geom["cols"], geom["rows"], geom["carry_rows"],
+        h1=max(max_carry, 1), m=m,
+    )
+
+
+@highest_precision()
+def _banded_solve_chunk(
+    ypad: torch.Tensor,
+    r_panels: torch.Tensor,
+    cols: torch.Tensor,
+    emit_rows: torch.Tensor,
+    ncols: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    max_emit: int,
+    max_cols: int,
+) -> torch.Tensor:
+    """Blocked back-substitution of B independent banded chains, last block
+    first.  ``ypad [B, n + max_cols, k]``; ``r_panels [B, L, max_emit,
+    max_cols]``; ``cols``, ``emit_rows``, ``ncols`` ``[B, L]`` (int64) and
+    ``active [B, L]`` (bool).  Per step: subtract the already-solved
+    overlap columns ``[er, nc)``, then one triangular solve of the live
+    ``er`` rows (padded rows become identity).  Returns ``xpad``, same
+    shape as ``ypad``."""
+    B, L = cols.shape
+    dev, dt = ypad.device, ypad.dtype
+    xpad = torch.zeros_like(ypad)
+    r_iota = torch.arange(max_emit, device=dev)
+    c_iota = torch.arange(max_cols, device=dev)
+    eye = torch.eye(max_emit, dtype=dt, device=dev)
+    zero = ypad.new_zeros(())
+    for l in range(L - 1, -1, -1):
+        V = r_panels[:, l, :max_emit]  # [B, me, mc]
+        c0, er, nc = cols[:, l, None], emit_rows[:, l, None], ncols[:, l, None]
+        xwin = _rows(xpad, c0 + c_iota)
+        overlap = ((c_iota >= er) & (c_iota < nc))[..., None]
+        rhs_sub = V @ torch.where(overlap, xwin, zero)
+        er_rows = c0 + r_iota
+        live = r_iota < er  # [B, me]
+        rhs = torch.where(live[..., None], _rows(ypad, er_rows) - rhs_sub, zero)
+        U = torch.where(live[:, :, None] & live[:, None, :], V[:, :, :max_emit], eye)
+        xblk = torch.linalg.solve_triangular(U, rhs, upper=True)
+        keep = (live & active[:, l, None])[..., None]
+        new = torch.where(keep, xblk, _rows(xpad, er_rows))
+        xpad.scatter_(1, er_rows[..., None].expand(-1, -1, ypad.shape[2]), new)
+    return xpad
+
+
+def banded_solve_r(
+    r_panels: torch.Tensor,
+    cols: torch.Tensor,
+    emit_rows: torch.Tensor,
+    ncols_arr: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    max_emit: int,
+    max_cols: int,
+    n: int,
+) -> torch.Tensor:
+    """Solve R x = y for the banded R stored as per-block panels
+    ``[nb, max_emit, max_cols]`` without forming R; ``y`` is ``[n]`` or
+    ``[n, k]``."""
+    vec = y.dim() == 1
+    y2 = y[:, None] if vec else y
+    ypad = torch.cat([y2, y2.new_zeros((max_cols, y2.shape[1]))])
+    nb = r_panels.shape[0]
+    active = torch.ones((1, nb), dtype=torch.bool, device=y.device)
+    xpad = _banded_solve_chunk(
+        ypad[None], r_panels[None], cols[None], emit_rows[None], ncols_arr[None], active,
+        max_emit=max_emit, max_cols=max_cols,
+    )[0]
+    return xpad[:n, 0] if vec else xpad[:n]
+
+
+def upload_values(data: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
+    """One host value vector to the device; pinned and asynchronous on CUDA,
+    so a factorize does not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(data)).to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def value_perm(mat: SparseCSR, row_perm: Permutation, device) -> Optional[torch.Tensor]:
+    """The row permutation's effect on a value vector, as a device gather
+    (None for the identity)."""
+    if row_perm.is_identity():
+        return None
+    return torch.as_tensor(mat.row_perm_data_map(row_perm), dtype=torch.int64, device=device)
+
+
+def device_values(solver, values) -> torch.Tensor:
+    """``factorize_values``' input as the solver's permuted device vector: a
+    tensor (already on the device: no host work, no copy) or a NumPy array
+    (uploaded), in the analyzed matrix's stored order, ``mat.nnz`` long."""
+    if getattr(solver, "_panel_gmap", None) is None:
+        raise ValueError(
+            "factorize_values requires a prior compute() on a matrix "
+            "with this stored-nonzero layout"
+        )
+    if not isinstance(values, torch.Tensor):
+        values = upload_values(np.asarray(values), solver.device, solver.dtype)
+    vals = values.to(device=solver.device, dtype=solver.dtype)
+    if vals.dim() != 1 or vals.shape[0] != solver._vals_nnz:
+        raise ValueError(
+            f"values must be [{solver._vals_nnz}] (the analyzed matrix's "
+            f"stored-nonzero count), got {tuple(vals.shape)}"
+        )
+    return vals if solver._data_perm is None else vals[solver._data_perm]
+
+
+def _rdiag_from_panels(r_panels, cols, emit_rows, ncols: int) -> torch.Tensor:
+    """diag(R) [ncols] scattered from ``[nb, max_emit, max_cols]`` panels."""
+    d = torch.diagonal(r_panels, dim1=1, dim2=2)  # [nb, k]
+    j = torch.arange(d.shape[1], device=d.device)
+    idx = torch.where(j < emit_rows[:, None], cols[:, None] + j, ncols)
+    out = d.new_zeros(ncols + 1).scatter_(0, idx.reshape(-1), d.reshape(-1))
+    return out[:ncols]
+
+
+class BandedBlockedQR(QRSolver):
+    """QR of a (row-permuted) block-banded sparse matrix.
+
+    ``block_rows/block_cols/block_overlap`` given → a static known pattern;
+    otherwise ``analyze_pattern`` orders the rows as-banded-as-possible and
+    detects the blocks.  The input is a host :class:`SparseCSR`; factors
+    live on ``device`` in ``dtype`` (default CPU, float64).
+
+    ``use_kernel``: ``"auto"`` runs the chain kernel B5 on a CUDA device when
+    the plan admits it (at least 32 blocks, one column increment on steps
+    1..nb-2, the panel within the kernel's shared memory); ``True`` demands
+    it (raising on a plan it cannot take; on the CPU it runs the kernel's
+    plain version); ``False`` keeps the general recurrence.
+    """
+
+    def __init__(
+        self,
+        block_rows: Optional[int] = None,
+        block_cols: Optional[int] = None,
+        block_overlap: Optional[int] = None,
+        suggested_block_cols: int = 2,
+        use_kernel="auto",
+        *,
+        device=None,
+        dtype=None,
+    ):
+        if use_kernel not in ("auto", True, False):
+            raise ValueError(f"use_kernel must be 'auto', True or False, got {use_kernel!r}")
+        self._static = None not in (block_rows, block_cols, block_overlap)
+        self._brows, self._bcols, self._boverlap = block_rows, block_cols, block_overlap
+        self._suggested = suggested_block_cols
+        self.use_kernel = use_kernel
+        self.device = torch.device(device if device is not None else "cpu")
+        self.dtype = dtype if dtype is not None else torch.float64
+        self._analysis_ok = False
+        self._fac_kernel = False
+
+    @property
+    def rows(self) -> int:
+        return self._nrows
+
+    @property
+    def cols(self) -> int:
+        return self._ncols
+
+    # --- analysis -----------------------------------------------------------------
+    def analyze_pattern(self, mat: SparseCSR):
+        self._nrows, self._ncols = mat.shape
+        if self._static:
+            self._row_perm = Permutation.identity(mat.nrows)
+            self.plan = from_block_banded_pattern(
+                mat.nrows, mat.ncols, self._brows, self._bcols, self._boverlap,
+                self._suggested,
+            )
+        else:
+            self._row_perm, has_perm = as_banded_as_possible(mat)
+            sorted_mat = mat.permute_rows(self._row_perm) if has_perm else mat
+            self.plan = block_banded_info(sorted_mat, self._suggested)
+        return self._finish_analysis()
+
+    def set_analysis(self, plan: StructurePlan, row_perm: Optional[Permutation] = None):
+        """Install a precomputed plan (and row permutation)."""
+        self._nrows, self._ncols = plan.nrows, plan.ncols
+        self._row_perm = row_perm if row_perm is not None else Permutation.identity(plan.nrows)
+        self.plan = plan
+        return self._finish_analysis()
+
+    def _finish_analysis(self):
+        if self.plan.num_blocks == 0:
+            self._info = ComputationInfo.INVALID_INPUT
+            raise ValueError(
+                "pattern analysis found no blocks (matrix empty or no row is "
+                "portrait-mergeable); cannot factorize"
+            )
+        self.geom = g = banded_geometry(self.plan)
+        self._max_active = int(g["active"].max())
+        self._max_cols = int(g["ncols"].max())
+        self._max_carry = max(int(g["carry_rows"].max()), 1)
+        self._max_emit = int(g["emit_rows"].max())
+        self._mR = int(g["nrows"].max())
+        # the static geometry goes to the device once per plan
+        self._geom_dev = {
+            k: torch.as_tensor(g[k], dtype=torch.int64, device=self.device)
+            for k in ("carry_rows", "col_inc", "cols", "rows", "emit_rows", "ncols")
+        }
+        self._panel_gmap = None  # layout gather map, built at first compute
+        # chain-kernel gate: one uniform column increment on steps 1..nb-2
+        # (the first may differ; the last step's carry cut is never read)
+        # and, replacing the reference's TPU bounds (max_cols <= 32,
+        # max_active <= 512), a panel + carry within the 48 KB of shared
+        # memory the kernel takes without an opt-in
+        self._chain_kernel = None
+        nb, cis = self.plan.num_blocks, g["col_inc"]
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        smem = chain_smem_bytes(self._max_active, self._max_cols, self._max_carry, itemsize)
+        if nb >= 32 and smem <= SMEM_LIMIT:
+            ciu = int(cis[1]) if nb >= 3 else int(cis[0])
+            if (cis[1 : nb - 1] == ciu).all():
+                self._chain_kernel = dict(
+                    mca=self._max_carry, me=self._max_emit, ci=ciu, ci0=int(cis[0])
+                )
+                self._chain_act = torch.ones(nb, dtype=self.dtype, device=self.device)
+        self._analysis_ok = True
+        return self
+
+    def _kernel_active(self) -> bool:
+        if self.use_kernel is False:
+            return False
+        if self.use_kernel is True:
+            if self._chain_kernel is None:
+                raise ValueError(
+                    "use_kernel=True but the plan geometry is not supported by "
+                    "the chain kernel (short chain, non-uniform column step or "
+                    "panel too large); use use_kernel='auto'"
+                )
+            return True
+        return self._chain_kernel is not None and self.device.type == "cuda"
+
+    # --- factorization ------------------------------------------------------------
+    def _layout_maps(self, mat: SparseCSR, pmat: SparseCSR) -> None:
+        """Gather map of the shifted panels ``[nb, max_active, max_cols]``
+        over the value vector plus one zero, keyed on the stored-nonzero
+        layout (a pruned entry shifts every later data index), and the row
+        permutation's effect on a value vector."""
+        g = self.geom
+        gm = pmat.panels_gather_map(
+            [b.astuple() for b in self.plan.blocks], self._mR, self._max_cols
+        )
+        gms = shifted_gather_map(gm, g["carry_rows"], g["nrows"], self._max_active, pmat.nnz)
+        self._panel_gmap = torch.as_tensor(gms, dtype=torch.int64, device=self.device)
+        self._vals_nnz, self._data_perm = mat.nnz, value_perm(mat, self._row_perm, self.device)
+
+    def compute(self, mat: SparseCSR, force_pattern_analysis: bool = False):
+        if not self._analysis_ok or force_pattern_analysis:
+            self.analyze_pattern(mat)
+        pmat = mat if self._row_perm.is_identity() else mat.permute_rows(self._row_perm)
+        fp = pmat.pattern_fingerprint()
+        if self._panel_gmap is None or fp != self._gmap_fp:
+            self._layout_maps(mat, pmat)
+            self._gmap_fp = fp
+        self._factorize(upload_values(pmat.data, self.device, self.dtype))
+        return self
+
+    def _factorize(self, vals: torch.Tensor) -> None:
+        """Gather the shifted panels from the value vector and run the chain
+        (kernel B5 or the general recurrence); leaves the health flag on the
+        device."""
+        self._fac_kernel = self._kernel_active()
+        pad = torch.cat([vals, vals.new_zeros(1)])
+        panels = pad[self._panel_gmap]  # [nb, max_active, max_cols]
+        g = self._geom_dev
+        if self._fac_kernel:
+            Y, taus, V = chain_qr(panels, self._chain_act, **self._chain_kernel)
+            self.q_seq = _wy_seq(Y, taus, g, self._max_carry, self._nrows)
+            self._r_panels = V
+        else:
+            self.q_seq, self._r_panels = banded_factorize(
+                panels, g, max_carry=self._max_carry, max_emit=self._max_emit, m=self._nrows
+            )
+        self._set_success(_diag_health(self.r_diagonal()))
+
+    def factorize_values(self, values) -> "BandedBlockedQR":
+        """Refactorize from a vector of stored-nonzero values in the analyzed
+        matrix's stored order (``mat.data``, length ``mat.nnz``), after one
+        :meth:`compute` established the pattern.  A tensor already on the
+        device refactorizes with no host work and no host→device copy; a
+        NumPy array is uploaded like ``compute`` does."""
+        self._factorize(device_values(self, values))
+        return self
+
+    @property
+    def r_panels(self) -> torch.Tensor:
+        """R panels ``[nb, max_emit, max_cols]``."""
+        return self._r_panels
+
+    def r_diagonal(self) -> torch.Tensor:
+        g = self._geom_dev
+        return _rdiag_from_panels(self._r_panels, g["cols"], g["emit_rows"], self._ncols)
+
+    # --- Q / R --------------------------------------------------------------------
+    def apply_q(self, m: torch.Tensor) -> torch.Tensor:
+        return self.q_seq.apply_q(m)
+
+    def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
+        return self.q_seq.apply_qt(m)
+
+    def matrix_q_sparse(self):
+        """Explicit sparse Q of the row-permuted matrix (chunked Q·I)."""
+        return self.q_seq.to_sparse_q()
+
+    def matrix_r_sparse(self) -> SparseCSR:
+        """Sparse banded R in O(nnz(R)) from the per-block panels."""
+        panels = self._r_panels.cpu().numpy()
+        g = self.geom
+        er = g["emit_rows"][:, None, None]
+        nc = g["ncols"][:, None, None]
+        c0 = g["cols"][:, None, None]
+        ri = np.arange(panels.shape[1])[None, :, None]
+        ci = np.arange(panels.shape[2])[None, None, :]
+        mask = (ri < er) & (ci < nc) & (ri <= ci) & (panels != 0.0)
+        rows = np.broadcast_to(c0 + ri, panels.shape)[mask]
+        cols = np.broadcast_to(c0 + ci, panels.shape)[mask]
+        return SparseCSR.from_triplets(rows, cols, panels[mask], (self._nrows, self._ncols))
+
+    def matrix_r_dense(self) -> torch.Tensor:
+        g = self.geom
+        panels = self._r_panels.cpu().numpy()
+        R = np.zeros((self._nrows, self._ncols), dtype=panels.dtype)
+        for i, b in enumerate(self.plan.blocks):
+            er, nc = int(g["emit_rows"][i]), int(g["ncols"][i])
+            R[b.col : b.col + er, b.col : b.col + nc] = panels[i, :er, :nc]
+        return torch.as_tensor(R, device=self.device)
+
+    def solve_r(self, y: torch.Tensor) -> torch.Tensor:
+        g = self._geom_dev
+        return banded_solve_r(
+            self._r_panels, g["cols"], g["emit_rows"], g["ncols"], y[: self._ncols],
+            max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols,
+        )
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Least-squares solve for a vector ``[rows]`` or a matrix ``[rows,
+        k]`` rhs: Qᵀb, then one batched back-substitution (no kernel).  The
+        caller pre-applies ``rows_permutation()``."""
+        return self.solve_r(self.apply_qt(b))
+
+    def rows_permutation(self) -> Permutation:
+        return self._row_perm

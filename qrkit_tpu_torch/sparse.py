@@ -11,10 +11,15 @@ Conventions follow Eigen, exactly as in the reference package:
 
 * ``Permutation.indices[src] = dest`` — ``P @ v`` scatters ``v[i]`` to ``dest``.
 * ``A @ P`` gathers columns: new column ``i`` = old column ``indices[i]``.
+
+The banded solvers also use the pattern-only maps (``row_perm_data_map``,
+``panels_gather_map``) and the layout token ``pattern_fingerprint``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -22,6 +27,12 @@ import numpy as np
 from . import _native
 
 __all__ = ["Permutation", "SparseCSR", "coo_to_csr"]
+
+# stored-nonzero layouts seen by pattern_fingerprint: (weak indices, weak
+# indptr, token), most recent last
+_LAYOUT_REGISTRY = []
+_LAYOUT_MAX = 8
+_layout_counter = itertools.count()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +207,19 @@ class SparseCSR:
         gather = np.repeat(old_starts, counts) + pos
         return SparseCSR(self.shape, new_indptr, self.indices[gather], self.data[gather])
 
+    def row_perm_data_map(self, perm: Permutation) -> np.ndarray:
+        """Pattern-only data gather for :meth:`permute_rows`:
+        ``permute_rows(perm).data == self.data[map]``.  Lets a solver reorder
+        a value vector on the device (``factorize_values``) without
+        rebuilding the permuted matrix on the host."""
+        src_of_dest = perm.gather_indices()
+        counts = np.diff(self.indptr)[src_of_dest]
+        new_indptr = np.zeros(self.nrows + 1, dtype=np.int64)
+        new_indptr[1:] = np.cumsum(counts)
+        old_starts = self.indptr[:-1][src_of_dest]
+        pos = np.arange(self.nnz) - np.repeat(new_indptr[:-1], counts)
+        return np.repeat(old_starts, counts) + pos
+
     def block_dense(self, r0: int, c0: int, nr: int, nc: int) -> np.ndarray:
         """Dense copy of the block [r0:r0+nr, c0:c0+nc]."""
         out = np.zeros((nr, nc), dtype=self.data.dtype if self.nnz else np.float64)
@@ -221,3 +245,74 @@ class SparseCSR:
         for k, (r0, c0, nr, nc) in enumerate(blocks):
             out[k, :nr, :nc] = self.block_dense(r0, c0, nr, nc)
         return out
+
+    def panels_gather_map(self, blocks, pad_rows: int, pad_cols: int) -> np.ndarray:
+        """Pattern-only index map for panel extraction on the device:
+        ``[nb, pad_rows, pad_cols]`` with ``map[k, r, c]`` the index into
+        ``self.data`` of panel entry (r, c) of block k, or ``nnz`` (the
+        sentinel) for a structural zero, so that
+        ``concat([data, [0]])[map] == blocks_dense(blocks, ...)``.  int32
+        whenever the sentinel fits.  The blocks' row ranges must be pairwise
+        disjoint (true of every banded and segment plan); entries outside
+        their row block's column span are dropped, as in
+        :meth:`blocks_dense`."""
+        nnz = self.nnz
+        dtype = np.int32 if nnz + 1 < 2**31 else np.int64
+        gm = np.full((len(blocks), pad_rows, pad_cols), nnz, dtype=dtype)
+        if not len(blocks) or nnz == 0:
+            return gm
+        binfo = np.asarray([tuple(b) for b in blocks], dtype=np.int64)
+        r0, c0, nr, nc = binfo.T
+        live = np.nonzero(nr > 0)[0]
+        order = live[np.argsort(r0[live], kind="stable")]
+        starts = r0[order]
+        row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
+        pos = np.searchsorted(starts, row_ids, side="right") - 1
+        has_blk = pos >= 0
+        b = order[np.clip(pos, 0, None)]
+        lr = row_ids - r0[b]
+        lc = self.indices - c0[b]
+        good = (
+            has_blk
+            & (lr < nr[b]) & (lr < pad_rows)
+            & (lc >= 0) & (lc < nc[b]) & (lc < pad_cols)
+        )
+        gm[b[good], lr[good], lc[good]] = np.nonzero(good)[0]
+        return gm
+
+    def pattern_fingerprint(self):
+        """Exact token of the stored-nonzero layout (``indptr`` and
+        ``indices``).  Anything keyed on data positions (the device gather
+        maps) must be rebuilt when the layout changes, not only when the
+        plan does.  Layouts are interned in a small registry, by object
+        identity first and exact array equality second: equal layouts get
+        equal tokens, distinct layouts distinct ones.  Mutating a
+        fingerprinted ``indices``/``indptr`` array in place is not
+        detected."""
+        memo = self.__dict__.get("_fp_memo")
+        if memo is not None:
+            return memo
+        ind, ptr = self.indices, self.indptr
+        token = None
+        live = []
+        for wind, wptr, tok in _LAYOUT_REGISTRY:
+            i2, p2 = wind(), wptr()
+            if i2 is None or p2 is None:
+                continue
+            live.append((wind, wptr, tok))
+            if token is None and (
+                (i2 is ind and p2 is ptr)
+                or (
+                    i2.shape == ind.shape
+                    and p2.shape == ptr.shape
+                    and np.array_equal(p2, ptr)
+                    and np.array_equal(i2, ind)
+                )
+            ):
+                token = tok
+        if token is None:
+            token = (self.nnz, next(_layout_counter))
+        live.append((weakref.ref(ind), weakref.ref(ptr), token))
+        _LAYOUT_REGISTRY[:] = live[-_LAYOUT_MAX:]
+        self._fp_memo = token
+        return token

@@ -113,7 +113,7 @@ def test_kernel_tier_matches_pallas_tier(rng, geometry, fmt):
     # a vector rhs is one fused kernel solve in either Q format
     _check_surfaces(rng, jqr, tqr, tmat.nrows, True, fmt == "FULL_Q")
     # CPU tensors run the plain versions: no kernel was launched
-    assert profiling.launch_counts() == {"blockdiag_lstsq": 0, "blockdiag_qr_r": 0}
+    assert not any(profiling.launch_counts().values())
 
 
 @pytest.mark.parametrize("br,bc", [(2, 1), (7, 2), (5, 3), (8, 8)], ids=["bc1", "bc2", "bc3", "bc8"])

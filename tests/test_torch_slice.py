@@ -19,10 +19,14 @@ from qrkit_tpu_torch import convert, profiling
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import blockdiag as bd
 
-from generators import block_diagonal_matrix
+from generators import block_diagonal_matrix, tall_banded_matrix
 
 REPO = Path(__file__).resolve().parents[1]
 SOL = dict(rtol=0, atol=1e-9)
+
+
+def _port(m):
+    return qt.SparseCSR(m.shape, m.indptr, m.indices, m.data)
 
 
 def _consistent(rng, nb, br=7, bc=2, tail_rows=0):
@@ -134,14 +138,28 @@ def test_convert_block_diagonal(rng, layout):
     np.testing.assert_array_equal(tmat.to_dense(), jmat.to_dense())
 
 
+PORT_MODULES = {  # every module of the port, the banded family's included
+    "qrkit_tpu_torch.analysis", "qrkit_tpu_torch.containers", "qrkit_tpu_torch.convert",
+    "qrkit_tpu_torch.functional", "qrkit_tpu_torch.plan", "qrkit_tpu_torch.profiling",
+    "qrkit_tpu_torch.sparse", "qrkit_tpu_torch.ops.banded", "qrkit_tpu_torch.ops.blockdiag",
+    "qrkit_tpu_torch.ops.compact_wy", "qrkit_tpu_torch.ops.householder",
+    "qrkit_tpu_torch.solvers.banded_blocked", "qrkit_tpu_torch.solvers.block_diagonal",
+    "qrkit_tpu_torch.solvers.segmented_apply", "qrkit_tpu_torch.solvers.segmented_banded",
+    "qrkit_tpu_torch.solvers.segmented_factorize", "qrkit_tpu_torch.solvers.segmented_plan",
+    "qrkit_tpu_torch.solvers.segmented_solve",
+}
+
+
 def test_package_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import qrkit_tpu_torch\n"
-        "for m in pkgutil.walk_packages(qrkit_tpu_torch.__path__, 'qrkit_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(qrkit_tpu_torch.__path__, 'qrkit_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'qrkit_tpu.')) or k == 'qrkit_tpu')\n"
-        "print(len(list(pkgutil.walk_packages(qrkit_tpu_torch.__path__))), bad)\n"
+        "print(' '.join(names))\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -149,6 +167,7 @@ def test_package_never_imports_jax():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert PORT_MODULES <= set(proc.stdout.split("\n")[0].split()), proc.stdout
 
 
 def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
@@ -156,6 +175,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
         raise AssertionError("a CPU tensor must not reach the CUDA build")
 
     monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "load_banded", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
     mat = qt.BlockDiagonal.from_dense_batch(blocks)
@@ -163,7 +183,15 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     qr.solve(torch.as_tensor(rng.normal(size=56)))
     bd.block_diagonal_lstsq(torch.as_tensor(blocks), torch.as_tensor(rng.normal(size=56)))
     bd.block_diagonal_qr_r(torch.as_tensor(blocks))
-    assert profiling.launch_counts() == {"blockdiag_lstsq": 0, "blockdiag_qr_r": 0}
+    banded = _port(tall_banded_matrix(64, rng, br=10, bc=4, ov=2))
+    seg = qt.SegmentedBandedQR(4, 8, use_kernel=True).compute(banded)
+    plain = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=True).compute(banded)
+    assert seg._fac_kernel and seg._p2w is not None and seg._chain_kernel and plain._fac_kernel
+    assert set(profiling.launch_counts()) == {
+        "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
+        "banded_chain_qr",
+    }
+    assert not any(profiling.launch_counts().values())
 
 
 def _isolate_build(monkeypatch, tmp_path, cuda_home):
@@ -194,3 +222,30 @@ def test_build_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="sm_90a refused"):
         _build.build(3, 3)
     assert not any((tmp_path / "build").glob("*.so"))  # no half-built library left
+
+
+def test_build_banded_source_one_library(monkeypatch, tmp_path):
+    """The banded source builds as one library with no -D defines (its
+    kernels take every shape as arguments), keyed by a hash of source and
+    flags; the block-diagonal source keeps one library per shape."""
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    log = tmp_path / "nvcc_args"
+    nvcc = bindir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'printf "" > "$2"\n'
+    )
+    nvcc.chmod(0o755)
+    _isolate_build(monkeypatch, tmp_path, tmp_path / "cuda")
+    path = _build.build_source(_build.BANDED_SOURCE)
+    assert path.exists() and path.name.startswith("banded_chain_") and path.parent == tmp_path / "build"
+    assert _build.build_source(_build.BANDED_SOURCE) == path  # cached: nvcc ran once
+    bd_path = _build.build(7, 2)
+    assert bd_path.name.startswith("blockdiag_qr_7x2_")
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2
+    assert "-D" not in calls[0] and calls[0].endswith("banded_chain.cu")
+    assert "-DQRK_BR=7 -DQRK_BC=2" in calls[1] and "--fmad=false" in calls[0]
