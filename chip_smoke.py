@@ -19,7 +19,26 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   drives config 3 through ``SegmentedBandedQR`` (compute, solve,
   ``factorize_values`` on device values) and ``BandedBlockedQR`` (compute,
   solve) with the launch counters read around each path, and times the
-  kernels against their plain versions.
+  kernels against their plain versions;
+* B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
+  every option combination against the plain version, every block shape,
+  fp32 and fp64, and their time at the 1M-block point;
+* block-angular path (phase ``block_angular_main_path``): config 4 on the
+  ellipse Jacobian's shape (N blocks of 2×1, A2 2N × 5, uniform(0.5, 5);
+  ``examples/bench_block_angular.make_problem``) at N = 100,000 and 500,000,
+  fp32, through ``BlockAngularQR``'s fused dense program (compute + solve),
+  its fused lane-major program (``compute_solve`` on SoA blocks and a
+  transposed A2) and, at N = 100,000, the generic sparse-A2 composition
+  (kernel B2 once per compute), each against the port's fp64 CPU result;
+* LM ellipse fit (phase ``ellipse_lm``): ``fit_ellipse`` on the device loop
+  at N = 100,000 and 500,000 (fp32, ``LMConfig(max_iters=40, ftol=1e-8,
+  xtol=1e-8)``), its host reads per iteration, wall time and device busy
+  share, and ``fit_ellipse_batch`` on 16 problems of 10,000 points against
+  the solo fits;
+* banded-left ellipse step (phase ``ellipse_banded_left``): one
+  ``EllipseFitting.damped_step_banded`` at N = 2,000 (kernel B5 on a chain of
+  2,000 steps of 4×1 panels) against ``damped_step``, fp64 and fp32, and B5
+  against its plain version on that chain.
 
 Each phase prints one JSON line per case.  Any failure raises, so the script
 exits non-zero without the final line; it also fails when no CUDA device is
@@ -41,7 +60,8 @@ import numpy as np
 import torch
 
 import qrkit_tpu_torch as qt
-from qrkit_tpu_torch import functional, profiling
+from qrkit_tpu_torch import functional, lm, profiling
+from qrkit_tpu_torch.examples import ellipse
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
@@ -577,6 +597,352 @@ def phase_banded_timing(ops, smi):
     return results
 
 
+OPTION_COMBOS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def stepnorm_tolerance(dtype):
+    """Σx² of the kernel (a CTA tree, then the partials in order) against
+    torch's sum: rounding of two summation orders."""
+    return (1e-12, 0.0) if dtype == torch.float64 else (1e-5, 0.0)
+
+
+def lstsq_options(a, b, scale, stepnorm, plain):
+    """B1 (or its plain version) with ``b_scale=scale`` (a device scalar or
+    None) and ``stepnorm``."""
+    if plain:
+        return bd._lstsq_soa_plain(a, b, scale, stepnorm)
+    return bd.block_diagonal_lstsq_soa(a, b, b_scale=scale, stepnorm=stepnorm)
+
+
+def phase_blockdiag_options(rng, smi):
+    """B1 with each combination of b_scale (a device scalar multiplying x)
+    and stepnorm (Σx² reduced on the device) against the plain version:
+    every block shape, fp32 and fp64, ragged batch sizes.  Then, at the
+    1M-block point (fp32), the kernel with both options against the kernel
+    without and the plain version, in turns.  Returns the worst x error."""
+    worst = 0.0
+    for br, bc in KERNEL_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for scaled, stepnorm in OPTION_COMBOS:
+                err_x, err_sn, bitwise = 0.0, 0.0, True
+                scale = torch.tensor(-1.75, dtype=dtype, device=DEVICE) if scaled else None
+                for n in KERNEL_NS:
+                    a, b = soa_operands(rng, n, br, bc, dtype, DEVICE)
+                    out = lstsq_options(a, b, scale, stepnorm, plain=False)
+                    torch.cuda.synchronize()
+                    ref = lstsq_options(a, b, scale, stepnorm, plain=True)
+                    if stepnorm:
+                        (out, sn), (ref, ref_sn) = out, ref
+                        if tuple(sn.shape) != () or sn.device != a.device:
+                            raise AssertionError(f"stepnorm returned {tuple(sn.shape)} on {sn.device}")
+                        e, _ = compare(sn, ref_sn, dtype, stepnorm_tolerance(dtype))
+                        err_sn = max(err_sn, e)
+                    e, eq = compare(out, ref, dtype)
+                    err_x, bitwise = max(err_x, e), bitwise and eq
+                emit({
+                    "phase": "blockdiag_lstsq_options", "shape": [br, bc],
+                    "dtype": str(dtype).split(".")[1], "b_scale": scaled, "stepnorm": stepnorm,
+                    "ns": KERNEL_NS, "max_abs_err_x": err_x, "x_bitwise_equal": bitwise,
+                    "max_abs_err_stepnorm": err_sn if stepnorm else None,
+                    "stepnorm_rtol": stepnorm_tolerance(dtype)[0] if stepnorm else None,
+                })
+                worst = max(worst, err_x)
+    blocks, b = flagship_system(rng, NB_REAL)
+    a = torch.as_tensor(
+        np.ascontiguousarray(blocks.transpose(1, 2, 0).reshape(BR * BC, NB_REAL)),
+        dtype=torch.float32, device=DEVICE,
+    )
+    bs = torch.as_tensor(b.reshape(NB_REAL, BR).T.copy(), dtype=torch.float32, device=DEVICE)
+    scale = torch.tensor(-1.75, dtype=torch.float32, device=DEVICE)
+    runs = {
+        "options": lambda: lstsq_options(a, bs, scale, True, plain=False),
+        "no_options": lambda: lstsq_options(a, bs, None, False, plain=False),
+        "plain_options": lambda: lstsq_options(a, bs, scale, True, plain=True),
+    }
+    rounds = {k: [] for k in runs}
+    for key in ("options", "no_options", "plain_options", "plain_options", "no_options", "options"):
+        rounds[key].append(profiling.cuda_time_ms(runs[key]))
+    ms = {k: statistics.mean(v) for k, v in rounds.items()}
+    emit({
+        "phase": "blockdiag_lstsq_options_timing", "n": NB_REAL, "shape": [BR, BC],
+        "dtype": "float32", "ms_b_scale_stepnorm": ms["options"], "ms_no_options": ms["no_options"],
+        "plain_ms_b_scale_stepnorm": ms["plain_options"], "rounds": rounds,
+        "method": "CUDA events per call, 10 warm-up, median of 50; rounds options, none, "
+                  "plain, plain, none, options; mean of round medians",
+        "gpu": smi,
+    })
+    return worst
+
+
+# config 4: examples/bench_block_angular.make_problem (the ellipse Jacobian's
+# [2N x N block-diagonal of 2x1 | 2N x 5 dense] shape)
+BA_M2 = 5
+BA_NS = (100_000, 500_000)
+BA_SPARSE_N = 100_000
+BA_REL_GATE = 1e-3  # fp32 solution against the port's fp64 CPU result
+
+
+def block_angular_problem(rng, n):
+    blocks = rng.uniform(0.5, 5.0, size=(n, 2, 1))
+    a2 = rng.uniform(0.5, 5.0, size=(2 * n, BA_M2))
+    xt = rng.normal(size=n + BA_M2)
+    b = np.zeros(2 * n)
+    b[0::2] = blocks[:, 0, 0] * xt[:n]
+    b[1::2] = blocks[:, 1, 0] * xt[:n]
+    b += a2 @ xt[n:]
+    return blocks, a2, b
+
+
+def ba_solver():
+    return qt.BlockAngularQR(qt.BlockDiagonalQR(qt.QFormat.FULL_Q, pivot=False), qt.DenseColPivQR())
+
+
+def phase_block_angular(rng, smi):
+    """Config 4 through BlockAngularQR on the card (fp32): the fused dense
+    compute + solve, the fused lane-major compute_solve and, at N = 100,000,
+    the generic sparse-A2 composition, each with the launch counters read
+    around it, checked against the port's fp64 CPU result, then timed.
+    Returns the B2 launches of the sparse-A2 runs."""
+    b2_launches = 0
+    for n in BA_NS:
+        blocks, a2, b = block_angular_problem(rng, n)
+        x64 = ba_solver().compute(qt.BlockMatrix1x2(
+            qt.BlockDiagonal(torch.as_tensor(blocks), 2 * n, n), torch.as_tensor(a2)
+        )).solve(torch.as_tensor(b)).numpy()
+
+        def dev(arr):
+            return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float32, device=DEVICE)
+
+        bt = dev(b)
+        aos = qt.BlockMatrix1x2(qt.BlockDiagonal(dev(blocks), 2 * n, n), dev(a2))
+        soa = qt.BlockMatrix1x2(
+            qt.BlockDiagonal.from_soa(dev(blocks.transpose(1, 2, 0).reshape(2, n)), 2, 1, nrows=2 * n),
+            dev(a2.T), right_t=True,
+        )
+        cases = [
+            ("fused_dense", lambda s: s.compute(aos).solve(bt), {}, lambda s: s._fused_dense),
+            ("fused_soa", lambda s: s.compute_solve(soa, bt), {}, lambda s: s._fused_soa),
+        ]
+        if n == BA_SPARSE_N:
+            sparse = qt.BlockMatrix1x2(qt.BlockDiagonal(dev(blocks), 2 * n, n), qt.SparseCSR.from_dense(a2))
+            cases.append((
+                "sparse_a2", lambda s: s.compute(sparse).solve(bt), {"blockdiag_qr_r": 1},
+                lambda s: s._r12_coo is not None and s.left._kernel_mode,
+            ))
+        for label, call, want, took_path in cases:
+            solver = ba_solver()
+            profiling.reset_launch_counts()
+            t0 = time.perf_counter()
+            x = call(solver)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = profiling.launch_counts()
+            expected = {name: want.get(name, 0) for name in counts}
+            if counts != expected:
+                raise AssertionError(f"block angular {label} N={n}: launches {counts}, want {expected}")
+            if not took_path(solver):
+                raise AssertionError(f"block angular {label} N={n}: the path was not taken")
+            info = solver.info()
+            if info != qt.ComputationInfo.SUCCESS:
+                raise AssertionError(f"block angular {label} N={n}: info() = {info}")
+            xh = x.double().cpu().numpy()
+            if xh.shape != x64.shape or not np.isfinite(xh).all():
+                raise AssertionError(f"block angular {label} N={n}: shape {xh.shape} or non-finite x")
+            rel = float(np.linalg.norm(xh - x64) / np.linalg.norm(x64))
+            if not rel < BA_REL_GATE:
+                raise AssertionError(f"block angular {label} N={n}: ‖x − x64‖/‖x64‖ = {rel}")
+            b2_launches += counts["blockdiag_qr_r"]
+            ms, times = wall_ms(lambda: call(solver), 20)  # same solver: warm plans
+            emit({
+                "phase": "block_angular_main_path", "path": label, "n": n, "m2": BA_M2,
+                "dtype": "float32", "rel_err_vs_fp64_cpu": rel, "gate": BA_REL_GATE,
+                "info": info.name, "launches": counts, "wall_s_incl_first_use": seconds,
+                "ms": ms, "times_ms": times,
+                "method": "host wall time of one call on the same solver ending in synchronize "
+                          "(compute + solve, or compute_solve), one warm-up, median of 20",
+                "gpu": smi,
+            })
+    return b2_launches
+
+
+ELLIPSE_TRUTH = (7.5, 2.0, 17.0, 23.0, 0.23)
+ELLIPSE_NS = (100_000, 500_000)
+ELLIPSE_GATE = 1e-3  # canonical parameters against the truth, fp32
+LM_CFG = lm.LMConfig(max_iters=40, ftol=1e-8, xtol=1e-8)  # examples/bench_ellipse.py's
+
+
+def device_kernels(prof):
+    """(kernel ms, kernel launches) under torch.profiler: the device-side
+    events only, so each launch counts once (the CPU op that launched a
+    kernel carries its time too), as the profiler table's footer counts."""
+    from torch.autograd import DeviceType
+
+    ms, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms += e.self_device_time_total / 1e3
+            launches += e.count
+    return ms, launches
+
+
+def fit(pts, dtype=torch.float32):
+    reads0 = lm.levenberg_marquardt_device.host_reads
+    t0 = time.perf_counter()
+    result, params = ellipse.fit_ellipse(pts, LM_CFG, dtype=dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    return result, params, time.perf_counter() - t0, lm.levenberg_marquardt_device.host_reads - reads0
+
+
+def phase_ellipse_lm(smi):
+    """fit_ellipse on the device loop at N = 100,000 and 500,000, fp32: the
+    launch counters around the first fit (the LM path runs no kernel), the
+    canonical parameters against the truth, host reads per iteration, the
+    wall time (a warm-up fit, then a median of 3) and, at N = 100,000, the
+    device busy share under torch.profiler.  Then fit_ellipse_batch on 16
+    problems of 10,000 points against the solo fits."""
+    el = ellipse.Ellipse(*ELLIPSE_TRUTH)
+    for n in ELLIPSE_NS:
+        pts = ellipse.ellipse_points(el, n)
+        profiling.reset_launch_counts()
+        result, params, first_s, reads = fit(pts)
+        counts = profiling.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"ellipse LM N={n}: the LM path launched kernels {counts}")
+        err = float(np.abs(params[n:] - np.array(ELLIPSE_TRUTH)).max())
+        if not (np.isfinite(result.cost) and err < ELLIPSE_GATE and np.isfinite(params).all()):
+            raise AssertionError(f"ellipse LM N={n}: cost {result.cost}, parameter error {err}")
+        if reads != result.iterations:
+            raise AssertionError(f"ellipse LM N={n}: {reads} host reads in {result.iterations} iterations")
+        times = sorted(fit(pts)[2] * 1e3 for _ in range(3))
+        busy = None
+        if n == ELLIPSE_NS[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, _, wall_s, _ = fit(pts)
+            kernel_ms, launches = device_kernels(prof)
+            busy = {"device_ms": kernel_ms, "device_launches": launches,
+                    "launches_per_iteration": launches / result.iterations,
+                    "wall_ms_under_profiler": wall_s * 1e3,
+                    "busy_share": kernel_ms / (wall_s * 1e3) if kernel_ms > 0 else None}
+        emit({
+            "phase": "ellipse_lm", "n": n, "dtype": "float32", "iterations": result.iterations,
+            "converged": result.converged, "cost": result.cost, "max_param_err": err,
+            "gate": ELLIPSE_GATE, "params": [float(v) for v in params[n:]],
+            "host_reads": reads, "host_reads_per_iteration": reads / max(result.iterations, 1),
+            "launches": counts, "first_fit_s": first_s, "ms": times[1], "times_ms": times,
+            "profiler": busy,
+            "method": "host wall time of fit_ellipse (ends in a host fetch and synchronize), "
+                      "one warm-up fit, median of 3", "gpu": smi,
+        })
+    nb, n = 16, 10_000
+    pts_b = np.stack([
+        ellipse.ellipse_points(ellipse.Ellipse(7.5 + 0.1 * i, 2.0, 17.0, 23.0, 0.23 + 0.01 * i), n)
+        for i in range(nb)
+    ])
+    ellipse.fit_ellipse_batch(pts_b[:2], LM_CFG, dtype=torch.float32, device=DEVICE)  # warm-up
+    t0 = time.perf_counter()
+    batch = ellipse.fit_ellipse_batch(pts_b, LM_CFG, dtype=torch.float32, device=DEVICE)
+    batch_s = time.perf_counter() - t0
+    worst, solo_s = 0.0, 0.0
+    for i in range(nb):
+        solo, _, s, _ = fit(pts_b[i])
+        solo_s += s
+        e, _ = compare(torch.as_tensor(batch.x[i]), torch.as_tensor(solo.x), torch.float32)
+        worst = max(worst, e)
+    emit({
+        "phase": "ellipse_lm_batch", "problems": nb, "n": n, "dtype": "float32",
+        "iterations": [int(v) for v in batch.iterations], "max_abs_err_vs_solo": worst,
+        "rtol": tolerance(torch.float32)[0], "atol_x_max_abs": tolerance(torch.float32)[1],
+        "batch_s": batch_s, "sum_of_solo_s": solo_s, "gpu": smi,
+    })
+
+
+BANDED_LEFT_N = 2000  # a row of the published ellipse table
+
+
+def banded_left_chain(f, lam):
+    """B5's operands on the banded ellipse stack: the left solver's shifted
+    panels of the damped Jacobian (built as damped_step_banded builds them)."""
+    x0 = f.initial_params()
+    left_d, _, _ = f._damped(x0, f.residuals(x0), lam)
+    n = f.n
+    left_sp = qt.SparseCSR.from_triplets(
+        np.arange(3 * n), np.repeat(np.arange(n), 3), left_d.cpu().numpy().reshape(-1),
+        (3 * n + 5, n),
+    )
+    q = qt.BandedBlockedQR(3, 1, 0, 1, device=DEVICE, dtype=f.dtype)
+    q.analyze_pattern(left_sp)
+    q._layout_maps(left_sp, left_sp)
+    vals = torch.as_tensor(left_sp.data, dtype=f.dtype, device=DEVICE)
+    panels = torch.cat([vals, vals.new_zeros(1)])[q._panel_gmap]
+    if q._chain_kernel != dict(mca=1, me=1, ci=1, ci0=1) or tuple(panels.shape[1:]) != (4, 1):
+        raise AssertionError(f"banded ellipse left: chain {q._chain_kernel}, panels {tuple(panels.shape)}")
+    return panels, q._chain_act, q._chain_kernel
+
+
+def phase_ellipse_banded(smi):
+    """One damped_step_banded (BandedBlockedQR(3, 1, 0, 1) left + dense
+    ColPiv right) at N = 2,000, fp64 and fp32: B5 launched exactly once,
+    the step against damped_step (fp64 atol 1e-8; fp32 rtol 1e-4, atol
+    1e-5·max|·|), its wall time; then B5 against its plain version on this
+    4×1 chain, and both timed (fp32).  Returns (B5 launches, worst B5 error,
+    kernel ms, plain ms)."""
+    pts = ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), BANDED_LEFT_N)
+    lam = 1e-3
+    launches, worst, timing = 0, 0.0, None
+    for dtype in (torch.float64, torch.float32):
+        f = ellipse.EllipseFitting(pts, dtype=dtype, device=DEVICE)
+        x0 = f.initial_params()
+        r0 = f.residuals(x0)
+        ref = f.damped_step(x0, r0, lam)
+        torch.cuda.synchronize()
+        profiling.reset_launch_counts()
+        t0 = time.perf_counter()
+        step = f.damped_step_banded(x0, r0, lam)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = profiling.launch_counts()
+        expected = {name: int(name == "banded_chain_qr") for name in counts}
+        if counts != expected:
+            raise AssertionError(f"banded ellipse step ({dtype}): launches {counts}, want {expected}")
+        launches += counts["banded_chain_qr"]
+        tol = (0.0, 1e-8 / max(ref.abs().max().item(), 1e-300)) if dtype == torch.float64 else (1e-4, 1e-5)
+        step_err, _ = compare(step, ref, dtype, tol)
+        panels, act, kw = banded_left_chain(f, lam)
+        out = bk.chain_qr(panels, act, **kw)
+        torch.cuda.synchronize()
+        b5_err, bitwise = compare_outputs(out, bk._chain_qr_plain(panels, act, **kw), dtype)
+        worst = max(worst, b5_err) if dtype == torch.float32 else worst
+        record = {
+            "phase": "ellipse_banded_left", "n": BANDED_LEFT_N, "dtype": str(dtype).split(".")[1],
+            "launches": counts, "max_abs_err_vs_damped_step": step_err,
+            "chain": {"steps": int(panels.shape[0]), "panel": list(panels.shape[1:]), **kw},
+            "b5_max_abs_err_vs_plain": b5_err, "b5_bitwise_equal": bitwise,
+            "step_wall_s_incl_first_use": seconds,
+        }
+        if dtype == torch.float32:
+            k_rounds, p_rounds = [], []
+            for rounds in (k_rounds, p_rounds, p_rounds, k_rounds):
+                if rounds is k_rounds:
+                    rounds.append(profiling.cuda_time_ms(lambda: bk.chain_qr(panels, act, **kw)))
+                else:
+                    rounds.append(profiling.cuda_time_ms(
+                        lambda: bk._chain_qr_plain(panels, act, **kw), warmup=1, reps=3))
+            timing = (statistics.mean(k_rounds), statistics.mean(p_rounds))
+            step_ms, step_times = wall_ms(lambda: f.damped_step_banded(x0, r0, lam), 3)
+            record.update({
+                "b5_ms": timing[0], "b5_plain_ms": timing[1], "b5_ms_rounds": k_rounds,
+                "b5_plain_ms_rounds": p_rounds, "step_ms": step_ms, "step_times_ms": step_times,
+                "method": "B5: CUDA events per call, rounds kernel, plain, plain, kernel (kernel "
+                          "10 warm-up + median of 50, plain 1 + median of 3); step: host wall "
+                          "time ending in synchronize, one warm-up, median of 3",
+                "gpu": smi,
+            })
+        emit(record)
+    return launches, worst, timing
+
+
 def main():
     rng = np.random.default_rng(SEED)
     smi = phase_device()
@@ -588,20 +954,30 @@ def main():
     banded_worst, c3_ops = phase_banded_kernel_vs_plain(rng)
     banded_counts, _ = phase_banded_main_path(rng, smi)
     banded_timings = phase_banded_timing(c3_ops, smi)
+    options_worst = phase_blockdiag_options(rng, smi)
+    ba_b2 = phase_block_angular(rng, smi)
+    phase_ellipse_lm(smi)
+    ell_b5, ell_b5_worst, _ = phase_ellipse_banded(smi)
+    extra = {"blockdiag_qr_r": ba_b2, "banded_chain_qr": ell_b5}  # slice 3's main paths
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         ms, plain_ms, _ = timings[name][-1]  # the 1M-block point
+        errs = [worst[(name, BR, BC)]] + [t[2] for t in timings[name]]
+        if name == "blockdiag_lstsq":
+            errs.append(options_worst)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": counts10k[name] + counts1m[name],
-            "max_abs_err": max([worst[(name, BR, BC)]] + [t[2] for t in timings[name]]),
-            "ms": ms, "plain_ms": plain_ms,
+            "launches": counts10k[name] + counts1m[name] + extra.get(name, 0),
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
         })
     for name, replaces in BANDED_KERNELS.items():
         ms, plain_ms = banded_timings[name]  # config 3; B5 on the plain chain
+        err = banded_worst[name]
+        if name == "banded_chain_qr":
+            err = max(err, ell_b5_worst)
         kernels.append({
             "name": name, "route": "cuda", "source": BANDED_SOURCE, "replaces": replaces,
-            "launches": banded_counts[name], "max_abs_err": banded_worst[name],
+            "launches": banded_counts[name] + extra.get(name, 0), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
         })
     print(smi, flush=True)

@@ -2,10 +2,14 @@
 
 Counterpart of ``qrkit_tpu/__init__.py``, exporting what the port holds so
 far: the host structure layer (``SparseCSR``, ``Permutation``), the
-``BlockDiagonal`` container, ``BlockDiagonalQR`` with its Q formats, the
-banded family (``BandedBlockedQR``, ``SegmentedBandedQR``), the
-``QRSolver`` protocol, and the differentiable block-diagonal pipelines in
-:mod:`~qrkit_tpu_torch.functional`.  Every Pallas kernel of the reference is
+``BlockDiagonal`` and ``BlockMatrix1x2`` containers, ``BlockDiagonalQR``
+with its Q formats, the banded family (``BandedBlockedQR``,
+``SegmentedBandedQR``), the dense solvers (``DenseHouseholderQR``,
+``DenseColPivQR``), ``BlockAngularQR``, the ``QRSolver`` protocol, the
+differentiable pipelines in :mod:`~qrkit_tpu_torch.functional`, the
+single-device TSQR in :mod:`~qrkit_tpu_torch.parallel` and the
+Levenberg–Marquardt drivers in :mod:`~qrkit_tpu_torch.lm` (the ellipse
+application in :mod:`qrkit_tpu_torch.examples.ellipse`).  Every Pallas kernel of the reference is
 a hand-written CUDA kernel for Hopper here
 (:mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded`),
 built from source at first use.
@@ -14,11 +18,15 @@ The package imports torch and NumPy and never jax.
 """
 
 from . import functional
-from .containers import BlockDiagonal
+from .containers import BlockDiagonal, BlockMatrix1x2
+from .lm import LMConfig, LMResult, levenberg_marquardt
 from .solvers import (
     BandedBlockedQR,
+    BlockAngularQR,
     BlockDiagonalQR,
     ComputationInfo,
+    DenseColPivQR,
+    DenseHouseholderQR,
     QFormat,
     QRSolver,
     SegmentedBandedQR,
@@ -27,13 +35,20 @@ from .sparse import Permutation, SparseCSR
 
 __all__ = [
     "BandedBlockedQR",
+    "BlockAngularQR",
     "BlockDiagonal",
     "BlockDiagonalQR",
+    "BlockMatrix1x2",
     "ComputationInfo",
+    "DenseColPivQR",
+    "DenseHouseholderQR",
+    "LMConfig",
+    "LMResult",
     "Permutation",
     "QFormat",
     "QRSolver",
     "SegmentedBandedQR",
     "SparseCSR",
     "functional",
+    "levenberg_marquardt",
 ]

@@ -1,7 +1,7 @@
-"""Block-diagonal container on torch tensors.
+"""Block-diagonal and block-angular containers on torch tensors.
 
-Counterpart of ``qrkit_tpu/containers.py`` (``BlockDiagonal`` only; the
-reference's ``SparseBlockDiagonal``).  One uniform block shape, stored
+Counterpart of ``qrkit_tpu/containers.py`` (``BlockDiagonal``, the
+reference's ``SparseBlockDiagonal``, and ``BlockMatrix1x2``).  One uniform block shape, stored
 either as the AoS batch ``[nb, br, bc]`` or as the SoA form ``[br*bc, nb]``
 (entry (r, c) of block i at ``[r*bc + c, i]``), the block index contiguous:
 on the GPU that is the coalesced layout, one block per thread, and the form
@@ -10,7 +10,8 @@ the CUDA kernels read.  Either form materializes the other lazily through
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ from .analysis import as_banded_as_possible, block_banded_info
 from .ops.blockdiag import to_aos, to_soa
 from .sparse import Permutation, SparseCSR
 
-__all__ = ["BlockDiagonal"]
+__all__ = ["BlockDiagonal", "BlockMatrix1x2"]
 
 
 class BlockDiagonal:
@@ -192,3 +193,64 @@ class BlockDiagonal:
         for i in range(self.num_blocks):
             out[i * br : (i + 1) * br, i * bc : (i + 1) * bc] = b[i]
         return out
+
+
+@dataclasses.dataclass
+class BlockMatrix1x2:
+    """``[Left | Right]`` composite with heterogeneous halves.
+
+    ``left`` is a :class:`BlockDiagonal`, a host :class:`SparseCSR` or a
+    dense tensor; ``right`` is dense (``[m, m2]``) or a host
+    :class:`SparseCSR`.  The halves share a row count.
+
+    ``right_t=True`` marks a dense right block stored transposed
+    (``[m2, m]``, the m2 angular columns as rows): with the point axis
+    contiguous it is the layout the lane-major fused solver path reads with
+    coalesced loads, and no relayout is needed.
+    """
+
+    left: Any
+    right: Any
+    right_t: bool = False
+
+    def __post_init__(self):
+        if self.left_rows != self.right_rows:
+            raise ValueError(
+                f"row counts must match: left {self.left_rows}, right {self.right_rows}"
+            )
+
+    @staticmethod
+    def _rows(block) -> int:
+        if isinstance(block, (BlockDiagonal, SparseCSR)):
+            return block.nrows
+        return int(block.shape[0])
+
+    @staticmethod
+    def _cols(block) -> int:
+        if isinstance(block, (BlockDiagonal, SparseCSR)):
+            return block.ncols
+        return int(block.shape[1])
+
+    @property
+    def left_rows(self) -> int:
+        return self._rows(self.left)
+
+    @property
+    def right_rows(self) -> int:
+        if self.right_t:
+            return int(self.right.shape[1])
+        return self._rows(self.right)
+
+    @property
+    def left_cols(self) -> int:
+        return self._cols(self.left)
+
+    @property
+    def right_cols(self) -> int:
+        if self.right_t:
+            return int(self.right.shape[0])
+        return self._cols(self.right)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.left_rows, self.left_cols + self.right_cols)

@@ -18,6 +18,11 @@ a ``qrkit_tpu`` object's arrays) and never import jax.
 * :func:`segmented_banded_qr_from_numpy` — a computed
   ``qrkit_tpu.SegmentedBandedQR``'s factors → a computed port
   :class:`~qrkit_tpu_torch.solvers.SegmentedBandedQR` on the same matrix.
+* :func:`dense_qr_from_numpy` — a computed ``qrkit_tpu.DenseHouseholderQR``
+  or ``DenseColPivQR`` (Y, T, R, pivot order) → the port's solver.
+* :func:`block_angular_qr_from_numpy` — a computed
+  ``qrkit_tpu.BlockAngularQR`` on the fused dense path → a computed port
+  :class:`~qrkit_tpu_torch.solvers.BlockAngularQR` on the same matrix.
 
 The banded converters re-run the port's own (host-only) pattern analysis on
 the matrix, which equals the reference's plan, and install the factors in
@@ -33,18 +38,22 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .containers import BlockDiagonal
+from .containers import BlockDiagonal, BlockMatrix1x2
 from .ops.compact_wy import TwoSegmentWYSeq
 from .solvers.banded_blocked import BandedBlockedQR
 from .solvers.base import _diag_health
+from .solvers.block_angular import BlockAngularQR
 from .solvers.block_diagonal import BlockDiagonalQR, QFormat
+from .solvers.dense import DenseColPivQR, DenseHouseholderQR
 from .solvers.segmented_banded import SegmentedBandedQR
 from .sparse import Permutation, SparseCSR
 
 __all__ = [
     "banded_qr_from_numpy",
+    "block_angular_qr_from_numpy",
     "block_diagonal_from_numpy",
     "block_diagonal_qr_from_numpy",
+    "dense_qr_from_numpy",
     "segmented_banded_qr_from_numpy",
 ]
 
@@ -218,4 +227,58 @@ def segmented_banded_qr_from_numpy(
     )
     qr._chain_r = tensor(state["chain_r"])
     qr._set_success(_diag_health(qr.r_diagonal()))
+    return qr
+
+
+def dense_qr_from_numpy(state: Mapping[str, Any], *, device=None, dtype=None):
+    """A computed port dense solver from a reference solver's factors.
+
+    ``state`` keys: ``Y [m, k]``, ``T [k, k]``, ``R [m, n]`` (``_Y``, ``_T``,
+    ``_R``) and, for a ``DenseColPivQR``, ``perm [n]`` (``_perm_dev``); the
+    solver class follows from whether ``perm`` is present."""
+    def tensor(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    R = tensor(state["R"])
+    m, n = R.shape
+    if state.get("perm") is None:
+        qr = DenseHouseholderQR()
+        qr._adopt_factors(m, n, tensor(state["Y"]), tensor(state["T"]), R,
+                          _diag_health(torch.diagonal(R), check_zero=True))
+    else:
+        qr = DenseColPivQR()
+        perm = torch.as_tensor(np.array(state["perm"]), dtype=torch.int64, device=R.device)
+        qr._adopt_factors(m, n, tensor(state["Y"]), tensor(state["T"]), R,
+                          _diag_health(torch.diagonal(R), check_zero=False), perm_dev=perm)
+    return qr
+
+
+def block_angular_qr_from_numpy(
+    mat: BlockMatrix1x2, state: Mapping[str, Any], *, device=None, dtype=None
+) -> BlockAngularQR:
+    """A computed port ``BlockAngularQR`` on ``mat`` (the port's container of
+    the same matrix) from a reference solver computed on the fused dense
+    path.  ``state`` keys: ``Q [nb, br, br]``, ``R [nb, bc, bc]`` (the left
+    child's ``Q``/``R``), ``j2_top``, ``Y2``, ``T2``, ``R2`` (the right
+    child's ``_Y``/``_T``/``_R``), ``perm2``, ``r12`` and ``colpiv`` (the
+    right child is a ``DenseColPivQR``)."""
+    def tensor(x):
+        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+
+    colpiv = bool(state["colpiv"])
+    qr = BlockAngularQR(
+        BlockDiagonalQR(QFormat.FULL_Q, pivot=False),
+        DenseColPivQR() if colpiv else DenseHouseholderQR(),
+    )
+    qr._compute_preamble(mat)
+    if not qr._uses_fused_dense(mat):
+        raise ValueError("the matrix does not take the fused dense path")
+    Q, R, R2 = tensor(state["Q"]), tensor(state["R"]), tensor(state["R2"])
+    h1 = _diag_health(torch.diagonal(R, dim1=1, dim2=2).reshape(-1), check_zero=True)
+    h2 = _diag_health(torch.diagonal(R2), check_zero=not colpiv)
+    perm2 = torch.as_tensor(np.array(state["perm2"]), dtype=torch.int64, device=Q.device)
+    qr._adopt_dense_outputs(mat, (
+        Q, R, tensor(state["j2_top"]), tensor(state["Y2"]), tensor(state["T2"]), R2, perm2,
+        tensor(state["r12"]), h1, h2,
+    ), colpiv)
     return qr

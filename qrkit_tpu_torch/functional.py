@@ -1,11 +1,15 @@
-"""Functional block-diagonal pipelines: batched factorize and a
-differentiable factorize + least-squares solve.
+"""Functional pipelines: block-diagonal and block-angular factorize + solve
+with implicit-diff gradients, and the lane-major damped LM steps.
 
-Counterpart of the block-diagonal part of ``qrkit_tpu/functional.py``
-(``block_diagonal_factorize``, ``block_diagonal_lstsq`` and its custom VJP).
-As in the reference this path runs no device kernel of its own: it is
-batched plain torch (compact-WY QR, Qᵀb through the implicit Y/T factors,
-batched triangular solve) on either device.
+Counterpart of ``qrkit_tpu/functional.py`` (``block_diagonal_factorize``,
+``block_diagonal_lstsq``, ``block_angular_lstsq`` and their custom VJPs,
+``_soa_tall_qr_solve``, ``lm_damped_step_blockdiag(1)``).  As in the
+reference these paths run no device kernel of their own: they are batched
+plain torch (compact-WY QR, Qᵀ through the implicit Y/T factors, batched
+triangular solves) on either device.  The LM steps keep the reference's
+lane-major layout (the point axis last and contiguous): on the GPU that is
+the coalesced layout, and every per-point scalar of the recurrence is one
+contiguous row.
 """
 from __future__ import annotations
 
@@ -19,7 +23,13 @@ from .ops.householder import (
     panel_qr_yt,
 )
 
-__all__ = ["block_diagonal_factorize", "block_diagonal_lstsq"]
+__all__ = [
+    "block_angular_lstsq",
+    "block_diagonal_factorize",
+    "block_diagonal_lstsq",
+    "lm_damped_step_blockdiag",
+    "lm_damped_step_blockdiag1",
+]
 
 
 def _qr_wy(blocks: torch.Tensor, pivot: bool):
@@ -103,3 +113,236 @@ def block_diagonal_lstsq(blocks: torch.Tensor, b: torch.Tensor, pivot: bool = Fa
     back-permutation.  Differentiable w.r.t. ``blocks`` and ``b`` through an
     implicit-function-theorem backward (full-rank blocks assumed)."""
     return _BlockDiagonalLstsq.apply(blocks, b, pivot)
+
+
+def _solve_upper(R: torch.Tensor, y: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """R x = y (or Rᵀ x = y) for upper-triangular R [..., n, n], y [..., n]."""
+    if transpose:
+        return torch.linalg.solve_triangular(R.mT, y[..., None], upper=False)[..., 0]
+    return torch.linalg.solve_triangular(R, y[..., None], upper=True)[..., 0]
+
+
+@highest_precision()
+def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int):
+    """Returns (x [m1+m2], R1 [nb,bc,bc], r12 [m1,m2], R2 [m2,m2])."""
+    from .parallel.tsqr import tsqr_apply, tsqr_factorize  # tsqr imports the solvers
+
+    nb, br, bc = left_blocks.shape
+    m2 = right.shape[1]
+
+    # left: batched compact-WY QR, Q kept implicit as (Y, T)
+    Y1, T1, R1 = panel_qr_yt(left_blocks)
+    R1 = torch.triu(R1)[:, :bc]
+
+    # Q1ᵀ applied to [right | b] in one pass
+    rb = torch.cat([right, b[:, None]], dim=1)  # [nb*br + tail, m2+1]
+    body = rb[: nb * br].reshape(nb, br, m2 + 1)
+    qt_body = body + Y1 @ (T1.mT @ (Y1.mT @ body))
+    econ = qt_body[:, :bc].reshape(nb * bc, m2 + 1)
+    compl = qt_body[:, bc:].reshape(nb * (br - bc), m2 + 1)
+    bottom = torch.cat([compl, rb[nb * br :]], dim=0)  # [nb*(br-bc)+tail, m2+1]
+    r12, y1 = econ[:, :m2], econ[:, m2]
+
+    # right: TSQR of the bottom rows of J2, zero-padded to whole shards
+    mbot = bottom.shape[0]
+    mloc = max(-(-mbot // n_shards), m2)
+    bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
+    Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
+    y2 = tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
+
+    # back substitution: x2, then the structured x1
+    x2 = _solve_upper(R2, y2)
+    x1 = _solve_upper(R1, (y1 - r12 @ x2).reshape(nb, bc)).reshape(nb * bc)
+    return torch.cat([x1, x2]), R1, r12, R2
+
+
+class _BlockAngularLstsq(torch.autograd.Function):
+    """Composite [A1 | A2] least squares with the implicit-function-theorem
+    backward (the reference's ``jax.custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, left_blocks, right, b, n_shards, tail):
+        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b, n_shards)
+        ctx.tail = tail
+        ctx.save_for_backward(left_blocks, right, b, x, R1, r12, R2)
+        return x
+
+    @staticmethod
+    @highest_precision()
+    def backward(ctx, g):
+        """u = (AᵀA)⁻¹ḡ by forward and back substitution on the composite
+        R = [[R1, R12], [0, R2]] saved from the forward pass (the QR itself
+        is never differentiated), then ∂b = A u, ∂A1 = per-block
+        (r u1ᵀ − (Au) x1ᵀ) and ∂A2 = r u2ᵀ − (Au) x2ᵀ with r = b − A x."""
+        left_blocks, right, b, x, R1, r12, R2 = ctx.saved_tensors
+        nb, br, bc = left_blocks.shape
+        m1 = nb * bc
+        x1, x2 = x[:m1].reshape(nb, bc), x[m1:]
+        g1, g2 = g[:m1].reshape(nb, bc), g[m1:]
+        # Rᵀ w = g (block forward substitution)
+        w1 = _solve_upper(R1, g1, transpose=True)
+        w2 = _solve_upper(R2, g2 - r12.T @ w1.reshape(m1), transpose=True)
+        # R u = w (block back substitution)
+        u2 = _solve_upper(R2, w2)
+        u1 = _solve_upper(R1, (w1.reshape(m1) - r12 @ u2).reshape(nb, bc))
+        # A u and the residual r = b - A x over all rows (the tail included)
+        pad = x.new_zeros(ctx.tail)
+        A1u = torch.einsum("bij,bj->bi", left_blocks, u1).reshape(nb * br)
+        A1x = torch.einsum("bij,bj->bi", left_blocks, x1).reshape(nb * br)
+        Au = torch.cat([A1u, pad]) + right @ u2
+        r = b - (torch.cat([A1x, pad]) + right @ x2)
+        g_left = torch.einsum("bi,bj->bij", r[: nb * br].reshape(nb, br), u1) - torch.einsum(
+            "bi,bj->bij", Au[: nb * br].reshape(nb, br), x1
+        )
+        g_right = torch.outer(r, u2) - torch.outer(Au, x2)
+        return g_left, g_right, Au, None, None
+
+
+def block_angular_lstsq(
+    left_blocks: torch.Tensor,
+    right: torch.Tensor,
+    b: torch.Tensor,
+    n_shards: int = 1,
+    tail: int = 0,
+) -> torch.Tensor:
+    """Fused block-angular least-squares solve: batched left QR, TSQR of the
+    right block's bottom rows, block back-substitution.
+
+    ``left_blocks [nb, br, bc]`` is the block-diagonal A1 body, ``right
+    [nb*br + tail, m2]`` the dense A2 (``tail`` rows below the blocks) and
+    ``b [nb*br + tail]``; returns x ``[nb*bc + m2]``.  ``n_shards`` is the
+    TSQR's shard count (a batch axis on one device).  Differentiable w.r.t.
+    ``left_blocks``, ``right`` and ``b`` through an implicit-function-theorem
+    backward against the saved composite R (full column rank assumed)."""
+    return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
+
+
+def _reflector(x0: torch.Tensor, sigma: torch.Tensor):
+    """Unnormalized Householder reflector of a column with pivot x0 and
+    squared tail norm sigma: ``H = I − u uᵀ · c`` with ``u = (x0 − β,
+    tail)`` and ``c = 1/(β(β − x0))`` (0 when the tail is zero, H = I).
+    Returns (β, c, degenerate); one reciprocal per column (the derivation of
+    ``ops.blockdiag._householder_inplace``; β(β − x0) = ‖x‖² + ‖x‖·|x0| > 0
+    away from the degenerate branch)."""
+    one = torch.ones_like(x0)
+    norm = torch.sqrt(x0 * x0 + sigma)
+    beta = torch.where(x0 >= 0, -norm, norm)
+    degen = sigma <= 0
+    t = beta * (beta - x0)
+    c = torch.where(degen, torch.zeros_like(x0), one / torch.where(degen, one, t))
+    return beta, c, degen
+
+
+def _soa_tall_qr_solve(X: torch.Tensor, y: torch.Tensor, m2: int) -> torch.Tensor:
+    """Least-squares solve of a tall-skinny system stored lane-major.
+
+    ``X [m2, L]`` holds the tall matrix M [L, m2] transposed (the long axis
+    contiguous) and ``y [L]`` the rhs.  Householder QR with the pivot lane
+    masked per step (the reflector lives along the long axis; ``w = Xy·u``
+    is one matrix-vector product over L), then the m2×m2 triangular solve on
+    the extracted R.  Returns x2 [m2]."""
+    L = X.shape[1]
+    lane = torch.arange(L, device=X.device)
+    zero = X.new_zeros(())
+    Xy = torch.cat([X, y[None, :]], dim=0)  # [m2+1, L]
+    for j in range(m2):
+        col = Xy[j]
+        x0 = col[j]
+        tail = torch.where(lane > j, col, zero)
+        beta, c, _ = _reflector(x0, (tail * tail).sum())
+        u = torch.where(lane == j, x0 - beta, tail)  # lanes < j are already zero
+        w = (Xy @ u) * c  # [m2+1]
+        Xy = Xy - torch.outer(w, u)
+    R2 = torch.triu(Xy[:m2, :m2].T)  # R[row, col] = Xy[col, lane=row]
+    return _solve_upper(R2, Xy[m2, :m2])
+
+
+@highest_precision()
+def lm_damped_step_blockdiag(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    res: torch.Tensor,
+    lam,
+):
+    """General multi-column lane-major damped Gauss–Newton step.
+
+    Solves ``min ‖[J; √λ·I] δ + [r; 0]‖`` for ``J = [blkdiag(left_i) |
+    right]`` with ``left [bl, bc, nb]`` (the per-point Jacobian block, point
+    axis last), ``right [bl, m2, nb]`` (the per-point rows of the dense right
+    block) and ``res [bl, nb]``; ``lam`` is a scalar (a 0-d tensor keeps it
+    on the device).  bc unrolled per-point Householder steps with trailing
+    updates on the block columns, right rows and rhs; the lane-pivoted
+    Householder QR of the skinny bottom panel; per-point bc×bc
+    back-substitution.  The damping rows are analytic: √λ·I_bc under each
+    block and √λ·I_m2 at the tail.
+
+    Returns ``(x1 [bc, nb], x2 [m2])``."""
+    bl, bc, nb = left.shape
+    m2 = right.shape[1]
+    dt, dev = left.dtype, left.device
+    if not isinstance(lam, torch.Tensor):
+        lam = torch.tensor(lam, dtype=dt, device=dev)
+    sl = torch.sqrt(lam.to(dt))
+
+    # damped block per point: a [br, bc, nb], br = bl + bc, damping rows √λ·I_bc
+    eye_damp = (sl * torch.eye(bc, dtype=dt, device=dev))[:, :, None].expand(bc, bc, nb)
+    a = torch.cat([left, eye_damp], dim=0)
+    B = torch.cat(
+        [
+            torch.cat([right, -res[:, None, :]], dim=1),
+            left.new_zeros((bc, m2 + 1, nb)),
+        ],
+        dim=0,
+    )  # [br, m2+1, nb]
+    br = bl + bc
+
+    r1_rows = []  # per-point rows of the bc×bc R1 (diagonal from beta)
+    for j in range(bc):
+        colj = a[:, j]  # [br, nb]
+        x0 = colj[j]
+        beta, c, degen = _reflector(x0, (colj[j + 1 :] * colj[j + 1 :]).sum(0))
+        u = torch.cat([left.new_zeros((j, nb)), (x0 - beta)[None], colj[j + 1 :]], dim=0)
+        # trailing update on block columns j+1.. and on [right | rhs]
+        if j + 1 < bc:
+            wA = c[None] * (u[:, None, :] * a[:, j + 1 :]).sum(0)
+            a = torch.cat([a[:, : j + 1], a[:, j + 1 :] - u[:, None, :] * wA[None]], dim=1)
+        wB = c[None] * (u[:, None, :] * B).sum(0)
+        B = B - u[:, None, :] * wB[None]
+        diag_j = torch.where(degen, x0, beta)
+        row = [left.new_zeros(nb)] * j + [diag_j] + [a[j, jj] for jj in range(j + 1, bc)]
+        r1_rows.append(torch.stack(row, dim=0))  # [bc, nb]
+    R1 = torch.stack(r1_rows, dim=0)  # [bc, bc, nb]
+
+    y1 = B[:bc, m2]  # [bc, nb]
+    r12 = B[:bc, :m2]  # [bc, m2, nb]
+
+    # bottom panel: complement rows + √λ·I_m2 tail, lane-major
+    comp = B[bc:].permute(1, 0, 2).reshape(m2 + 1, (br - bc) * nb)
+    tail = torch.cat(
+        [sl * torch.eye(m2, dtype=dt, device=dev), left.new_zeros((1, m2))], dim=0
+    )
+    Xy = torch.cat([comp, tail], dim=1)
+    x2 = _soa_tall_qr_solve(Xy[:m2], Xy[m2], m2)
+
+    # per-point bc×bc back-substitution through R1
+    rhs1 = y1 - (r12 * x2[None, :, None]).sum(1)  # [bc, nb]
+    x1_rows = [None] * bc
+    for j in range(bc - 1, -1, -1):
+        acc = rhs1[j]
+        for jj in range(j + 1, bc):
+            acc = acc - R1[j, jj] * x1_rows[jj]
+        x1_rows[j] = acc / R1[j, j]
+    return torch.stack(x1_rows, dim=0), x2
+
+
+def lm_damped_step_blockdiag1(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    res: torch.Tensor,
+    lam,
+) -> torch.Tensor:
+    """Single-column (bc = 1) lane-major damped LM step: ``left [bl, nb]``
+    (block i is ``left[:, i]``), ``right [bl, m2, nb]``, ``res [bl, nb]``;
+    returns the flat ``[nb + m2]`` step the LM drivers consume."""
+    x1, x2 = lm_damped_step_blockdiag(left[:, None, :], right, res, lam)
+    return torch.cat([x1[0], x2])

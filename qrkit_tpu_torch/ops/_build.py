@@ -56,6 +56,7 @@ _BLOCKDIAG_SIGNATURES = tuple(
     for dt in ("f32", "f64")
     for kind, args in (
         ("lstsq", (_PTR, _PTR, _PTR, _I64, _PTR)),
+        ("lstsq_opt", (_PTR,) * 6 + (_I64, _PTR)),
         ("qr_r", (_PTR, _PTR, _I64, _PTR)),
     )
 )
@@ -167,7 +168,7 @@ def load_banded() -> ctypes.CDLL:
 
 def launch(fn, lib, device, *args) -> None:
     """Call one ctypes launcher on the current stream of ``device`` (tensors
-    pass their data pointers, ints as they are) and raise on a non-zero
+    pass their data pointers, None a null pointer, ints as they are) and raise on a non-zero
     ``cudaGetLastError()``: a refused launch never runs, and a later
     synchronize would not report it."""
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

@@ -4,7 +4,9 @@ PyTorch versions.
 Counterpart of ``qrkit_tpu/ops/pallas_blockdiag.py``:
 
 * :func:`block_diagonal_lstsq_soa` ← ``pallas_block_diagonal_lstsq_soa``
-  (kernel ``_lstsq_kernel``): fused QR, Qᵀb and back-substitution per block.
+  (kernel ``_lstsq_kernel``): fused QR, Qᵀb and back-substitution per block,
+  with the ``b_scale`` (a device scalar multiplying x) and ``stepnorm``
+  (Σx² over every block) options.
 * :func:`block_diagonal_qr_r_soa` ← ``pallas_block_diagonal_qr_r_soa``
   (kernel ``_qr_r_kernel``): packed upper-triangular R per block.
 * :func:`block_diagonal_lstsq` / :func:`block_diagonal_qr_r` ← the AoS
@@ -24,6 +26,8 @@ tensors of shape ``[n]``, batched over blocks.  Each wrapper carries a
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
@@ -36,6 +40,7 @@ __all__ = [
 ]
 
 _MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in one thread's registers
+_THREADS = 256  # threads per CTA of the kernels (kThreads in the source)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -79,9 +84,16 @@ def _householder_inplace(a, rhs_list, br: int, bc: int) -> None:
                 rhs[r] = rhs[r] - u[r] * w
 
 
-def _lstsq_soa_plain(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
+def _lstsq_soa_plain(
+    a_soa: torch.Tensor,
+    b_soa: torch.Tensor,
+    b_scale: Optional[torch.Tensor] = None,
+    stepnorm: bool = False,
+):
     """Plain PyTorch version of the fused QR + LS-solve kernel:
-    ``a_soa [br*bc, n]``, ``b_soa [br, n]`` → ``x_soa [bc, n]``."""
+    ``a_soa [br*bc, n]``, ``b_soa [br, n]`` → ``x_soa [bc, n]``, multiplied
+    by ``b_scale`` after the back-substitution when given; with ``stepnorm``
+    returns ``(x_soa, Σ x²)``."""
     br = b_soa.shape[0]
     bc = a_soa.shape[0] // br
     a = [[a_soa[r * bc + c] for c in range(bc)] for r in range(br)]
@@ -93,7 +105,12 @@ def _lstsq_soa_plain(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
         for c in range(j + 1, bc):
             acc = acc - a[j][c] * x[c]
         x[j] = acc / a[j][j]
-    return torch.stack(x)
+    if b_scale is not None:
+        x = [xj * b_scale.reshape(()) for xj in x]
+    x = torch.stack(x)
+    if stepnorm:
+        return x, (x * x).sum()
+    return x
 
 
 def _qr_r_soa_plain(a_soa: torch.Tensor, br: int) -> torch.Tensor:
@@ -126,7 +143,12 @@ def _check_operand(a_soa: torch.Tensor, br: int) -> int:
     return bc
 
 
-def block_diagonal_lstsq_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.Tensor:
+def block_diagonal_lstsq_soa(
+    a_soa: torch.Tensor,
+    b_soa: torch.Tensor,
+    b_scale: Optional[torch.Tensor] = None,
+    stepnorm: bool = False,
+):
     """Fused per-block QR + least-squares solve on SoA operands.
 
     ``a_soa`` is ``[br*bc, n]``, ``b_soa`` is ``[br, n]``; returns ``x_soa
@@ -134,7 +156,12 @@ def block_diagonal_lstsq_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.
     are portrait (br >= bc) with br*bc <= 64, float32 or float64, and both
     operands contiguous on one device.  A CUDA tensor runs the CUDA kernel
     (built at first use) or raises; a CPU tensor runs the plain version.
-    The CUDA path takes tensors on ``cuda:0``."""
+    The CUDA path takes tensors on ``cuda:0``.
+
+    ``b_scale`` (a one-element tensor on the operands' device, never a host
+    float, so nothing waits for the device) solves for ``b_scale · b`` by
+    scaling x.  ``stepnorm=True`` returns ``(x_soa, Σ x²)`` with the sum over
+    every block reduced on the device (a 0-d tensor)."""
     if b_soa.dim() != 2:
         raise ValueError(f"b_soa must be [br, n], got {tuple(b_soa.shape)}")
     br, n = b_soa.shape
@@ -144,17 +171,37 @@ def block_diagonal_lstsq_soa(a_soa: torch.Tensor, b_soa: torch.Tensor) -> torch.
             f"a_soa {tuple(a_soa.shape)} {a_soa.dtype} {a_soa.device} and b_soa "
             f"{tuple(b_soa.shape)} {b_soa.dtype} {b_soa.device} do not match"
         )
+    if b_scale is not None and (
+        b_scale.numel() != 1 or b_scale.dtype != a_soa.dtype or b_scale.device != a_soa.device
+    ):
+        raise ValueError(
+            f"b_scale must be one {a_soa.dtype} value on {a_soa.device}, got "
+            f"{tuple(b_scale.shape)} {b_scale.dtype} {b_scale.device}"
+        )
     if a_soa.device.type == "cpu":
-        return _lstsq_soa_plain(a_soa, b_soa)
+        return _lstsq_soa_plain(a_soa, b_soa, b_scale, stepnorm)
     if not (a_soa.is_contiguous() and b_soa.is_contiguous()):
         raise ValueError("a_soa and b_soa must be contiguous")
     x = torch.empty((bc, n), dtype=a_soa.dtype, device=a_soa.device)
     if n == 0:
-        return x
+        return (x, x.new_zeros(())) if stepnorm else x
     lib = _build.load(br, bc)
-    _build.launch(getattr(lib, f"qrk_blockdiag_lstsq_{_SUFFIX[a_soa.dtype]}"), lib, x.device, a_soa, b_soa, x, n)
+    dt = _SUFFIX[a_soa.dtype]
+    sn = None
+    if b_scale is None and not stepnorm:
+        _build.launch(getattr(lib, f"qrk_blockdiag_lstsq_{dt}"), lib, x.device, a_soa, b_soa, x, n)
+    else:
+        partials = None
+        if stepnorm:  # the finish kernel writes sn
+            partials = torch.empty(-(-n // _THREADS), dtype=a_soa.dtype, device=a_soa.device)
+            sn = torch.empty((), dtype=a_soa.dtype, device=a_soa.device)
+        scale = b_scale.reshape(1).contiguous() if b_scale is not None else None
+        _build.launch(
+            getattr(lib, f"qrk_blockdiag_lstsq_opt_{dt}"), lib, x.device, a_soa, b_soa, x,
+            scale, partials, sn, n,
+        )
     block_diagonal_lstsq_soa.launches += 1
-    return x
+    return (x, sn) if stepnorm else x
 
 
 block_diagonal_lstsq_soa.launches = 0

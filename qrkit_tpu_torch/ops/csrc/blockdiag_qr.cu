@@ -2,8 +2,10 @@
 // solve and packed-R factorization of a block-diagonal system.
 //
 // Replaces the Pallas TPU kernels in qrkit_tpu/ops/pallas_blockdiag.py:
-//   blockdiag_lstsq_kernel  <- _lstsq_kernel (:154-226), SoA form without the
-//                              b_scale / stepnorm / b_delta options
+//   blockdiag_lstsq_kernel  <- _lstsq_kernel (:154-226), SoA form with the
+//                              b_scale and stepnorm options (no b_delta)
+//   stepnorm_finish_kernel  <- the stepnorm accumulation across grid steps
+//                              (the TPU kernel's SMEM scalar, :213-224)
 //   blockdiag_qr_r_kernel   <- _qr_r_kernel (:443-453)
 //   householder_inplace     <- _householder_inplace (:108-151), the shared
 //                              unrolled recurrence
@@ -24,6 +26,18 @@
 // ~20 fp32 flops/byte), so the kernels do no more than read each input once
 // and write each output once.  Wider loads and several blocks per thread
 // are later work.
+//
+// Options (template flags, so the plain instantiation is the code it was):
+//   SCALED    x is multiplied by *scale, a device scalar read by every thread
+//             (never a host float: no host sync); by linearity that is the
+//             solution for scale * b.  Applied after the back substitution,
+//             as the TPU kernel does.
+//   STEPNORM  sum of x^2 over every block: each thread sums its block's
+//             (scaled) x_j^2, the CTA reduces them (warp shuffles, then one
+//             value per warp in shared memory) into partials[blockIdx.x],
+//             and stepnorm_finish_kernel adds the partials in a fixed order
+//             (no atomics: the same inputs give the same bits).  Threads past
+//             the ragged edge contribute exactly 0.
 //
 // Numerics: true division and sqrt (no --use_fast_math), and the build turns
 // off FMA contraction (--fmad=false) so every multiply and add rounds on its
@@ -103,29 +117,80 @@ __device__ __forceinline__ void load_block(const T* __restrict__ a, int64_t n, i
     for (int c = 0; c < BC; ++c) m[r][c] = a[(int64_t)(r * BC + c) * n + k];
 }
 
-template <typename T, int BR, int BC>
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+template <typename T, int BR, int BC, bool SCALED = false, bool STEPNORM = false>
 __global__ void __launch_bounds__(kThreads)
 blockdiag_lstsq_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ x,
-                       int64_t n) {
+                       int64_t n, const T* __restrict__ scale = nullptr,
+                       T* __restrict__ partials = nullptr) {
   const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (k >= n) return;
-  T m[BR][BC];
-  T rhs[BR];
-  load_block<T, BR, BC>(a, n, k, m);
-#pragma unroll
-  for (int r = 0; r < BR; ++r) rhs[r] = b[(int64_t)r * n + k];
-  householder_inplace<T, BR, BC, true>(m, rhs);
-  // back substitution on the BC x BC upper triangle
-  T xs[BC];
-#pragma unroll
-  for (int j = BC - 1; j >= 0; --j) {
-    T acc = rhs[j];
-#pragma unroll
-    for (int c = j + 1; c < BC; ++c) acc = acc - m[j][c] * xs[c];
-    xs[j] = acc / m[j][j];
+  if constexpr (!STEPNORM) {
+    if (k >= n) return;
   }
+  T sq = T(0);  // this block's sum of x_j^2 (STEPNORM only)
+  if (k < n) {
+    T m[BR][BC];
+    T rhs[BR];
+    load_block<T, BR, BC>(a, n, k, m);
 #pragma unroll
-  for (int j = 0; j < BC; ++j) x[(int64_t)j * n + k] = xs[j];
+    for (int r = 0; r < BR; ++r) rhs[r] = b[(int64_t)r * n + k];
+    householder_inplace<T, BR, BC, true>(m, rhs);
+    // back substitution on the BC x BC upper triangle
+    T xs[BC];
+#pragma unroll
+    for (int j = BC - 1; j >= 0; --j) {
+      T acc = rhs[j];
+#pragma unroll
+      for (int c = j + 1; c < BC; ++c) acc = acc - m[j][c] * xs[c];
+      xs[j] = acc / m[j][j];
+    }
+    if constexpr (SCALED) {
+      const T s = *scale;
+#pragma unroll
+      for (int j = 0; j < BC; ++j) xs[j] = xs[j] * s;
+    }
+#pragma unroll
+    for (int j = 0; j < BC; ++j) x[(int64_t)j * n + k] = xs[j];
+    if constexpr (STEPNORM) {
+#pragma unroll
+      for (int j = 0; j < BC; ++j) sq = sq + xs[j] * xs[j];
+    }
+  }
+  if constexpr (STEPNORM) {
+    __shared__ T warp_part[kThreads / 32];
+    sq = warp_sum(sq);
+    if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = sq;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      T v = threadIdx.x < kThreads / 32 ? warp_part[threadIdx.x] : T(0);
+      v = warp_sum(v);
+      if (threadIdx.x == 0) partials[blockIdx.x] = v;
+    }
+  }
+}
+
+// One CTA adds the per-CTA partials of the step norm: thread t sums
+// partials t, t + kThreads, ... in order, then the CTA reduces as above.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stepnorm_finish_kernel(const T* __restrict__ partials, int64_t nparts, T* __restrict__ out) {
+  __shared__ T warp_part[kThreads / 32];
+  T v = T(0);
+  for (int64_t i = threadIdx.x; i < nparts; i += kThreads) v = v + partials[i];
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    T w = threadIdx.x < kThreads / 32 ? warp_part[threadIdx.x] : T(0);
+    w = warp_sum(w);
+    if (threadIdx.x == 0) *out = w;
+  }
 }
 
 template <typename T, int BR, int BC>
@@ -151,6 +216,31 @@ cudaError_t launch_lstsq(const T* a, const T* b, T* x, int64_t n, cudaStream_t s
   return cudaGetLastError();
 }
 
+// The options: scale may be null (no b_scale); partials and sn_out are both
+// null (no stepnorm) or both set, partials holding ceil(n / kThreads) values.
+template <typename T>
+cudaError_t launch_lstsq_opt(const T* a, const T* b, T* x, const T* scale, T* partials,
+                             T* sn_out, int64_t n, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  const bool scaled = scale != nullptr, stepnorm = partials != nullptr;
+  if (scaled && stepnorm) {
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, true, true>
+        <<<grid, kThreads, 0, stream>>>(a, b, x, n, scale, partials);
+  } else if (scaled) {
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, true, false>
+        <<<grid, kThreads, 0, stream>>>(a, b, x, n, scale, nullptr);
+  } else if (stepnorm) {
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, false, true>
+        <<<grid, kThreads, 0, stream>>>(a, b, x, n, nullptr, partials);
+  } else {
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC><<<grid, kThreads, 0, stream>>>(a, b, x, n);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !stepnorm) return err;
+  stepnorm_finish_kernel<T><<<1, kThreads, 0, stream>>>(partials, (int64_t)grid, sn_out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_qr_r(const T* a, T* r_out, int64_t n, cudaStream_t stream) {
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
@@ -161,9 +251,10 @@ cudaError_t launch_qr_r(const T* a, T* r_out, int64_t n, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/blockdiag.py).  Each launcher
-// enqueues one kernel on the caller's stream, does not synchronize, and
-// returns cudaGetLastError() (0 on success).  n >= 1; the caller allocates
-// every buffer.
+// enqueues one kernel on the caller's stream (the lstsq_opt launcher with
+// stepnorm a second, the finish kernel), does not synchronize, and returns
+// cudaGetLastError() (0 on success).  n >= 1; the caller allocates every
+// buffer.
 extern "C" {
 
 int qrk_blockdiag_lstsq_f32(const float* a, const float* b, float* x, int64_t n,
@@ -174,6 +265,17 @@ int qrk_blockdiag_lstsq_f32(const float* a, const float* b, float* x, int64_t n,
 int qrk_blockdiag_lstsq_f64(const double* a, const double* b, double* x, int64_t n,
                             cudaStream_t stream) {
   return (int)launch_lstsq<double>(a, b, x, n, stream);
+}
+
+int qrk_blockdiag_lstsq_opt_f32(const float* a, const float* b, float* x, const float* scale,
+                                float* partials, float* sn_out, int64_t n, cudaStream_t stream) {
+  return (int)launch_lstsq_opt<float>(a, b, x, scale, partials, sn_out, n, stream);
+}
+
+int qrk_blockdiag_lstsq_opt_f64(const double* a, const double* b, double* x, const double* scale,
+                                double* partials, double* sn_out, int64_t n,
+                                cudaStream_t stream) {
+  return (int)launch_lstsq_opt<double>(a, b, x, scale, partials, sn_out, n, stream);
 }
 
 int qrk_blockdiag_qr_r_f32(const float* a, float* r_out, int64_t n, cudaStream_t stream) {

@@ -1,0 +1,662 @@
+"""Block-angular ``[A1 | A2]`` QR: solver composition, on torch tensors.
+
+Counterpart of ``qrkit_tpu/solvers/block_angular.py`` (``_RowSubsetQR``,
+``BlockAngularQR``), the reference's ``BlockAngularSparseQR``
+(``BlockAngularSparseQR.h:79-514``) as object composition over the
+:class:`~qrkit_tpu_torch.solvers.base.QRSolver` protocol:
+
+1. left.compute(A1)
+2. J2 ← Q1ᵀ (P_row_left · A2), one implicit-Q matrix product
+3. right.compute(J2[m1:])
+4. R = [[R1, J2top·P2], [0, R2]], assembled lazily
+5. column and row permutations composed from both sub-solvers
+
+Q is never formed: ``apply_qt`` runs Q1ᵀ, then (P_r2, Q2ᵀ) on the bottom
+rows; ``apply_q`` the reverse.  ``solve`` eliminates the right block first,
+then back-substitutes through the left solver's structured R.
+
+The flagship stack (``BlockDiagonalQR`` FULL_Q non-pivoting left, dense
+right, dense A2) runs the fused programs of
+:mod:`~qrkit_tpu_torch.solvers.block_angular_fused`; the lane-major one
+when the caller hands SoA left blocks or a transposed A2.  Other stacks run
+the generic composition, where a ``BlockDiagonalQR`` left on a CUDA operand
+factors with kernel B2 and a ``BandedBlockedQR`` left with kernel B5.  A
+sparse A2 with a block-diagonal left stays sparse
+(:meth:`BlockAngularQR._solve_right_block_sparse`); with a banded left it
+needs ``sparse_apply.py`` (slice 4 of the port).  The ``mesh=`` paths are
+slice 4 too.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..containers import BlockDiagonal, BlockMatrix1x2
+from ..ops.householder import highest_precision
+from ..sparse import Permutation, SparseCSR
+from .banded_blocked import BandedBlockedQR
+from .base import ComputationInfo, QRSolver, _diag_health
+from .block_angular_fused import (
+    _inverse_perm,
+    fused_dense_compute,
+    fused_dense_compute_solve,
+    fused_dense_solve,
+    fused_soa_compute,
+    fused_soa_compute_solve,
+    fused_soa_solve,
+)
+from .block_diagonal import BlockDiagonalQR, QFormat
+from .dense import DenseColPivQR, DenseHouseholderQR
+from .segmented_banded import SegmentedBandedQR
+
+__all__ = ["BlockAngularQR"]
+
+
+def _to_device_dense(block, device, dtype) -> torch.Tensor:
+    """A dense tensor of ``block`` (host SparseCSR, NumPy or tensor); a
+    tensor stays where it is."""
+    if isinstance(block, torch.Tensor):
+        return block
+    if isinstance(block, SparseCSR):
+        block = block.to_dense()
+    return torch.as_tensor(block, device=device, dtype=dtype)
+
+
+class _RowSubsetQR(QRSolver):
+    """Adapter factoring only the structurally nonzero rows of a sparse
+    matrix.
+
+    The QR of a matrix whose other rows are all zero is the QR of the
+    nonzero rows with an identity Q on the zero rows; the row permutation
+    moving the nonzero rows first is reported through
+    ``rows_permutation()``.  Peak inner memory is O(nnz-rows × cols).  The
+    pattern-only bookkeeping is cached across computes on one sparsity (the
+    LM pattern)."""
+
+    def __init__(self, inner: QRSolver, plan_cache: Optional[dict] = None, *, device=None,
+                 dtype=None):
+        self.inner = inner
+        self._plan_cache = plan_cache if plan_cache is not None else {}
+        self.device, self.dtype = device, dtype
+
+    @property
+    def _health_check_zero_pivot(self):
+        return self.inner._health_check_zero_pivot
+
+    @property
+    def rows(self) -> int:
+        return self._nbot
+
+    @property
+    def cols(self) -> int:
+        return self._n
+
+    @property
+    def rank(self) -> int:
+        return self.inner.rank
+
+    def compute(self, mat: SparseCSR) -> "_RowSubsetQR":
+        nbot, n = mat.shape
+        fp = ("rowsubset", mat.pattern_fingerprint(), nbot, n)
+        plan = self._plan_cache.get("rowsubset")
+        if plan is None or plan["fp"] != fp:
+            row_nnz = np.diff(mat.indptr)
+            nz = np.nonzero(row_nnz > 0)[0]
+            if nz.size < n:  # keep the inner problem portrait
+                extra = np.setdiff1d(np.arange(nbot), nz)[: n - nz.size]
+                nz = np.sort(np.concatenate([nz, extra]))
+            rest = np.setdiff1d(np.arange(nbot), nz)
+            k = int(nz.size)
+            dest = np.empty(nbot, dtype=np.int64)
+            dest[nz] = np.arange(k)
+            dest[rest] = k + np.arange(rest.size)
+            # gather for the dense copy of just the selected rows
+            counts = row_nnz[nz]
+            total = int(counts.sum())
+            starts = np.concatenate([[0], np.cumsum(counts[:-1])]) if k else np.zeros(0, np.int64)
+            pos = np.arange(total) - np.repeat(starts, counts)
+            g = np.repeat(mat.indptr[:-1][nz], counts) + pos
+            plan = {
+                "fp": fp,
+                "k": k,
+                "rows_perm": Permutation(dest),
+                "g": g,
+                "sub_r": np.repeat(np.arange(k), counts),
+                "sub_c": mat.indices[g],
+            }
+            self._plan_cache["rowsubset"] = plan
+        k = plan["k"]
+        self._nbot, self._n, self._k = nbot, n, k
+        self._rows_perm = plan["rows_perm"]
+        # per-compute work: one O(nnz) value scatter through the cached gather
+        sub = np.zeros((k, n), dtype=mat.data.dtype if mat.nnz else np.float64)
+        sub[plan["sub_r"], plan["sub_c"]] = mat.data[plan["g"]]
+        self.inner.compute(torch.as_tensor(sub, device=self.device, dtype=self.dtype))
+        # hand the inner health flag on unread: reading it here would make
+        # every compute wait for the device
+        self._info = self.inner._info
+        self._health = self.inner._health
+        self.inner._health = None
+        return self
+
+    def apply_qt(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.inner.apply_qt(v[: self._k]), v[self._k :]], dim=0)
+
+    def apply_q(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.inner.apply_q(v[: self._k]), v[self._k :]], dim=0)
+
+    def matrix_r_dense(self) -> torch.Tensor:
+        r = self.inner.matrix_r_dense()
+        return torch.cat([r, r.new_zeros((self._nbot - self._k, self._n))], dim=0)
+
+    def r_diagonal(self) -> torch.Tensor:
+        return self.inner.r_diagonal()
+
+    def solve_r(self, y: torch.Tensor) -> torch.Tensor:
+        return self.inner.solve_r(y)
+
+    def cols_permutation(self) -> Permutation:
+        return self.inner.cols_permutation()
+
+    def rows_permutation(self) -> Permutation:
+        return self._rows_perm
+
+
+class BlockAngularQR(QRSolver):
+    """QR of ``[A1 | A2]`` parameterized by left and right sub-solvers.
+
+    ``left_solver`` factors A1 (the structured part); ``right_solver``
+    factors the bottom rows of ``Q1ᵀA2``.  Any :class:`QRSolver` works on
+    either side.  ``mesh=`` (distributing the composition glue) is slice 4
+    of the port and raises."""
+
+    def __init__(self, left_solver: QRSolver, right_solver: QRSolver, mesh=None, axis: str = "dp"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "BlockAngularQR(mesh=...) is slice 4 of the port (torch.distributed); "
+                "use mesh=None"
+            )
+        self.left = left_solver
+        self.right = right_solver
+        self.mesh = None
+        self.axis = axis
+        # pattern bookkeeping shared across computes on one sparsity (LM
+        # refactorizes one structure per iteration)
+        self._plan_cache: dict = {}
+
+    @property
+    def rows(self) -> int:
+        return self._n1
+
+    @property
+    def cols(self) -> int:
+        return self._m1 + self._m2
+
+    @property
+    def rank(self) -> int:
+        self._ensure_children_fused()
+        return self.left.rank + self.right.rank
+
+    def _compute_preamble(self, mat: BlockMatrix1x2) -> bool:
+        # the left block should be the bigger one (BlockAngularSparseQR.h:434)
+        if not mat.left_cols > mat.right_cols:
+            raise ValueError(
+                f"the left block must have more columns than the right "
+                f"({mat.left_cols} vs {mat.right_cols})"
+            )
+        self._m1, self._m2, self._n1 = mat.left_cols, mat.right_cols, mat.left_rows
+        self._device = self._home(mat)[0]
+        self._r12_coo = None
+        self._fused_dense = False
+        self._fused_soa = False
+        if isinstance(self.right, _RowSubsetQR):  # recompute: unwrap
+            self.right = self.right.inner
+        return isinstance(mat.right, SparseCSR)
+
+    def _home(self, mat: BlockMatrix1x2):
+        """(device, dtype) of the composite's dense operands: the left
+        container's, else a tensor A2's, else the left solver's."""
+        if isinstance(mat.left, (BlockDiagonal, torch.Tensor)):
+            return mat.left.device, mat.left.dtype
+        if isinstance(mat.right, torch.Tensor):
+            return mat.right.device, mat.right.dtype
+        return (getattr(self.left, "device", torch.device("cpu")),
+                getattr(self.left, "dtype", torch.float64))
+
+    def _uses_fused_soa(self, mat: BlockMatrix1x2, sparse_a2: bool) -> bool:
+        """Lane-major fused path gate: the caller handed lane-major storage
+        (SoA left blocks or a transposed right block) for the fused dense
+        stack."""
+        return (
+            not sparse_a2
+            and (getattr(mat.left, "is_soa", False) or mat.right_t)
+            and self._uses_fused_dense(mat)
+        )
+
+    def _soa_inputs(self, mat: BlockMatrix1x2):
+        lm = mat.left
+        a_in = lm.soa() if lm.is_soa else lm.blocks
+        a2_in = mat.right if mat.right_t else _to_device_dense(mat.right, *self._home(mat))
+        return a_in, a2_in, lm.block_rows, lm.block_cols
+
+    def _adopt_soa_outputs(self, mat: BlockMatrix1x2, out, colpiv: bool):
+        (self._sU1, self._sc1, self._sR1, self._sj2t, self._sU2,
+         self._sc2, self._sR2, self._fused_perm2, self._sr12t, health) = out
+        self._fused_soa = True
+        self._fused_colpiv = colpiv
+        self._soa_children = False
+        self._soa_mat = mat
+        self._r12 = None
+        self._cols_perm = None
+        self._solve_gather = None
+        self._rows_perm = Permutation.identity(self._n1)
+        self._info = ComputationInfo.SUCCESS
+        self._health = health
+
+    def compute_solve(self, mat: BlockMatrix1x2, b: torch.Tensor) -> torch.Tensor:
+        """Factorize + least-squares solve in one call, leaving the solver
+        fully computed as after :meth:`compute`.  On the fused stacks the
+        factorize and the solve run back to back with no host
+        synchronization; other stacks run ``compute(mat)`` then ``solve(b)``."""
+        sparse_a2 = self._compute_preamble(mat)
+        colpiv = isinstance(self.right, DenseColPivQR)
+        if self._uses_fused_soa(mat, sparse_a2):
+            a_in, a2_in, br, bc = self._soa_inputs(mat)
+            out = fused_soa_compute_solve(
+                a_in, a2_in, b, br=br, bc=bc, colpiv=colpiv,
+                aos=not mat.left.is_soa, a2_aos=not mat.right_t,
+            )
+            self._adopt_soa_outputs(mat, out[:-1], colpiv)
+            return out[-1]
+        if not sparse_a2 and self._uses_fused_dense(mat):
+            a2 = _to_device_dense(mat.right, *self._home(mat))
+            out = fused_dense_compute_solve(
+                mat.left.blocks, a2, b, bc=mat.left.block_cols, colpiv=colpiv
+            )
+            self._adopt_dense_outputs(mat, out[:-1], colpiv)
+            return out[-1]
+        self.compute(mat)
+        return self.solve(b)
+
+    def _adopt_dense_outputs(self, mat: BlockMatrix1x2, out, colpiv: bool):
+        (Q, R, j2_top, Y2, T2, R2, perm2, r12, h1, h2) = out
+        self.left._adopt_factors(mat.left, Q, R, h1)
+        nbot = self._n1 - self._m1
+        if colpiv:
+            self.right._adopt_factors(nbot, self._m2, Y2, T2, R2, h2, perm_dev=perm2)
+        else:
+            self.right._adopt_factors(nbot, self._m2, Y2, T2, R2, h2)
+        self._j2_top = j2_top
+        self._r12 = r12
+        self._fused_dense = True
+        self._fused_colpiv = colpiv
+        self._fused_perm2 = perm2
+        self._cols_perm = None
+        self._solve_gather = None
+        self._rows_perm = Permutation.identity(self._n1)
+        self._set_success()
+
+    def compute(self, mat: BlockMatrix1x2) -> "BlockAngularQR":
+        sparse_a2 = self._compute_preamble(mat)
+        colpiv = isinstance(self.right, DenseColPivQR)
+        if self._uses_fused_soa(mat, sparse_a2):
+            a_in, a2_in, br, bc = self._soa_inputs(mat)
+            out = fused_soa_compute(
+                a_in, a2_in, br=br, bc=bc, colpiv=colpiv,
+                aos=not mat.left.is_soa, a2_aos=not mat.right_t,
+            )
+            self._adopt_soa_outputs(mat, out, colpiv)
+            return self
+        # the flagship dense-A2 stack: steps 1-5 in one fused program, the
+        # children filled from its outputs
+        if not sparse_a2 and self._uses_fused_dense(mat):
+            a2 = _to_device_dense(mat.right, *self._home(mat))
+            out = fused_dense_compute(mat.left.blocks, a2, bc=mat.left.block_cols, colpiv=colpiv)
+            self._adopt_dense_outputs(mat, out, colpiv)
+            return self
+
+        # 1) left factorization
+        self.left.compute(mat.left)
+
+        # 2+3) J2 = Q1ᵀ (P_row_left A2); the right solver factors the bottom
+        # rows.  A sparse A2 with a block-diagonal left keeps J2 sparse.
+        if sparse_a2 and self._left_supports_sparse_a2():
+            j2_bot = self._solve_right_block_sparse(mat.right)
+        elif sparse_a2 and self._left_supports_chunked_sparse_a2():
+            j2_bot = self._solve_right_block_sparse_chunked(mat.right)
+        else:
+            j2_bot = None
+        if j2_bot is not None:
+            device, dtype = self._home(mat)
+            self.right = _RowSubsetQR(
+                self.right, plan_cache=self._plan_cache, device=device, dtype=dtype
+            )
+            self.right.compute(j2_bot)
+            # old col → new col position, on the device when the right
+            # solver kept its pivot order there (DenseColPivQR)
+            pd = self._right_perm_dev()
+            top_cols = torch.as_tensor(self._top_cols, device=device)
+            if pd is not None:
+                cols12 = _inverse_perm(pd)[top_cols]
+            else:
+                inv_s2 = self.right.cols_permutation().inverse().indices
+                cols12 = torch.as_tensor(inv_s2[self._top_cols], device=device)
+            self._r12_coo = (self._top_rows_dev, cols12, self._top_vals_dev)
+            self._r12 = None
+        else:
+            a2 = _to_device_dense(mat.right, *self._home(mat))
+            lperm = self.left.rows_permutation()
+            if not lperm.is_identity():
+                a2 = a2[torch.as_tensor(lperm.gather_indices(), device=a2.device)]
+            j2 = self.left.apply_qt(a2)
+            self._j2_top = j2[: self._m1]
+            self.right.compute(j2[self._m1 :])
+            # R's top-right block in the right solver's column order (the
+            # device pivot order when there is one: no host fetch)
+            pd = self._right_perm_dev()
+            sigma2 = pd if pd is not None else torch.as_tensor(
+                self.right.cols_permutation().indices, device=j2.device
+            )
+            self._r12 = self._j2_top[:, sigma2]
+
+        # 5) composed permutations: the host composition needs the right
+        # solver's pivot order from the device, so it waits for the first
+        # cols_permutation(); solve() gathers on the device instead
+        self._cols_perm = None
+        self._solve_gather = None
+        rp = np.arange(self._n1, dtype=np.int64)
+        rp[: self.left.rows] = self.left.rows_permutation().indices
+        self._rows_perm = Permutation(rp)
+        self._set_success()
+        return self
+
+    def _right_perm_dev(self):
+        """The right solver's pivot order as a device tensor when it kept one
+        (:class:`DenseColPivQR`); None otherwise."""
+        r = self.right.inner if isinstance(self.right, _RowSubsetQR) else self.right
+        return getattr(r, "_perm_dev", None)
+
+    def _uses_fused_dense(self, mat: BlockMatrix1x2) -> bool:
+        """Gate of the fused dense-A2 program: the flagship reference stack
+        (``BlockDiagonalSparseQR`` left + dense QR right) with portrait
+        blocks, no zero-column tail and enough bottom rows for the right QR."""
+        lm = mat.left
+        return (
+            type(self.left) is BlockDiagonalQR
+            and isinstance(lm, BlockDiagonal)
+            and not self.left.pivot
+            and self.left.q_format == QFormat.FULL_Q
+            and type(self.right) in (DenseColPivQR, DenseHouseholderQR)
+            and lm.block_rows >= lm.block_cols
+            and lm.ncols == lm.num_blocks * lm.block_cols
+            and (lm.nrows - lm.ncols) >= mat.right_cols
+        )
+
+    def _left_supports_sparse_a2(self) -> bool:
+        return (
+            isinstance(self.left, BlockDiagonalQR)
+            and self.left.q_format == QFormat.FULL_Q
+            # complement rows must all land in the bottom block
+            and self.left.cols == self.left._nb * self.left._bc
+        )
+
+    def _left_supports_chunked_sparse_a2(self) -> bool:
+        return isinstance(self.left, (BandedBlockedQR, SegmentedBandedQR))
+
+    def _a2_cache_key(self, a2: SparseCSR):
+        lperm = self.left.rows_permutation()
+        ph = None if lperm.is_identity() else hash(lperm.indices.tobytes())
+        return (a2.pattern_fingerprint(), a2.shape, ph)
+
+    def _solve_right_block_sparse(self, a2: SparseCSR) -> SparseCSR:
+        """Sparse solveRightBlock for a block-diagonal left solver.
+
+        Gathers A2's nonzeros into per-(block, column) dense slabs [K, br],
+        applies the per-block Qᵀ as one batched product on the device, and
+        scatters the economy rows into a device-COO J2-top (O(nnz·br) memory
+        instead of O(n1·m2)) and the complement and tail rows into a host CSR
+        for the right solver (the reference's sparse QProduct +
+        solveRightBlock, BlockAngularSparseQR.h:383-397).  All bookkeeping
+        but the values is pattern-only and cached under the A2 fingerprint."""
+        left = self.left
+        left._ensure_dense_factors()  # the kernel tier keeps Q implicit
+        nb, br, bc = left._nb, left._br, left._bc
+        m1, n1 = self._m1, self._n1
+        dev = left.Q.device
+        key = ("blockdiag_a2",) + self._a2_cache_key(a2) + (nb, br, bc)
+        plan = self._plan_cache.get("blockdiag_a2")
+        if plan is None or plan["key"] != key:
+            lperm = left.rows_permutation()
+            row_ids = np.repeat(np.arange(a2.nrows), np.diff(a2.indptr))
+            if not lperm.is_identity():
+                row_ids = lperm.indices[row_ids]  # P*A2 scatters rows
+            cols = a2.indices
+            body = row_ids < nb * br
+            b_of = row_ids[body] // br
+            r_of = row_ids[body] % br
+            keys = b_of * a2.ncols + cols[body]
+            uniq, inv = np.unique(keys, return_inverse=True)
+            pair_b = (uniq // a2.ncols).astype(np.int64)
+            pair_c = (uniq % a2.ncols).astype(np.int64)
+            top_rows = (pair_b[:, None] * bc + np.arange(bc)).reshape(-1)
+            comp_w = br - bc
+            comp_rows = (nb * bc + pair_b[:, None] * comp_w + np.arange(comp_w)).reshape(-1) - m1
+            bot_rows = np.concatenate([comp_rows, row_ids[~body] - m1])
+            bot_cols = np.concatenate([np.repeat(pair_c, comp_w), cols[~body]])
+            # the bottom (row, col) pairs are distinct by construction, so the
+            # CSR build is one cached lexsort applied to the value vector
+            order = np.lexsort((bot_cols, bot_rows))
+            indptr = np.zeros(n1 - m1 + 1, dtype=np.int64)
+            np.add.at(indptr, bot_rows + 1, 1)
+            plan = {
+                "key": key,
+                "K": int(uniq.size),
+                "w_scatter": inv.reshape(-1) * br + r_of,
+                "body_pos": np.nonzero(body)[0],
+                "tail_pos": np.nonzero(~body)[0],
+                "pair_b_dev": torch.as_tensor(pair_b, device=dev),
+                "top_rows_dev": torch.as_tensor(top_rows, device=dev),
+                "top_cols": np.repeat(pair_c, bc),
+                "bot_order": order,
+                "bot_indptr": np.cumsum(indptr),
+                "bot_indices": bot_cols[order],
+            }
+            self._plan_cache["blockdiag_a2"] = plan
+
+        vals = a2.data
+        W = np.zeros((plan["K"], br), dtype=vals.dtype if vals.size else np.float64)
+        W.reshape(-1)[plan["w_scatter"]] = vals[plan["body_pos"]]
+        # one batched per-pair Qᵀ·w on the device, in full precision
+        with highest_precision():
+            QtW = (
+                left.Q[plan["pair_b_dev"]].mT
+                @ torch.as_tensor(W, device=dev, dtype=left.Q.dtype)[:, :, None]
+            )[..., 0]  # [K, br]
+
+        # economy rows → J2 top (device COO, FULL_Q coordinates b*bc + i)
+        self._top_rows_dev = plan["top_rows_dev"]
+        self._top_cols = plan["top_cols"]
+        self._top_vals_dev = QtW[:, :bc].reshape(-1)
+        # complement rows → J2 bottom; A1's zero tail rows pass Q1ᵀ unchanged
+        comp_vals = QtW[:, bc:].reshape(-1).cpu().numpy()
+        bot_vals = np.concatenate([comp_vals, vals[plan["tail_pos"]]])
+        return SparseCSR(
+            (n1 - m1, self._m2), plan["bot_indptr"], plan["bot_indices"], bot_vals[plan["bot_order"]]
+        )
+
+    def _solve_right_block_sparse_chunked(self, a2: SparseCSR) -> SparseCSR:
+        """The keep-sparse solveRightBlock for a banded or segmented left
+        solver needs the fused sparse applies of ``sparse_apply.py``."""
+        raise NotImplementedError(
+            "a sparse A2 with a banded left solver needs sparse_apply.py, slice 4 of the "
+            "port; pass A2 dense"
+        )
+
+    def _ensure_children_fused(self) -> None:
+        """Fill the sub-solver objects from the lane-major factorization,
+        only for the protocol surfaces that need the children's explicit
+        factors (applies, solve_r, exports): runs the dense fused program
+        once on the kept input containers.  compute, solve, r_diagonal and
+        info never call this."""
+        if not getattr(self, "_fused_soa", False) or self._soa_children:
+            return
+        mat = self._soa_mat
+        a2 = mat.right.T if mat.right_t else _to_device_dense(mat.right, *self._home(mat))
+        out = fused_dense_compute(mat.left.blocks, a2, bc=mat.left.block_cols, colpiv=self._fused_colpiv)
+        self._adopt_dense_outputs(mat, out, self._fused_colpiv)
+        self._soa_children = True
+
+    def r_diagonal(self) -> torch.Tensor:
+        """diag(R) of the composite = [diag(R1) | diag(R2)]."""
+        if getattr(self, "_fused_soa", False) and not self._soa_children:
+            # diagonal over (0, 1) puts the diagonal axis last: [N, bc]
+            d1 = torch.diagonal(self._sR1, dim1=0, dim2=1).reshape(-1)
+            return torch.cat([d1[: self._m1], torch.diagonal(self._sR2)[: self._m2]])
+        return torch.cat(
+            [self.left.r_diagonal()[: self._m1], self.right.r_diagonal()[: self._m2]]
+        )
+
+    def _set_success(self, health=None):
+        """Composite health with each child's own zero-pivot semantics (a
+        rank-revealing right solver's deficiency is no numerical issue; a
+        non-pivoting left solver's zero pivot is): the flags each child's
+        compute left on the device, combined there."""
+        self._info = ComputationInfo.SUCCESS
+
+        def child_health(c, ncols):
+            h = getattr(c, "_health", None)
+            if h is not None:
+                return h
+            return _diag_health(c.r_diagonal()[:ncols], check_zero=c._health_check_zero_pivot)
+
+        self._health = child_health(self.left, self._m1) & child_health(self.right, self._m2)
+
+    # --- implicit Q (BlockAngularSparseQR.h:532-649) ------------------------------
+    def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
+        self._ensure_children_fused()
+        vec = m.dim() == 1
+        m2d = m[:, None] if vec else m
+        top = self.left.apply_qt(m2d)
+        bottom = top[self._m1 :]
+        rperm = self.right.rows_permutation()
+        if not rperm.is_identity():
+            bottom = bottom[torch.as_tensor(rperm.gather_indices(), device=bottom.device)]
+        out = torch.cat([top[: self._m1], self.right.apply_qt(bottom)], dim=0)
+        return out[:, 0] if vec else out
+
+    def apply_q(self, m: torch.Tensor) -> torch.Tensor:
+        self._ensure_children_fused()
+        vec = m.dim() == 1
+        m2d = m[:, None] if vec else m
+        bottom = self.right.apply_q(m2d[self._m1 :])
+        rperm = self.right.rows_permutation()
+        if not rperm.is_identity():
+            # undo the row permutation applied in apply_qt
+            bottom = bottom[torch.as_tensor(rperm.indices, device=bottom.device)]
+        out = self.left.apply_q(torch.cat([m2d[: self._m1], bottom], dim=0))
+        return out[:, 0] if vec else out
+
+    # --- R ------------------------------------------------------------------------
+    def matrix_r_dense(self) -> torch.Tensor:
+        self._ensure_children_fused()
+        m1, m2, n1 = self._m1, self._m2, self._n1
+        r1 = self.left.matrix_r_dense().cpu().numpy()
+        r2 = self.right.matrix_r_dense().cpu().numpy()
+        R = np.zeros((n1, m1 + m2), dtype=r1.dtype)
+        R[:m1, :m1] = r1[:m1, :m1]
+        if self._r12_coo is not None:
+            rows, cols, vals = (t.cpu().numpy() for t in self._r12_coo)
+            R[rows, m1 + cols] = vals
+        else:
+            R[:m1, m1:] = self._r12.cpu().numpy()
+        R[m1 : m1 + m2, m1:] = r2[:m2, :m2]
+        return torch.as_tensor(R, device=self._device)
+
+    def matrix_r_sparse(self) -> SparseCSR:
+        """Sparse composite R = [[R1, R12], [0, R2]] in O(nnz) from the
+        sub-solvers' sparse exports (makeR, BlockAngularSparseQR.h:284-335)."""
+        self._ensure_children_fused()
+        m1, m2 = self._m1, self._m2
+
+        def _triplets(csr, max_rows):
+            row_ids = np.repeat(np.arange(csr.nrows), np.diff(csr.indptr))
+            keep = row_ids < max_rows
+            return row_ids[keep], csr.indices[keep], csr.data[keep]
+
+        r1_r, r1_c, r1_v = _triplets(self.left.matrix_r_sparse(), m1)
+        r2_r, r2_c, r2_v = _triplets(self.right.matrix_r_sparse(), m2)
+        if self._r12_coo is not None:
+            rows12, cols12, vals12 = (t.cpu().numpy() for t in self._r12_coo)
+        else:
+            r12 = self._r12.cpu().numpy()
+            rows12, cols12 = np.nonzero(r12)
+            vals12 = r12[rows12, cols12]
+        rows = np.concatenate([r1_r, rows12, m1 + r2_r])
+        cols = np.concatenate([r1_c, m1 + cols12, m1 + r2_c])
+        vals = np.concatenate([r1_v, vals12, r2_v])
+        return SparseCSR.from_triplets(rows, cols, vals, (self._n1, m1 + m2))
+
+    @highest_precision()
+    def solve_r(self, y: torch.Tensor) -> torch.Tensor:
+        """Block back-substitution: x2 from R2, then x1 from the structured R1."""
+        self._ensure_children_fused()
+        m1, m2 = self._m1, self._m2
+        x2 = self.right.solve_r(y[m1 : m1 + m2])
+        if self._r12_coo is not None:
+            rows, cols, vals = self._r12_coo
+            contrib = x2.new_zeros(m1).index_add_(0, rows, vals * x2[cols])
+        else:
+            contrib = self._r12 @ x2
+        return torch.cat([self.left.solve_r(y[:m1] - contrib), x2])
+
+    def cols_permutation(self) -> Permutation:
+        self._ensure_children_fused()
+        if self._cols_perm is None:
+            s1 = self.left.cols_permutation().indices
+            s2 = self.right.cols_permutation().indices
+            self._cols_perm = Permutation(np.concatenate([s1, self._m1 + np.asarray(s2)]))
+        return self._cols_perm
+
+    def rows_permutation(self) -> Permutation:
+        return self._rows_perm
+
+    def _solve_gather_dev(self) -> torch.Tensor:
+        """The composed column back-permutation as a device gather:
+        ``inverse(concat(s1, m1+s2)) == concat(inverse(s1), m1+inverse(s2))``
+        (the two blocks permute disjoint ranges), the right block's inverse
+        formed on the device from the unfetched pivot order."""
+        if self._solve_gather is None:
+            pd = self._right_perm_dev()
+            dev = self._device
+            g1 = torch.as_tensor(self.left.cols_permutation().gather_indices(), device=dev)
+            if pd is None:
+                pd = torch.as_tensor(self.right.cols_permutation().indices, device=dev)
+            # inverse(concat(s1, m1 + s2)) == concat(inverse(s1), m1 + inverse(s2))
+            self._solve_gather = torch.cat([g1, (self._m1 + _inverse_perm(pd)).to(g1.dtype)])
+        return self._solve_gather
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Least-squares solve with the column back-permutation as a device
+        gather (the base class would compose the permutation on the host and
+        wait for the right solver's device pivot order).  A vector rhs on a
+        fused stack runs the fused solve; the caller pre-applies
+        ``rows_permutation()``."""
+        if b.dim() == 1 and getattr(self, "_fused_soa", False):
+            return fused_soa_solve(
+                self._sU1, self._sc1, self._sR1, self._sU2, self._sc2,
+                self._sR2, self._fused_perm2, self._sr12t, b, colpiv=self._fused_colpiv,
+            )
+        if b.dim() == 1 and getattr(self, "_fused_dense", False):
+            return fused_dense_solve(
+                self.left.Q, self.left.R, self.right._Y, self.right._T, self.right._R,
+                self._fused_perm2, self._r12, b, bc=self.left._bc, colpiv=self._fused_colpiv,
+            )
+        self._ensure_children_fused()
+        y = self.apply_qt(b)
+        if b.dim() == 2:
+            z = torch.stack([self.solve_r(y[: self.cols, i]) for i in range(b.shape[1])], dim=1)
+        else:
+            z = self.solve_r(y[: self.cols])
+        return z[self._solve_gather_dev()]

@@ -178,6 +178,24 @@ class BlockDiagonalQR(QRSolver):
         self._set_success()
         return self
 
+    def _adopt_factors(self, mat: BlockDiagonal, Q, R, health) -> None:
+        """Take factors computed by an enclosing fused program
+        (``BlockAngularQR``'s fused dense path), with the post-conditions of
+        :meth:`compute` for the non-pivoting portrait case in the
+        batched-torch tier."""
+        if self.pivot:
+            raise ValueError("_adopt_factors takes non-pivoting factors only")
+        self._kernel_mode = False
+        self._landscape = mat.block_cols > mat.block_rows
+        self._nrows, self._ncols = mat.nrows, mat.ncols
+        self._nb = mat.num_blocks
+        self._br, self._bc = mat.block_rows, mat.block_cols
+        self._row_perm = None
+        self.Q, self.R = Q, R
+        self._local_perm = None
+        self._computed = True
+        self._set_success(health)
+
     def _ensure_dense_factors(self) -> None:
         """Materialize the explicit per-block Q/R batch from the kernel
         tier's resident SoA operand — only for the surfaces that need a

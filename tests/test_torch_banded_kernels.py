@@ -93,6 +93,29 @@ def test_chain_qr_plain_matches_pallas():
     assert not tau[nb:].any()
 
 
+def test_chain_qr_plain_matches_pallas_4x1():
+    """The geometry of the banded ellipse stack (``BandedBlockedQR(3, 1, 0,
+    1)`` on the damped Jacobian): 4×1 panels, a one-row carry, mc = 1."""
+    import jax.numpy as jnp
+    from qrkit_tpu.ops.pallas_banded import pallas_chain_qr
+
+    rng = np.random.default_rng(6)
+    nb, ma, mc, mca, me, ci, ci0 = 80, 4, 1, 1, 1, 1, 1
+    panels = _panels(rng, nb, ma=ma, mc=mc)
+    panels[:, 0] = 0.0  # the carry row, as the shifted gather map leaves it
+    act = np.ones(nb)
+    y, tau, v = bk.chain_qr(
+        torch.as_tensor(panels), torch.as_tensor(act), mca=mca, me=me, ci=ci, ci0=ci0
+    )
+    jy, jt, jv = pallas_chain_qr(
+        jnp.asarray(panels.transpose(0, 2, 1)), jnp.asarray(act),
+        ma=ma, mc=mc, mca=mca, me=me, ci=ci, ci0=ci0, nsub=8, interpret=True,
+    )
+    assert_close(y.numpy(), np.asarray(jy).transpose(0, 2, 1))
+    assert_close(tau.numpy(), np.asarray(jt))
+    assert_close(v.numpy(), np.asarray(jv).transpose(0, 2, 1))
+
+
 def test_segment_apply_w_plain_matches_pallas():
     """Fed with the maps of the reference's plan on the tall-block
     miniature, where its W-apply gate fires."""
@@ -231,3 +254,24 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     close(bk.chain_qr(chain, cact, **ckw), bk._chain_qr_plain(chain, cact, **ckw))
     counts = profiling.launch_counts()
     assert (counts["banded_segment_chains"], counts["banded_apply_w"], counts["banded_chain_qr"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("nb", [80, 2000])
+def test_cuda_chain_qr_4x1_matches_plain(cuda_device, dtype, nb):
+    """B5 at mc = 1 (one warp, a one-column loop, a one-row carry): the
+    banded ellipse stack's 4×1 chain, one launch."""
+    rtol, atol_rel = (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+    rng = np.random.default_rng(8)
+    panels = _panels(rng, nb, ma=4, mc=1)
+    panels[:, 0] = 0.0
+    p = torch.as_tensor(panels, dtype=dtype, device=cuda_device)
+    act = torch.ones(nb, dtype=dtype, device=cuda_device)
+    kw = dict(mca=1, me=1, ci=1, ci0=1)
+    profiling.reset_launch_counts()
+    out = bk.chain_qr(p, act, **kw)
+    torch.cuda.synchronize()
+    assert profiling.launch_counts()["banded_chain_qr"] == 1
+    for g, w in zip(out, bk._chain_qr_plain(p, act, **kw)):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol_rel * w.abs().max().item())

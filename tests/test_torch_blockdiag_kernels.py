@@ -31,7 +31,7 @@ def _operands(seed, n, br, bc):
     return blocks, a_soa, rng.normal(size=(br, n))
 
 
-def _jax_lstsq_soa(a_soa, b_soa, bc):
+def _jax_lstsq_soa(a_soa, b_soa, bc, b_scale=None, stepnorm=False):
     import jax.numpy as jnp
     from qrkit_tpu.ops.pallas_blockdiag import (
         _pad_soa_identity,
@@ -40,12 +40,16 @@ def _jax_lstsq_soa(a_soa, b_soa, bc):
     )
 
     n = a_soa.shape[1]
-    x = pallas_block_diagonal_lstsq_soa(
+    out = pallas_block_diagonal_lstsq_soa(
         _pad_soa_identity(jnp.asarray(a_soa), bc, n),
         _pad_soa_zero(jnp.asarray(b_soa), n),
         interpret=True,
+        b_scale=None if b_scale is None else jnp.asarray(b_scale),
+        stepnorm=stepnorm,
     )
-    return np.asarray(x)[:, :n]
+    if stepnorm:  # the identity pad blocks see a zero rhs: they add exactly 0
+        return np.asarray(out[0])[:, :n], float(out[1])
+    return np.asarray(out)[:, :n]
 
 
 def _jax_qr_r_soa(a_soa, br, bc):
@@ -73,6 +77,42 @@ def test_qr_r_plain_matches_pallas(br, bc):
     r = bd.block_diagonal_qr_r_soa(torch.as_tensor(a_soa), br)
     assert r.shape == (bc * (bc + 1) // 2, 37)
     np.testing.assert_allclose(r.numpy(), _jax_qr_r_soa(a_soa, br, bc), rtol=1e-12, atol=1e-12)
+
+
+OPTIONS = [(True, False), (False, True), (True, True)]
+OPTION_IDS = ["b_scale", "stepnorm", "b_scale+stepnorm"]
+
+
+@pytest.mark.parametrize("scaled,stepnorm", OPTIONS, ids=OPTION_IDS)
+def test_lstsq_options_plain_matches_pallas(scaled, stepnorm):
+    """B1's b_scale (x scaled after the back-substitution) and stepnorm (Σx²
+    over every block) against the Pallas kernel's options."""
+    _, a_soa, b_soa = _operands(6, 37, 7, 2)
+    scale = -2.5 if scaled else None
+    out = bd.block_diagonal_lstsq_soa(
+        torch.as_tensor(a_soa), torch.as_tensor(b_soa),
+        b_scale=None if scale is None else torch.tensor(scale, dtype=torch.float64),
+        stepnorm=stepnorm,
+    )
+    want = _jax_lstsq_soa(a_soa, b_soa, 2, b_scale=scale, stepnorm=stepnorm)
+    if stepnorm:
+        (x, sn), (want, want_sn) = out, want
+        assert sn.dim() == 0
+        np.testing.assert_allclose(float(sn), want_sn, rtol=1e-12)
+        np.testing.assert_allclose(float(sn), float((x * x).sum()), rtol=1e-14)
+    else:
+        x = out
+    np.testing.assert_allclose(x.numpy(), want, rtol=0, atol=1e-9)
+    plain = bd.block_diagonal_lstsq_soa(torch.as_tensor(a_soa), torch.as_tensor(b_soa))
+    assert torch.equal(x, plain * scale if scaled else plain)  # linearity: exact
+
+
+def test_lstsq_rejects_bad_b_scale():
+    a = torch.ones((14, 5), dtype=torch.float64)
+    b = torch.ones((7, 5), dtype=torch.float64)
+    for bad in (torch.tensor(2.0), torch.ones(2, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="b_scale"):
+            bd.block_diagonal_lstsq_soa(a, b, b_scale=bad)
 
 
 def test_aos_wrappers_match_pallas_aos():
@@ -145,3 +185,31 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     counts = profiling.launch_counts()
     assert (counts.pop("blockdiag_lstsq"), counts.pop("blockdiag_qr_r")) == (n_cases, n_cases)
     assert not any(counts.values())  # no banded kernel on this path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("scaled,stepnorm", OPTIONS, ids=OPTION_IDS)
+def test_cuda_lstsq_options_match_plain(cuda_device, dtype, scaled, stepnorm):
+    """B1 with b_scale / stepnorm against the plain version on the card: x
+    to the bit (the scale multiplies x after the back-substitution in both),
+    Σx² to rounding (the CTA tree adds in another order than torch's sum)."""
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    profiling.reset_launch_counts()
+    ncalls = 0
+    for br, bc in SHAPES:
+        for n in (1, 1000, 10_007):
+            _, a_soa, b_soa = _operands(7, n, br, bc)
+            a = torch.as_tensor(a_soa, dtype=dtype, device=cuda_device)
+            b = torch.as_tensor(b_soa, dtype=dtype, device=cuda_device)
+            scale = torch.tensor(-1.75, dtype=dtype, device=cuda_device) if scaled else None
+            out = bd.block_diagonal_lstsq_soa(a, b, b_scale=scale, stepnorm=stepnorm)
+            ncalls += 1
+            torch.cuda.synchronize()
+            ref = bd._lstsq_soa_plain(a, b, scale, stepnorm)
+            if stepnorm:
+                assert torch.equal(out[0], ref[0])
+                torch.testing.assert_close(out[1], ref[1], rtol=rtol, atol=0)
+            else:
+                assert torch.equal(out, ref)
+    assert profiling.launch_counts()["blockdiag_lstsq"] == ncalls
