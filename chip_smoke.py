@@ -11,15 +11,20 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   PyTorch version, drives ``SparseCSR`` → ``BlockDiagonal`` →
   ``BlockDiagonalQR.compute`` → ``solve`` at the flagship size (10,000
   blocks of 7×2) and at the 1M-block point, times the kernels against their
-  plain versions with CUDA events, and checks the differentiable
-  ``functional.block_diagonal_lstsq`` against the CPU;
+  plain versions and against one PyTorch call of the same function
+  (``torch.linalg.lstsq`` / ``torch.linalg.qr(mode="r")`` on the AoS
+  batch; timed only, never called by the port) with CUDA events and under
+  torch.profiler (device time), each beside its byte bound, and checks the
+  differentiable ``functional.block_diagonal_lstsq`` against the CPU;
 * banded path (kernels B3, B4, B5): checks each kernel against its plain
   version at small shapes and at the shapes of BASELINE.json config 3 (a
   99,960 × 10,000 banded matrix of 2,499 blocks of 40×8 overlapping by 4),
   drives config 3 through ``SegmentedBandedQR`` (compute, solve,
   ``factorize_values`` on device values) and ``BandedBlockedQR`` (compute,
   solve) with the launch counters read around each path, and times the
-  kernels against their plain versions;
+  kernels against their plain versions (plus B5 on the banded ellipse
+  stack's 2,000-step 4×1 chain), each with its time per chain step, bytes,
+  operations and bound;
 * B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
   every option combination against the plain version, every block shape,
   fp32 and fp64, and their time at the 1M-block point;
@@ -44,8 +49,10 @@ Each phase prints one JSON line per case.  Any failure raises, so the script
 exits non-zero without the final line; it also fails when no CUDA device is
 visible.  The launch counters are set to 0 right before each main path and
 read right after it; launches made to compare a kernel with its plain
-version are not counted there.  The last two lines are the kernel summary
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+version are not counted there.  Bounds are the larger of the bytes a call
+must move over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM
+at 700 W).  The last lines are the card's name and power limit, the kernel
+summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -74,6 +81,9 @@ KERNEL_NS = [1, 1000, 10_007]
 BR, BC = 7, 2                       # the flagship block shape (BASELINE.json config 2)
 NB_CONFIG2, NB_REAL = 10_000, 1_000_000
 RESID_GATE = 1e-4                   # fp32 relative residual gate (bench.py)
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 SOURCE = "qrkit_tpu_torch/ops/csrc/blockdiag_qr.cu"
 BANDED_SOURCE = "qrkit_tpu_torch/ops/csrc/banded_chain.cu"
 BLOCKDIAG_KERNELS = ("blockdiag_lstsq", "blockdiag_qr_r")
@@ -102,6 +112,21 @@ KERNELS = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes moved over the HBM rate and the fp32 operations over the
+    fp32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def qr_flops(m, n):
+    """Operations of an unblocked Householder QR of an m×n panel (m ≥ n;
+    otherwise of its leading m columns): 2mn² − 2n³/3."""
+    k = min(m, n)
+    return 2 * m * n * k - 2 * k ** 3 / 3
 
 
 def tolerance(dtype):
@@ -288,30 +313,82 @@ def phase_config2(rng):
     return counts
 
 
-def time_pair(name, a, b, br, nbytes, smi):
-    """Kernel and plain version in turns (kernel, plain, plain, kernel), each
-    round CUDA events per call, median of 50 after 10 warm-ups; the reported
-    time is the mean of the two rounds' medians."""
-    kernel_rounds, plain_rounds = [], []
-    for rounds in (kernel_rounds, plain_rounds, plain_rounds, kernel_rounds):
-        fn = run_kernel if rounds is kernel_rounds else run_plain
-        rounds.append(profiling.cuda_time_ms(lambda: fn(name, a, b, br)))
-    ms, plain_ms = statistics.mean(kernel_rounds), statistics.mean(plain_rounds)
+def time_pair(name, a, b, br, nbytes, flops, library, smi):
+    """Kernel, plain version and the yardstick library call (``library()``,
+    one PyTorch call computing the same function on the AoS batch; timed,
+    never called by the port) in turns (kernel, plain, library, library,
+    plain, kernel), each round CUDA events per call, median of 50 after 10
+    warm-ups; each reported time is the mean of its two rounds' medians.
+    The line also says whether the kernel is within twice its bound."""
+    rounds = {"kernel": [], "plain": [], "library": []}
+    calls = {"kernel": lambda: run_kernel(name, a, b, br), "plain": lambda: run_plain(name, a, b, br),
+             "library": library}
+    spin(calls["kernel"], 0.25)  # the card at its clocks before the rounds
+    for key in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        rounds[key].append(profiling.cuda_time_ms(calls[key]))
+    ms, plain_ms, library_ms = (statistics.mean(rounds[k]) for k in ("kernel", "plain", "library"))
+    device_ms = device_time_ms(calls["kernel"], one_kernel=True)
+    library_device_ms = device_time_ms(library)
     out = run_kernel(name, a, b, br)
     ref = run_plain(name, a, b, br)
     torch.cuda.synchronize()
     max_abs, bitwise = compare(out, ref, a.dtype)
+    bound_ms, bound_by = bound(nbytes, flops)
     emit({
         "phase": "timing", "kernel": name, "n": a.shape[1], "shape": [BR, BC],
-        "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
-        "ms_rounds": kernel_rounds, "plain_ms_rounds": plain_rounds,
+        "dtype": "float32", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "ms_rounds": rounds["kernel"], "plain_ms_rounds": rounds["plain"],
+        "library_ms_rounds": rounds["library"],
         "gbps": nbytes / (ms * 1e-3) / 1e9, "plain_gbps": nbytes / (plain_ms * 1e-3) / 1e9,
-        "bytes": nbytes, "max_abs_err": max_abs, "bitwise_equal": bitwise,
-        "method": "CUDA events per call, 10 warm-up, median of 50, synchronize before "
-                  "reading; rounds kernel, plain, plain, kernel; mean of round medians",
+        "device_ms": device_ms, "library_device_ms": library_device_ms,
+        "bytes": nbytes, "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+        "device_within_twice_bound": device_ms <= 2 * bound_ms,
+        "max_abs_err": max_abs, "bitwise_equal": bitwise,
+        "method": "0.25 s of kernel calls first; CUDA events per call, 10 warm-up, median "
+                  "of 50, synchronize before reading; rounds kernel, plain, library, library, "
+                  "plain, kernel; mean of round medians; device_ms: torch.profiler's mean "
+                  "kernel duration over the records it kept of 20 calls; library_device_ms: its "
+                  "device time of 20 calls (every kernel the call launches) over 20",
         "gpu": smi,
     })
-    return ms, plain_ms, max_abs
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "max_abs_err": max_abs,
+            "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": device_ms}
+
+
+def spin(fn, seconds):
+    """Call ``fn`` back to back for ``seconds`` of wall time (synchronized)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+
+
+def device_time_ms(fn, reps=20, with_events=False, one_kernel=False):
+    """Device time of one ``fn()`` under torch.profiler: the kernels' time
+    of ``reps`` calls over ``reps`` (the host's launch time excluded), or,
+    for an ``fn`` that launches ``one_kernel``, the mean over the kernel
+    records the profiler kept: in a long process it keeps only some of them
+    (10–17 of 20 seen), so a sum over ``reps`` would read low.
+    ``with_events``: also return the CUDA-event time of the same ``reps``
+    back-to-back calls over ``reps``, a check on the profiler (the two agree
+    when the kernels, not their launches, fill the stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    ms, records = device_kernels(prof)
+    if one_kernel and not 0 < records <= reps:
+        raise AssertionError(f"device_time_ms: {records} kernel records for {reps} one-kernel calls")
+    device_ms = ms / records if one_kernel else ms / reps
+    return (device_ms, start.elapsed_time(end) / reps) if with_events else device_ms
 
 
 def phase_real_size(rng, smi):
@@ -325,10 +402,18 @@ def phase_real_size(rng, smi):
     for n in (NB_CONFIG2, NB_REAL):
         a = mat.soa()[:, :n].contiguous()
         bs = torch.as_tensor(b[: n * BR].reshape(n, BR).T.copy(), dtype=torch.float32, device=DEVICE)
+        # the yardsticks' AoS operands [n, 7, 2] and [n, 7, 1]
+        a_aos = a.T.reshape(n, BR, BC).contiguous()
+        b_aos = bs.T.reshape(n, BR, 1).contiguous()
         lstsq_bytes = (BR * BC + BR + BC) * n * 4
         qr_bytes = (BR * BC + ntri) * n * 4
-        results["blockdiag_lstsq"].append(time_pair("blockdiag_lstsq", a, bs, BR, lstsq_bytes, smi))
-        results["blockdiag_qr_r"].append(time_pair("blockdiag_qr_r", a, bs, BR, qr_bytes, smi))
+        qr_ops = qr_flops(BR, BC) * n
+        results["blockdiag_lstsq"].append(time_pair(
+            "blockdiag_lstsq", a, bs, BR, lstsq_bytes, qr_ops + (4 * BR * BC + BC * BC) * n,
+            lambda: torch.linalg.lstsq(a_aos, b_aos).solution, smi))
+        results["blockdiag_qr_r"].append(time_pair(
+            "blockdiag_qr_r", a, bs, BR, qr_bytes, qr_ops,
+            lambda: torch.linalg.qr(a_aos, mode="r").R, smi))
     return counts, results
 
 
@@ -376,12 +461,35 @@ def banded_matrix(rng, nb, br, bc, ov):
     return qt.SparseCSR.from_triplets(rows[keep], cols[keep], vals[keep], (br * nb, ncols))
 
 
+def chain_cost(panels, act, mca, me):
+    """(serial steps, bytes, operations) of a chain kernel (B3/B5) call:
+    panels and act read once, Y, τ and R rows written once; a panel QR and
+    the carry add per active step."""
+    *lead, ma, mc = panels.shape
+    n = panels.numel() // (ma * mc)
+    nbytes = panels.element_size() * (2 * n * ma * mc + n + n * mc + n * me * mc)
+    active = int((act > 0.5).sum())
+    return lead[-1], nbytes, active * (qr_flops(ma, mc) + mca * mc)
+
+
+def apply_w_cost(y, tau, w, ab):
+    """(serial steps, bytes, operations) of a W-apply (B4) call: Y, τ, the
+    fed rows and the window starts read once, the window rows written once;
+    per reflector with τ ≠ 0 a dot product and an update over the window
+    rows of every operand column."""
+    S, L, ma, mc = y.shape
+    ko = w.shape[3]
+    nbytes = y.element_size() * (y.numel() + tau.numel() + 2 * w.numel()) + ab.numel() * 4
+    return L, nbytes, int((tau != 0).sum()) * 4 * ma * ko
+
+
 def banded_operands(rng, mat, L, suggested, dtype):
     """Each banded kernel's operands at the shapes the main path gives it on
     ``mat``: B3's gathered panels and B4's fed window rows from the
     segmented plan (B4's Y and τ from B3's plain version), B5's panels from
     the plain chain's plan, and random panels at the boundary chain's shape.
-    Returns {kernel: [(case, kernel call, plain call)]}."""
+    Returns {kernel: [(case, kernel call, plain call, (serial steps, bytes,
+    operations))]}."""
     seg = qt.SegmentedBandedQR(suggested, L, use_kernel=False, device=DEVICE, dtype=dtype)
     seg.analyze_pattern(mat)
     seg._layout_maps(mat, mat)
@@ -407,20 +515,25 @@ def banded_operands(rng, mat, L, suggested, dtype):
     plain.analyze_pattern(mat)
     plain._layout_maps(mat, mat)
     ppan = pad[plain._panel_gmap]
+    pkw, skw = plain._chain_kernel, seg._chain_kernel
     return {
         "banded_segment_chains": [(
             "segment_chains", lambda: bk.segment_chains(panels, seg._kernel_act, **b3),
             lambda: bk._segment_chains_plain(panels, seg._kernel_act, **b3),
+            chain_cost(panels, seg._kernel_act, b3["mca"], b3["me"]),
         )],
         "banded_apply_w": [(
             "segment_apply_w", lambda: bk.segment_apply_w(y, tau, w, ab, **b4),
             lambda: bk._segment_apply_w_plain(y, tau, w, ab, **b4),
+            apply_w_cost(y, tau, w, ab),
         )],
         "banded_chain_qr": [
-            ("plain_chain", lambda: bk.chain_qr(ppan, plain._chain_act, **plain._chain_kernel),
-             lambda: bk._chain_qr_plain(ppan, plain._chain_act, **plain._chain_kernel)),
-            ("boundary_chain", lambda: bk.chain_qr(bpan, bact, **seg._chain_kernel),
-             lambda: bk._chain_qr_plain(bpan, bact, **seg._chain_kernel)),
+            ("plain_chain", lambda: bk.chain_qr(ppan, plain._chain_act, **pkw),
+             lambda: bk._chain_qr_plain(ppan, plain._chain_act, **pkw),
+             chain_cost(ppan, plain._chain_act, pkw["mca"], pkw["me"])),
+            ("boundary_chain", lambda: bk.chain_qr(bpan, bact, **skw),
+             lambda: bk._chain_qr_plain(bpan, bact, **skw),
+             chain_cost(bpan, bact, skw["mca"], skw["me"])),
         ],
     }, dict(
         segment_chains=list(panels.shape), segment_apply_w=list(w.shape), plain_chain=list(ppan.shape),
@@ -457,7 +570,7 @@ def phase_banded_kernel_vs_plain(rng):
             if label == "config3" and dtype == torch.float32:
                 c3_ops = ops
             for name, cases in ops.items():
-                for case, run_k, run_p in cases:
+                for case, run_k, run_p, _ in cases:
                     out = run_k()
                     torch.cuda.synchronize()
                     err, bitwise = compare_outputs(out, run_p(), dtype)
@@ -571,29 +684,70 @@ def phase_banded_main_path(rng, smi):
     return total, wall
 
 
+def ellipse_chain_case():
+    """B5's timing case on the banded ellipse stack's 2,000-step 4×1 chain
+    (fp32), in the form of :func:`banded_operands`' cases."""
+    f = ellipse.EllipseFitting(
+        ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), BANDED_LEFT_N),
+        dtype=torch.float32, device=DEVICE,
+    )
+    epan, eact, ekw = banded_left_chain(f, 1e-3)
+    return (
+        "ellipse_4x1_chain", lambda: bk.chain_qr(epan, eact, **ekw),
+        lambda: bk._chain_qr_plain(epan, eact, **ekw), chain_cost(epan, eact, ekw["mca"], ekw["me"]),
+    )
+
+
+BANDED_KERNEL_METHOD = (
+    "ms: CUDA events per call, 10 warm-up, median of 50, synchronize before reading (includes "
+    "the wrapper's host time when that exceeds the kernel's); device_ms: torch.profiler's "
+    "mean kernel duration over 20 calls (the records it kept); profiled_events_ms: CUDA "
+    "events around those 20 back-to-back calls over 20"
+)
+
+
+def time_banded_kernel(run_k):
+    """(ms, device_ms, profiled_events_ms) of one banded kernel call: CUDA
+    events per call, torch.profiler's device time (the host's launch time
+    excluded) and the events around the profiled calls."""
+    return (profiling.cuda_time_ms(run_k, warmup=10, reps=50),
+            *device_time_ms(run_k, with_events=True, one_kernel=True))
+
+
 def phase_banded_timing(ops, smi):
-    """Kernel against plain at the config-3 shapes (fp32) with CUDA events,
-    in turns kernel, plain, plain, kernel; the kernels 10 warm-ups and a
-    median of 50 per round, the plain versions 1 warm-up and a median of 3."""
+    """Kernel against plain at the config-3 shapes and on the banded
+    ellipse stack's 2,000-step 4×1 chain (fp32) with CUDA events, in turns
+    kernel, plain, plain, kernel; the kernels 10 warm-ups and a median of 50
+    per round, the plain versions 1 warm-up and a median of 3; then the
+    kernel's device time under torch.profiler.  Each line has the time per
+    serial step, the bytes and operations of the call and its bound."""
+    ops["banded_chain_qr"].append(ellipse_chain_case())
     results = {}
     for name, cases in ops.items():
-        for case, run_k, run_p in cases:
-            k_rounds, p_rounds = [], []
+        for case, run_k, run_p, (steps, nbytes, flops) in cases:
+            k_rounds, p_rounds, device_ms, profiled_ms = [], [], None, None
             for rounds in (k_rounds, p_rounds, p_rounds, k_rounds):
                 if rounds is k_rounds:
-                    rounds.append(profiling.cuda_time_ms(run_k, warmup=10, reps=50))
+                    ms, device_ms, profiled_ms = time_banded_kernel(run_k)
+                    rounds.append(ms)
                 else:
                     rounds.append(profiling.cuda_time_ms(run_p, warmup=1, reps=3))
             ms, plain_ms = statistics.mean(k_rounds), statistics.mean(p_rounds)
+            bound_ms, bound_by = bound(nbytes, flops)
             emit({
                 "phase": "banded_timing", "kernel": name, "case": case, "dtype": "float32",
                 "ms": ms, "plain_ms": plain_ms, "ms_rounds": k_rounds, "plain_ms_rounds": p_rounds,
-                "method": "CUDA events per call, synchronize before reading; rounds kernel, "
-                          "plain, plain, kernel; kernel 10 warm-up + median of 50, plain 1 "
-                          "warm-up + median of 3; mean of round medians",
+                "device_ms": device_ms, "profiled_events_ms": profiled_ms, "steps": steps, "per_step_us": ms * 1e3 / steps,
+                "device_per_step_us": device_ms * 1e3 / steps, "bytes": nbytes, "flops": flops,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "method": BANDED_KERNEL_METHOD + "; rounds kernel, plain, plain, kernel, plain 1 "
+                          "warm-up + median of 3; mean of round medians; device_ms of the last "
+                          "kernel round",
                 "gpu": smi,
             })
-            results.setdefault(name, (ms, plain_ms))  # the first case is the main path's
+            # the first case is the main path's
+            results.setdefault(name, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                      "bound_by": bound_by, "device_ms": device_ms})
     return results
 
 
@@ -961,24 +1115,28 @@ def main():
     extra = {"blockdiag_qr_r": ba_b2, "banded_chain_qr": ell_b5}  # slice 3's main paths
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
-        ms, plain_ms, _ = timings[name][-1]  # the 1M-block point
-        errs = [worst[(name, BR, BC)]] + [t[2] for t in timings[name]]
+        t = timings[name][-1]  # the 1M-block point
+        errs = [worst[(name, BR, BC)]] + [r["max_abs_err"] for r in timings[name]]
         if name == "blockdiag_lstsq":
             errs.append(options_worst)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": counts10k[name] + counts1m[name] + extra.get(name, 0),
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
         })
     for name, replaces in BANDED_KERNELS.items():
-        ms, plain_ms = banded_timings[name]  # config 3; B5 on the plain chain
+        t = banded_timings[name]  # config 3; B5 on the plain chain
         err = banded_worst[name]
         if name == "banded_chain_qr":
             err = max(err, ell_b5_worst)
         kernels.append({
             "name": name, "route": "cuda", "source": BANDED_SOURCE, "replaces": replaces,
             "launches": banded_counts[name] + extra.get(name, 0), "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,  # no single PyTorch call
+            "device_ms": t["device_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

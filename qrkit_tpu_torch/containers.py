@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from . import _device
 from .analysis import as_banded_as_possible, block_banded_info
 from .ops.blockdiag import to_aos, to_soa
 from .sparse import Permutation, SparseCSR
@@ -68,7 +69,7 @@ class BlockDiagonal:
         """Wrap SoA block storage ``[br*bc, nb]`` (entry (r, c) of block i at
         ``[r*bc + c, i]``) — the layout the CUDA kernels consume without
         relayout."""
-        soa = torch.as_tensor(blocks_soa, device=device, dtype=dtype)
+        soa = _device.as_tensor(blocks_soa, device, dtype)
         ebc, nb = soa.shape
         if ebc != block_rows * block_cols:
             raise ValueError(
@@ -145,7 +146,7 @@ class BlockDiagonal:
             block_cols,
         )
         return BlockDiagonal(
-            torch.as_tensor(blocks, device=device, dtype=dtype), mat.nrows, mat.ncols
+            _device.as_tensor(blocks, device, dtype), mat.nrows, mat.ncols
         )
 
     @staticmethod
@@ -172,7 +173,7 @@ class BlockDiagonal:
                 )
         blocks = sorted_mat.blocks_dense([b.astuple() for b in plan.blocks], br, bc)
         mat_out = BlockDiagonal(
-            torch.as_tensor(blocks, device=device, dtype=dtype), mat.nrows, mat.ncols
+            _device.as_tensor(blocks, device, dtype), mat.nrows, mat.ncols
         )
         return mat_out, perm
 
@@ -181,7 +182,7 @@ class BlockDiagonal:
         blocks, nrows: Optional[int] = None, ncols: Optional[int] = None, *,
         device=None, dtype=None,
     ) -> "BlockDiagonal":
-        blocks = torch.as_tensor(blocks, device=device, dtype=dtype)
+        blocks = _device.as_tensor(blocks, device, dtype)
         nb, br, bc = blocks.shape
         return BlockDiagonal(blocks, nrows or nb * br, ncols or nb * bc)
 

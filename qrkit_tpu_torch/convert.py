@@ -1,8 +1,9 @@
 """Carry state from the JAX package into the port, through NumPy.
 
 No counterpart module in ``qrkit_tpu``: this is the bridge the port adds.
-Both functions take plain NumPy arrays and Python values (``np.asarray`` of
-a ``qrkit_tpu`` object's arrays) and never import jax.
+Each function takes plain NumPy arrays and Python values (``np.asarray`` of
+a ``qrkit_tpu`` object's arrays), never imports jax, and puts the arrays on
+``device`` (default CUDA).
 
 * :func:`block_diagonal_from_numpy` — a ``qrkit_tpu.BlockDiagonal``'s AoS or
   SoA storage → the port's :class:`~qrkit_tpu_torch.containers.BlockDiagonal`.
@@ -38,6 +39,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from . import _device
 from .containers import BlockDiagonal, BlockMatrix1x2
 from .ops.compact_wy import TwoSegmentWYSeq
 from .solvers.banded_blocked import BandedBlockedQR
@@ -118,7 +120,7 @@ def block_diagonal_qr_from_numpy(
     qr._row_perm = Permutation(np.asarray(row_perm)) if row_perm is not None else None
 
     def tensor(x):  # a private, writable copy of the (possibly read-only) array
-        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+        return _device.as_tensor(np.array(x), device, dtype)
 
     if kernel_tier:
         if pivot:
@@ -132,7 +134,7 @@ def block_diagonal_qr_from_numpy(
         qr._kernel_mode = False
         qr.Q, qr.R = tensor(state["Q"]), tensor(state["R"])
         qr._local_perm = (
-            torch.as_tensor(np.array(state["local_perm"]), dtype=torch.int64, device=device)
+            _device.as_tensor(np.array(state["local_perm"]), device, torch.int64)
             if pivot
             else None
         )
@@ -237,7 +239,7 @@ def dense_qr_from_numpy(state: Mapping[str, Any], *, device=None, dtype=None):
     ``_R``) and, for a ``DenseColPivQR``, ``perm [n]`` (``_perm_dev``); the
     solver class follows from whether ``perm`` is present."""
     def tensor(x):
-        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+        return _device.as_tensor(np.array(x), device, dtype)
 
     R = tensor(state["R"])
     m, n = R.shape
@@ -263,7 +265,7 @@ def block_angular_qr_from_numpy(
     child's ``_Y``/``_T``/``_R``), ``perm2``, ``r12`` and ``colpiv`` (the
     right child is a ``DenseColPivQR``)."""
     def tensor(x):
-        return torch.as_tensor(np.array(x), device=device, dtype=dtype)
+        return _device.as_tensor(np.array(x), device, dtype)
 
     colpiv = bool(state["colpiv"])
     qr = BlockAngularQR(

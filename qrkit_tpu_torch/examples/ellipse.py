@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _device
 from ..containers import BlockDiagonal, BlockMatrix1x2
 from ..functional import block_angular_lstsq, lm_damped_step_blockdiag1
 from ..lm import (
@@ -152,11 +153,11 @@ class EllipseFitting:
     :func:`~qrkit_tpu_torch.functional.block_angular_lstsq`; ``fused=False``
     through the class-based composition ``BlockAngularQR(BlockDiagonalQR,
     DenseColPivQR)`` (same math, a cross-check).  ``pts`` is host NumPy
-    ``[2, N]``, put on ``device`` in ``dtype``."""
+    ``[2, N]``, put on ``device`` (default CUDA) in ``dtype``."""
 
     def __init__(self, pts: np.ndarray, dtype=torch.float64, fused: bool = True, device=None):
         self._pts_np = np.asarray(pts)  # host copy for initial_params
-        self.pts = torch.as_tensor(self._pts_np, dtype=dtype, device=device)
+        self.pts = _device.as_tensor(self._pts_np, device, dtype)
         self.n = int(self._pts_np.shape[1])
         self.dtype = dtype
         self.device = self.pts.device
@@ -281,7 +282,7 @@ def fit_ellipse_batch(
     return levenberg_marquardt_device_batch(
         _residuals_aux,
         _damped_step_aux,
-        torch.as_tensor(x0, dtype=dtype, device=device),
+        _device.as_tensor(x0, device, dtype),
         config or LMConfig(max_iters=60),
-        aux_batch=torch.as_tensor(pts_batch, dtype=dtype, device=device),
+        aux_batch=_device.as_tensor(pts_batch, device, dtype),
     )

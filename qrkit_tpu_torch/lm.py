@@ -30,6 +30,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import _device
+
 __all__ = [
     "LMConfig",
     "LMResult",
@@ -78,7 +80,7 @@ def levenberg_marquardt(
     minimizer of ``‖J(x) δ + r‖² + lam ‖δ‖²``, typically by a structured QR
     of the damped Jacobian (see :mod:`qrkit_tpu_torch.examples.ellipse`)."""
     cfg = config or LMConfig()
-    x = torch.as_tensor(x0)
+    x = _device.as_tensor(x0)
     r = residual_fn(x)
     cost = float(0.5 * (r * r).sum())
     lam = cfg.lambda_init
@@ -202,7 +204,7 @@ def levenberg_marquardt_device(
     x, cost, lam, it, done = _fetch(*_minimize_batch(
         lambda x, aux: residual_fn(x[0], aux)[None],
         lambda x, r, lam, aux: damped_step_fn(x[0], r[0], lam[0], aux)[None],
-        torch.as_tensor(x0)[None], aux, cfg,
+        _device.as_tensor(x0)[None], aux, cfg,
     ))
     return LMResult(x[0], float(cost[0]), int(it[0]), bool(done[0]), float(lam[0]))
 
@@ -231,6 +233,6 @@ def levenberg_marquardt_device_batch(
     rf = torch.func.vmap(residual_fn, in_dims=(0, aux_dim))
     sf = torch.func.vmap(damped_step_fn, in_dims=(0, 0, 0, aux_dim))
     x, cost, lam, it, done = _fetch(
-        *_minimize_batch(rf, sf, torch.as_tensor(x0_batch), aux_batch, cfg)
+        *_minimize_batch(rf, sf, _device.as_tensor(x0_batch), aux_batch, cfg)
     )
     return LMResult(x, cost, it, done, lam)

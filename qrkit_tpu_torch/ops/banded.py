@@ -29,6 +29,12 @@ groups have no counterpart): panels and Y ``[S, L, ma, mc]``, τ
 
 Each kernel wrapper runs its CUDA kernel (``csrc/banded_chain.cu``) on a
 CUDA tensor, or raises; it runs its plain version only for a CPU tensor.
+The launcher picks one of two forms per geometry (:func:`register_shape`):
+one warp per chain (or per operand column) with the rows in registers, or
+several warps with the panel (or window) in shared memory;
+:func:`chain_smem_bytes` / :func:`apply_w_smem_bytes` give exactly the
+shared memory it launches with, which the solvers' gates hold to
+``SMEM_LIMIT``.
 The plain versions are batched torch ops, one column of the recurrence per
 small group of ops: :func:`chain_factorize` for B3/B5,
 :func:`_segment_apply_w_plain` for B4.  Each wrapper carries a ``launches``
@@ -39,30 +45,93 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .householder import householder_qr_unblocked
 
 __all__ = [
     "chain_factorize",
     "chain_qr",
     "chain_smem_bytes",
     "apply_w_smem_bytes",
+    "register_shape",
     "segment_apply_w",
     "segment_chains",
 ]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-SMEM_LIMIT = 48 * 1024  # dynamic shared memory a CTA gets without an opt-in
+# dynamic shared memory a CTA can use on the H100 (the launchers opt in above
+# the default 48 KB)
+SMEM_LIMIT = 227 * 1024
+
+
+def register_shape(ma: int, mc: int, itemsize: int):
+    """``(rows per lane, padded columns)`` of the register kernels (one warp,
+    the panel or window rows in registers), or None when the geometry takes
+    the shared-memory kernels: at most 3 rows a lane (ma ≤ 96), mc padded
+    to a power of two ≤ 32, and those rows within 32 registers a lane.
+    ``csrc/banded_chain.cu`` (``use_reg``) applies the same rule."""
+    rpl = -(-ma // 32)
+    mcp = 1 << max(mc - 1, 0).bit_length()
+    if 1 <= rpl <= 3 and mcp <= 32 and rpl * mcp * itemsize <= 128:
+        return rpl, mcp
+    return None
 
 
 def chain_smem_bytes(ma: int, mc: int, mca: int, itemsize: int) -> int:
-    """Shared memory of the chain kernel (B3/B5): panel, carry, reflector
-    and one scalar."""
-    return (ma * mc + mca * mc + ma + 1) * itemsize
+    """Shared memory the chain kernel (B3/B5) is launched with: the register
+    kernel's carry stage ``[mca][MC + 1]``, else the shared-memory kernel's
+    two column-major panels (odd column stride), carry, R diagonal and
+    reflector reciprocals."""
+    reg = register_shape(ma, mc, itemsize)
+    if reg is not None:
+        return mca * (reg[1] + 1) * itemsize
+    return (2 * mc * (ma | 1) + mca * mc + 2 * mc) * itemsize
 
 
 def apply_w_smem_bytes(ma: int, mc: int, ko: int, wrows: int, itemsize: int) -> int:
-    """Shared memory of the W-apply kernel (B4): work rows, window, Y, τ."""
-    return (wrows * ko + ma * ko + ma * mc + mc) * itemsize
+    """Shared memory the W-apply kernel (B4) is launched with: each operand
+    column's work rows, plus one window per warp (at most 8) when the
+    geometry takes the shared-memory kernel."""
+    if ko <= 32 and register_shape(ma, mc, itemsize) is not None:
+        return ko * wrows * itemsize
+    return (ko * wrows + min(ko, 8) * ma) * itemsize
+
+
+def _panel_qr(A: torch.Tensor):
+    """Unblocked Householder QR of panels ``A [B, m, n]`` (pivot on row j)
+    in the CUDA kernels' arithmetic: one division per column for τ and one
+    for the reciprocal ``1/(x0 − β)``, which multiplies the reflector's tail,
+    and ``vᵀa_c = a_jc + (Σ_{r>j} a_rj a_rc)/(x0 − β)`` from the unscaled
+    column.  Eigen's β/τ, unit-diagonal Y, a degenerate column (σ ≤ 0) τ = 0,
+    a pivot row past the panel a zero reflector.  Returns ``(Y [B, m, n],
+    taus [B, n], A_reduced)``; below its diagonal A_reduced holds roundoff
+    (callers take ``triu``)."""
+    B, m, n = A.shape
+    rows = torch.arange(m, device=A.device)
+    cols = torch.arange(n, device=A.device)
+    zero, one = A.new_zeros(()), A.new_ones(())
+    ys, taus = [], []
+    for j in range(n):
+        if j >= m:
+            ys.append(A.new_zeros((B, m)))
+            taus.append(A.new_zeros((B,)))
+            continue
+        col = A[:, :, j]
+        tail = torch.where(rows > j, col, zero)
+        p = (tail[:, :, None] * A).sum(1)  # [B, n]: p_j = σ, p_c = Σ_{r>j} a_rj a_rc
+        x0, sigma = col[:, j], p[:, j]
+        norm = torch.sqrt(x0 * x0 + sigma)
+        beta = torch.where(x0 >= 0, -norm, norm)
+        degenerate = sigma <= 0
+        tau = torch.where(degenerate, zero, (beta - x0) / torch.where(norm == 0, one, beta))
+        inv = one / torch.where(degenerate, one, x0 - beta)
+        s = tau[:, None] * (A[:, j, :] + p * inv[:, None])  # τ vᵀa_c
+        s = torch.where(cols >= j, s, zero)
+        v = torch.where(rows == j, one, tail * inv[:, None])
+        A = A - v[:, :, None] * s[:, None, :]
+        ys.append(v)
+        taus.append(tau)
+    if not ys:
+        return A.new_zeros(A.shape), A.new_zeros((B, 0)), A
+    return torch.stack(ys, -1), torch.stack(taus, -1), A
 
 
 @torch.no_grad()
@@ -83,7 +152,7 @@ def chain_factorize(
     for l in range(n):
         panel = shifted[:, l].clone()
         panel[:, :mca] += carry
-        Y, taus, R = householder_qr_unblocked(panel)
+        Y, taus, R = _panel_qr(panel)
         R = torch.triu(R)
         ci = col_inc[:, l, None]
         ri, cj = ci + rows, ci + cols  # [B, mca], [B, mc]

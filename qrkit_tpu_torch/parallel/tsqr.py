@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _device
 from ..ops.householder import apply_wy, highest_precision, panel_qr_yt
 from ..solvers.base import ComputationInfo, QRSolver
 from ..sparse import SparseCSR
@@ -84,7 +85,7 @@ class TSQRDenseQR(QRSolver):
     def compute(self, mat) -> "TSQRDenseQR":
         if isinstance(mat, SparseCSR):
             mat = mat.to_dense()
-        mat = torch.as_tensor(mat)
+        mat = _device.as_tensor(mat)  # host data goes to the card
         self._m, self._n = map(int, mat.shape)
         # an effective shard count such that every shard (in particular the
         # last, which takes the zero padding at its tail) holds >= n real

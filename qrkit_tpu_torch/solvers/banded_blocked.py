@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
 from ..ops.banded import SMEM_LIMIT, chain_factorize, chain_qr, chain_smem_bytes
 from ..ops.compact_wy import TwoSegmentWYSeq, _rows
@@ -240,7 +241,7 @@ class BandedBlockedQR(QRSolver):
     ``block_rows/block_cols/block_overlap`` given → a static known pattern;
     otherwise ``analyze_pattern`` orders the rows as-banded-as-possible and
     detects the blocks.  The input is a host :class:`SparseCSR`; factors
-    live on ``device`` in ``dtype`` (default CPU, float64).
+    live on ``device`` in ``dtype`` (default CUDA, float64).
 
     ``use_kernel``: ``"auto"`` runs the chain kernel B5 on a CUDA device when
     the plan admits it (at least 32 blocks, one column increment on steps
@@ -266,7 +267,7 @@ class BandedBlockedQR(QRSolver):
         self._brows, self._bcols, self._boverlap = block_rows, block_cols, block_overlap
         self._suggested = suggested_block_cols
         self.use_kernel = use_kernel
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.dtype = dtype if dtype is not None else torch.float64
         self._analysis_ok = False
         self._fac_kernel = False
@@ -323,8 +324,8 @@ class BandedBlockedQR(QRSolver):
         # chain-kernel gate: one uniform column increment on steps 1..nb-2
         # (the first may differ; the last step's carry cut is never read)
         # and, replacing the reference's TPU bounds (max_cols <= 32,
-        # max_active <= 512), a panel + carry within the 48 KB of shared
-        # memory the kernel takes without an opt-in
+        # max_active <= 512), the kernel's shared memory within the H100's
+        # 227 KB a CTA
         self._chain_kernel = None
         nb, cis = self.plan.num_blocks, g["col_inc"]
         itemsize = torch.empty((), dtype=self.dtype).element_size()

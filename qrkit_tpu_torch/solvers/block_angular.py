@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _device
 from ..containers import BlockDiagonal, BlockMatrix1x2
 from ..ops.householder import highest_precision
 from ..sparse import Permutation, SparseCSR
@@ -217,12 +218,13 @@ class BlockAngularQR(QRSolver):
 
     def _home(self, mat: BlockMatrix1x2):
         """(device, dtype) of the composite's dense operands: the left
-        container's, else a tensor A2's, else the left solver's."""
+        container's, else a tensor A2's, else the left solver's (CUDA when
+        it names none)."""
         if isinstance(mat.left, (BlockDiagonal, torch.Tensor)):
             return mat.left.device, mat.left.dtype
         if isinstance(mat.right, torch.Tensor):
             return mat.right.device, mat.right.dtype
-        return (getattr(self.left, "device", torch.device("cpu")),
+        return (_device.resolve(getattr(self.left, "device", None)),
                 getattr(self.left, "dtype", torch.float64))
 
     def _uses_fused_soa(self, mat: BlockMatrix1x2, sparse_a2: bool) -> bool:

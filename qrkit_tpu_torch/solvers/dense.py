@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _device
 from ..ops.householder import (
     apply_wy,
     build_t_factor,
@@ -93,8 +94,8 @@ class _DenseQRBase(QRSolver):
     @staticmethod
     def _coerce(mat) -> torch.Tensor:
         if isinstance(mat, SparseCSR):
-            return torch.as_tensor(mat.to_dense())
-        return torch.as_tensor(mat)
+            mat = mat.to_dense()
+        return _device.as_tensor(mat)  # host data goes to the card
 
     def _adopt_factors(self, m, n, Y, T, R, health) -> None:
         """Take factors computed by an enclosing fused program

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
 from ..sparse import Permutation, SparseCSR
 from . import segmented_factorize, segmented_plan, segmented_solve
@@ -45,7 +46,7 @@ class SegmentedBandedQR(QRSolver):
 
     ``segment_blocks`` is L, the blocks per segment (segmentation needs at
     least 2L blocks).  The input is a host :class:`SparseCSR`; factors live
-    on ``device`` in ``dtype`` (default CPU, float64).
+    on ``device`` in ``dtype`` (default CUDA, float64).
 
     ``use_kernel``: ``"auto"`` runs the kernels on a CUDA device when the
     plan admits the segment-chain kernel (B3), with the W-apply kernel (B4)
@@ -77,7 +78,7 @@ class SegmentedBandedQR(QRSolver):
         self._brows, self._bcols, self._boverlap = block_rows, block_cols, block_overlap
         self._fallback = fallback
         self.use_kernel = use_kernel
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve(device)
         self.dtype = dtype if dtype is not None else torch.float64
         self._delegate = None
         self._analysis_ok = False

@@ -14,7 +14,7 @@ The host arrays equal the reference's (tests/test_torch_host.py holds them
 to it).  What differs:
 
 * the gates' size limits are the CUDA kernels' shared memory
-  (``ops.banded.chain_smem_bytes`` / ``apply_w_smem_bytes`` against 48 KB)
+  (``ops.banded.chain_smem_bytes`` / ``apply_w_smem_bytes`` against 227 KB)
   in place of the TPU's VMEM budgets and unroll bounds;
 * the W-apply kernel takes all ``ko`` operand columns in one pass, so the
   TPU's column group ``kg`` does not exist;
@@ -502,7 +502,7 @@ def prepare_p2w(self):
     h = int(multi.max()) + 1 if multi.size else 0
     wrows = h + max(A - mca, mca)
     # the reference searched a column group kg that fits TPU VMEM; the CUDA
-    # kernel takes all ko columns with W, window, Y and tau in shared memory
+    # kernel takes all ko columns, each column's W rows in shared memory
     if apply_w_smem_bytes(A, mc, ko, wrows, _itemsize(self)) > SMEM_LIMIT:
         return
     # shared starts: rows [0, mca) at a_l + r, rows [mca, A) at b_l + r - mca

@@ -25,6 +25,8 @@ from qrkit_tpu_torch.ops.householder import panel_qr_yt_soa
 
 from generators import block_diagonal_matrix, overlapping_block_diagonal_matrix, tall_banded_matrix
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 TOL = dict(rtol=1e-10, atol=1e-11)
 
 
@@ -49,7 +51,7 @@ def pair(request):
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["general", "kernel_plain"])
 def test_banded_factors_match(pair, use_kernel):
     m, jq = pair
-    tq = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=use_kernel).compute(_port(m))
+    tq = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=use_kernel, device=DEV).compute(_port(m))
     assert tq._fac_kernel == use_kernel and tq._chain_kernel is not None
     assert tq.info() == qt.ComputationInfo.SUCCESS
     np.testing.assert_array_equal(tq.rows_permutation().indices, jq.rows_permutation().indices)
@@ -64,7 +66,7 @@ def test_banded_factors_match(pair, use_kernel):
 def test_banded_solves_and_products_match(pair):
     m, jq = pair
     rng = np.random.default_rng(12)
-    tq = qt.BandedBlockedQR(suggested_block_cols=4).compute(_port(m))
+    tq = qt.BandedBlockedQR(suggested_block_cols=4, device=DEV).compute(_port(m))
     x_true = rng.normal(size=m.ncols)
     b = tq.rows_permutation().apply(m.to_dense() @ x_true)
     x = _np(tq.solve(torch.as_tensor(b)))
@@ -80,7 +82,7 @@ def test_banded_solves_and_products_match(pair):
 
 def test_banded_sparse_exports_match(pair):
     m, jq = pair
-    tq = qt.BandedBlockedQR(suggested_block_cols=4).compute(_port(m))
+    tq = qt.BandedBlockedQR(suggested_block_cols=4, device=DEV).compute(_port(m))
     np.testing.assert_allclose(tq.matrix_r_sparse().to_dense(), jq.matrix_r_sparse().to_dense(), **TOL)
     Q = tq.matrix_q_sparse().to_dense()
     np.testing.assert_allclose(Q, jq.matrix_q_sparse().to_dense(), **TOL)
@@ -91,11 +93,11 @@ def test_banded_sparse_exports_match(pair):
 @pytest.mark.parametrize("as_tensor", [True, False], ids=["device_tensor", "numpy"])
 def test_banded_factorize_values_matches_compute(pair, as_tensor):
     m, jq = pair
-    tq = qt.BandedBlockedQR(suggested_block_cols=4).compute(_port(m))
+    tq = qt.BandedBlockedQR(suggested_block_cols=4, device=DEV).compute(_port(m))
     scaled = qt.SparseCSR(m.shape, m.indptr, m.indices, m.data * 1.7)
     vals = torch.as_tensor(scaled.data) if as_tensor else scaled.data
     tq.factorize_values(vals)  # original stored order
-    ref = qt.BandedBlockedQR(suggested_block_cols=4).compute(scaled)
+    ref = qt.BandedBlockedQR(suggested_block_cols=4, device=DEV).compute(scaled)
     np.testing.assert_allclose(_np(tq.r_panels), _np(ref.r_panels), rtol=0, atol=1e-12)
     jq2 = JBanded(suggested_block_cols=4, use_pallas=False).compute(m)
     jq2.factorize_values(jnp.asarray(scaled.data))
@@ -108,7 +110,7 @@ def test_banded_static_pattern_matches():
     rng = np.random.default_rng(13)
     m = block_diagonal_matrix(128, 448, rng, permute_rows=False)
     jq = JBanded(block_rows=7, block_cols=2, block_overlap=0).compute(m)
-    tq = qt.BandedBlockedQR(block_rows=7, block_cols=2, block_overlap=0).compute(_port(m))
+    tq = qt.BandedBlockedQR(block_rows=7, block_cols=2, block_overlap=0, device=DEV).compute(_port(m))
     assert [b.astuple() for b in tq.plan.blocks] == [b.astuple() for b in jq.plan.blocks]
     assert tq.rows_permutation().is_identity()
     np.testing.assert_allclose(_np(tq.matrix_r_dense()), _np(jq.matrix_r_dense()), **TOL)
@@ -124,7 +126,7 @@ def test_banded_degenerate_overlap_fixture_solves():
     rng = np.random.default_rng(14)
     m = overlapping_block_diagonal_matrix(128, 448, rng, permute_rows=False)
     jq = JBanded(suggested_block_cols=2, use_pallas=False).compute(m)
-    tq = qt.BandedBlockedQR(suggested_block_cols=2, use_kernel=True).compute(_port(m))
+    tq = qt.BandedBlockedQR(suggested_block_cols=2, use_kernel=True, device=DEV).compute(_port(m))
     np.testing.assert_allclose(np.abs(_np(tq.r_panels)), np.abs(_np(jq.r_panels)), rtol=0, atol=1e-12)
     x_true = rng.normal(size=m.ncols)
     b = m.to_dense() @ x_true
@@ -135,8 +137,8 @@ def test_banded_use_kernel_true_raises_on_short_chain():
     rng = np.random.default_rng(15)
     m = _port(overlapping_block_diagonal_matrix(32, 112, rng, permute_rows=False))
     with pytest.raises(ValueError, match="use_kernel"):
-        qt.BandedBlockedQR(suggested_block_cols=2, use_kernel=True).compute(m)
-    qr = qt.BandedBlockedQR(suggested_block_cols=2).compute(m)  # "auto": general path
+        qt.BandedBlockedQR(suggested_block_cols=2, use_kernel=True, device=DEV).compute(m)
+    qr = qt.BandedBlockedQR(suggested_block_cols=2, device=DEV).compute(m)  # "auto": general path
     assert qr._chain_kernel is None and not qr._fac_kernel
 
 
@@ -145,7 +147,7 @@ def test_banded_convert_roundtrip(pair):
     diagonal equal the reference's."""
     m, jq = pair
     state = dict(Yf=np.asarray(jq.q_seq.Yf), Tf=np.asarray(jq.q_seq.Tf), r_panels_f=np.asarray(jq._r_panels_f))
-    tq = convert.banded_qr_from_numpy(_port(m), state, suggested_block_cols=4)
+    tq = convert.banded_qr_from_numpy(_port(m), state, suggested_block_cols=4, device=DEV)
     assert tq.info() == qt.ComputationInfo.SUCCESS
     b = np.random.default_rng(16).normal(size=m.nrows)
     np.testing.assert_allclose(_np(tq.solve(torch.as_tensor(b))), _np(jq.solve(jnp.asarray(b))), **TOL)

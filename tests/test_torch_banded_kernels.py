@@ -7,9 +7,15 @@ the sequential chain in X-layout, padded to whole ``nsub`` groups); the
 port's operands are the same numbers, chain index first.  Tolerance: rtol
 1e-10 with atol 1e-12·max|reference| (fp64).
 
-The CUDA case carries the ``cuda`` marker and skips without a card; on a
-GPU machine without JAX it runs alone with ``python -m pytest --noconftest
--m cuda tests/test_torch_banded_kernels.py``.
+The CUDA cases carry the ``cuda`` marker and skip without a card; on a
+GPU machine without JAX they run alone with ``python -m pytest --noconftest
+-m cuda tests/test_torch_banded_kernels.py``.  Besides the main paths'
+shapes they walk the kernels' edges: panel heights on both sides of each
+32-row register slot (4 … 88 rows), widths 1 … 32 (the register kernels'
+padded widths and the shared-memory kernel), first-step cuts that differ
+from the body's, interleaved inactive steps, exactly zero columns (τ = 0),
+and the W apply with nothing written back (h = 0) and with every window
+position written back (h at the window's far edge).
 """
 import numpy as np
 import pytest
@@ -221,7 +227,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     """B3, B4, B5 against their plain versions on the card (ci0 != ci,
     inactive steps); reductions add in another order, so within fp32 rtol
     1e-4 (atol 1e-5·max) or fp64 rtol 1e-10 (atol 1e-12·max)."""
-    rtol, atol_rel = (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+    rtol, atol_rel = _tolerance(dtype)
 
     def close(got, want):
         for g, w in zip(got, want):
@@ -275,3 +281,116 @@ def test_cuda_chain_qr_4x1_matches_plain(cuda_device, dtype, nb):
     assert profiling.launch_counts()["banded_chain_qr"] == 1
     for g, w in zip(out, bk._chain_qr_plain(p, act, **kw)):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol_rel * w.abs().max().item())
+
+
+EDGE_MA = [4, 31, 32, 33, 48, 64, 65, 88]
+EDGE_MC = [1, 7, 8, 9, 32]
+APPLY_EDGES = [  # (ma, mc, mca, ko)
+    (4, 1, 1, 2), (33, 7, 5, 3), (48, 8, 8, 8), (65, 9, 10, 33), (88, 32, 32, 8),
+    (56, 16, 8, 16), (32, 32, 16, 32), (96, 8, 8, 17), (20, 4, 4, 32),
+]
+
+
+def _tolerance(dtype):
+    """Kernel against plain version: the reductions add in another order."""
+    return (1e-10, 1e-12) if dtype == torch.float64 else (1e-4, 1e-5)
+
+
+def _assert_outputs_close(got, want, dtype):
+    rtol, atol_rel = _tolerance(dtype)
+    for g, w in zip(got, want):
+        atol = atol_rel * max(w.abs().max().item(), 1e-300)
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, check_dtype=True)
+
+
+def _edge_panels(rng, lead, ma, mc):
+    """Random panels whose first step (no carry yet) has an exactly zero
+    column 0: x0 = 0 and sigma = 0, a degenerate reflector (tau = 0)."""
+    p = _panels(rng, *lead, ma=ma, mc=mc)
+    p[(0,) * len(lead)][:, 0] = 0.0
+    return p
+
+
+def _edge_act(shape):
+    """Every third step of each chain inactive, staggered by chain."""
+    act = np.ones(shape)
+    flat = act.reshape(-1, shape[-1])
+    for s in range(flat.shape[0]):
+        flat[s, (s + 1) % 3 :: 3] = 0.0
+    flat[0, 0] = 1.0  # keep the zero-column step active
+    return act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mc", EDGE_MC)
+@pytest.mark.parametrize("ma", EDGE_MA)
+def test_cuda_segment_chains_edges(cuda_device, ma, mc, dtype):
+    """B3 against its plain version at the edge geometries: chains >= 1 cut
+    their first step at ci0_rest != ci, inactive steps interleaved, zero
+    columns, one launch."""
+    rng = np.random.default_rng(100 + ma * 40 + mc)
+    S, L = 3, 7
+    mca = max(1, min(ma - 1, mc)) if ma > 1 else 1
+    me = min(ma, mc)
+    ci = max(1, mc // 2)
+    ci0_rest = ci - 1
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    panels, act = t(_edge_panels(rng, (S, L), ma, mc)), t(_edge_act((S, L)))
+    kw = dict(mca=mca, me=me, ci=ci, ci0_rest=ci0_rest)
+    profiling.reset_launch_counts()
+    out = bk.segment_chains(panels, act, **kw)
+    torch.cuda.synchronize()
+    assert profiling.launch_counts()["banded_segment_chains"] == 1
+    _assert_outputs_close(out, bk._segment_chains_plain(panels, act, **kw), dtype)
+    assert not out[1][0, 0, 0].item()  # the zero column's tau
+    assert not out[2][act == 0].any()  # inactive steps emit zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("mc", EDGE_MC)
+@pytest.mark.parametrize("ma", EDGE_MA)
+def test_cuda_chain_qr_edges(cuda_device, ma, mc, dtype):
+    """B5 against its plain version at the edge geometries, first step cut
+    at ci0 != ci, inactive steps interleaved, a zero column."""
+    rng = np.random.default_rng(200 + ma * 40 + mc)
+    nb = 11
+    mca = max(1, min(ma, mc + 1))
+    me = min(ma, mc)
+    ci, ci0 = mc, max(0, mc - 1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    panels, act = t(_edge_panels(rng, (nb,), ma, mc)), t(_edge_act((nb,)))
+    kw = dict(mca=mca, me=me, ci=ci, ci0=ci0)
+    out = bk.chain_qr(panels, act, **kw)
+    torch.cuda.synchronize()
+    _assert_outputs_close(out, bk._chain_qr_plain(panels, act, **kw), dtype)
+    assert not out[1][0, 0].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("h_at", ["zero", "edge"])
+@pytest.mark.parametrize("ma,mc,mca,ko", APPLY_EDGES)
+def test_cuda_apply_w_edges(cuda_device, ma, mc, mca, ko, h_at, dtype):
+    """B4 against its plain version: nothing written back (h = 0), or h at
+    the window's far edge so every window position is written back; window
+    starts that move by varying strides; Y and tau from B3's plain version
+    (zero columns, inactive steps).  The register kernel at ko > 8 (four
+    columns a warp, ragged last warps) and at its heaviest widths (mc 16
+    and 32) as well as the shared-memory kernel (ko 33, fp64 at wide mc)."""
+    rng = np.random.default_rng(300 + ma + mc + ko)
+    S, L = 3, 6
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)  # noqa: E731
+    panels, act = t(_edge_panels(rng, (S, L), ma, mc)), t(_edge_act((S, L)))
+    y, tau, _ = bk._segment_chains_plain(panels, act, mca=mca, me=min(ma, mc), ci=1, ci0_rest=0)
+    a = np.cumsum(rng.integers(0, 3, size=L))
+    b = a + mca + rng.integers(0, 3, size=L)
+    h = 0 if h_at == "zero" else int((b + ma - mca).max())
+    wrows = h + max(ma - mca, mca)
+    ab = torch.as_tensor(np.stack([a, b], 1), dtype=torch.int32, device=cuda_device)
+    w = t(rng.normal(size=(S, L, ma, ko)))
+    kw = dict(mca=mca, h=h, wrows=wrows)
+    out = bk.segment_apply_w(y, tau, w, ab, **kw)
+    torch.cuda.synchronize()
+    _assert_outputs_close((out,), (bk._segment_apply_w_plain(y, tau, w, ab, **kw),), dtype)

@@ -21,6 +21,8 @@ from qrkit_tpu_torch import convert
 from qrkit_tpu_torch.parallel import TSQRDenseQR, tsqr_apply, tsqr_factorize
 from qrkit_tpu_torch.solvers.block_angular import _RowSubsetQR
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 TOL = dict(rtol=1e-10, atol=1e-10)
 
 
@@ -155,7 +157,7 @@ def _mats(blocks, a2, left_soa=False, right_t=False):
     r = np.ascontiguousarray(a2.T) if right_t else a2
     if left_soa:
         soa = blocks.transpose(1, 2, 0).reshape(br * bc, N)
-        tl = qt.BlockDiagonal.from_soa(soa, br, bc, nrows=n1)
+        tl = qt.BlockDiagonal.from_soa(soa, br, bc, nrows=n1, device=DEV)
         jl = jq.BlockDiagonal.from_soa(jnp.asarray(soa), br, bc, nrows=n1)
     else:
         tl = qt.BlockDiagonal(torch.as_tensor(blocks), n1, N * bc)
@@ -343,7 +345,7 @@ def _banded_left(rng, N=40):
 def test_banded_left_dense_a2_matches(rng):
     left, a2 = _banded_left(rng)
     kw = dict(block_rows=3, block_cols=1, block_overlap=0, suggested_block_cols=1)
-    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(use_kernel=True, **kw), qt.DenseColPivQR())
+    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(use_kernel=True, **kw, device=DEV), qt.DenseColPivQR())
     jqr = jq.BlockAngularQR(jq.BandedBlockedQR(**kw), jq.DenseColPivQR())
     tqr.compute(qt.BlockMatrix1x2(_port_csr(left), torch.as_tensor(a2)))
     jqr.compute(jq.BlockMatrix1x2(left, jnp.asarray(a2)))
@@ -357,7 +359,7 @@ def test_banded_left_dense_a2_matches(rng):
 
 def test_banded_left_sparse_a2_is_slice_4(rng):
     left, a2 = _banded_left(rng, N=8)
-    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(suggested_block_cols=1), qt.DenseColPivQR())
+    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(suggested_block_cols=1, device=DEV), qt.DenseColPivQR())
     with pytest.raises(NotImplementedError, match="slice 4"):
         tqr.compute(qt.BlockMatrix1x2(_port_csr(left), qt.SparseCSR.from_dense(a2)))
 
@@ -369,7 +371,7 @@ def test_convert_dense_qr(rng, colpiv):
     b = rng.normal(size=30)
     jqr = (jq.DenseColPivQR() if colpiv else jq.DenseHouseholderQR()).compute(jnp.asarray(a))
     state = {"Y": jqr._Y, "T": jqr._T, "R": jqr._R, "perm": jqr._perm_dev if colpiv else None}
-    tqr = convert.dense_qr_from_numpy(state)
+    tqr = convert.dense_qr_from_numpy(state, device=DEV)
     assert isinstance(tqr, qt.DenseColPivQR if colpiv else qt.DenseHouseholderQR)
     assert tqr.info() == qt.ComputationInfo.SUCCESS
     close(tqr.solve(torch.as_tensor(b)), jqr.solve(jnp.asarray(b)))
@@ -386,6 +388,6 @@ def test_convert_block_angular_qr(rng, colpiv):
         "T2": jqr.right._T, "R2": jqr.right._R, "perm2": jqr._fused_perm2, "r12": jqr._r12,
         "colpiv": colpiv,
     }
-    tqr = convert.block_angular_qr_from_numpy(tm, state)
+    tqr = convert.block_angular_qr_from_numpy(tm, state, device=DEV)
     assert tqr._fused_dense
     _check_surfaces(rng, tqr, jqr, b)

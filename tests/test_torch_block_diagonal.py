@@ -18,6 +18,8 @@ from qrkit_tpu.solvers.block_diagonal import QFormat as JQFormat
 from qrkit_tpu_torch import BlockDiagonal, BlockDiagonalQR, ComputationInfo, QFormat
 from qrkit_tpu_torch import profiling
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 FACT = dict(rtol=1e-10, atol=1e-12)
 SOL = dict(rtol=0, atol=1e-9)
 
@@ -134,7 +136,7 @@ def test_packed_r_diagonal_index(rng, br, bc):
 def test_info_is_lazy_and_flags_singular_block(rng, use_kernel):
     blocks = rng.uniform(0.5, 5.0, size=(5, 7, 2))
     blocks[3, :, 1] = 0.0  # singular block: an exactly zero pivot
-    mat = BlockDiagonal.from_dense_batch(blocks)
+    mat = BlockDiagonal.from_dense_batch(blocks, device=DEV)
     qr = BlockDiagonalQR(pivot=False, use_kernel=use_kernel).compute(mat)
     assert isinstance(qr._health, torch.Tensor)  # left on the device by compute
     assert qr.info() == ComputationInfo.NUMERICAL_ISSUE
@@ -162,10 +164,10 @@ def test_soa_container_roundtrip_and_solver(rng):
     nb, br, bc = 50, 2, 1
     blocks = rng.uniform(0.5, 5.0, size=(nb, br, bc))
     soa = blocks.transpose(1, 2, 0).reshape(br * bc, nb)
-    m_soa = BlockDiagonal.from_soa(soa, br, bc)
+    m_soa = BlockDiagonal.from_soa(soa, br, bc, device=DEV)
     assert m_soa.is_soa and m_soa.shape == (nb * br, nb * bc)
     np.testing.assert_array_equal(m_soa.blocks.numpy(), blocks)
-    m_aos = BlockDiagonal.from_dense_batch(blocks)
+    m_aos = BlockDiagonal.from_dense_batch(blocks, device=DEV)
     np.testing.assert_array_equal(m_aos.soa().numpy(), soa)
     np.testing.assert_array_equal(m_soa.to_dense(), m_aos.to_dense())
     b = torch.as_tensor(rng.normal(size=nb * br))

@@ -8,6 +8,7 @@ fallback.
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 import qrkit_tpu._native as jnative
 from qrkit_tpu import analysis as janalysis
@@ -21,6 +22,8 @@ from qrkit_tpu_torch import sparse as tsparse
 from qrkit_tpu_torch.containers import BlockDiagonal
 
 from generators import block_diagonal_matrix, overlapping_block_diagonal_matrix
+
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
 
 
 def _port(m):
@@ -134,7 +137,7 @@ def test_triplets_dense_scipy_roundtrip_match(rng):
 def test_block_diagonal_from_sparse_matrix_matches(rng, permute_rows):
     jm = block_diagonal_matrix(20, 70, rng, permute_rows=permute_rows)
     jblk, jperm = JBlockDiagonal.from_sparse_matrix(jm, 2)
-    tblk, tperm = BlockDiagonal.from_sparse_matrix(_port(jm), 2)
+    tblk, tperm = BlockDiagonal.from_sparse_matrix(_port(jm), 2, device=DEV)
     np.testing.assert_array_equal(tperm.indices, jperm.indices)
     np.testing.assert_array_equal(tblk.blocks.numpy(), np.asarray(jblk.blocks))
     np.testing.assert_array_equal(tblk.to_dense(), jblk.to_dense())
@@ -144,7 +147,7 @@ def test_block_diagonal_from_sparse_matrix_matches(rng, permute_rows):
 def test_block_diagonal_from_pattern_matches(rng):
     jm = block_diagonal_matrix(16, 56, rng, permute_rows=False)
     jblk = JBlockDiagonal.from_block_diagonal_pattern(jm, 7, 2)
-    tblk = BlockDiagonal.from_block_diagonal_pattern(_port(jm), 7, 2)
+    tblk = BlockDiagonal.from_block_diagonal_pattern(_port(jm), 7, 2, device=DEV)
     np.testing.assert_array_equal(tblk.blocks.numpy(), np.asarray(jblk.blocks))
     assert (tblk.num_blocks, tblk.block_rows, tblk.block_cols) == (8, 7, 2)
 
@@ -227,7 +230,7 @@ def test_segmented_plan_matches(name):
     jm = _tall(nb, br, bc, ov)
     jq = JSegmented(suggested_block_cols=sug, segment_blocks=L, use_pallas=True)
     jq.analyze_pattern(jm)
-    tq = SegmentedBandedQR(suggested_block_cols=sug, segment_blocks=L)
+    tq = SegmentedBandedQR(suggested_block_cols=sug, segment_blocks=L, device=DEV)
     tq.analyze_pattern(_port(jm))
     for attr in ("S", "_overlap", "_kw", "_chain_kw", "_chain_group", "_seg_rows", "_seg_row0",
                  "_seg_ncols", "_m1", "_m2", "_nbot", "_nbot2", "_rbot", "_nloc_max",
@@ -282,7 +285,7 @@ def test_config3_full_size_plan():
 
     m = _port(_tall(2499, 40, 8, 4))
     assert (m.shape, m.nnz) == ((99960, 10000), 799680)
-    seg = SegmentedBandedQR(suggested_block_cols=8, segment_blocks=32).analyze_pattern(m)
+    seg = SegmentedBandedQR(suggested_block_cols=8, segment_blocks=32, device=DEV).analyze_pattern(m)
     assert seg._delegate is None and (seg.S, seg.L) == (79, 32)
     assert seg._kw == dict(max_active=48, max_cols=8, max_carry=8, max_emit=8)
     assert seg._kernel_gate and seg._kernel_ci == (4, 0)
@@ -292,7 +295,7 @@ def test_config3_full_size_plan():
     assert seg._chain_kw == dict(max_active=88, max_cols=32, max_carry=32, max_emit=28)
     assert seg._chain_kernel == dict(mca=32, me=28, ci=28, ci0=24)
     assert (seg._max_seg_rows, seg._nloc_max, seg._rbot_max, seg._m1, seg._m2) == (1280, 128, 1156, 9688, 312)
-    plain = BandedBlockedQR(suggested_block_cols=8).analyze_pattern(m)
+    plain = BandedBlockedQR(suggested_block_cols=8, device=DEV).analyze_pattern(m)
     assert plain.plan.num_blocks == 2499 and plain._mR == 40
     assert (plain._max_active, plain._max_cols) == (48, 8)
     assert plain._chain_kernel == dict(mca=8, me=8, ci=4, ci0=4)

@@ -20,6 +20,8 @@ from qrkit_tpu_torch import functional as tf
 from qrkit_tpu_torch import lm as tlm
 from qrkit_tpu_torch.examples import ellipse as tell
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 TOL = dict(rtol=1e-10, atol=1e-10)
 
 
@@ -213,7 +215,7 @@ ELLIPSE = tell.Ellipse(7.5, 2.0, 17.0, 23.0, 0.23)
 def test_fit_ellipse_matches_jax(loop):
     pts = tell.ellipse_points(ELLIPSE, 200)
     np.testing.assert_array_equal(pts, jell.ellipse_points(jell.Ellipse(), 200))
-    result, params = tell.fit_ellipse(pts, loop=loop)
+    result, params = tell.fit_ellipse(pts, loop=loop, device=DEV)
     jresult, jparams = jell.fit_ellipse(pts, loop=loop)
     n = pts.shape[1]
     assert result.iterations == jresult.iterations
@@ -229,7 +231,7 @@ def test_fit_ellipse_class_based_step_matches():
     """fused=False: the host loop through BlockAngularQR (the fused dense
     path) instead of block_angular_lstsq."""
     pts = tell.ellipse_points(ELLIPSE, 120)
-    result, params = tell.fit_ellipse(pts, loop="host", fused=False)
+    result, params = tell.fit_ellipse(pts, loop="host", fused=False, device=DEV)
     jresult, _ = jell.fit_ellipse(pts, loop="host", fused=False)
     assert result.iterations == jresult.iterations
     close(result.x, jresult.x, rtol=0, atol=1e-8)
@@ -244,12 +246,12 @@ def test_fit_ellipse_batch_matches_solo():
     n = 64
     pts_batch = np.stack([tell.ellipse_points(el, n) for el in els])
     cfg = tlm.LMConfig(max_iters=40)
-    batched = tell.fit_ellipse_batch(pts_batch, cfg)
+    batched = tell.fit_ellipse_batch(pts_batch, cfg, device=DEV)
     assert batched.x.shape == (3, n + 5)
     jbatched = jell.fit_ellipse_batch(pts_batch, jlm.LMConfig(max_iters=40))
     np.testing.assert_array_equal(batched.iterations, np.asarray(jbatched.iterations))
     for i in range(3):
-        solo, _ = tell.fit_ellipse(pts_batch[i], cfg, loop="device")
+        solo, _ = tell.fit_ellipse(pts_batch[i], cfg, loop="device", device=DEV)
         close(batched.x[i], solo.x, rtol=0, atol=1e-9)
         assert batched.iterations[i] == solo.iterations
         assert float(batched.cost[i]) < 1e-10
@@ -261,11 +263,11 @@ def test_damped_steps_match():
     version) against each other and against the reference's."""
     pts = tell.ellipse_points(ELLIPSE, 80)
     lam = 1e-3
-    fused = tell.EllipseFitting(pts)
+    fused = tell.EllipseFitting(pts, device=DEV)
     x0 = fused.initial_params()
     r0 = fused.residuals(x0)
     d_fused = fused.damped_step(x0, r0, lam)
-    d_class = tell.EllipseFitting(pts, fused=False).damped_step(x0, r0, lam)
+    d_class = tell.EllipseFitting(pts, fused=False, device=DEV).damped_step(x0, r0, lam)
     d_banded = fused.damped_step_banded(x0, r0, lam)
     close(d_class, d_fused, rtol=0, atol=1e-8)
     close(d_banded, d_fused, rtol=0, atol=1e-8)
@@ -297,7 +299,7 @@ def test_banded_step_runs_the_chain_kernel_path(monkeypatch):
         real(self, *args, **kw)
 
     monkeypatch.setattr(banded_blocked.BandedBlockedQR, "__init__", demand_kernel)
-    f = tell.EllipseFitting(tell.ellipse_points(ELLIPSE, 40))
+    f = tell.EllipseFitting(tell.ellipse_points(ELLIPSE, 40), device=DEV)
     x0 = f.initial_params()
     f.damped_step_banded(x0, f.residuals(x0), 1e-3)
     assert calls == [1]

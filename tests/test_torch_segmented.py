@@ -22,6 +22,8 @@ from qrkit_tpu_torch import convert
 
 from generators import overlapping_block_diagonal_matrix, tall_banded_matrix
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 TOL = dict(rtol=1e-10, atol=1e-11)
 SHAPES = {  # name -> (nb, br, bc, ov, segment_blocks, suggested_block_cols)
     "tall_64x10x4": (64, 10, 4, 2, 8, 4),
@@ -39,7 +41,7 @@ def _np(x):
 
 def _solver(name, **kw):
     _, _, _, _, L, sug = SHAPES[name]
-    return qt.SegmentedBandedQR(suggested_block_cols=sug, segment_blocks=L, **kw)
+    return qt.SegmentedBandedQR(suggested_block_cols=sug, segment_blocks=L, **kw, device=DEV)
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +134,7 @@ def test_segmented_convert_roundtrip(tall):
         Tb=jq._Tb, chain_Yf=cs.Yf, chain_Tf=cs.Tf, chain_r=jq._chain_r,
     )
     state = {k: np.asarray(v) for k, v in state.items()}
-    tq = convert.segmented_banded_qr_from_numpy(_port(m), state, suggested_block_cols=4, segment_blocks=8)
+    tq = convert.segmented_banded_qr_from_numpy(_port(m), state, suggested_block_cols=4, segment_blocks=8, device=DEV)
     assert tq.info() == qt.ComputationInfo.SUCCESS
     np.testing.assert_allclose(_np(tq.solve(torch.as_tensor(b))), want, **TOL)
     np.testing.assert_allclose(_np(tq.r_diagonal()), _np(jq.r_diagonal()), **TOL)
@@ -155,7 +157,7 @@ def test_segmented_grouped_boundary_chain_contract():
     """A long chain groups the boundary chain (G > 1); the general and the
     kernel paths agree and solve."""
     m = _port(tall_banded_matrix(96, np.random.default_rng(25), br=10, bc=4, ov=2))
-    qs = [qt.SegmentedBandedQR(4, 4, use_kernel=k).compute(m) for k in (False, True)]
+    qs = [qt.SegmentedBandedQR(4, 4, use_kernel=k, device=DEV).compute(m) for k in (False, True)]
     assert qs[0]._chain_group > 1 and qs[1]._chain_kernel is not None
     np.testing.assert_allclose(_np(qs[0]._chain_r), _np(qs[1]._chain_r), **TOL)
     x_true = np.random.default_rng(26).normal(size=m.ncols)
@@ -169,7 +171,7 @@ def test_segmented_delegates_short_chain():
     solve, factorize_values forward); fallback=False raises instead."""
     rng = np.random.default_rng(27)
     m = _port(overlapping_block_diagonal_matrix(32, 112, rng, permute_rows=False))
-    qr = qt.SegmentedBandedQR(suggested_block_cols=2, segment_blocks=32).compute(m)
+    qr = qt.SegmentedBandedQR(suggested_block_cols=2, segment_blocks=32, device=DEV).compute(m)
     assert isinstance(qr._delegate, qt.BandedBlockedQR)
     assert qr.info() == qt.ComputationInfo.SUCCESS
     x_true = rng.normal(size=m.ncols)
@@ -178,7 +180,7 @@ def test_segmented_delegates_short_chain():
     b = qr.rows_permutation().apply(scaled.to_dense() @ x_true)
     np.testing.assert_allclose(_np(qr.solve(torch.as_tensor(b))), x_true, rtol=0, atol=1e-8)
     with pytest.raises(ValueError, match="BandedBlockedQR"):
-        qt.SegmentedBandedQR(suggested_block_cols=2, segment_blocks=32, fallback=False).compute(m)
+        qt.SegmentedBandedQR(suggested_block_cols=2, segment_blocks=32, fallback=False, device=DEV).compute(m)
 
 
 def test_segmented_use_kernel_true_raises_without_gate(tall):

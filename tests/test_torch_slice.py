@@ -21,6 +21,8 @@ from qrkit_tpu_torch.ops import blockdiag as bd
 
 from generators import block_diagonal_matrix, tall_banded_matrix
 
+DEV = torch.device("cpu")  # the CPU tests name the device: entry points default to CUDA
+
 REPO = Path(__file__).resolve().parents[1]
 SOL = dict(rtol=0, atol=1e-9)
 
@@ -72,7 +74,7 @@ def test_slice_from_sparse_matrix_with_row_permutation(rng):
     jm = block_diagonal_matrix(24, 84, rng, permute_rows=True)
     tm = qt.SparseCSR(jm.shape, jm.indptr, jm.indices, jm.data)
     jblk, jperm = jq.BlockDiagonal.from_sparse_matrix(jm, 2)
-    tblk, tperm = qt.BlockDiagonal.from_sparse_matrix(tm, 2)
+    tblk, tperm = qt.BlockDiagonal.from_sparse_matrix(tm, 2, device=DEV)
     b = rng.normal(size=jm.nrows)
     jqr = jq.BlockDiagonalQR(pivot=True).compute(jblk, row_perm=jperm)
     tqr = qt.BlockDiagonalQR(pivot=True).compute(tblk, row_perm=tperm)
@@ -107,7 +109,7 @@ def test_convert_solver_state_roundtrip(rng, pivot, kernel):
     blocks = rng.uniform(0.5, 5.0, size=(30, 7, 2))
     jmat = jq.BlockDiagonal(jnp.asarray(blocks), 30 * 7 + 1, 30 * 2)
     jqr = _jax_solver(pivot, kernel).compute(jmat)
-    tqr = convert.block_diagonal_qr_from_numpy(_jax_state(jqr))
+    tqr = convert.block_diagonal_qr_from_numpy(_jax_state(jqr), device=DEV)
     assert tqr._kernel_mode == kernel
     if kernel:  # the port keeps no Pallas padding
         assert tqr._a_soa.shape == (14, 30) and tqr._r_soa.shape == (3, 30)
@@ -127,12 +129,12 @@ def test_convert_block_diagonal(rng, layout):
     blocks = rng.uniform(0.5, 5.0, size=(9, 3, 2))
     if layout == "aos":
         jmat = jq.BlockDiagonal(jnp.asarray(blocks), 28, 19)
-        tmat = convert.block_diagonal_from_numpy(28, 19, blocks=np.asarray(jmat.blocks))
+        tmat = convert.block_diagonal_from_numpy(28, 19, blocks=np.asarray(jmat.blocks), device=DEV)
     else:
         soa = blocks.transpose(1, 2, 0).reshape(6, 9)
         jmat = jq.BlockDiagonal.from_soa(jnp.asarray(soa), 3, 2, 28, 19)
         tmat = convert.block_diagonal_from_numpy(
-            28, 19, blocks_soa=np.asarray(jmat.soa()), block_rows=3, block_cols=2
+            28, 19, blocks_soa=np.asarray(jmat.soa()), block_rows=3, block_cols=2, device=DEV
         )
     assert tmat.is_soa == jmat.is_soa
     np.testing.assert_array_equal(tmat.to_dense(), jmat.to_dense())
@@ -178,14 +180,14 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     monkeypatch.setattr(_build, "load_banded", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
-    mat = qt.BlockDiagonal.from_dense_batch(blocks)
+    mat = qt.BlockDiagonal.from_dense_batch(blocks, device=DEV)
     qr = qt.BlockDiagonalQR(pivot=False, use_kernel=True).compute(mat)
     qr.solve(torch.as_tensor(rng.normal(size=56)))
     bd.block_diagonal_lstsq(torch.as_tensor(blocks), torch.as_tensor(rng.normal(size=56)))
     bd.block_diagonal_qr_r(torch.as_tensor(blocks))
     banded = _port(tall_banded_matrix(64, rng, br=10, bc=4, ov=2))
-    seg = qt.SegmentedBandedQR(4, 8, use_kernel=True).compute(banded)
-    plain = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=True).compute(banded)
+    seg = qt.SegmentedBandedQR(4, 8, use_kernel=True, device=DEV).compute(banded)
+    plain = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=True, device=DEV).compute(banded)
     assert seg._fac_kernel and seg._p2w is not None and seg._chain_kernel and plain._fac_kernel
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
