@@ -43,7 +43,32 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
 * banded-left ellipse step (phase ``ellipse_banded_left``): one
   ``EllipseFitting.damped_step_banded`` at N = 2,000 (kernel B5 on a chain of
   2,000 steps of 4×1 panels) against ``damped_step``, fp64 and fp32, and B5
-  against its plain version on that chain.
+  against its plain version on that chain;
+* bundle adjustment (phase ``bundle``): ``examples/bench_bundle.py``'s scene
+  (8 cameras, noise 1e-3, seed 3, its perturbation; ``LMConfig(max_iters=
+  40)``), fp32: ``fit_bundle`` (host loop, kernel B2 on the 19×3 point
+  blocks every iteration) at 5,000 points and ``fit_bundle_device`` at
+  5,000 and 20,000 points, each a warm-up fit and a timed one, with rms
+  reprojection, host reads and B2 launches per iteration, the two loops held
+  to each other by cost; B2 timed at the 19×3 batch;
+* ``auto_qr`` and the CLI (phase ``auto_cli``): config 3 and config 2 (10,000
+  blocks of 7×2, rows permuted) written as MatrixMarket files and run
+  through ``qrkit_tpu_torch.__main__.main`` in this process (fp32,
+  ``--rhs-random --export-r``): the selections, the recovery error and the
+  kernels of each factorize; ``auto_qr`` on config 3 with 5 dense trailing
+  columns (the block-angular split) and a plan saved, loaded and installed
+  with ``set_analysis``;
+* sparse-operand products (phase ``sparse_apply``): ``SegmentedBandedQR`` on
+  config 3 times a sparse operand of 48 columns of 12 nonzeros, both
+  directions, against the dense apply of the densified operand; that
+  operand as the sparse A2 of ``BlockAngularQR(SegmentedBandedQR,
+  DenseColPivQR)``, and the banded-left ellipse stack with a sparse A2 at
+  N = 2,000 (B5 once per compute);
+* blocked thin QR (phase ``blocked_thin``): ``BlockedThinDenseQR`` on dense
+  100,000 × 48 (panel loop) and 100,000 × 256 (the library QR route),
+  ``BlockedThinSparseQR`` on a 100,000 × 256 sparse matrix of about 800k
+  nonzeros and on a copy with 3 columns replaced by copies of others (rank
+  253, residual against the host's fp64 ``lstsq``).
 
 Each phase prints one JSON line per case.  Any failure raises, so the script
 exits non-zero without the final line; it also fails when no CUDA device is
@@ -57,8 +82,13 @@ summary ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
+import os
+import re
 import statistics
+import tempfile
 import subprocess
 import sys
 import time
@@ -68,7 +98,8 @@ import torch
 
 import qrkit_tpu_torch as qt
 from qrkit_tpu_torch import functional, lm, profiling
-from qrkit_tpu_torch.examples import ellipse
+from qrkit_tpu_torch.__main__ import main as cli_main
+from qrkit_tpu_torch.examples import bundle, ellipse
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
@@ -76,7 +107,9 @@ from qrkit_tpu_torch.solvers import segmented_factorize
 
 SEED = 0
 DEVICE = "cuda"
-KERNEL_SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4)]
+# block shapes with a B1/B2 library: config 2's 7×2, the tests', and the
+# bundle point blocks [2C+3, 3] at C = 8 and C = 3
+KERNEL_SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4), (19, 3), (9, 3)]
 KERNEL_NS = [1, 1000, 10_007]
 BR, BC = 7, 2                       # the flagship block shape (BASELINE.json config 2)
 NB_CONFIG2, NB_REAL = 10_000, 1_000_000
@@ -313,7 +346,7 @@ def phase_config2(rng):
     return counts
 
 
-def time_pair(name, a, b, br, nbytes, flops, library, smi):
+def time_pair(name, a, b, br, nbytes, flops, library, smi, shape=(BR, BC)):
     """Kernel, plain version and the yardstick library call (``library()``,
     one PyTorch call computing the same function on the AoS batch; timed,
     never called by the port) in turns (kernel, plain, library, library,
@@ -335,7 +368,7 @@ def time_pair(name, a, b, br, nbytes, flops, library, smi):
     max_abs, bitwise = compare(out, ref, a.dtype)
     bound_ms, bound_by = bound(nbytes, flops)
     emit({
-        "phase": "timing", "kernel": name, "n": a.shape[1], "shape": [BR, BC],
+        "phase": "timing", "kernel": name, "n": a.shape[1], "shape": list(shape),
         "dtype": "float32", "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "ms_rounds": rounds["kernel"], "plain_ms_rounds": rounds["plain"],
         "library_ms_rounds": rounds["library"],
@@ -364,12 +397,18 @@ def spin(fn, seconds):
         torch.cuda.synchronize()
 
 
+PROFILER_ATTEMPTS = 3
+
+
 def device_time_ms(fn, reps=20, with_events=False, one_kernel=False):
     """Device time of one ``fn()`` under torch.profiler: the kernels' time
     of ``reps`` calls over ``reps`` (the host's launch time excluded), or,
     for an ``fn`` that launches ``one_kernel``, the mean over the kernel
-    records the profiler kept: in a long process it keeps only some of them
-    (10–17 of 20 seen), so a sum over ``reps`` would read low.
+    records the profiler kept: it keeps only some of them (10–17 of 20
+    seen, and sometimes none), so a sum over ``reps`` would read low.  A
+    profile that kept no record is taken again, up to ``PROFILER_ATTEMPTS``
+    times; after that the CUDA-event time stands in (it includes the
+    wrapper's host time) and a ``profiler_fallback`` line says so.
     ``with_events``: also return the CUDA-event time of the same ``reps``
     back-to-back calls over ``reps``, a check on the profiler (the two agree
     when the kernels, not their launches, fill the stream)."""
@@ -378,17 +417,26 @@ def device_time_ms(fn, reps=20, with_events=False, one_kernel=False):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    ms, records = device_kernels(prof)
-    if one_kernel and not 0 < records <= reps:
-        raise AssertionError(f"device_time_ms: {records} kernel records for {reps} one-kernel calls")
-    device_ms = ms / records if one_kernel else ms / reps
-    return (device_ms, start.elapsed_time(end) / reps) if with_events else device_ms
+    for _ in range(PROFILER_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        events_ms = start.elapsed_time(end) / reps
+        ms, records = device_kernels(prof)
+        if records > reps and one_kernel:
+            raise AssertionError(f"device_time_ms: {records} kernel records for {reps} one-kernel calls")
+        if records:
+            device_ms = ms / records if one_kernel else ms / reps
+            break
+    else:
+        emit({"phase": "profiler_fallback", "attempts": PROFILER_ATTEMPTS, "reps": reps,
+              "events_ms": events_ms, "note": "torch.profiler kept no kernel record; the CUDA-event "
+              "time (with the host's launch time) stands for the device time"})
+        device_ms = events_ms
+    return (device_ms, events_ms) if with_events else device_ms
 
 
 def phase_real_size(rng, smi):
@@ -1096,6 +1144,450 @@ def phase_ellipse_banded(smi):
         emit(record)
     return launches, worst, timing
 
+# --- bundle adjustment, auto_qr and the CLI, sparse products, blocked thin ---
+
+BUNDLE_CAMS, BUNDLE_NOISE, BUNDLE_SEED = 8, 1e-3, 3   # examples/bench_bundle.py's cases
+BUNDLE_HOST_P, BUNDLE_DEVICE_PS = 5_000, (5_000, 20_000)
+BUNDLE_CFG = lm.LMConfig(max_iters=40)
+BUNDLE_RMS_GATE = 5e-3  # tests/test_bundle.py's bound
+BUNDLE_COST_GATE = 1e-2  # the two LM loops' final costs, relative
+
+
+def bundle_start(n_pts):
+    """bench_bundle.py's scene and starting point (its perturbation, seed 7)."""
+    cams, pts, uv = bundle.make_scene(n_cams=BUNDLE_CAMS, n_pts=n_pts, noise=BUNDLE_NOISE,
+                                      seed=BUNDLE_SEED)
+    rng = np.random.default_rng(7)
+    return cams + 0.02 * rng.normal(size=cams.shape), pts + 0.02 * rng.normal(size=pts.shape), uv
+
+
+def busy_share(fn):
+    """(result, wall ms, device kernel ms, kernel launches) of one ``fn()``
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel_ms, launches = device_kernels(prof)
+    return out, wall, kernel_ms, launches
+
+
+def phase_bundle(smi):
+    """fit_bundle (host loop; B2 once per damped step) at 5,000 points and
+    fit_bundle_device at 5,000 and 20,000 points, fp32 on the card: the
+    first fit counted (launches, host reads, ATen ops), then one timed fit
+    and one under the profiler; rms reprojection gated, the two loops held
+    to each other by final cost at 5,000 points.  Returns (B2 launches of
+    the host loop's counted fit, its iterations, its point-block shape)."""
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    out = {}
+    runs = [("host_loop", BUNDLE_HOST_P, bundle.fit_bundle)] + [
+        ("device_loop", p, bundle.fit_bundle_device) for p in BUNDLE_DEVICE_PS
+    ]
+    b2 = iters = 0
+    for loop, n_pts, fit_fn in runs:
+        cams0, pts0, uv = bundle_start(n_pts)
+        n_obs = 2 * n_pts * BUNDLE_CAMS
+        reads0 = lm.levenberg_marquardt_device.host_reads
+        profiling.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profiling.count_dispatches() as d:
+            res = fit_fn(cams0, pts0, uv, BUNDLE_CFG, **f32)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = profiling.launch_counts()
+        loop_reads = lm.levenberg_marquardt_device.host_reads - reads0
+        rms = float(np.sqrt(2.0 * res.cost / n_obs))
+        it = int(res.iterations)
+        x_np = res.x.detach().cpu().numpy() if isinstance(res.x, torch.Tensor) else np.asarray(res.x)
+        if not (np.isfinite(res.cost) and rms < BUNDLE_RMS_GATE and np.isfinite(x_np).all()):
+            raise AssertionError(f"bundle {loop} P={n_pts}: cost {res.cost}, rms {rms}")
+        # the host loop makes one damped step, so one B2 launch, an
+        # iteration; the device loop's fused step runs no kernel
+        expected = {name: (it if loop == "host_loop" and name == "blockdiag_qr_r" else 0)
+                    for name in counts}
+        if counts != expected or (loop == "host_loop" and it < 1):
+            raise AssertionError(f"bundle {loop} P={n_pts}: launches {counts} in {it} iterations")
+        if loop == "host_loop":
+            b2, iters = counts["blockdiag_qr_r"], it
+        t0 = time.perf_counter()
+        fit_fn(cams0, pts0, uv, BUNDLE_CFG, **f32)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t0
+        _, wall_ms, kernel_ms, launches = busy_share(lambda: fit_fn(cams0, pts0, uv, BUNDLE_CFG, **f32))
+        out[(loop, n_pts)] = res.cost
+        emit({
+            "phase": "bundle", "loop": loop, "n_pts": n_pts, "n_cams": BUNDLE_CAMS,
+            "n_obs": n_obs, "params": 3 * n_pts + 6 * BUNDLE_CAMS, "dtype": "float32",
+            "iterations": it, "converged": bool(res.converged), "cost": float(res.cost),
+            "rms_reproj": rms, "gate": BUNDLE_RMS_GATE, "point_block": [2 * BUNDLE_CAMS + 3, 3],
+            "launches": counts, "b2_launches_per_iteration": counts["blockdiag_qr_r"] / max(it, 1),
+            "host_reads": d.host_reads, "host_reads_per_iteration": d.host_reads / max(it, 1),
+            "device_loop_done_reads": loop_reads, "aten_ops_per_iteration": d.ops / max(it, 1),
+            "first_fit_s_counted": first_s, "seconds": timed_s,
+            "profiler": {"wall_ms": wall_ms, "device_ms": kernel_ms, "device_launches": launches,
+                         "busy_share": kernel_ms / wall_ms if kernel_ms > 0 else None},
+            "method": "first fit under count_dispatches (ATen ops, host reads: .item()/bool() and "
+                      "device-to-host copies) with the launch counters; seconds: a second fit, host "
+                      "wall time ending in synchronize; profiler: a third fit",
+            "gpu": smi,
+        })
+    h, dv = out[("host_loop", BUNDLE_HOST_P)], out[("device_loop", BUNDLE_HOST_P)]
+    rel = abs(h - dv) / dv
+    emit({"phase": "bundle_loops", "n_pts": BUNDLE_HOST_P, "cost_host_loop": float(h),
+          "cost_device_loop": float(dv), "rel_cost_diff": rel, "gate": BUNDLE_COST_GATE,
+          "note": "compared by cost: a free similarity transform makes x non-unique"})
+    if not rel < BUNDLE_COST_GATE:
+        raise AssertionError(f"bundle LM loops: final costs {h} and {dv} differ by {rel}")
+    return b2, iters
+
+
+def bundle_step_breakdown(smi, lam=1e-3, reps=5):
+    """Where one host-loop damped step's time goes (P = 5,000, fp32): the
+    step's stages run one after another as ``_BundleStep.__call__`` runs
+    them, each ending in synchronize (median of ``reps`` after a warm-up
+    step), with the ATen ops and host reads of each stage counted once."""
+    cams0, pts0, uv = bundle_start(BUNDLE_HOST_P)
+    step = bundle._BundleStep(uv, device=DEVICE, dtype=torch.float32)
+    x = torch.as_tensor(np.concatenate([pts0.ravel(), cams0.ravel()]), dtype=torch.float32, device=DEVICE)
+    r = bundle.residuals(x, step.uv)
+    step(x, r, lam)  # warm: plans and the right solver's shapes
+    state = {}
+
+    def jac():
+        state["jp"], state["jc"] = bundle._jacobian_blocks(x, step.uv)
+
+    def blocks():
+        state["left_d"], state["rhs"] = bundle._damped_left_rhs(state["jp"], r, lam, step.n_cams)
+        state["blk"] = qt.BlockDiagonal.from_dense_batch(state["left_d"], nrows=step.n1, ncols=3 * step.n_pts)
+
+    def camera_csr():
+        vals = np.concatenate([state["jc"].cpu().numpy().reshape(-1), np.full(6 * step.n_cams, np.sqrt(lam))])
+        state["a2"] = qt.SparseCSR((step.n1, 6 * step.n_cams), step._indptr, step._indices, vals[step._order])
+
+    def left():
+        step._qr.left.compute(state["blk"])
+
+    def compute():
+        state["qr"] = step._qr.compute(qt.BlockMatrix1x2(state["blk"], state["a2"]))
+
+    def solve():
+        b = torch.cat([state["rhs"], state["rhs"].new_zeros(6 * step.n_cams)])
+        state["qr"].solve(b)
+
+    stages = [("jacobian_vmap_jacfwd", jac), ("damped_blocks", blocks), ("camera_csr_host", camera_csr),
+              ("b2_left_compute_alone", left), ("block_angular_compute", compute), ("solve", solve)]
+    out = {}
+    for name, fn in stages:
+        with profiling.count_dispatches() as d:
+            fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"ms": statistics.median(times), "aten_ops": d.ops, "host_reads": d.host_reads,
+                     "launches": {k: v for k, v in d.launches.items() if v}}
+    emit({"phase": "bundle_step_breakdown", "n_pts": BUNDLE_HOST_P, "dtype": "float32", "stages": out,
+          "note": "block_angular_compute includes its own left compute (B2); b2_left_compute_alone "
+                  "is that part run by itself",
+          "method": f"host wall time of each stage ending in synchronize, warm, median of {reps}; ops "
+                    "and reads counted in one more run", "gpu": smi})
+
+
+def phase_bundle_b2_timing(rng, smi):
+    """B2 at the bundle host loop's point-block batch (5,000 blocks of 19×3,
+    fp32) against its plain version and torch.linalg.qr(mode="r")."""
+    br, bc = 2 * BUNDLE_CAMS + 3, 3
+    a, bs = soa_operands(rng, BUNDLE_HOST_P, br, bc, torch.float32, DEVICE, degenerate=False)
+    a_aos = a.T.reshape(BUNDLE_HOST_P, br, bc).contiguous()
+    ntri = bc * (bc + 1) // 2
+    return time_pair("blockdiag_qr_r", a, bs, br, (br * bc + ntri) * BUNDLE_HOST_P * 4,
+                     qr_flops(br, bc) * BUNDLE_HOST_P,
+                     lambda: torch.linalg.qr(a_aos, mode="r").R, smi, shape=(br, bc))
+
+
+CLI_GATE = 1e-3  # fp32 recovery error of --rhs-random
+
+
+def config2_matrix(rng):
+    """Config 2: 10,000 blocks of 7×2, uniform(0.5, 5), rows permuted."""
+    blocks = rng.uniform(0.5, 5.0, size=(NB_CONFIG2, BR, BC))
+    i, r, c = np.meshgrid(np.arange(NB_CONFIG2), np.arange(BR), np.arange(BC), indexing="ij")
+    mat = qt.SparseCSR.from_triplets((i * BR + r).ravel(), (i * BC + c).ravel(), blocks.ravel(),
+                                     (NB_CONFIG2 * BR, NB_CONFIG2 * BC))
+    return mat.permute_rows(qt.Permutation(rng.permutation(mat.nrows)))
+
+
+def run_cli(argv):
+    """``python -m qrkit_tpu_torch`` in this process: (rc, stderr,
+    launches, seconds)."""
+    err = io.StringIO()
+    profiling.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, err.getvalue(), profiling.launch_counts(), time.perf_counter() - t0
+
+
+def phase_auto_cli(rng, c3, smi):
+    """Config 3 and config 2 through the CLI (fp32, --rhs-random,
+    --export-r), auto_qr on config 3 with 5 dense trailing columns, and a
+    persisted plan installed with set_analysis.  Returns the launches of
+    the CLI and auto_qr runs."""
+    total = {name: 0 for name in profiling.launch_counts()}
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        c2 = config2_matrix(rng)
+        cases = [
+            ("config3", c3, "8", "segmented_banded",
+             {"banded_segment_chains": 1, "banded_apply_w": 1, "banded_chain_qr": 1}),
+            ("config2", c2, "2", "block_diagonal", {"blockdiag_qr_r": 1, "blockdiag_lstsq": 1}),
+        ]
+        for label, mat, sbc, tag, want in cases:
+            path, rpath = os.path.join(tmp, f"{label}.mtx"), os.path.join(tmp, f"{label}_r.mtx")
+            t0 = time.perf_counter()
+            qt.sparse.save_matrix_market(path, mat)
+            write_s = time.perf_counter() - t0
+            rc, err, counts, seconds = run_cli([
+                path, "--rhs-random", "--export-r", rpath, "--suggested-block-cols", sbc,
+                "--device", DEVICE, "--dtype", "float32",
+            ])
+            m = re.search(r"x recovery rel err ([0-9.eE+-]+)", err)
+            recovery = float(m.group(1)) if m else float("nan")
+            expected = {name: want.get(name, 0) for name in counts}
+            ok = (rc == 0 and f"solver={tag} " in err and recovery < CLI_GATE and counts == expected
+                  and os.path.getsize(rpath) > 0)
+            emit({"phase": "auto_cli", "case": f"cli_{label}", "shape": list(mat.shape), "nnz": mat.nnz,
+                  "rc": rc, "selection_expected": tag, "stderr": err.strip().splitlines(),
+                  "recovery_rel_err": recovery, "gate": CLI_GATE, "launches": counts,
+                  "mtx_write_s": write_s, "cli_s": seconds, "gpu": smi})
+            if not ok:
+                raise AssertionError(f"CLI {label}: rc {rc}, launches {counts} (want {expected}), stderr {err}")
+            for name in total:
+                total[name] += counts[name]
+        # persisted plan: save, load, install; no re-analysis on compute
+        seg = qt.SegmentedBandedQR(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32)
+        seg.analyze_pattern(c3)
+        plan_path = os.path.join(tmp, "plan.json")
+        qt.save_analysis(plan_path, seg.plan, row_perm=seg.rows_permutation())
+        plan, rp, _ = qt.load_analysis(plan_path)
+        resumed = qt.SegmentedBandedQR(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32)
+        resumed.set_analysis(plan, rp)
+
+        def no_analysis(*a, **k):
+            raise AssertionError("set_analysis solver re-ran the pattern analysis")
+
+        resumed.analyze_pattern = no_analysis
+        x_true = rng.normal(size=c3.ncols)
+        b = torch.as_tensor(c3.matvec(x_true), dtype=torch.float32, device=DEVICE)
+        x0 = seg.compute(c3).solve(b)
+        x1 = resumed.compute(c3).solve(b)
+        diff = float((x1 - x0).abs().max() / x0.abs().max())
+        emit({"phase": "auto_cli", "case": "persist_round_trip", "plan_blocks": plan.num_blocks,
+              "plan_equal": plan == seg.plan, "rel_diff_vs_fresh": diff,
+              "json_bytes": os.path.getsize(plan_path)})
+        if plan != seg.plan or not diff < 1e-6:
+            raise AssertionError(f"persisted plan: equal {plan == seg.plan}, solution diff {diff}")
+    # auto_qr on config 3 with 5 dense trailing columns: the block-angular split
+    m, n = c3.shape
+    dense = rng.uniform(0.5, 5.0, size=(m, 5))
+    rows = np.concatenate([np.repeat(np.arange(m), np.diff(c3.indptr)), np.repeat(np.arange(m), 5)])
+    cols = np.concatenate([c3.indices, np.tile(n + np.arange(5), m)])
+    wide = qt.SparseCSR.from_triplets(rows, cols, np.concatenate([c3.data, dense.ravel()]), (m, n + 5))
+    x_true = rng.normal(size=n + 5)
+    b_np = wide.matvec(x_true)
+    profiling.reset_launch_counts()
+    t0 = time.perf_counter()
+    qr = qt.auto_qr(wide, device=DEVICE, dtype=torch.float32)
+    pb = torch.as_tensor(qr.rows_permutation().apply(b_np), dtype=torch.float32, device=DEVICE)
+    x = qr.solve(pb).double().cpu().numpy()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = profiling.launch_counts()
+    rec = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
+    want_tag = "block_angular(segmented_banded, dense_colpiv)"
+    want = {name: int(name in BANDED_KERNELS) for name in counts}
+    emit({"phase": "auto_cli", "case": "auto_qr_config3_plus_5_dense", "shape": [m, n + 5],
+          "selection": qr.selection, "recovery_rel_err": rec, "gate": CLI_GATE, "launches": counts,
+          "info": qr.info().name, "seconds_incl_analysis": seconds, "gpu": smi})
+    if qr.selection != want_tag or not rec < CLI_GATE or counts != want:
+        raise AssertionError(f"auto_qr block-angular split: {qr.selection}, recovery {rec}, launches {counts}")
+    for name in total:
+        total[name] += counts[name]
+    return total
+
+
+SPARSE_OP_COLS, SPARSE_OP_NNZ = 48, 12  # a camera block's shape
+SPARSE_TOL = (1e-4, 1e-5)  # fp32 rtol, atol relative to max|dense|
+
+
+def sparse_operand(rng, m):
+    rows = np.concatenate([rng.choice(m, size=SPARSE_OP_NNZ, replace=False) for _ in range(SPARSE_OP_COLS)])
+    cols = np.repeat(np.arange(SPARSE_OP_COLS), SPARSE_OP_NNZ)
+    return qt.SparseCSR.from_triplets(rows, cols, rng.normal(size=rows.size), (m, SPARSE_OP_COLS))
+
+
+def phase_sparse_apply(rng, c3, smi):
+    """SegmentedBandedQR on config 3 (fp32) times a sparse operand, both
+    directions, against the dense apply of the densified operand (pattern
+    and values); the operand as a sparse A2 under a segmented left; the
+    banded-left ellipse stack with a sparse A2 at N = 2,000.  Returns the
+    launches of the two compositions."""
+    seg = qt.SegmentedBandedQR(suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS,
+                               device=DEVICE, dtype=torch.float32).compute(c3)
+    S = sparse_operand(rng, c3.nrows)
+    S_dense = torch.as_tensor(S.to_dense(), dtype=torch.float32, device=DEVICE)
+    for name, dense_fn in (("apply_qt_sparse", seg.apply_qt), ("apply_q_sparse", seg.apply_q)):
+        sparse_fn = getattr(seg, name)
+        out = sparse_fn(S)
+        ref = dense_fn(S_dense).double().cpu().numpy()
+        ent = seg._sparse_apply_cache[name == "apply_qt_sparse"]
+        fill = np.zeros(ref.shape, dtype=bool)
+        fill[ent["rows"], ent["cols"]] = True
+        outside = int(((ref != 0) & ~fill).sum())
+        rtol, atol_rel = SPARSE_TOL
+        err = np.abs(out.to_dense() - ref)
+        bad = int((err > atol_rel * np.abs(ref).max() + rtol * np.abs(ref)).sum())
+        sparse_ms, _ = wall_ms(lambda: sparse_fn(S), 5)
+        dense_ms, _ = wall_ms(lambda: dense_fn(S_dense).cpu(), 5)
+        emit({"phase": "sparse_apply", "case": name, "operand": [S.nrows, S.ncols], "operand_nnz": S.nnz,
+              "fill_nnz": int(fill.sum()), "result_nnz": out.nnz, "dense_nonzeros": int((ref != 0).sum()),
+              "nonzeros_outside_fill": outside, "max_abs_err": float(err.max()), "violations": bad,
+              "rtol": rtol, "atol_x_max_abs": atol_rel, "sparse_ms": sparse_ms,
+              "dense_apply_and_fetch_ms": dense_ms,
+              "method": "host wall time ending in synchronize (the sparse product ends in its host "
+                        "CSR), warm plan, one warm-up, median of 5", "gpu": smi})
+        if outside or bad:
+            raise AssertionError(f"{name}: {outside} nonzeros outside the fill, {bad} values out of tolerance")
+    total = {name: 0 for name in profiling.launch_counts()}
+    # the operand as A2 under a segmented left: consistent system, residual gate
+    x_true = rng.normal(size=c3.ncols + SPARSE_OP_COLS)
+    b_np = c3.matvec(x_true[: c3.ncols]) + S.matvec(x_true[c3.ncols :])
+    cases = [("segmented_left_sparse_a2", qt.SegmentedBandedQR(
+        suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, device=DEVICE, dtype=torch.float32),
+        c3, S, b_np, {name: 1 for name in BANDED_KERNELS})]
+    # the banded-left ellipse shape with a sparse A2 (its damped Jacobian)
+    f = ellipse.EllipseFitting(ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), BANDED_LEFT_N),
+                               dtype=torch.float32, device=DEVICE)
+    x0 = f.initial_params()
+    r0 = f.residuals(x0)
+    left_d, right_d, rhs = f._damped(x0, r0, 1e-3)
+    n = f.n
+    left_sp = qt.SparseCSR.from_triplets(np.arange(3 * n), np.repeat(np.arange(n), 3),
+                                         left_d.cpu().numpy().reshape(-1), (3 * n + 5, n))
+    a2_sp = qt.SparseCSR.from_dense(right_d.double().cpu().numpy())
+    cases.append(("banded_left_sparse_a2_n2000", qt.BandedBlockedQR(
+        3, 1, 0, 1, device=DEVICE, dtype=torch.float32), left_sp, a2_sp, None, {"banded_chain_qr": 1}))
+    for label, left_solver, left_m, a2, b_np, want in cases:
+        solver = qt.BlockAngularQR(left_solver, qt.DenseColPivQR())
+        mat = qt.BlockMatrix1x2(left_m, a2)
+        profiling.reset_launch_counts()
+        t0 = time.perf_counter()
+        solver.compute(mat)
+        counts = profiling.launch_counts()
+        if b_np is None:  # against the fused dense step on the same system
+            x = solver.solve(rhs)
+            ref = f.damped_step(x0, r0, 1e-3)
+            err, _ = compare(x, ref, torch.float32, SPARSE_TOL)
+            gate = {"max_abs_err_vs_damped_step": err, "rtol": SPARSE_TOL[0], "atol_x_max_abs": SPARSE_TOL[1]}
+        else:
+            pb = torch.as_tensor(solver.rows_permutation().apply(b_np), dtype=torch.float32, device=DEVICE)
+            x = solver.solve(pb)
+            xh = x.double().cpu().numpy()
+            resid = float(np.linalg.norm(left_m.matvec(xh[: left_m.ncols]) + a2.matvec(xh[left_m.ncols :])
+                                         - b_np) / np.linalg.norm(b_np))
+            gate = {"rel_residual": resid, "gate": RESID_GATE}
+            if not resid < RESID_GATE:
+                raise AssertionError(f"{label}: fp32 relative residual {resid}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        expected = {name: want.get(name, 0) for name in counts}
+        if counts != expected or solver._r12_coo is None or "banded_a2" not in solver._plan_cache:
+            raise AssertionError(f"{label}: launches {counts} (want {expected}) or the sparse path not taken")
+        ms, _ = wall_ms(lambda: (solver.compute(mat), solver.solve(x.new_ones(mat.left_rows))), 3)
+        emit({"phase": "sparse_apply", "case": label, "shape": [left_m.nrows, left_m.ncols + a2.ncols],
+              "a2_nnz": a2.nnz, "launches": counts, **gate, "info": solver.info().name,
+              "wall_s_incl_plan": seconds, "compute_solve_ms": ms,
+              "method": "compute_solve_ms: host wall time of compute + solve on a warm plan, ending in "
+                        "synchronize, one warm-up, median of 3", "gpu": smi})
+        for name in total:
+            total[name] += counts[name]
+    return total
+
+
+THIN_M = 100_000
+THIN_SPARSE_NNZ = 800_000  # about config 3's
+THIN_DEAD = {10: 5, 100: 50, 200: 150}  # column replaced -> the column it copies
+
+
+def host_lstsq_residual(dense, b):
+    x, *_ = np.linalg.lstsq(dense, b, rcond=None)
+    return float(np.linalg.norm(dense @ x - b))
+
+
+def phase_blocked_thin(rng, smi):
+    """BlockedThinDenseQR on dense 100,000 × 48 and × 256, BlockedThinSparseQR
+    on a 100,000 × 256 sparse matrix and its rank-deficient copy (fp32):
+    consistent systems against the residual gate; the deficient copy's
+    rank and its residual against the host's fp64 lstsq."""
+    cases = []
+    for n in (48, 256):
+        a = rng.normal(size=(THIN_M, n))
+        cases.append((f"dense_{THIN_M}x{n}", lambda: qt.BlockedThinDenseQR(2),
+                      torch.as_tensor(a, dtype=torch.float32, device=DEVICE), a, n))
+    n = 256
+    rows = rng.integers(0, THIN_M, size=THIN_SPARSE_NNZ)
+    cols = np.concatenate([np.arange(n), rng.integers(0, n, size=THIN_SPARSE_NNZ - n)])
+    sp = qt.SparseCSR.from_triplets(rows, cols, rng.normal(size=rows.size), (THIN_M, n))
+    dense = sp.to_dense()
+    for dst, src in THIN_DEAD.items():
+        dense[:, dst] = dense[:, src]
+    dead = qt.SparseCSR.from_dense(dense)
+    for label, mat, want_rank in (("sparse", sp, n), ("sparse_rank_deficient", dead, n - len(THIN_DEAD))):
+        cases.append((f"{label}_{THIN_M}x{n}", lambda: qt.BlockedThinSparseQR(
+            2, device=DEVICE, dtype=torch.float32), mat, mat.to_dense(), want_rank))
+    for label, make, inp, host, want_rank in cases:
+        m, n = host.shape
+        consistent = want_rank == n
+        b_np = host @ rng.normal(size=n) if consistent else rng.normal(size=m)
+        solver = make()
+        profiling.reset_launch_counts()
+        t0 = time.perf_counter()
+        solver.compute(inp)
+        pb = torch.as_tensor(solver.rows_permutation().apply(b_np), dtype=torch.float32, device=DEVICE)
+        x = solver.solve(pb)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = profiling.launch_counts()
+        xh = x.double().cpu().numpy()
+        resid = float(np.linalg.norm(host @ xh - b_np))
+        rec = {"phase": "blocked_thin", "case": label, "shape": [m, n], "rank": solver.rank,
+               "rank_expected": want_rank, "info": solver.info().name, "launches": counts,
+               "wall_s_incl_first_use": seconds, "gpu": smi}
+        if consistent:
+            rec.update(rel_residual=resid / float(np.linalg.norm(b_np)), gate=RESID_GATE)
+            ok = rec["rel_residual"] < RESID_GATE
+        else:
+            opt = host_lstsq_residual(host, b_np)
+            rec.update(residual=resid, optimal_residual_fp64=opt, rel_excess=resid / opt - 1.0, gate=1e-4,
+                       deficient_cols=sorted(int(c) for c in solver.deficient_cols()))
+            ok = resid <= opt * (1 + 1e-4) and set(rec["deficient_cols"]) <= set(THIN_DEAD) | set(THIN_DEAD.values())
+        if isinstance(solver, qt.BlockedThinDenseQR):
+            rec["route"] = "geqrf" if n > 64 else f"panel loop, {solver.c} columns"
+        ms, _ = wall_ms(lambda: (solver.compute(inp), solver.solve(pb)), 3)
+        rec.update(compute_solve_ms=ms, method="host wall time of compute + solve ending in "
+                   "synchronize (the sparse solver's host analysis included), one warm-up, median of 3")
+        emit(rec)
+        if not ok or solver.rank != want_rank or any(counts.values()):
+            raise AssertionError(f"blocked thin {label}: {rec}")
+
 
 def main():
     rng = np.random.default_rng(SEED)
@@ -1104,6 +1596,8 @@ def main():
     worst = phase_kernel_vs_plain(rng)
     counts10k = phase_config2(rng)
     counts1m, timings = phase_real_size(rng, smi)
+    # the bundle's 19×3 batch, timed with the other B1/B2 timings
+    b2_bundle_timing = phase_bundle_b2_timing(rng, smi)
     phase_gradient()
     banded_worst, c3_ops = phase_banded_kernel_vs_plain(rng)
     banded_counts, _ = phase_banded_main_path(rng, smi)
@@ -1112,11 +1606,22 @@ def main():
     ba_b2 = phase_block_angular(rng, smi)
     phase_ellipse_lm(smi)
     ell_b5, ell_b5_worst, _ = phase_ellipse_banded(smi)
-    extra = {"blockdiag_qr_r": ba_b2, "banded_chain_qr": ell_b5}  # slice 3's main paths
+    bundle_b2, bundle_iters = phase_bundle(smi)
+    bundle_step_breakdown(smi)
+    c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
+    cli_counts = phase_auto_cli(rng, c3, smi)
+    sp_counts = phase_sparse_apply(rng, c3, smi)
+    phase_blocked_thin(rng, smi)
+    # the block-angular, ellipse, bundle, CLI and sparse-product main paths
+    extra = {name: cli_counts[name] + sp_counts[name] for name in cli_counts}
+    extra["blockdiag_qr_r"] += ba_b2 + bundle_b2
+    extra["banded_chain_qr"] += ell_b5
     kernels = []
     for name, (replaces, _, _) in KERNELS.items():
         t = timings[name][-1]  # the 1M-block point
-        errs = [worst[(name, BR, BC)]] + [r["max_abs_err"] for r in timings[name]]
+        errs = [e for (k, _, _), e in worst.items() if k == name] + [r["max_abs_err"] for r in timings[name]]
+        if name == "blockdiag_qr_r":
+            errs.append(b2_bundle_timing["max_abs_err"])
         if name == "blockdiag_lstsq":
             errs.append(options_worst)
         kernels.append({
@@ -1126,6 +1631,12 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"],
         })
+        if name == "blockdiag_qr_r":
+            kernels[-1]["bundle_19x3"] = {
+                "n": BUNDLE_HOST_P, "launches_per_host_loop_iteration": bundle_b2 / max(bundle_iters, 1),
+                **{k: b2_bundle_timing[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "device_ms")},
+            }
     for name, replaces in BANDED_KERNELS.items():
         t = banded_timings[name]  # config 3; B5 on the plain chain
         err = banded_worst[name]

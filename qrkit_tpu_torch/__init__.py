@@ -1,29 +1,45 @@
 """qrkit_tpu_torch — the PyTorch + CUDA port of ``qrkit_tpu``.
 
-Counterpart of ``qrkit_tpu/__init__.py``, exporting what the port holds so
-far: the host structure layer (``SparseCSR``, ``Permutation``), the
-``BlockDiagonal`` and ``BlockMatrix1x2`` containers, ``BlockDiagonalQR``
-with its Q formats, the banded family (``BandedBlockedQR``,
-``SegmentedBandedQR``), the dense solvers (``DenseHouseholderQR``,
-``DenseColPivQR``), ``BlockAngularQR``, the ``QRSolver`` protocol, the
-differentiable pipelines in :mod:`~qrkit_tpu_torch.functional`, the
-single-device TSQR in :mod:`~qrkit_tpu_torch.parallel` and the
-Levenberg–Marquardt drivers in :mod:`~qrkit_tpu_torch.lm` (the ellipse
-application in :mod:`qrkit_tpu_torch.examples.ellipse`).  Every Pallas kernel of the reference is
-a hand-written CUDA kernel for Hopper here
-(:mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded`),
-built from source at first use.
+Counterpart of ``qrkit_tpu/__init__.py``, exporting the same names: the
+host structure layer (``SparseCSR``, ``Permutation``, the plans and the
+pattern analysis), the ``BlockDiagonal`` and ``BlockMatrix1x2`` containers,
+every solver (``BlockDiagonalQR`` with its Q formats, ``BandedBlockedQR``,
+``SegmentedBandedQR``, ``BlockedThinDenseQR``, ``BlockedThinSparseQR``,
+``DenseHouseholderQR``, ``DenseColPivQR``, ``BlockAngularQR``) over the
+``QRSolver`` protocol, ``auto_qr`` (and ``python -m qrkit_tpu_torch`` on
+MatrixMarket files), plan persistence, the Levenberg–Marquardt loops and
+the profiling helpers; plus the differentiable pipelines in
+:mod:`~qrkit_tpu_torch.functional`, the single-device TSQR in
+:mod:`~qrkit_tpu_torch.parallel` and the applications in
+:mod:`qrkit_tpu_torch.examples` (ellipse fitting, bundle adjustment).
+Every Pallas kernel of the reference is a hand-written CUDA kernel for
+Hopper here (:mod:`qrkit_tpu_torch.ops.blockdiag`,
+:mod:`qrkit_tpu_torch.ops.banded`), built from source at first use.  The
+``mesh=`` paths wait for the mesh slice of the port.
 
 The package imports torch and NumPy and never jax.
 """
 
 from . import functional
+from .analysis import (
+    as_banded_as_possible,
+    block_banded_info,
+    column_density,
+    from_block_banded_pattern,
+    from_block_diagonal_pattern,
+)
+from .auto import auto_qr
 from .containers import BlockDiagonal, BlockMatrix1x2
 from .lm import LMConfig, LMResult, levenberg_marquardt
+from .persist import load_analysis, plan_from_json, plan_to_json, save_analysis
+from .plan import BlockInfo, StructurePlan
+from .profiling import Timer, count_dispatches, timed, trace
 from .solvers import (
     BandedBlockedQR,
     BlockAngularQR,
     BlockDiagonalQR,
+    BlockedThinDenseQR,
+    BlockedThinSparseQR,
     ComputationInfo,
     DenseColPivQR,
     DenseHouseholderQR,
@@ -34,21 +50,39 @@ from .solvers import (
 from .sparse import Permutation, SparseCSR
 
 __all__ = [
+    "BlockInfo",
+    "StructurePlan",
+    "Permutation",
+    "SparseCSR",
+    "as_banded_as_possible",
+    "block_banded_info",
+    "column_density",
+    "from_block_banded_pattern",
+    "from_block_diagonal_pattern",
+    "BlockDiagonal",
+    "BlockMatrix1x2",
     "BandedBlockedQR",
     "BlockAngularQR",
-    "BlockDiagonal",
     "BlockDiagonalQR",
-    "BlockMatrix1x2",
+    "BlockedThinDenseQR",
+    "BlockedThinSparseQR",
     "ComputationInfo",
     "DenseColPivQR",
     "DenseHouseholderQR",
-    "LMConfig",
-    "LMResult",
-    "Permutation",
     "QFormat",
     "QRSolver",
     "SegmentedBandedQR",
-    "SparseCSR",
-    "functional",
+    "auto_qr",
+    "LMConfig",
+    "LMResult",
     "levenberg_marquardt",
+    "load_analysis",
+    "plan_from_json",
+    "plan_to_json",
+    "save_analysis",
+    "Timer",
+    "count_dispatches",
+    "timed",
+    "trace",
+    "functional",
 ]

@@ -21,6 +21,10 @@ a ``qrkit_tpu`` object's arrays), never imports jax, and puts the arrays on
   :class:`~qrkit_tpu_torch.solvers.SegmentedBandedQR` on the same matrix.
 * :func:`dense_qr_from_numpy` — a computed ``qrkit_tpu.DenseHouseholderQR``
   or ``DenseColPivQR`` (Y, T, R, pivot order) → the port's solver.
+* :func:`blocked_thin_qr_from_numpy` — a computed
+  ``qrkit_tpu.BlockedThinDenseQR`` or ``BlockedThinSparseQR`` (the Q
+  sequence's Y, T and window starts, R, the permutations) → the port's
+  solver.
 * :func:`block_angular_qr_from_numpy` — a computed
   ``qrkit_tpu.BlockAngularQR`` on the fused dense path → a computed port
   :class:`~qrkit_tpu_torch.solvers.BlockAngularQR` on the same matrix.
@@ -46,6 +50,7 @@ from .solvers.banded_blocked import BandedBlockedQR
 from .solvers.base import _diag_health
 from .solvers.block_angular import BlockAngularQR
 from .solvers.block_diagonal import BlockDiagonalQR, QFormat
+from .solvers.blocked_thin import BlockedThinDenseQR, BlockedThinSparseQR
 from .solvers.dense import DenseColPivQR, DenseHouseholderQR
 from .solvers.segmented_banded import SegmentedBandedQR
 from .sparse import Permutation, SparseCSR
@@ -55,6 +60,7 @@ __all__ = [
     "block_angular_qr_from_numpy",
     "block_diagonal_from_numpy",
     "block_diagonal_qr_from_numpy",
+    "blocked_thin_qr_from_numpy",
     "dense_qr_from_numpy",
     "segmented_banded_qr_from_numpy",
 ]
@@ -252,6 +258,37 @@ def dense_qr_from_numpy(state: Mapping[str, Any], *, device=None, dtype=None):
         perm = torch.as_tensor(np.array(state["perm"]), dtype=torch.int64, device=R.device)
         qr._adopt_factors(m, n, tensor(state["Y"]), tensor(state["T"]), R,
                           _diag_health(torch.diagonal(R), check_zero=False), perm_dev=perm)
+    return qr
+
+
+def blocked_thin_qr_from_numpy(state: Mapping[str, Any], *, device=None, dtype=None):
+    """A computed port blocked thin solver from a reference solver's state.
+
+    ``state`` keys: ``Y [nb, W, C]``, ``T [nb, C, C]``, ``start [nb]`` (the
+    ``q_seq``'s ``Y``, ``T``, ``start``), ``R [m, n]`` and, for a
+    ``BlockedThinSparseQR``, ``col_perm`` and ``row_perm`` (the index arrays
+    of ``cols_permutation()`` / ``rows_permutation()``); the solver class
+    follows from whether ``col_perm`` is present."""
+    from .ops.compact_wy import CompactWYSeq
+
+    def tensor(x):
+        return _device.as_tensor(np.array(x), device, dtype)
+
+    R = tensor(state["R"])
+    m, n = R.shape
+    seq = CompactWYSeq(tensor(state["Y"]), tensor(state["T"]), np.array(state["start"]), m)
+    if state.get("col_perm") is None:
+        qr = BlockedThinDenseQR(device=R.device, dtype=R.dtype)
+        qr._m, qr._n, qr.q_seq, qr._R = m, n, seq, R
+        qr._set_success()
+        return qr
+    qr = BlockedThinSparseQR(device=R.device, dtype=R.dtype)
+    qr._m, qr._n, qr.q_seq, qr._R = m, n, seq, R
+    qr._diag_dev = torch.diagonal(R[:n, :n])
+    qr._out_col_perm = Permutation(np.asarray(state["col_perm"]))
+    qr._row_perm = Permutation(np.asarray(state["row_perm"]))
+    qr._deficiency_cache = qr._repair = None
+    qr._set_success(_diag_health(qr._diag_dev, check_zero=False))
     return qr
 
 

@@ -1,9 +1,10 @@
 """Dense panel Householder QR in compact-WY form, batched plain torch.
 
 Counterpart of ``qrkit_tpu/ops/householder.py`` (``panel_qr_yt``,
-``householder_qr_unblocked``, ``build_t_factor``, ``_combine_t``,
-``form_q``, ``apply_wy``, ``colpiv_householder_qr`` in its unrolled form,
-``rank_from_diag``, ``rank_masked_triangular_solve``, ``panel_qr_yt_soa``).  Where JAX wrote one
+``panel_qr_yt_lapack``, ``householder_qr_unblocked``, ``build_t_factor``,
+``_combine_t``, ``form_q``, ``apply_wy``, ``colpiv_householder_qr`` (its
+unrolled and scanned forms are one loop here), ``rank_from_diag``,
+``rank_masked_triangular_solve``, ``panel_qr_yt_soa``).  Where JAX wrote one
 block and ``vmap``-ed it, every function here takes any number of leading
 batch dimensions (``[..., m, n]``); the per-column loop is unrolled in
 Python, and the trailing updates are batched matmuls.
@@ -28,6 +29,7 @@ __all__ = [
     "householder_qr_unblocked",
     "build_t_factor",
     "panel_qr_yt",
+    "panel_qr_yt_lapack",
     "panel_qr_yt_soa",
     "colpiv_householder_qr",
     "apply_wy",
@@ -126,6 +128,9 @@ def _combine_t(T1, T2, Y1, Y2):
     return torch.cat([top, bot], dim=-2)
 
 
+_LAPACK_QR_MIN_WIDTH = 32
+
+
 @highest_precision()
 def panel_qr_yt(
     A: torch.Tensor, offset: int = 0, panel_width: int = 16
@@ -134,11 +139,16 @@ def panel_qr_yt(
 
     Recursively splits panels wider than ``panel_width`` so the trailing
     update is one matmul chain per sub-panel.  ``R`` is the reduced matrix
-    (upper-trapezoidal below row ``offset``).  The reference hands panels
-    wider than 32 columns to a LAPACK-style blocked QR; the port keeps the
-    recursion at every width (same factors up to rounding).
+    (upper-trapezoidal below row ``offset``).  A portrait panel wider than
+    ``_LAPACK_QR_MIN_WIDTH`` columns with offset 0 goes to the library's
+    blocked QR (:func:`panel_qr_yt_lapack`), as in the reference: the
+    recursion's per-reflector passes grow with the width.
     """
-    n = A.shape[-1]
+    m, n = A.shape[-2], A.shape[-1]
+    if offset == 0 and n > _LAPACK_QR_MIN_WIDTH and m >= n:
+        # portrait only: geqrf yields min(m, n) reflectors, so a landscape
+        # panel keeps the recursion (its trapezoidal Y handles it)
+        return panel_qr_yt_lapack(A, panel_width)
     if n <= panel_width:
         Y, taus, Ared = householder_qr_unblocked(A, offset)
         return Y, build_t_factor(Y, taus), Ared
@@ -150,6 +160,31 @@ def panel_qr_yt(
     Y2, T2, A2r = panel_qr_yt(A2, offset + n1, panel_width)
     Y = torch.cat([Y1, Y2], dim=-1)
     return Y, _combine_t(T1, T2, Y1, Y2), torch.cat([A1, A2r], dim=-1)
+
+
+@highest_precision()
+def panel_qr_yt_lapack(
+    A: torch.Tensor, panel_width: int = 16
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact-WY factors of a portrait ``A [..., m, n]`` from the library's
+    blocked Householder QR (``torch.geqrf``: LAPACK on the CPU, cuSOLVER on
+    the card), whose reflector and τ conventions are the reference's
+    (β = −sign(x₀)‖x‖, τ = (β − x₀)/β, τ = 0 on a zero tail; so
+    ``Q = I + Y·(−T_std)·Yᵀ``).  T is rebuilt per ``panel_width`` columns by
+    :func:`build_t_factor` and merged pairwise with :func:`_combine_t`."""
+    m, n = A.shape[-2], A.shape[-1]
+    h, taus = torch.geqrf(A)
+    eye = torch.eye(m, n, dtype=A.dtype, device=A.device)
+    Y = torch.tril(h, -1) + eye
+    R = torch.cat([torch.triu(h[..., :n, :]), h.new_zeros(h.shape[:-2] + (m - n, n))], dim=-2)
+
+    def build(lo: int, hi: int) -> torch.Tensor:
+        if hi - lo <= panel_width:
+            return build_t_factor(Y[..., :, lo:hi], taus[..., lo:hi])
+        mid = (lo + hi) // 2
+        return _combine_t(build(lo, mid), build(mid, hi), Y[..., :, lo:mid], Y[..., :, mid:hi])
+
+    return Y, build(0, n), R
 
 
 @highest_precision()
@@ -168,9 +203,6 @@ def panel_qr_yt_soa(
     return Y.permute(1, 2, 0), T.permute(1, 2, 0), Ared[:, :n].permute(1, 2, 0)
 
 
-_COLPIV_UNROLL_MAX = 48
-
-
 @highest_precision()
 def colpiv_householder_qr(
     A: torch.Tensor,
@@ -181,13 +213,10 @@ def colpiv_householder_qr(
     Returns (Y, taus, R, perm) with ``A[..., :, perm] = Q R`` (perm[j] =
     original index of the j-th pivot).  Landscape input runs only the
     min(m, n) elimination steps; the pivot search still ranks every column.
-    Only the unrolled form exists (up to ``_COLPIV_UNROLL_MAX`` columns).
+    The reference unrolls up to 48 columns and scans beyond; both are this
+    one loop (the same operations in the same order).
     """
     m, n = A.shape[-2], A.shape[-1]
-    if n > _COLPIV_UNROLL_MAX:
-        raise ValueError(
-            f"colpiv_householder_qr unrolls up to {_COLPIV_UNROLL_MAX} columns, got {n}"
-        )
     batch = A.shape[:-2]
     cols = torch.arange(n, device=A.device)
     perm = cols.expand(batch + (n,)).clone()

@@ -7,8 +7,8 @@ compact-WY QR), the per-shard R factors are stacked, and a second QR of the
 stack gives the global factor.  Implicit Q is the two-level composition
 ``Q = blkdiag(Q_local_i) · (E Q₂ Eᵀ + I − EEᵀ) · P_selᵀ`` with E embedding the
 stacked-R rows; ``apply_q``/``apply_qt`` run it as two compact-WY stages
-plus reshapes.  The distributed form (``mesh=``, ``torch.distributed``) is
-slice 4 of the port.
+plus reshapes.  The distributed form (``mesh=``, ``torch.distributed``)
+belongs to the mesh slice of the port.
 """
 from __future__ import annotations
 
@@ -62,13 +62,14 @@ class TSQRDenseQR(QRSolver):
     :class:`~qrkit_tpu_torch.solvers.block_angular.BlockAngularQR`, same
     protocol as :class:`~qrkit_tpu_torch.solvers.dense.DenseHouseholderQR`.
     Rows are zero-padded to a multiple of the shard count (padded rows pass
-    through Q untouched).  ``mesh=`` (one shard per device) is slice 4."""
+    through Q untouched).  ``mesh=`` (one shard per device) belongs to the
+    mesh slice of the port."""
 
     def __init__(self, n_shards: int, mesh=None, axis: str = "dp"):
         if mesh is not None:
             raise NotImplementedError(
-                "TSQRDenseQR(mesh=...) is slice 4 of the port (torch.distributed); "
-                "use mesh=None"
+                "TSQRDenseQR(mesh=...) belongs to the mesh slice of the port "
+                "(torch.distributed); use mesh=None"
             )
         self.s = n_shards
         self.mesh = None

@@ -1,12 +1,16 @@
 """Timing helpers and the kernel launch counters.
 
-Counterpart of ``qrkit_tpu/profiling.py`` (``timed``, ``Timer``).  On a CUDA
-device, work is enqueued asynchronously, so every timer here ends in a real
+Counterpart of ``qrkit_tpu/profiling.py`` (``timed``, ``Timer``,
+``count_dispatches``, ``trace``).  On a CUDA device, work is enqueued
+asynchronously, so every timer here ends in a real
 ``torch.cuda.synchronize()``; :func:`cuda_time_ms` times device work with
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
 :mod:`qrkit_tpu_torch.ops.blockdiag` and :mod:`qrkit_tpu_torch.ops.banded`
-keep.
+keep.  :func:`count_dispatches` counts the ATen ops a block dispatches (the
+port's eager paths run many, one host round of launch work each) plus those
+kernel launches, and the reads that make the host wait for the device;
+:func:`trace` writes a ``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -20,7 +24,16 @@ import torch
 
 from .ops import banded, blockdiag
 
-__all__ = ["Timer", "cuda_time_ms", "launch_counts", "reset_launch_counts", "timed"]
+__all__ = [
+    "DispatchCount",
+    "Timer",
+    "count_dispatches",
+    "cuda_time_ms",
+    "launch_counts",
+    "reset_launch_counts",
+    "timed",
+    "trace",
+]
 
 # kernel name -> the wrapper that launches it and counts its launches
 _KERNEL_WRAPPERS = {
@@ -100,3 +113,95 @@ class Timer:
                 f"{name:30s} {t * 1e3:10.2f} ms total  {c:6d} calls  {t / c * 1e3:8.3f} ms/call"
             )
         return "\n".join(lines)
+
+
+class DispatchCount:
+    """Counter handed out by :func:`count_dispatches`: ``ops`` ATen ops,
+    ``launches`` kernel launches by the port's wrappers (by kernel), and
+    ``host_reads`` reads of device data by the host (``.item()``, ``bool()``
+    and copies from a device to the CPU), all since the block was entered.
+    ``count`` is ``ops`` plus the launches."""
+
+    def __init__(self):
+        self.ops = 0
+        self.host_reads = 0
+        self._start = launch_counts()
+        self._end = None
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        now = self._end if self._end is not None else launch_counts()
+        return {k: now[k] - self._start[k] for k in now}
+
+    @property
+    def count(self) -> int:
+        return self.ops + sum(self.launches.values())
+
+    def __int__(self) -> int:
+        return self.count
+
+    def __repr__(self) -> str:
+        return f"DispatchCount({self.count}, ops={self.ops}, host_reads={self.host_reads})"
+
+
+def _counting_mode(counter: DispatchCount):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    copies = {aten._to_copy.default, aten.copy_.default}
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            counter.ops += 1
+            if func is aten._local_scalar_dense.default:
+                counter.host_reads += 1
+            elif func in copies:
+                src = args[1] if func is aten.copy_.default else args[0]
+                dst = (args[0].device if func is aten.copy_.default
+                       else kwargs.get("device") or getattr(src, "device", None))
+                if (isinstance(src, torch.Tensor) and src.device.type != "cpu"
+                        and dst is not None and torch.device(dst).type == "cpu"):
+                    counter.host_reads += 1
+            return func(*args, **kwargs)
+
+    return _Count()
+
+
+@contextlib.contextmanager
+def count_dispatches():
+    """Count what a block sends to the device::
+
+        with count_dispatches() as d:
+            qr.compute(mat)
+        print(d.count, d.launches, d.host_reads)
+
+    Every ATen op dispatched in the block counts once (a
+    ``TorchDispatchMode``, so CPU tensors count too and the CPU tests can
+    pin a path), and so does every launch by the port's kernel wrappers
+    (ctypes calls that bypass ATen).  Counters nest.  The mode adds Python
+    work to every op: time a path outside the block."""
+    counter = DispatchCount()
+    try:
+        with _counting_mode(counter):
+            yield counter
+    finally:
+        counter._end = launch_counts()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """A ``torch.profiler`` trace of the block (CPU ops and, where a card is
+    present, its kernels) written to ``log_dir/trace.json`` (Chrome trace
+    format, Perfetto reads it)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -425,6 +425,36 @@ class BandedBlockedQR(QRSolver):
         """Explicit sparse Q of the row-permuted matrix (chunked Q·I)."""
         return self.q_seq.to_sparse_q()
 
+    # --- sparse-operand Q products ------------------------------------------------
+    def _sparse_apply_parts(self, transpose: bool):
+        """(fill_fn, apply_fn) for :mod:`~qrkit_tpu_torch.solvers.sparse_apply`."""
+        from .sparse_apply import banded_structural_fill
+
+        geom, nb, m = self.geom, self.plan.num_blocks, self._nrows
+
+        def fill(op, row_map):
+            return banded_structural_fill(geom, nb, m, op, transpose, row_map)
+
+        if transpose:
+            return fill, lambda factors, meta, M: factors.apply_qt(M)
+        return fill, lambda factors, meta, M: factors.apply_q(M)
+
+    def _sparse_apply_state(self):
+        return self.q_seq, {}
+
+    def apply_qt_sparse(self, s: SparseCSR) -> SparseCSR:
+        """``Qᵀ · S`` for a host sparse operand, kept sparse: one apply of
+        the chain over all of S's columns (plan-cached per operand layout)."""
+        from .sparse_apply import solver_sparse_apply
+
+        return solver_sparse_apply(self, s, True)
+
+    def apply_q_sparse(self, s: SparseCSR) -> SparseCSR:
+        """``Q · S`` for a host sparse operand (see :meth:`apply_qt_sparse`)."""
+        from .sparse_apply import solver_sparse_apply
+
+        return solver_sparse_apply(self, s, False)
+
     def matrix_r_sparse(self) -> SparseCSR:
         """Sparse banded R in O(nnz(R)) from the per-block panels."""
         panels = self._r_panels.cpu().numpy()

@@ -3,7 +3,10 @@
 Counterpart of ``qrkit_tpu/solvers/base.py`` (``ComputationInfo``,
 ``QRSolver``, ``_diag_health``).  ``compute`` ends by leaving a one-element
 health flag on the device; only :meth:`QRSolver.info` reads it back, so a
-factorization never waits for the device.
+factorization never waits for the device.  The protocol defaults for the
+sparse-operand products and the explicit Q go through dense applies; the
+banded family overrides the sparse products
+(:mod:`~qrkit_tpu_torch.solvers.sparse_apply`).
 """
 from __future__ import annotations
 
@@ -142,3 +145,66 @@ class QRSolver(abc.ABC):
         R = self.matrix_r_dense().detach().cpu().numpy()
         r, c = np.nonzero(R)
         return SparseCSR.from_triplets(r, c, R[r, c], R.shape)
+
+    def validate(self, rtol: float = 0.0) -> ComputationInfo:
+        """Numerical-health check: NUMERICAL_ISSUE when R's leading diagonal
+        holds a non-finite value or an entry at or below ``rtol * max|diag|``
+        (rank collapse a non-rank-revealing solver would propagate).  Reads
+        one flag from the device; updates and returns :meth:`info`."""
+        d = self.r_diagonal().abs()
+        if d.numel():
+            bad = (~torch.isfinite(d).all()) | (d.amin() <= rtol * d.amax())
+            if bool(bad.item()):
+                self._info = ComputationInfo.NUMERICAL_ISSUE
+        return self._info
+
+    def _operand(self, s) -> torch.Tensor:
+        """A host sparse operand as a dense tensor on the factors' device and
+        in their dtype."""
+        like = self.r_diagonal()
+        return torch.as_tensor(s.to_dense(), dtype=like.dtype, device=like.device)
+
+    def apply_qt_sparse(self, s):
+        """``Qᵀ · S`` for a host sparse operand, returned sparse (the
+        reference's ``matrixQ().transpose() * SparseMatrix``).  This default
+        densifies and drops exact zeros; the banded family overrides it with
+        plan-cached products that never form a dense ``[m, k]`` operand of
+        the result's fill."""
+        from ..sparse import SparseCSR
+
+        return SparseCSR.from_dense(self.apply_qt(self._operand(s)).cpu().numpy())
+
+    def apply_q_sparse(self, s):
+        """``Q · S`` for a host sparse operand, returned sparse (see
+        :meth:`apply_qt_sparse`)."""
+        from ..sparse import SparseCSR
+
+        return SparseCSR.from_dense(self.apply_q(self._operand(s)).cpu().numpy())
+
+    def matrix_q_dense(self) -> torch.Tensor:
+        """Explicit dense Q (tests only) = apply_q(I)."""
+        like = self.r_diagonal()
+        return self.apply_q(torch.eye(self.rows, dtype=like.dtype, device=like.device))
+
+    def matrix_q_sparse(self):
+        """Explicit sparse Q by Q·I applied to 512 unit columns at a time
+        (device memory O(rows·512)); structured solvers override it where
+        they can export Q in O(nnz(Q))."""
+        from ..sparse import SparseCSR
+
+        m, chunk = self.rows, 512
+        like = self.r_diagonal()
+        rows_l, cols_l, vals_l = [], [], []
+        for c0 in range(0, m, chunk):
+            k = min(chunk, m - c0)
+            slab = torch.zeros((m, k), dtype=like.dtype, device=like.device)
+            ar = torch.arange(k, device=like.device)
+            slab[c0 + ar, ar] = 1.0
+            q = self.apply_q(slab).cpu().numpy()
+            r, c = np.nonzero(q)
+            rows_l.append(r)
+            cols_l.append(c + c0)
+            vals_l.append(q[r, c])
+        return SparseCSR.from_triplets(
+            np.concatenate(rows_l), np.concatenate(cols_l), np.concatenate(vals_l), (m, m)
+        )

@@ -21,10 +21,12 @@ right, dense A2) runs the fused programs of
 when the caller hands SoA left blocks or a transposed A2.  Other stacks run
 the generic composition, where a ``BlockDiagonalQR`` left on a CUDA operand
 factors with kernel B2 and a ``BandedBlockedQR`` left with kernel B5.  A
-sparse A2 with a block-diagonal left stays sparse
-(:meth:`BlockAngularQR._solve_right_block_sparse`); with a banded left it
-needs ``sparse_apply.py`` (slice 4 of the port).  The ``mesh=`` paths are
-slice 4 too.
+sparse A2 stays sparse: with a block-diagonal left through
+:meth:`BlockAngularQR._solve_right_block_sparse`, with a banded or
+segmented left through the planned sparse products of
+:mod:`~qrkit_tpu_torch.solvers.sparse_apply`
+(:meth:`BlockAngularQR._solve_right_block_sparse_chunked`).  The ``mesh=``
+paths belong to the mesh slice of the port (``torch.distributed``).
 """
 from __future__ import annotations
 
@@ -170,14 +172,14 @@ class BlockAngularQR(QRSolver):
 
     ``left_solver`` factors A1 (the structured part); ``right_solver``
     factors the bottom rows of ``Q1ᵀA2``.  Any :class:`QRSolver` works on
-    either side.  ``mesh=`` (distributing the composition glue) is slice 4
-    of the port and raises."""
+    either side.  ``mesh=`` (distributing the composition glue) belongs to
+    the mesh slice of the port and raises."""
 
     def __init__(self, left_solver: QRSolver, right_solver: QRSolver, mesh=None, axis: str = "dp"):
         if mesh is not None:
             raise NotImplementedError(
-                "BlockAngularQR(mesh=...) is slice 4 of the port (torch.distributed); "
-                "use mesh=None"
+                "BlockAngularQR(mesh=...) belongs to the mesh slice of the port "
+                "(torch.distributed); use mesh=None"
             )
         self.left = left_solver
         self.right = right_solver
@@ -489,11 +491,54 @@ class BlockAngularQR(QRSolver):
         )
 
     def _solve_right_block_sparse_chunked(self, a2: SparseCSR) -> SparseCSR:
-        """The keep-sparse solveRightBlock for a banded or segmented left
-        solver needs the fused sparse applies of ``sparse_apply.py``."""
-        raise NotImplementedError(
-            "a sparse A2 with a banded left solver needs sparse_apply.py, slice 4 of the "
-            "port; pass A2 dense"
+        """Keep-sparse solveRightBlock for a banded or segmented left solver
+        (the reference's sparse QProduct, BlockAngularSparseQR.h:360-397).
+
+        The structural fill of Q1ᵀA2 is planned once per A2 layout from the
+        band geometry (:mod:`~qrkit_tpu_torch.solvers.sparse_apply`); every
+        compute then uploads A2's values, runs one Qᵀ apply of the left
+        solver over all of A2's columns and gathers the fill: the rows above
+        m1 stay on the device as the COO R12, the bottom rows come back in
+        one fetch as the right solver's CSR (fill entries that cancel are
+        stored as explicit zeros, like setFromTriplets without prune)."""
+        from . import sparse_apply as sa
+
+        left = self.left
+        m1, n1 = self._m1, self._n1
+        dev = left.device
+        key = ("banded_a2",) + self._a2_cache_key(a2)
+        ent = self._plan_cache.get("banded_a2")
+        if ent is None or ent["key"] != key:
+            lperm = left.rows_permutation()
+            row_map = None if lperm.is_identity() else lperm.indices
+            fill_fn, apply_fn = left._sparse_apply_parts(True)
+            fr, fc = fill_fn(a2, row_map)
+            plan = sa.build_fused_sparse_apply(apply_fn, fr, fc, a2, n1, row_map, device=dev)
+            top = fr < m1
+            b_r, b_c = fr[~top] - m1, fc[~top]
+            order_b = np.lexsort((b_c, b_r))
+            indptr = np.zeros(n1 - m1 + 1, dtype=np.int64)
+            np.add.at(indptr, b_r + 1, 1)
+            ent = dict(
+                key=key, plan=plan,
+                top_sel=torch.as_tensor(plan["flat_pos"][top], device=dev),
+                bot_sel=torch.as_tensor(plan["flat_pos"][~top][order_b], device=dev),
+                top_rows_dev=torch.as_tensor(fr[top], device=dev),
+                top_cols=fc[top],
+                bot_indptr=np.cumsum(indptr),
+                bot_indices=b_c[order_b],
+            )
+            self._plan_cache["banded_a2"] = ent
+        factors, meta = left._sparse_apply_state()
+        top_vals, bot_vals = ent["plan"]["run"](
+            factors, meta, torch.as_tensor(np.asarray(a2.data), dtype=left.dtype, device=dev),
+            ent["plan"]["maps"], (ent["top_sel"], ent["bot_sel"]),
+        )
+        self._top_rows_dev = ent["top_rows_dev"]
+        self._top_cols = ent["top_cols"]
+        self._top_vals_dev = top_vals
+        return SparseCSR(
+            (n1 - m1, self._m2), ent["bot_indptr"], ent["bot_indices"], bot_vals.cpu().numpy()
         )
 
     def _ensure_children_fused(self) -> None:

@@ -51,6 +51,13 @@ def _dense_colpiv_qr_h(a: torch.Tensor):
 
 
 class _DenseQRBase(QRSolver):
+    """``device``/``dtype`` place host input (NumPy, ``SparseCSR``; default
+    CUDA, the input's dtype); a tensor keeps its device unless ``device``
+    is given."""
+
+    def __init__(self, *, device=None, dtype=None):
+        self.device, self.dtype = device, dtype
+
     @property
     def rows(self) -> int:
         return self._m
@@ -91,11 +98,11 @@ class _DenseQRBase(QRSolver):
             self._square_r(), self._padded_rhs(y)[:, None], upper=True
         )[:, 0]
 
-    @staticmethod
-    def _coerce(mat) -> torch.Tensor:
+    def _coerce(self, mat) -> torch.Tensor:
         if isinstance(mat, SparseCSR):
             mat = mat.to_dense()
-        return _device.as_tensor(mat)  # host data goes to the card
+        # host data goes to the card unless the solver names a device
+        return _device.as_tensor(mat, getattr(self, "device", None), getattr(self, "dtype", None))
 
     def _adopt_factors(self, m, n, Y, T, R, health) -> None:
         """Take factors computed by an enclosing fused program

@@ -13,8 +13,8 @@ solve back-substitutes the boundary chain first, then the interiors.
 
 Plans the segmentation cannot take (short or non-uniform chains) delegate
 to a plain :class:`~qrkit_tpu_torch.solvers.banded_blocked.BandedBlockedQR`
-(``fallback=True``) or raise.  The reference's ``mesh=`` placement and the
-sparse-operand Q products belong to later slices of the port.
+(``fallback=True``) or raise.  The reference's ``mesh=`` placement belongs
+to the mesh slice of the port.
 """
 from __future__ import annotations
 
@@ -248,6 +248,39 @@ class SegmentedBandedQR(QRSolver):
         if self._delegate is not None:
             return self._delegate.apply_q(m)
         return self._apply(seg_q, m)
+
+    # --- sparse-operand Q products ---------------------------------------------------
+    def _sparse_apply_parts(self, transpose: bool):
+        """(fill_fn, apply_fn) for :mod:`~qrkit_tpu_torch.solvers.sparse_apply`;
+        Qᵀ's output rows follow :meth:`apply_qt`'s order (per-segment R rows,
+        chain rows, pass-through rows)."""
+        if self._delegate is not None:
+            return self._delegate._sparse_apply_parts(transpose)
+        from .sparse_apply import segmented_structural_fill
+
+        def fill(op, row_map):
+            return segmented_structural_fill(self, op, transpose, row_map)
+
+        fn = seg_qt if transpose else seg_q
+        return fill, lambda factors, meta, M: fn(factors, M)
+
+    def _sparse_apply_state(self):
+        if self._delegate is not None:
+            return self._delegate._sparse_apply_state()
+        return self, {}
+
+    def apply_qt_sparse(self, s: SparseCSR) -> SparseCSR:
+        """``Qᵀ · S`` for a host sparse operand, kept sparse (plan-cached per
+        operand layout; one apply over all of S's columns)."""
+        from .sparse_apply import solver_sparse_apply
+
+        return solver_sparse_apply(self, s, True)
+
+    def apply_q_sparse(self, s: SparseCSR) -> SparseCSR:
+        """``Q · S`` for a host sparse operand (see :meth:`apply_qt_sparse`)."""
+        from .sparse_apply import solver_sparse_apply
+
+        return solver_sparse_apply(self, s, False)
 
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
         """Two-phase back-substitution (boundary chain, then interiors) of

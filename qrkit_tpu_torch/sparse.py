@@ -1,7 +1,7 @@
 """Host-side sparse-matrix container and permutations (NumPy only).
 
-Counterpart of ``qrkit_tpu/sparse.py`` (``Permutation``, ``coo_to_csr`` and
-the ``SparseCSR`` surface the block-diagonal slice uses).  These are
+Counterpart of ``qrkit_tpu/sparse.py`` (``Permutation``, ``coo_to_csr``,
+``SparseCSR`` and the MatrixMarket reader and writer).  These are
 structure-plane objects: they live on the host, feed the structure analysis
 in :mod:`qrkit_tpu_torch.analysis`, and never touch the device.  The port
 keeps its own copy instead of importing ``qrkit_tpu.sparse`` because that
@@ -26,7 +26,7 @@ import numpy as np
 
 from . import _native
 
-__all__ = ["Permutation", "SparseCSR", "coo_to_csr"]
+__all__ = ["Permutation", "SparseCSR", "coo_to_csr", "load_matrix_market", "save_matrix_market"]
 
 # stored-nonzero layouts seen by pattern_fingerprint: (weak indices, weak
 # indptr, token), most recent last
@@ -73,6 +73,9 @@ class Permutation:
     def apply_inverse(self, v: np.ndarray) -> np.ndarray:
         """P^-1 * v : out[i] = v[indices[i]]."""
         return v[self.indices, ...]
+
+    def permute_rows(self, m: np.ndarray) -> np.ndarray:
+        return self.apply(m)
 
     def permute_cols(self, m: np.ndarray) -> np.ndarray:
         """M * P : out[:, i] = M[:, indices[i]]."""
@@ -146,6 +149,13 @@ class SparseCSR:
         csr.sort_indices()
         return SparseCSR(csr.shape, csr.indptr, csr.indices, np.array(csr.data))
 
+    def to_scipy(self):
+        """The matrix as ``scipy.sparse.csr_matrix``; the values are copied
+        (scipy copies the index arrays on construction anyway)."""
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((self.data.copy(), self.indices, self.indptr), shape=self.shape)
+
     # --- basic properties -----------------------------------------------------------
     @property
     def nnz(self) -> int:
@@ -164,6 +174,9 @@ class SparseCSR:
         row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
         out[row_ids, self.indices] = self.data
         return out
+
+    def row_nnz(self) -> np.ndarray:
+        return np.diff(self.indptr)
 
     def col_nnz(self) -> np.ndarray:
         if _native.available():
@@ -219,6 +232,28 @@ class SparseCSR:
         old_starts = self.indptr[:-1][src_of_dest]
         pos = np.arange(self.nnz) - np.repeat(new_indptr[:-1], counts)
         return np.repeat(old_starts, counts) + pos
+
+    def permute_cols(self, perm: Permutation) -> "SparseCSR":
+        """A * P — new column i = old column perm.indices[i] (per-row reorder)."""
+        inv = perm.inverse().indices  # old col -> new col
+        row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
+        return SparseCSR.from_triplets(row_ids, inv[self.indices], self.data, self.shape)
+
+    def hstack_dense_block(self, c0: int, nc: int) -> np.ndarray:
+        """Dense copy of columns [c0, c0+nc) over every row."""
+        return self.block_dense(0, c0, self.nrows, nc)
+
+    def slice_cols(self, c0: int, nc: int) -> "SparseCSR":
+        row_ids = np.repeat(np.arange(self.nrows), np.diff(self.indptr))
+        sel = (self.indices >= c0) & (self.indices < c0 + nc)
+        return SparseCSR.from_triplets(
+            row_ids[sel], self.indices[sel] - c0, self.data[sel], (self.nrows, nc)
+        )
+
+    def slice_rows(self, r0: int, nr: int) -> "SparseCSR":
+        lo, hi = self.indptr[r0], self.indptr[r0 + nr]
+        indptr = self.indptr[r0 : r0 + nr + 1] - self.indptr[r0]
+        return SparseCSR((nr, self.ncols), indptr, self.indices[lo:hi], self.data[lo:hi])
 
     def block_dense(self, r0: int, c0: int, nr: int, nc: int) -> np.ndarray:
         """Dense copy of the block [r0:r0+nr, c0:c0+nc]."""
@@ -316,3 +351,49 @@ class SparseCSR:
         _LAYOUT_REGISTRY[:] = live[-_LAYOUT_MAX:]
         self._fp_memo = token
         return token
+
+
+def load_matrix_market(path: str) -> SparseCSR:
+    """Read a MatrixMarket coordinate file (``general`` or ``symmetric``,
+    ``real``/``integer`` or ``pattern``), summing duplicate entries."""
+    with open(path) as f:
+        header = f.readline()
+        if not header.startswith("%%MatrixMarket"):
+            raise ValueError("not a MatrixMarket file")
+        parts = header.split()
+        symmetric = "symmetric" in parts
+        pattern = "pattern" in parts
+        line = f.readline()
+        while line.startswith("%"):
+            line = f.readline()
+        nrows, ncols, nnz = (int(v) for v in line.split())
+        data = np.loadtxt(f, max_rows=nnz, ndmin=2) if nnz else np.zeros((0, 3))
+        rows = data[:, 0].astype(np.int64) - 1
+        cols = data[:, 1].astype(np.int64) - 1
+        vals = np.ones(nnz, dtype=np.float64) if pattern else data[:, 2].astype(np.float64)
+    if symmetric:
+        off = rows != cols
+        rows, cols, vals = (
+            np.concatenate([rows, cols[off]]),
+            np.concatenate([cols, rows[off]]),
+            np.concatenate([vals, vals[off]]),
+        )
+    return SparseCSR.from_triplets(rows, cols, vals, (nrows, ncols))
+
+
+def save_matrix_market(path: str, mat: SparseCSR):
+    """Write a MatrixMarket coordinate file (``real general``, values to 17
+    significant digits, so a float64 round trip is exact)."""
+    row_ids = np.repeat(np.arange(mat.nrows), np.diff(mat.indptr))
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{mat.nrows} {mat.ncols} {mat.nnz}\n")
+        if mat.nnz:
+            np.savetxt(
+                f,
+                np.rec.fromarrays(
+                    [row_ids + 1, mat.indices + 1, mat.data.astype(np.float64)],
+                    names="r,c,v",
+                ),
+                fmt="%d %d %.17g",
+            )

@@ -136,9 +136,10 @@ def test_tsqr_matches(rng, n_shards):
 
 
 def test_tsqr_mesh_is_slice_4():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """The mesh paths raise, naming the mesh slice of the port."""
+    with pytest.raises(NotImplementedError, match="mesh slice"):
         TSQRDenseQR(2, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="mesh slice"):
         qt.BlockAngularQR(qt.BlockDiagonalQR(), qt.DenseColPivQR(), mesh=object())
 
 
@@ -358,10 +359,19 @@ def test_banded_left_dense_a2_matches(rng):
 
 
 def test_banded_left_sparse_a2_is_slice_4(rng):
+    """A banded left with a sparse A2 (once left for a later slice) keeps A2
+    sparse through the planned Qᵀ product and solves like the reference."""
     left, a2 = _banded_left(rng, N=8)
-    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(suggested_block_cols=1, device=DEV), qt.DenseColPivQR())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tqr.compute(qt.BlockMatrix1x2(_port_csr(left), qt.SparseCSR.from_dense(a2)))
+    a2[rng.random(a2.shape) < 0.5] = 0.0
+    ja2 = jq.SparseCSR.from_dense(a2)
+    kw = dict(block_rows=3, block_cols=1, block_overlap=0, suggested_block_cols=1)
+    tqr = qt.BlockAngularQR(qt.BandedBlockedQR(**kw, device=DEV), qt.DenseColPivQR())
+    jqr = jq.BlockAngularQR(jq.BandedBlockedQR(**kw), jq.DenseColPivQR())
+    tqr.compute(qt.BlockMatrix1x2(_port_csr(left), _port_csr(ja2)))
+    jqr.compute(jq.BlockMatrix1x2(left, ja2))
+    assert tqr._r12_coo is not None and "banded_a2" in tqr._plan_cache
+    b = rng.normal(size=left.nrows)
+    close(tqr.solve(torch.as_tensor(b)), jqr.solve(jnp.asarray(b)))
 
 
 # --- state converters -------------------------------------------------------------------
