@@ -68,7 +68,22 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   100,000 × 48 (panel loop) and 100,000 × 256 (the library QR route),
   ``BlockedThinSparseQR`` on a 100,000 × 256 sparse matrix of about 800k
   nonzeros and on a copy with 3 columns replaced by copies of others (rank
-  253, residual against the host's fp64 ``lstsq``).
+  253, residual against the host's fp64 ``lstsq``);
+* the launch floor of B1/B2 (phase ``launch_floor``): the device time of a
+  kernel that does nothing, launched on B1/B2's grid at 10,000 × 7×2 and
+  5,000 × 19×3;
+* the mesh paths (phase ``mesh``, last): a one-rank NCCL process group in
+  this process (a ``FileStore`` under ``build/``) and ``default_mesh()``;
+  every ``mesh=`` path at full width against its ``mesh=None`` result in
+  this process, fp32 rtol 1e-4 with atol 1e-5·max|·|, bitwise where both
+  routes launch the same kernels on the same data: config 2 at 10,000 and
+  1M × 7×2 (``BlockDiagonalQR``, B2 and B1), config 3 (``SegmentedBandedQR``
+  compute, solve and ``factorize_values``: B3, B4, B5), config 4 at N =
+  100,000 (``BlockAngularQR(BlockDiagonalQR(mesh), TSQRDenseQR(1, mesh),
+  mesh)``, B2), the lane-major ellipse step at 100,000 points,
+  ``fit_bundle_device`` at 20,000 points and the dry run's four steps
+  (``qrkit_tpu_torch.dryrun``, its bundle step at 100,000 points); each
+  path timed with and without the mesh in turns; the group torn down.
 
 Each phase prints one JSON line per case.  Any failure raises, so the script
 exits non-zero without the final line; it also fails when no CUDA device is
@@ -97,7 +112,7 @@ import numpy as np
 import torch
 
 import qrkit_tpu_torch as qt
-from qrkit_tpu_torch import functional, lm, profiling
+from qrkit_tpu_torch import dryrun, functional, lm, profiling
 from qrkit_tpu_torch.__main__ import main as cli_main
 from qrkit_tpu_torch.examples import bundle, ellipse
 from qrkit_tpu_torch.ops import _build
@@ -1589,6 +1604,242 @@ def phase_blocked_thin(rng, smi):
             raise AssertionError(f"blocked thin {label}: {rec}")
 
 
+LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P))
+
+
+def phase_launch_floor(smi):
+    """Device time of a kernel that does nothing on B1/B2's grid (one thread
+    per block, CTAs of 256) at config 2's 10,000 × 7×2 and the bundle's
+    5,000 × 19×3: what a launch of that grid costs before any byte moves.
+    Returns {"{n}x{br}x{bc}": ms}."""
+    out = {}
+    for br, bc, n in LAUNCH_FLOOR_CASES:
+        lib = _build.load(br, bc)
+        dev = torch.device(DEVICE)
+        ms = device_time_ms(lambda: _build.launch(lib.qrk_blockdiag_empty, lib, dev, n), one_kernel=True)
+        out[f"{n}x{br}x{bc}"] = ms
+        emit({"phase": "launch_floor", "n": n, "shape": [br, bc], "grid_ctas": -(-n // 256),
+              "device_ms": ms, "method": "torch.profiler's mean kernel duration over the records it "
+              "kept of 20 launches of the empty kernel", "gpu": smi})
+    return out
+
+
+MESH_BA_N, MESH_ELLIPSE_N, MESH_BUNDLE_P, MESH_DRYRUN_BUNDLE_P = 100_000, 100_000, 20_000, 100_000
+
+
+def mesh_turns(none_fn, mesh_fn, reps):
+    """(none ms, mesh ms, rounds): each call between two CUDA events on the
+    stream, with a synchronize before and after it; rounds none, mesh, mesh,
+    none, each the median of ``reps`` calls, after one warm-up call each."""
+    fns = {"none": none_fn, "mesh": mesh_fn}
+    for fn in fns.values():
+        fn()
+    rounds = {"none": [], "mesh": []}
+    for key in ("none", "mesh", "mesh", "none"):
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fns[key]()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        rounds[key].append(statistics.median(times))
+    return statistics.mean(rounds["none"]), statistics.mean(rounds["mesh"]), rounds
+
+
+def mesh_check(label, none_fn, mesh_fn, bitwise, reps, smi, want=None, extra=None):
+    """One mesh path: its mesh=None result, then its mesh result with the
+    launch counters set to 0 right before and read right after (they must
+    equal ``want``), the two compared (fp32 rtol 1e-4, atol 1e-5·max|·|;
+    bitwise where ``bitwise``), then both timed in turns.  Returns the
+    mesh run's launches."""
+    ref = none_fn()
+    torch.cuda.synchronize()
+    profiling.reset_launch_counts()
+    out = mesh_fn()
+    torch.cuda.synchronize()
+    counts = profiling.launch_counts()
+    expected = {name: (want or {}).get(name, 0) for name in counts}
+    if counts != expected:
+        raise AssertionError(f"mesh {label}: launches {counts}, want {expected}")
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    max_abs, equal = 0.0, True
+    for o, r in zip(outs, refs):
+        if tuple(o.shape) != tuple(r.shape):
+            raise AssertionError(f"mesh {label}: shape {tuple(o.shape)} against {tuple(r.shape)}")
+        try:
+            e, eq = compare(o, r, torch.float32)
+        except AssertionError as err:
+            raise AssertionError(f"mesh {label}: the mesh result differs from mesh=None: {err}")
+        max_abs, equal = max(max_abs, e), equal and eq
+    if bitwise and not equal:
+        raise AssertionError(f"mesh {label}: the same kernels on the same data gave other bits")
+    none_ms, mesh_ms, rounds = mesh_turns(none_fn, mesh_fn, reps)
+    emit({"phase": "mesh", "path": label, "dtype": "float32", "max_abs_diff": max_abs,
+          "bitwise_equal": equal, "bitwise_expected": bitwise, "launches": counts,
+          "ms_none": none_ms, "ms_mesh": mesh_ms, "ms_rounds": rounds, **(extra or {}),
+          "method": f"host-visible stream time between CUDA events around one call, synchronize "
+                    f"before and after; rounds none, mesh, mesh, none, median of {reps}",
+          "gpu": smi})
+    return counts
+
+
+def mesh_collective_costs(mesh, smi, reps=50):
+    """Host-visible time of one call of each collective helper and of the
+    mesh lookup they make (``mesh.get_group``), on this one-rank mesh: the
+    all-gather at config 2's x (10,000 and 1M blocks × 2) and the scalar
+    all-reduce of a health flag or an LM cost.  Median of ``reps`` calls,
+    each between CUDA events with a synchronize before and after (the
+    lookup by the host clock)."""
+    from qrkit_tpu_torch.parallel.mesh import all_gather_leading, all_reduce_sum
+
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    cases = [(f"all_gather_{n * BC}", lambda t=torch.zeros(n * BC, **f32): all_gather_leading(t, mesh))
+             for n in (NB_CONFIG2, NB_REAL)]
+    cases.append(("all_reduce_scalar", lambda t=torch.zeros((), **f32): all_reduce_sum(t, mesh)))
+    out = {}
+    for label, fn in cases:
+        out[label] = mesh_turns(fn, fn, reps)[0]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.get_group("dp")
+    out["get_group_host"] = (time.perf_counter() - t0) * 1e3 / reps
+    emit({"phase": "mesh_collectives", "ms": out, "method": f"median of {reps} calls between CUDA "
+          "events, synchronize before and after (mesh_turns); get_group by the host clock", "gpu": smi})
+
+
+def phase_mesh(rng, smi):
+    """The mesh paths on a one-rank NCCL mesh in this process (see the
+    module docstring).  Returns the mesh runs' kernel launches by name."""
+    import torch.distributed as dist
+
+    workdir = os.path.join("build", "mesh")
+    os.makedirs(workdir, exist_ok=True)
+    store = os.path.join(workdir, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    mesh = dryrun.init_rank(0, 1, DEVICE, store)
+    want = ("nccl", "cuda") if DEVICE == "cuda" else ("gloo", "cpu")  # no gloo on the card
+    if (dist.get_backend(), mesh.device_type) != want:
+        raise AssertionError(f"mesh: backend {dist.get_backend()} on {mesh.device_type}, want {want}")
+    emit({"phase": "mesh_init", "backend": dist.get_backend(), "world": dist.get_world_size(),
+          "mesh": str(mesh), "seconds": time.perf_counter() - t0})
+    mesh_collective_costs(mesh, smi)
+    total = {name: 0 for name in profiling.launch_counts()}
+
+    def add(counts):
+        for name, v in counts.items():
+            total[name] += v
+
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    try:
+        # config 2: the kernel tier per rank (B2 compute, B1 solve)
+        for nb in (NB_CONFIG2, NB_REAL):
+            blocks, b_np = flagship_system(rng, nb)
+            a_soa = np.ascontiguousarray(blocks.transpose(1, 2, 0).reshape(BR * BC, nb))
+            mat = qt.BlockDiagonal.from_soa(a_soa, BR, BC, **f32)
+            b = torch.as_tensor(b_np, **f32)
+            qn, qm = qt.BlockDiagonalQR(pivot=False), qt.BlockDiagonalQR(pivot=False, mesh=mesh)
+            add(mesh_check(f"config2_{nb}_7x2", lambda: qn.compute(mat).solve(b),
+                           lambda: qm.compute(mat).solve(b), True, 20, smi,
+                           {"blockdiag_qr_r": 1, "blockdiag_lstsq": 1}))
+            resid = host_residual(blocks, qm.solve(b), b_np)
+            if not (qm._kernel_mode and qm.info() == qt.ComputationInfo.SUCCESS and resid < RESID_GATE):
+                raise AssertionError(f"mesh config2 {nb}: kernel tier {qm._kernel_mode}, residual {resid}")
+
+        # config 3: B3 and B4 on the rank's segments, B5 on the boundary chain
+        mat = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
+        b_np = mat.matvec(rng.normal(size=mat.ncols))
+        b = torch.as_tensor(b_np, **f32)
+        seg = lambda m: qt.SegmentedBandedQR(  # noqa: E731
+            suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, mesh=m, **f32)
+        sn, sm = seg(None), seg(mesh)
+        want = {name: 1 for name in BANDED_KERNELS}
+        add(mesh_check("config3_segmented", lambda: sn.compute(mat).solve(b),
+                       lambda: sm.compute(mat).solve(b), True, 10, smi, want))
+        if not (sm._segs == (0, sm.S) and sm._fac_kernel and sm._p2w is not None and sm._chain_kernel):
+            raise AssertionError(f"mesh config3: segments {sm._segs}, kernel gates not all taken")
+        resid = host_residual_sparse(mat, sm.solve(b), b_np)
+        if not resid < RESID_GATE:
+            raise AssertionError(f"mesh config3: fp32 relative residual {resid}")
+        vals = torch.as_tensor(mat.data * 0.5, **f32)
+        add(mesh_check("config3_segmented_factorize_values",
+                       lambda: sn.factorize_values(vals).solve(b),
+                       lambda: sm.factorize_values(vals).solve(b), True, 10, smi, want))
+
+        # config 4: sharded block-diagonal left (B2) and TSQR right
+        n = MESH_BA_N
+        blocks, a2, b_np = block_angular_problem(rng, n)
+        bam = qt.BlockMatrix1x2(qt.BlockDiagonal(torch.as_tensor(blocks, **f32), 2 * n, n),
+                                torch.as_tensor(a2, **f32))
+        b = torch.as_tensor(b_np, **f32)
+
+        def ba(m):
+            return qt.BlockAngularQR(qt.BlockDiagonalQR(qt.QFormat.FULL_Q, pivot=False, mesh=m),
+                                     qt.parallel.TSQRDenseQR(1, mesh=m), mesh=m)
+
+        ban, bam_q = ba(None), ba(mesh)
+        add(mesh_check("config4_block_angular_tsqr", lambda: ban.compute(bam).solve(b),
+                       lambda: bam_q.compute(bam).solve(b), True, 10, smi, {"blockdiag_qr_r": 1}))
+        x = bam_q.solve(b).double().cpu().numpy()
+        r = np.zeros(2 * n)
+        r[0::2], r[1::2] = blocks[:, 0, 0] * x[:n], blocks[:, 1, 0] * x[:n]
+        rel = float(np.linalg.norm(r + a2 @ x[n:] - b_np) / np.linalg.norm(b_np))
+        if not (rel < RESID_GATE and bam_q.left._kernel_mode):
+            raise AssertionError(f"mesh config4: residual {rel}, left kernel tier {bam_q.left._kernel_mode}")
+
+        # the lane-major ellipse step, points sharded over lanes
+        f = ellipse.EllipseFitting(ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), MESH_ELLIPSE_N),
+                                   **f32)
+        params, pts = f.initial_params(), f.pts
+        lam = torch.tensor(1e-3, **f32)
+        res = ellipse._residuals(params, pts)
+        add(mesh_check("ellipse_lane_major_step", lambda: ellipse._damped_step_aux(params, res, lam, pts),
+                       lambda: ellipse._damped_step_aux(params, res, lam, pts, mesh=mesh), False, 10, smi,
+                       extra={"n": MESH_ELLIPSE_N}))
+
+        # the point-sharded bundle device fit
+        cams0, pts0, uv = bundle_start(MESH_BUNDLE_P)
+        fits = {}
+
+        def fit_b(m):
+            fits[m is None] = r = bundle.fit_bundle_device(cams0, pts0, uv, BUNDLE_CFG, mesh=m, **f32)
+            return torch.as_tensor(r.x)
+
+        add(mesh_check("bundle_device_fit", lambda: fit_b(None), lambda: fit_b(mesh), False, 1, smi,
+                       extra={"n_pts": MESH_BUNDLE_P, "n_cams": BUNDLE_CAMS}))
+        costs = (fits[True].cost, fits[False].cost)
+        rms = float(np.sqrt(2.0 * fits[False].cost / (2 * MESH_BUNDLE_P * BUNDLE_CAMS)))
+        if not (rms < BUNDLE_RMS_GATE and abs(costs[1] - costs[0]) <= BUNDLE_COST_GATE * costs[0]):
+            raise AssertionError(f"mesh bundle fit: costs {costs}, rms {rms}")
+
+        # the dry run's four steps, then its bundle step timed at 100,000 points
+        profiling.reset_launch_counts()
+        t0 = time.perf_counter()
+        steps = dryrun.run_steps(mesh, bundle_points=MESH_DRYRUN_BUNDLE_P, dtype=torch.float32)
+        torch.cuda.synchronize()
+        add(profiling.launch_counts())
+        emit({"phase": "mesh", "path": "dryrun", "steps": steps, "launches": profiling.launch_counts(),
+              "seconds": time.perf_counter() - t0, "gpu": smi})
+        cams, pts3d, uv = bundle.make_scene(n_cams=2, n_pts=MESH_DRYRUN_BUNDLE_P, noise=0.0, seed=4)
+        prng = np.random.default_rng(5)  # the dry run's perturbation
+        x0 = torch.as_tensor(np.concatenate([(pts3d + 0.05 * prng.normal(size=pts3d.shape)).ravel(),
+                                             (cams + 0.02 * prng.normal(size=cams.shape)).ravel()]), **f32)
+        uvt = torch.as_tensor(uv, **f32)
+        rb = bundle.residuals(x0, uvt)
+        step_n, step_m = bundle._make_damped_step(1), bundle._make_damped_step(1, mesh, "dp")
+        add(mesh_check("bundle_step_100k", lambda: step_n(x0, rb, lam, uvt),
+                       lambda: step_m(x0, rb, lam, uvt), False, 5, smi,
+                       extra={"n_pts": MESH_DRYRUN_BUNDLE_P, "n_cams": 2}))
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
 def main():
     rng = np.random.default_rng(SEED)
     smi = phase_device()
@@ -1612,8 +1863,10 @@ def main():
     cli_counts = phase_auto_cli(rng, c3, smi)
     sp_counts = phase_sparse_apply(rng, c3, smi)
     phase_blocked_thin(rng, smi)
-    # the block-angular, ellipse, bundle, CLI and sparse-product main paths
-    extra = {name: cli_counts[name] + sp_counts[name] for name in cli_counts}
+    floor = phase_launch_floor(smi)
+    mesh_counts = phase_mesh(rng, smi)
+    # the block-angular, ellipse, bundle, CLI, sparse-product and mesh main paths
+    extra = {name: cli_counts[name] + sp_counts[name] + mesh_counts[name] for name in cli_counts}
     extra["blockdiag_qr_r"] += ba_b2 + bundle_b2
     extra["banded_chain_qr"] += ell_b5
     kernels = []
@@ -1629,7 +1882,10 @@ def main():
             "launches": counts10k[name] + counts1m[name] + extra.get(name, 0),
             "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"],
+            "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
+            "config2_10k": {k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                              "bound_ms", "bound_by")},
+            "launch_floor_device_ms": floor,
         })
         if name == "blockdiag_qr_r":
             kernels[-1]["bundle_19x3"] = {
@@ -1647,7 +1903,7 @@ def main():
             "launches": banded_counts[name] + extra.get(name, 0), "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,  # no single PyTorch call
-            "device_ms": t["device_ms"],
+            "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

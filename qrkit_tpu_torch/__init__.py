@@ -9,13 +9,16 @@ every solver (``BlockDiagonalQR`` with its Q formats, ``BandedBlockedQR``,
 ``QRSolver`` protocol, ``auto_qr`` (and ``python -m qrkit_tpu_torch`` on
 MatrixMarket files), plan persistence, the Levenberg–Marquardt loops and
 the profiling helpers; plus the differentiable pipelines in
-:mod:`~qrkit_tpu_torch.functional`, the single-device TSQR in
-:mod:`~qrkit_tpu_torch.parallel` and the applications in
-:mod:`qrkit_tpu_torch.examples` (ellipse fitting, bundle adjustment).
+:mod:`~qrkit_tpu_torch.functional`, the device mesh (``default_mesh``,
+``shard_leading_axis``) and TSQR in :mod:`~qrkit_tpu_torch.parallel`, the
+applications in :mod:`qrkit_tpu_torch.examples` (ellipse fitting, bundle
+adjustment) and the multi-rank dry run :mod:`qrkit_tpu_torch.dryrun`.
 Every Pallas kernel of the reference is a hand-written CUDA kernel for
 Hopper here (:mod:`qrkit_tpu_torch.ops.blockdiag`,
 :mod:`qrkit_tpu_torch.ops.banded`), built from source at first use.  The
-``mesh=`` paths wait for the mesh slice of the port.
+``mesh=`` paths run on ``torch.distributed`` as explicit SPMD: every rank
+works on its shard and calls the collectives of
+:mod:`qrkit_tpu_torch.parallel.mesh` itself.
 
 The package imports torch and NumPy and never jax.
 """

@@ -122,6 +122,7 @@ def block_diagonal_qr_from_numpy(
     qr._landscape = bc > br
     qr._nrows, qr._ncols = nrows, ncols
     qr._nb, qr._br, qr._bc = nb, br, bc
+    qr._shard()
     row_perm = state.get("row_perm")
     qr._row_perm = Permutation(np.asarray(row_perm)) if row_perm is not None else None
 

@@ -23,8 +23,12 @@ Counterpart of ``qrkit_tpu/examples/bundle.py`` (``make_scene``,
 Residuals are vectorized over all observations; Jacobians come from
 ``torch.func.vmap`` + ``torch.func.jacfwd``.  :func:`fit_bundle` runs the
 host LM loop over the class stack; :func:`fit_bundle_device` keeps the LM
-state on the device with the fused ``block_angular_lstsq`` step.  The
-``mesh=`` form of the device fit belongs to the mesh slice of the port.
+state on the device with the fused ``block_angular_lstsq`` step; with
+``mesh=`` the point axis of the scene is sharded over the ranks of a
+``DeviceMesh``: each rank holds its points' observations, Jacobian blocks
+and block QR, the camera-block TSQR's all-gather of ``[6C, 6C]`` R factors
+is the step's only collective, and the LM cost and gradient are
+all-reduced, so every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from .. import _device
 from ..containers import BlockDiagonal, BlockMatrix1x2
 from ..functional import block_angular_lstsq
 from ..lm import LMConfig, LMResult, levenberg_marquardt, levenberg_marquardt_device
+from ..parallel.mesh import all_reduce_sum, mesh_rank, shard_bounds, shard_leading_axis
 from ..solvers import BlockAngularQR, BlockDiagonalQR, DenseColPivQR
 from ..sparse import SparseCSR
 
@@ -202,16 +207,27 @@ def fit_bundle(
     )
 
 
+def _own_points(x: torch.Tensor, n_cams: int, mesh, axis: str) -> torch.Tensor:
+    """The parameters a rank's residuals read: its points' coordinates,
+    then every camera (``x`` is the global ``[3P + 6C]``)."""
+    n_pts = (x.shape[0] - 6 * n_cams) // 3
+    lo, hi = shard_bounds(n_pts, mesh, axis)
+    return torch.cat([x[3 * lo : 3 * hi], x[3 * n_pts :]])
+
+
 @functools.lru_cache(maxsize=8)
-def _make_damped_step(n_shards: int):
+def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
     """The damped bundle step with no host read: the camera block assembled
     as a dense ``[n1 + 6C, 6C]`` operand on the device (6C columns: dense is
     the right layout at this width) and solved by the fused
     :func:`~qrkit_tpu_torch.functional.block_angular_lstsq`, ``n_shards``
-    row shards of its TSQR on one device."""
+    row shards of its TSQR (on one device; with ``mesh=``, over the ranks,
+    ``uv`` and ``r`` being the rank's points and the step global)."""
 
     def step(x, r, lam, uv):
         n_pts, n_cams = uv.shape[0], uv.shape[1]
+        if mesh is not None:
+            x = _own_points(x, n_cams, mesh, axis)
         brows = 2 * n_cams + 3
         c6 = 6 * n_cams
         jp, jc = _jacobian_blocks(x, uv)
@@ -226,7 +242,7 @@ def _make_damped_step(n_shards: int):
         sl = torch.sqrt(torch.as_tensor(lam, dtype=dt, device=dev))
         a2 = torch.cat([a2_blocks, sl * torch.eye(c6, dtype=dt, device=dev)])
         b = torch.cat([rhs, rhs.new_zeros(c6)])
-        return block_angular_lstsq(left_d, a2, b, n_shards=n_shards, tail=c6)
+        return block_angular_lstsq(left_d, a2, b, n_shards=n_shards, tail=c6, mesh=mesh, axis=axis)
 
     return step
 
@@ -236,6 +252,11 @@ _damped_step_device = _make_damped_step(1)
 
 def _residuals_aux(x, uv):
     return residuals(x, uv)
+
+
+def _residuals_own(x, uv, *, mesh, axis: str):
+    """A rank's residuals: its points' observations ``uv``."""
+    return residuals(_own_points(x, uv.shape[1], mesh, axis), uv)
 
 
 def fit_bundle_device(
@@ -252,16 +273,22 @@ def fit_bundle_device(
     """Bundle adjustment with the LM state on the device: damped step,
     acceptance, λ adaptation and convergence checks run with one host read
     (the ``done`` flag) per iteration and one result fetch per fit.  Host
-    data goes to ``device`` (default CUDA) in ``dtype``.  ``mesh=`` (the
-    point axis sharded over devices) belongs to the mesh slice of the port
-    and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_bundle_device(mesh=...) belongs to the mesh slice of the port "
-            "(torch.distributed); use mesh=None"
-        )
+    data goes to ``device`` (default CUDA) in ``dtype``.
+
+    ``mesh``/``axis`` shard the point axis over the ranks of a
+    ``DeviceMesh`` (every rank passes the whole scene; the point count must
+    divide over the ranks): each rank keeps its points' observations and
+    block QR, the camera-block TSQR all-gather is the step's only
+    collective, and the cost and gradient are all-reduced, so every rank
+    returns the same :class:`LMResult`."""
     uvd = _device.as_tensor(np.asarray(uv), device, dtype)
+    x0 = _initial_x(cams0, pts0, uvd.device, dtype)
+    cfg = config or LMConfig(max_iters=50)
+    if mesh is None:
+        return levenberg_marquardt_device(_residuals_aux, _damped_step_device, x0, cfg, aux=uvd)
     return levenberg_marquardt_device(
-        _residuals_aux, _damped_step_device, _initial_x(cams0, pts0, uvd.device, dtype),
-        config or LMConfig(max_iters=50), aux=uvd,
+        functools.partial(_residuals_own, mesh=mesh, axis=axis),
+        _make_damped_step(mesh_rank(mesh, axis)[1], mesh, axis),
+        x0, cfg, aux=shard_leading_axis(uvd, mesh, axis),
+        reduce=functools.partial(all_reduce_sum, mesh=mesh, axis=axis),
     )

@@ -129,12 +129,26 @@ def _residuals_aux(params, pts):
     return _residuals(params, pts)
 
 
-def _damped_step_aux(params, res, lam, pts):
+def _damped_step_aux(params, res, lam, pts, *, mesh=None, axis: str = "dp"):
     """The device loop's damped step: the lane-major pipeline.  Residuals
     and Jacobian are recomputed in ``[·, N]`` form (``res`` is not used: a
-    few elementwise ops cost less than a relayout)."""
+    few elementwise ops cost less than a relayout).
+
+    ``mesh=`` shards the points (lanes) over the mesh axis, where the
+    reference places ``pts`` sharded along its point axis: every rank passes
+    the global ``params`` and ``pts``, works on its own lanes, and returns
+    the global step (the bottom panel reduces across ranks by TSQR, the
+    point part is gathered)."""
+    if mesh is not None:
+        from ..parallel.mesh import shard_bounds
+
+        n = pts.shape[1]
+        lo, hi = shard_bounds(n, mesh, axis)
+        pts, params = pts[:, lo:hi], torch.cat([params[lo:hi], params[n:]])
     left, right = _jacobian_soa(params, pts)
-    return lm_damped_step_blockdiag1(left, right, _residuals_soa(params, pts), lam)
+    return lm_damped_step_blockdiag1(
+        left, right, _residuals_soa(params, pts), lam, mesh=mesh, axis=axis
+    )
 
 
 def _damped_step_aux_aos(params, res, lam, pts):

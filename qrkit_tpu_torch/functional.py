@@ -10,12 +10,20 @@ triangular solves) on either device.  The LM steps keep the reference's
 lane-major layout (the point axis last and contiguous): on the GPU that is
 the coalesced layout, and every per-point scalar of the recurrence is one
 contiguous row.
+
+``block_angular_lstsq`` and ``lm_damped_step_blockdiag`` take a keyword-only
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``), where the reference only
+places its inputs sharded: each rank then passes its own blocks (points) and
+their rows, the skinny bottom panel reduces across ranks by TSQR (a local QR,
+one all-gather of the R factors, a replicated second stage), and the block
+part of x is gathered, so every rank returns the global x.
 """
 from __future__ import annotations
 
 import torch
 
 from .ops.householder import (
+    apply_wy,
     build_t_factor,
     colpiv_householder_qr,
     form_q,
@@ -122,8 +130,39 @@ def _solve_upper(R: torch.Tensor, y: torch.Tensor, transpose: bool = False) -> t
     return torch.linalg.solve_triangular(R, y[..., None], upper=True)[..., 0]
 
 
+def _tail_r(stack: torch.Tensor, m2: int):
+    """Second TSQR stage of a gathered ``[rows, m2 + 1]`` stack of local
+    ``[R | Qᵀy]`` factors (and any replicated rows under them): R2 [m2, m2]
+    and y2 = (Q2ᵀ y)[:m2]."""
+    Y2, T2, R2 = panel_qr_yt(stack[:, :m2])
+    y2 = apply_wy(Y2, T2, stack[:, m2:], transpose=True)[:m2, 0]
+    return torch.triu(R2)[:m2], y2
+
+
 @highest_precision()
-def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int):
+def _sharded_bottom_r(bottom, tail_rows, n_shards: int, m2: int, mesh, axis: str):
+    """The right block's R2 and y2 of a block-angular system whose bottom
+    rows ``[rows, m2 + 1]`` (J2 | rhs) are this rank's, over ``n_shards /
+    world`` local shards each: a local TSQR stage, one all-gather of the
+    ``[R | Qᵀy]`` stacks, and the replicated ``tail_rows`` (the same on every
+    rank) under them in the second stage."""
+    from .parallel.mesh import all_gather_leading, mesh_rank
+
+    world = mesh_rank(mesh, axis)[1]
+    if n_shards % world:
+        raise ValueError(f"n_shards={n_shards} does not divide over the {world} ranks of the mesh")
+    s = n_shards // world
+    rows = bottom.shape[0]
+    mloc = max(-(-rows // s), m2)
+    bottom = torch.cat([bottom, bottom.new_zeros((mloc * s - rows, m2 + 1))]).reshape(s, mloc, m2 + 1)
+    Yl, Tl, Rl = panel_qr_yt(bottom[..., :m2])
+    qty = apply_wy(Yl, Tl, bottom[..., m2:], transpose=True)[:, :m2]
+    stack = all_gather_leading(torch.cat([torch.triu(Rl[:, :m2]), qty], dim=2), mesh, axis)
+    return _tail_r(torch.cat([stack.reshape(-1, m2 + 1), tail_rows]), m2)
+
+
+@highest_precision()
+def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None, axis: str = "dp"):
     """Returns (x [m1+m2], R1 [nb,bc,bc], r12 [m1,m2], R2 [m2,m2])."""
     from .parallel.tsqr import tsqr_apply, tsqr_factorize  # tsqr imports the solvers
 
@@ -143,17 +182,25 @@ def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int):
     bottom = torch.cat([compl, rb[nb * br :]], dim=0)  # [nb*(br-bc)+tail, m2+1]
     r12, y1 = econ[:, :m2], econ[:, m2]
 
-    # right: TSQR of the bottom rows of J2, zero-padded to whole shards
-    mbot = bottom.shape[0]
-    mloc = max(-(-mbot // n_shards), m2)
-    bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
-    Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
-    y2 = tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
+    if mesh is not None:
+        # the rank's complement rows; the replicated tail joins the second stage
+        R2, y2 = _sharded_bottom_r(compl, rb[nb * br :], n_shards, m2, mesh, axis)
+    else:
+        # right: TSQR of the bottom rows of J2, zero-padded to whole shards
+        mbot = bottom.shape[0]
+        mloc = max(-(-mbot // n_shards), m2)
+        bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
+        Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
+        y2 = tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
 
     # back substitution: x2, then the structured x1
     x2 = _solve_upper(R2, y2)
-    x1 = _solve_upper(R1, (y1 - r12 @ x2).reshape(nb, bc)).reshape(nb * bc)
-    return torch.cat([x1, x2]), R1, r12, R2
+    x1 = _solve_upper(R1, (y1 - r12 @ x2).reshape(nb, bc))
+    if mesh is not None:
+        from .parallel.mesh import all_gather_leading
+
+        x1 = all_gather_leading(x1, mesh, axis)
+    return torch.cat([x1.reshape(-1), x2]), R1, r12, R2
 
 
 class _BlockAngularLstsq(torch.autograd.Function):
@@ -204,6 +251,9 @@ def block_angular_lstsq(
     b: torch.Tensor,
     n_shards: int = 1,
     tail: int = 0,
+    *,
+    mesh=None,
+    axis: str = "dp",
 ) -> torch.Tensor:
     """Fused block-angular least-squares solve: batched left QR, TSQR of the
     right block's bottom rows, block back-substitution.
@@ -213,8 +263,21 @@ def block_angular_lstsq(
     ``b [nb*br + tail]``; returns x ``[nb*bc + m2]``.  ``n_shards`` is the
     TSQR's shard count (a batch axis on one device).  Differentiable w.r.t.
     ``left_blocks``, ``right`` and ``b`` through an implicit-function-theorem
-    backward against the saved composite R (full column rank assumed)."""
-    return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
+    backward against the saved composite R (full column rank assumed).
+
+    With ``mesh=`` each rank passes its own blocks and their rows of
+    ``right`` and ``b``, followed by the ``tail`` rows, which are the same on
+    every rank; ``n_shards`` (divisible by the mesh size) counts TSQR shards
+    over all ranks.  Every rank returns the global x ``[world·nb·bc + m2]``.
+    Gradients through the sharded form are not implemented."""
+    if mesh is None:
+        return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (left_blocks, right, b)):
+        raise NotImplementedError(
+            "gradients through block_angular_lstsq(mesh=...) are not implemented; "
+            "differentiate the mesh=None form"
+        )
+    return _block_angular_lstsq_primal(left_blocks, right, b, n_shards, mesh, axis)[0]
 
 
 def _reflector(x0: torch.Tensor, sigma: torch.Tensor):
@@ -233,14 +296,14 @@ def _reflector(x0: torch.Tensor, sigma: torch.Tensor):
     return beta, c, degen
 
 
-def _soa_tall_qr_solve(X: torch.Tensor, y: torch.Tensor, m2: int) -> torch.Tensor:
-    """Least-squares solve of a tall-skinny system stored lane-major.
+def _soa_tall_qr(X: torch.Tensor, y: torch.Tensor, m2: int):
+    """QR of a tall-skinny system stored lane-major.
 
     ``X [m2, L]`` holds the tall matrix M [L, m2] transposed (the long axis
     contiguous) and ``y [L]`` the rhs.  Householder QR with the pivot lane
     masked per step (the reflector lives along the long axis; ``w = Xy·u``
-    is one matrix-vector product over L), then the m2×m2 triangular solve on
-    the extracted R.  Returns x2 [m2]."""
+    is one matrix-vector product over L).  Returns R [m2, m2] and
+    ``(Qᵀy)[:m2]``."""
     L = X.shape[1]
     lane = torch.arange(L, device=X.device)
     zero = X.new_zeros(())
@@ -253,8 +316,31 @@ def _soa_tall_qr_solve(X: torch.Tensor, y: torch.Tensor, m2: int) -> torch.Tenso
         u = torch.where(lane == j, x0 - beta, tail)  # lanes < j are already zero
         w = (Xy @ u) * c  # [m2+1]
         Xy = Xy - torch.outer(w, u)
-    R2 = torch.triu(Xy[:m2, :m2].T)  # R[row, col] = Xy[col, lane=row]
-    return _solve_upper(R2, Xy[m2, :m2])
+    return torch.triu(Xy[:m2, :m2].T), Xy[m2, :m2]  # R[row, col] = Xy[col, lane=row]
+
+
+def _soa_tall_qr_solve(X: torch.Tensor, y: torch.Tensor, m2: int) -> torch.Tensor:
+    """Least-squares solve of a lane-major tall-skinny system (see
+    :func:`_soa_tall_qr`): the m2×m2 triangular solve on its R.  Returns
+    x2 [m2]."""
+    return _solve_upper(*_soa_tall_qr(X, y, m2))
+
+
+def _soa_tall_qr_solve_sharded(X, y, tail, m2: int, mesh, axis: str) -> torch.Tensor:
+    """:func:`_soa_tall_qr_solve` of a system whose lanes ``X [m2, L]``, ``y
+    [L]`` are this rank's, with the replicated lanes ``tail [m2 + 1, t]``
+    (X rows and y) under the reduction: TSQR, a local lane-major QR, one
+    all-gather of the ``[m2, m2 + 1]`` ``[R | Qᵀy]`` factors, and the
+    second stage over the stack and the tail."""
+    from .parallel.mesh import all_gather_leading
+
+    if X.shape[1] < m2:  # the local QR needs m2 lanes; zero lanes change nothing
+        pad = X.new_zeros((m2 + 1, m2 - X.shape[1]))
+        X, y = torch.cat([X, pad[:m2]], dim=1), torch.cat([y, pad[m2]])
+    R, qty = _soa_tall_qr(X, y, m2)
+    stack = all_gather_leading(torch.cat([R, qty[:, None]], dim=1), mesh, axis)
+    Xs = torch.cat([stack.T, tail], dim=1)  # [m2 + 1, world·m2 + t], lane-major
+    return _soa_tall_qr_solve(Xs[:m2], Xs[m2], m2)
 
 
 @highest_precision()
@@ -263,6 +349,9 @@ def lm_damped_step_blockdiag(
     right: torch.Tensor,
     res: torch.Tensor,
     lam,
+    *,
+    mesh=None,
+    axis: str = "dp",
 ):
     """General multi-column lane-major damped Gauss–Newton step.
 
@@ -275,6 +364,10 @@ def lm_damped_step_blockdiag(
     Householder QR of the skinny bottom panel; per-point bc×bc
     back-substitution.  The damping rows are analytic: √λ·I_bc under each
     block and √λ·I_m2 at the tail.
+
+    With ``mesh=`` the points (lanes) are this rank's: the bottom panel
+    reduces across ranks by TSQR (the damping tail once, in the second
+    stage) and x1 is gathered over the lanes of every rank.
 
     Returns ``(x1 [bc, nb], x2 [m2])``."""
     bl, bc, nb = left.shape
@@ -321,8 +414,11 @@ def lm_damped_step_blockdiag(
     tail = torch.cat(
         [sl * torch.eye(m2, dtype=dt, device=dev), left.new_zeros((1, m2))], dim=0
     )
-    Xy = torch.cat([comp, tail], dim=1)
-    x2 = _soa_tall_qr_solve(Xy[:m2], Xy[m2], m2)
+    if mesh is None:
+        Xy = torch.cat([comp, tail], dim=1)
+        x2 = _soa_tall_qr_solve(Xy[:m2], Xy[m2], m2)
+    else:
+        x2 = _soa_tall_qr_solve_sharded(comp[:m2], comp[m2], tail, m2, mesh, axis)
 
     # per-point bc×bc back-substitution through R1
     rhs1 = y1 - (r12 * x2[None, :, None]).sum(1)  # [bc, nb]
@@ -332,7 +428,12 @@ def lm_damped_step_blockdiag(
         for jj in range(j + 1, bc):
             acc = acc - R1[j, jj] * x1_rows[jj]
         x1_rows[j] = acc / R1[j, j]
-    return torch.stack(x1_rows, dim=0), x2
+    x1 = torch.stack(x1_rows, dim=0)
+    if mesh is not None:
+        from .parallel.mesh import all_gather_leading
+
+        x1 = all_gather_leading(x1.T, mesh, axis).T
+    return x1, x2
 
 
 def lm_damped_step_blockdiag1(
@@ -340,9 +441,13 @@ def lm_damped_step_blockdiag1(
     right: torch.Tensor,
     res: torch.Tensor,
     lam,
+    *,
+    mesh=None,
+    axis: str = "dp",
 ) -> torch.Tensor:
     """Single-column (bc = 1) lane-major damped LM step: ``left [bl, nb]``
     (block i is ``left[:, i]``), ``right [bl, m2, nb]``, ``res [bl, nb]``;
-    returns the flat ``[nb + m2]`` step the LM drivers consume."""
-    x1, x2 = lm_damped_step_blockdiag(left[:, None, :], right, res, lam)
+    returns the flat ``[nb + m2]`` step the LM drivers consume (over a mesh,
+    the rank's points in, every point's step out)."""
+    x1, x2 = lm_damped_step_blockdiag(left[:, None, :], right, res, lam, mesh=mesh, axis=axis)
     return torch.cat([x1[0], x2])

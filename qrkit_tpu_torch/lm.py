@@ -21,6 +21,13 @@ function.
   finished problems hold their state while the others iterate, so each
   problem follows its solo trajectory.  The solo driver is that loop with
   one problem.
+
+Residuals sharded over the ranks of a mesh (bundle adjustment's point axis)
+make the cost and ``g = Jᵀr`` per-rank partial sums: the solo driver takes
+a ``reduce`` hook (an all-reduce) that sums them, so that every rank holds
+the same cost, acceptance, λ and ``done`` flag and the ranks never diverge.
+Collectives do not run under ``torch.func.vmap``: the batch driver has no
+such hook.
 """
 from __future__ import annotations
 
@@ -129,15 +136,18 @@ def levenberg_marquardt(
     return LMResult(x, cost, it, converged, lam)
 
 
-def _minimize_batch(residual_fn, damped_step_fn, x0: torch.Tensor, aux, cfg: LMConfig):
+def _minimize_batch(residual_fn, damped_step_fn, x0: torch.Tensor, aux, cfg: LMConfig,
+                    reduce=None):
     """The device loop over a leading problem axis: ``residual_fn(x [B, n],
-    aux) → r [B, m]`` and ``damped_step_fn(x, r, lam [B], aux) → δ [B, n]``.
+    aux) → r [B, m]`` and ``damped_step_fn(x, r, lam [B], aux) → δ [B, n]``;
+    ``reduce`` sums a per-rank partial sum over the ranks (None: one device).
     Returns the final state ``(x, cost, lam, it, done)``, all on the device."""
     dt, dev = x0.dtype, x0.device
+    total = reduce if reduce is not None else (lambda t: t)
     B = x0.shape[0]
     x = x0
     r = residual_fn(x, aux)
-    cost = 0.5 * (r * r).sum(-1)
+    cost = total(0.5 * (r * r).sum(-1))
     lam = torch.full((B,), cfg.lambda_init, dtype=dt, device=dev)
     nu = torch.full((B,), 2.0, dtype=dt, device=dev)
     it = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -146,11 +156,11 @@ def _minimize_batch(residual_fn, damped_step_fn, x0: torch.Tensor, aux, cfg: LMC
         delta = damped_step_fn(x, r, lam, aux)
         x_new = x + delta
         r_new = residual_fn(x_new, aux)
-        cost_new = 0.5 * (r_new * r_new).sum(-1)
+        cost_new = total(0.5 * (r_new * r_new).sum(-1))
         accept = cost_new < cost
 
         # Madsen–Nielsen predicted reduction 0.5 δᵀ(λδ − g), g = Jᵀr by VJP
-        g = torch.func.vjp(lambda xx: residual_fn(xx, aux), x)[1](r)[0]
+        g = total(torch.func.vjp(lambda xx: residual_fn(xx, aux), x)[1](r)[0])
         predicted = torch.clamp_min(predicted_reduction(delta, g, lam), 1e-30)
         rho = (cost - cost_new) / predicted
         shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
@@ -192,6 +202,8 @@ def levenberg_marquardt_device(
     x0: torch.Tensor,
     config: Optional[LMConfig] = None,
     aux=None,
+    *,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> LMResult:
     """LM with its state on the device: ``residual_fn(x, aux)`` and
     ``damped_step_fn(x, r, lam, aux)`` (``lam`` a 0-d device tensor) run
@@ -199,12 +211,19 @@ def levenberg_marquardt_device(
     per iteration, and the result is fetched once at the end.  Per-problem
     data (points, measurements, ...) travels through ``aux``.
 
+    ``reduce`` is for residuals sharded over the ranks of a mesh: each rank's
+    ``residual_fn`` returns its own residuals, and ``reduce`` (an all-reduce
+    sum, e.g. ``functools.partial(parallel.mesh.all_reduce_sum, mesh=m)``)
+    turns the cost and ``Jᵀr`` into global sums.  ``x`` and the step stay
+    global, so every rank takes the same decisions and returns the same
+    result.
+
     Returns an :class:`LMResult` of host values (x as NumPy)."""
     cfg = config or LMConfig()
     x, cost, lam, it, done = _fetch(*_minimize_batch(
         lambda x, aux: residual_fn(x[0], aux)[None],
         lambda x, r, lam, aux: damped_step_fn(x[0], r[0], lam[0], aux)[None],
-        _device.as_tensor(x0)[None], aux, cfg,
+        _device.as_tensor(x0)[None], aux, cfg, reduce,
     ))
     return LMResult(x[0], float(cost[0]), int(it[0]), bool(done[0]), float(lam[0]))
 

@@ -60,6 +60,7 @@ _BLOCKDIAG_SIGNATURES = tuple(
         ("qr_r", (_PTR, _PTR, _I64, _PTR)),
     )
 )
+_BLOCKDIAG_SIGNATURES += (("qrk_blockdiag_empty", (_I64, _PTR)),)
 _BANDED_SIGNATURES = tuple(
     (f"qrk_banded_{kind}_{dt}", args)
     for dt in ("f32", "f64")

@@ -248,6 +248,12 @@ cudaError_t launch_qr_r(const T* a, T* r_out, int64_t n, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The launch floor of B1/B2: a kernel that does nothing, on their grid
+// (ceil(n/kThreads) CTAs of kThreads threads).  Its device time is what a
+// launch of that grid costs before any byte moves; it computes nothing and
+// no path of the solvers calls it (chip_smoke.py times it).
+__global__ void __launch_bounds__(kThreads) empty_kernel() {}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/blockdiag.py).  Each launcher
@@ -284,6 +290,12 @@ int qrk_blockdiag_qr_r_f32(const float* a, float* r_out, int64_t n, cudaStream_t
 
 int qrk_blockdiag_qr_r_f64(const double* a, double* r_out, int64_t n, cudaStream_t stream) {
   return (int)launch_qr_r<double>(a, r_out, n, stream);
+}
+
+int qrk_blockdiag_empty(int64_t n, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+  empty_kernel<<<grid, kThreads, 0, stream>>>();
+  return (int)cudaGetLastError();
 }
 
 const char* qrk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,14 +1,19 @@
-"""TSQR: two-stage tall-skinny QR, on one device.
+"""TSQR: two-stage tall-skinny QR, on one device or over a mesh.
 
 Counterpart of ``qrkit_tpu/parallel/tsqr.py`` (``tsqr_factorize``,
-``tsqr_apply``, ``TSQRDenseQR``) without a mesh: ``n_shards`` is a batch
-axis.  Each shard's row panel is factored independently (one batched
-compact-WY QR), the per-shard R factors are stacked, and a second QR of the
-stack gives the global factor.  Implicit Q is the two-level composition
-``Q = blkdiag(Q_local_i) · (E Q₂ Eᵀ + I − EEᵀ) · P_selᵀ`` with E embedding the
-stacked-R rows; ``apply_q``/``apply_qt`` run it as two compact-WY stages
-plus reshapes.  The distributed form (``mesh=``, ``torch.distributed``)
-belongs to the mesh slice of the port.
+``tsqr_apply``, ``TSQRDenseQR``).  Each shard's row panel is factored
+independently (one batched compact-WY QR), the per-shard R factors are
+stacked, and a second QR of the stack gives the global factor.  Implicit Q
+is the two-level composition ``Q = blkdiag(Q_local_i) · (E Q₂ Eᵀ + I − EEᵀ)
+· P_selᵀ`` with E embedding the stacked-R rows; ``apply_q``/``apply_qt`` run
+it as two compact-WY stages plus reshapes.
+
+Without a mesh ``n_shards`` is a batch axis on one device.  With ``mesh=``
+each rank factors its contiguous chunk of the shards (``shard_sizes``: the
+chunks may differ by one shard), one all-gather of the ``[n_shards·n, n]`` R
+stack is the only collective of the factorization, and the second stage
+runs replicated.  Q products take and return global operands; each gathers
+the per-shard stage's output.
 """
 from __future__ import annotations
 
@@ -18,41 +23,62 @@ from .. import _device
 from ..ops.householder import apply_wy, highest_precision, panel_qr_yt
 from ..solvers.base import ComputationInfo, QRSolver
 from ..sparse import SparseCSR
+from .mesh import all_gather_leading, mesh_rank, shard_bounds, shard_sizes
 
 __all__ = ["tsqr_apply", "tsqr_factorize", "TSQRDenseQR"]
 
 
+def _shards(n_shards: int, mesh, axis: str):
+    """([lo, hi) of this rank's shards, every rank's shard count)."""
+    if mesh is None:
+        return 0, n_shards, None
+    lo, hi = shard_bounds(n_shards, mesh, axis, even=False)
+    return lo, hi, shard_sizes(n_shards, mesh_rank(mesh, axis)[1])
+
+
+def _gather_shards(t: torch.Tensor, sizes, mesh, axis: str) -> torch.Tensor:
+    """Every rank's per-shard outputs ``[own shards, ...]`` → ``[n_shards,
+    ...]`` (the identity without a mesh)."""
+    return t if mesh is None else all_gather_leading(t, mesh, axis, sizes)
+
+
 @highest_precision()
-def tsqr_factorize(a: torch.Tensor, n_shards: int):
+def tsqr_factorize(a: torch.Tensor, n_shards: int, *, mesh=None, axis: str = "dp"):
     """Two-stage TSQR of ``[m, n]`` (m divisible by n_shards, m/n_shards >= n).
 
-    Returns ``(Yl [s, mloc, n], Tl [s, n, n], Y2 [s*n, n], T2 [n, n], R [n, n])``.
-    """
+    Returns ``(Yl [s, mloc, n], Tl [s, n, n], Y2 [s*n, n], T2 [n, n], R [n, n])``;
+    with ``mesh=``, ``Yl``/``Tl`` hold this rank's shards only and ``a`` is the
+    global matrix (every rank reads its own rows)."""
     m, n = a.shape
     mloc = m // n_shards
-    Yl, Tl, Rl = panel_qr_yt(a.reshape(n_shards, mloc, n))  # local stage, batched
-    r_stack = torch.triu(Rl)[:, :n].reshape(n_shards * n, n)
-    Y2, T2, R2 = panel_qr_yt(r_stack)  # second stage (tiny)
+    lo, hi, sizes = _shards(n_shards, mesh, axis)
+    Yl, Tl, Rl = panel_qr_yt(a[lo * mloc : hi * mloc].reshape(hi - lo, mloc, n))  # local stage
+    r_stack = _gather_shards(torch.triu(Rl)[:, :n], sizes, mesh, axis).reshape(n_shards * n, n)
+    Y2, T2, R2 = panel_qr_yt(r_stack)  # second stage (tiny, replicated)
     return Yl, Tl, Y2, T2, torch.triu(R2)[:n]
 
 
 @highest_precision()
-def tsqr_apply(Yl, Tl, Y2, T2, v: torch.Tensor, n_shards: int, transpose: bool) -> torch.Tensor:
-    """Apply the implicit two-level Q (or Qᵀ) to ``[m]`` or ``[m, k]``."""
+def tsqr_apply(
+    Yl, Tl, Y2, T2, v: torch.Tensor, n_shards: int, transpose: bool, *, mesh=None, axis: str = "dp"
+) -> torch.Tensor:
+    """Apply the implicit two-level Q (or Qᵀ) to a global ``[m]`` or ``[m, k]``."""
     vec = v.dim() == 1
     v2 = v[:, None] if vec else v
     k = v2.shape[1]
     s = n_shards
     mloc, n = Yl.shape[1], Yl.shape[2]
+    lo, hi, sizes = _shards(s, mesh, axis)
     if transpose:
-        w = apply_wy(Yl, Tl, v2.reshape(s, mloc, k), transpose=True)
+        w = apply_wy(Yl, Tl, v2[lo * mloc : hi * mloc].reshape(hi - lo, mloc, k), transpose=True)
+        w = _gather_shards(w, sizes, mesh, axis)
         subset = w[:, :n].reshape(s * n, k)
         rest = w[:, n:].reshape(s * (mloc - n), k)
         out = torch.cat([apply_wy(Y2, T2, subset, transpose=True), rest], dim=0)
     else:
         z = apply_wy(Y2, T2, v2[: s * n])
         w = torch.cat([z.reshape(s, n, k), v2[s * n :].reshape(s, mloc - n, k)], dim=1)
-        out = apply_wy(Yl, Tl, w).reshape(s * mloc, k)
+        out = _gather_shards(apply_wy(Yl, Tl, w[lo:hi]), sizes, mesh, axis).reshape(s * mloc, k)
     return out[:, 0] if vec else out
 
 
@@ -62,17 +88,13 @@ class TSQRDenseQR(QRSolver):
     :class:`~qrkit_tpu_torch.solvers.block_angular.BlockAngularQR`, same
     protocol as :class:`~qrkit_tpu_torch.solvers.dense.DenseHouseholderQR`.
     Rows are zero-padded to a multiple of the shard count (padded rows pass
-    through Q untouched).  ``mesh=`` (one shard per device) belongs to the
-    mesh slice of the port."""
+    through Q untouched).  With ``mesh=`` (a ``DeviceMesh``; every rank
+    calls with the same global matrix) each rank factors its chunk of the
+    shards and keeps only their local factors; every result is global."""
 
     def __init__(self, n_shards: int, mesh=None, axis: str = "dp"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TSQRDenseQR(mesh=...) belongs to the mesh slice of the port "
-                "(torch.distributed); use mesh=None"
-            )
         self.s = n_shards
-        self.mesh = None
+        self.mesh = mesh
         self.axis = axis
 
     @property
@@ -103,7 +125,9 @@ class TSQRDenseQR(QRSolver):
         self._mpad = mloc * s
         if self._mpad != self._m:
             mat = torch.cat([mat, mat.new_zeros((self._mpad - self._m, self._n))], dim=0)
-        self.Yl, self.Tl, self.Y2, self.T2, self._R = tsqr_factorize(mat, s)
+        self.Yl, self.Tl, self.Y2, self.T2, self._R = tsqr_factorize(
+            mat, s, mesh=self.mesh, axis=self.axis
+        )
         self._info = ComputationInfo.SUCCESS
         return self
 
@@ -112,15 +136,17 @@ class TSQRDenseQR(QRSolver):
             return v
         return torch.cat([v, v.new_zeros((self._mpad - self._m,) + tuple(v.shape[1:]))], dim=0)
 
-    def apply_q(self, m: torch.Tensor) -> torch.Tensor:
+    def _apply(self, m: torch.Tensor, transpose: bool) -> torch.Tensor:
         return tsqr_apply(
-            self.Yl, self.Tl, self.Y2, self.T2, self._pad(m), self._s_eff, False
+            self.Yl, self.Tl, self.Y2, self.T2, self._pad(m), self._s_eff, transpose,
+            mesh=self.mesh, axis=self.axis,
         )[: self._m]
 
+    def apply_q(self, m: torch.Tensor) -> torch.Tensor:
+        return self._apply(m, False)
+
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
-        return tsqr_apply(
-            self.Yl, self.Tl, self.Y2, self.T2, self._pad(m), self._s_eff, True
-        )[: self._m]
+        return self._apply(m, True)
 
     def matrix_r_dense(self) -> torch.Tensor:
         R = self._R.new_zeros((self._m, self._n))

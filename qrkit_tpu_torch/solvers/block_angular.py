@@ -25,8 +25,15 @@ sparse A2 stays sparse: with a block-diagonal left through
 :meth:`BlockAngularQR._solve_right_block_sparse`, with a banded or
 segmented left through the planned sparse products of
 :mod:`~qrkit_tpu_torch.solvers.sparse_apply`
-(:meth:`BlockAngularQR._solve_right_block_sparse_chunked`).  The ``mesh=``
-paths belong to the mesh slice of the port (``torch.distributed``).
+(:meth:`BlockAngularQR._solve_right_block_sparse_chunked`).
+
+Over a mesh the fully distributed stack is ``BlockDiagonalQR(mesh=m)`` left
+and ``TSQRDenseQR(world, mesh=m)`` right: the sharded left's Qᵀ reads only
+its rank's rows of a dense A2 (the reference places A2 sharded by rows for
+the same product), the TSQR all-gather is the factorization's only other
+collective, and every result is global.  The fused programs stay off under
+a mesh, as in the reference; a sparse A2 keeps its single-device form on
+every rank, over the left's gathered factors.
 """
 from __future__ import annotations
 
@@ -172,18 +179,15 @@ class BlockAngularQR(QRSolver):
 
     ``left_solver`` factors A1 (the structured part); ``right_solver``
     factors the bottom rows of ``Q1ᵀA2``.  Any :class:`QRSolver` works on
-    either side.  ``mesh=`` (distributing the composition glue) belongs to
-    the mesh slice of the port and raises."""
+    either side.  ``mesh``/``axis`` mark the composition as distributed
+    (pass the mesh to the sub-solvers too, see the module docstring): the
+    fused programs stay off, and with sharded sub-solvers every method is
+    collective."""
 
     def __init__(self, left_solver: QRSolver, right_solver: QRSolver, mesh=None, axis: str = "dp"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BlockAngularQR(mesh=...) belongs to the mesh slice of the port "
-                "(torch.distributed); use mesh=None"
-            )
         self.left = left_solver
         self.right = right_solver
-        self.mesh = None
+        self.mesh = mesh
         self.axis = axis
         # pattern bookkeeping shared across computes on one sparsity (LM
         # refactorizes one structure per iteration)
@@ -385,13 +389,16 @@ class BlockAngularQR(QRSolver):
     def _uses_fused_dense(self, mat: BlockMatrix1x2) -> bool:
         """Gate of the fused dense-A2 program: the flagship reference stack
         (``BlockDiagonalSparseQR`` left + dense QR right) with portrait
-        blocks, no zero-column tail and enough bottom rows for the right QR."""
+        blocks, no zero-column tail, no mesh and enough bottom rows for the
+        right QR."""
         lm = mat.left
         return (
             type(self.left) is BlockDiagonalQR
             and isinstance(lm, BlockDiagonal)
             and not self.left.pivot
             and self.left.q_format == QFormat.FULL_Q
+            and self.mesh is None
+            and self.left.mesh is None
             and type(self.right) in (DenseColPivQR, DenseHouseholderQR)
             and lm.block_rows >= lm.block_cols
             and lm.ncols == lm.num_blocks * lm.block_cols
@@ -425,10 +432,10 @@ class BlockAngularQR(QRSolver):
         solveRightBlock, BlockAngularSparseQR.h:383-397).  All bookkeeping
         but the values is pattern-only and cached under the A2 fingerprint."""
         left = self.left
-        left._ensure_dense_factors()  # the kernel tier keeps Q implicit
+        Q1 = left._global_factors()[0]  # all blocks, explicit (the kernel tier keeps Q implicit)
         nb, br, bc = left._nb, left._br, left._bc
         m1, n1 = self._m1, self._n1
-        dev = left.Q.device
+        dev = Q1.device
         key = ("blockdiag_a2",) + self._a2_cache_key(a2) + (nb, br, bc)
         plan = self._plan_cache.get("blockdiag_a2")
         if plan is None or plan["key"] != key:
@@ -475,8 +482,8 @@ class BlockAngularQR(QRSolver):
         # one batched per-pair Qᵀ·w on the device, in full precision
         with highest_precision():
             QtW = (
-                left.Q[plan["pair_b_dev"]].mT
-                @ torch.as_tensor(W, device=dev, dtype=left.Q.dtype)[:, :, None]
+                Q1[plan["pair_b_dev"]].mT
+                @ torch.as_tensor(W, device=dev, dtype=Q1.dtype)[:, :, None]
             )[..., 0]  # [K, br]
 
         # economy rows → J2 top (device COO, FULL_Q coordinates b*bc + i)

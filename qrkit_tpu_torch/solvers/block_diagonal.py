@@ -17,6 +17,17 @@ Q formats:
                         complements]; R is globally upper-triangular.
 * ``BLOCK_DIAGONAL_Q``: Q is block-diagonal; R upper-triangular only up to a
                         row permutation.
+
+With ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) the block axis is the
+distribution axis, as in the reference: every rank calls with the same
+global matrix, factors its contiguous chunk of ``nb / world`` blocks (either
+tier, so the kernels run per rank) and keeps only those factors.  Every
+public result is the global value on every rank: the per-block outputs are
+all-gathered, the health flag and the rank all-reduced, and a pivoting
+factorization gathers its per-block pivots once, at ``compute``.  Every
+method of a sharded solver is therefore collective (call it on every rank).
+Sparse R follows the Q format's row layout, as dense R does; the reference
+places it by the FULL_Q layout under both formats.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from ..ops.householder import (
     rank_from_diag,
     rank_masked_triangular_solve,
 )
+from ..parallel.mesh import all_gather_leading, all_reduce_sum, shard_bounds
 from ..sparse import Permutation, SparseCSR
 from .base import QRSolver, _diag_health
 
@@ -50,11 +62,11 @@ def _diag_rows(bc: int):
     return [j * bc - j * (j - 1) // 2 for j in range(bc)]
 
 
-def _packed_diag(r_soa: torch.Tensor, bc: int, ncols: int) -> torch.Tensor:
+def _packed_diag(r_soa: torch.Tensor, bc: int) -> torch.Tensor:
+    """Per-block diagonals ``[nb, bc]`` of the packed R."""
     # stack row views rather than index with a host list: list indexing
     # copies the index to the device from pageable memory, a host sync
-    d = torch.stack([r_soa[i] for i in _diag_rows(bc)], dim=1).reshape(-1)
-    return _pad_to(d, ncols)
+    return torch.stack([r_soa[i] for i in _diag_rows(bc)], dim=1)
 
 
 def _pad_to(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,17 +83,17 @@ def _kernel_compute(a_soa: torch.Tensor, *, br: int, ncols: int):
     Returns ``(r_soa [ntri, nb], health)``."""
     bc = a_soa.shape[0] // br
     r_soa = block_diagonal_qr_r_soa(a_soa, br)
-    return r_soa, _diag_health(_packed_diag(r_soa, bc, ncols), check_zero=True)
+    d = _pad_to(_packed_diag(r_soa, bc).reshape(-1), ncols)
+    return r_soa, _diag_health(d, check_zero=True)
 
 
 @highest_precision()
-def _kernel_solve_vec(a_soa: torch.Tensor, b: torch.Tensor, *, br: int, ncols: int, nb: int):
+def _kernel_solve_vec(a_soa: torch.Tensor, b: torch.Tensor, *, br: int) -> torch.Tensor:
     """Kernel-tier least-squares solve against the resident SoA operand:
-    relayout b, one fused QR + solve launch, relayout x.  The rhs tail past
-    nb*br is ignored; x is zero-padded past nb*bc (zero tail columns)."""
-    b_soa = b[: nb * br].reshape(nb, br).T.contiguous()
-    x = block_diagonal_lstsq_soa(a_soa, b_soa).T.reshape(-1)
-    return _pad_to(x, ncols)
+    relayout b, one fused QR + solve launch, relayout x.  ``b`` holds the
+    blocks' nb*br rows; returns x [nb*bc]."""
+    b_soa = b.reshape(-1, br).T.contiguous()
+    return block_diagonal_lstsq_soa(a_soa, b_soa).T.reshape(-1)
 
 
 class BlockDiagonalQR(QRSolver):
@@ -97,18 +109,29 @@ class BlockDiagonalQR(QRSolver):
     if the geometry is unsupported; on a CPU operand that tier runs the
     kernels' plain versions); ``False`` keeps the batched-torch tier.  Both
     float32 and float64 run in the kernel tier.
+
+    ``mesh``/``axis`` shard the block axis over the ranks of a
+    ``DeviceMesh`` axis (see the module docstring); ``nb`` must divide over
+    them (ValueError otherwise, where the reference's ``device_put``
+    refuses).  Each rank's blocks take the tier its gate picks: the
+    reference keeps its Pallas tier off under a mesh only because a
+    ``pallas_call`` does not partition under XLA's SPMD.
     """
 
     def __init__(
         self,
         q_format: QFormat = QFormat.FULL_Q,
         pivot: bool = True,
+        mesh=None,
+        axis: str = "dp",
         use_kernel="auto",
     ):
         if use_kernel not in ("auto", True, False):
             raise ValueError(f"use_kernel must be 'auto', True or False, got {use_kernel!r}")
         self.q_format = q_format
         self.pivot = pivot
+        self.mesh = mesh
+        self.axis = axis
         self.use_kernel = use_kernel
         self._kernel_mode = False
         self._health_check_zero_pivot = not pivot
@@ -157,39 +180,79 @@ class BlockDiagonalQR(QRSolver):
         self._nrows, self._ncols = mat.nrows, mat.ncols
         self._nb = mat.num_blocks
         self._br, self._bc = mat.block_rows, mat.block_cols
+        self._shard()
         # None stands for the identity, built only if asked for: an explicit
         # identity is O(nrows) host work (56 MB at 1M 7x2 blocks) per compute
         self._row_perm = row_perm
+        b0, b1 = self._b0, self._b1
         self._kernel_mode = self._kernel_active(mat)
         if self._kernel_mode:
-            self._a_soa = mat.soa()
-            self._r_soa, health = _kernel_compute(self._a_soa, br=self._br, ncols=self._ncols)
+            soa = mat.soa()
+            self._a_soa = soa if (b0, b1) == (0, self._nb) else soa[:, b0:b1].contiguous()
+            self._r_soa, health = _kernel_compute(self._a_soa, br=self._br, ncols=self._ncols_own)
             self.Q = self.R = None
             self._local_perm = None
             self._computed = True
-            self._set_success(health)
+            self._set_success(self._all_healthy(health))
             return self
 
-        self.Q, self.R, local_perm = block_diagonal_factorize(mat.blocks, pivot=self.pivot)
-        # the pivot order stays on the device; cols_permutation() fetches it
-        # on first use, and solve() scatters with it on the device
-        self._local_perm = local_perm if self.pivot else None
+        self.Q, self.R, local_perm = block_diagonal_factorize(mat.blocks[b0:b1], pivot=self.pivot)
+        # the pivot order stays on the device (gathered over the mesh);
+        # cols_permutation() fetches it on first use, and solve() scatters
+        # with it on the device
+        self._local_perm = self._gather(local_perm) if self.pivot else None
         self._computed = True
-        self._set_success()
+        d = self._diag_blocks().reshape(-1)
+        health = _diag_health(
+            d if self._landscape else _pad_to(d, self._ncols_own),
+            check_zero=self._health_check_zero_pivot,
+        )
+        self._set_success(self._all_healthy(health))
         return self
+
+    # --- the block shard of a mesh ------------------------------------------------
+    def _shard(self) -> None:
+        """This rank's blocks [b0, b1) (all of them without a mesh) and the
+        columns its share of the diagonal covers (the zero tail columns go
+        with the last block)."""
+        if self.mesh is None:
+            self._b0, self._b1 = 0, self._nb
+        else:
+            self._b0, self._b1 = shard_bounds(self._nb, self.mesh, self.axis)
+        tail = self._ncols - self._nb * self._bc if self._b1 == self._nb else 0
+        self._ncols_own = (self._b1 - self._b0) * self._bc + tail
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-block values of this rank's blocks ``[b1 - b0, ...]`` → all
+        blocks ``[nb, ...]`` (the identity without a mesh)."""
+        return t if self.mesh is None else all_gather_leading(t, self.mesh, self.axis)
+
+    def _all_healthy(self, health: torch.Tensor) -> torch.Tensor:
+        """This rank's health flag → every rank's, combined on the device."""
+        if self.mesh is None:
+            return health
+        return all_reduce_sum((~health).to(torch.int32), self.mesh, self.axis) == 0
+
+    def _global_factors(self):
+        """The explicit per-block ``(Q [nb, br, br], R [nb, k, bc])`` of all
+        blocks (gathered over the mesh), for the exports and the sparse-A2
+        product of :class:`~qrkit_tpu_torch.solvers.block_angular.BlockAngularQR`."""
+        self._ensure_dense_factors()
+        return self._gather(self.Q), self._gather(self.R)
 
     def _adopt_factors(self, mat: BlockDiagonal, Q, R, health) -> None:
         """Take factors computed by an enclosing fused program
         (``BlockAngularQR``'s fused dense path), with the post-conditions of
         :meth:`compute` for the non-pivoting portrait case in the
         batched-torch tier."""
-        if self.pivot:
-            raise ValueError("_adopt_factors takes non-pivoting factors only")
+        if self.pivot or self.mesh is not None:
+            raise ValueError("_adopt_factors takes non-pivoting factors without a mesh only")
         self._kernel_mode = False
         self._landscape = mat.block_cols > mat.block_rows
         self._nrows, self._ncols = mat.nrows, mat.ncols
         self._nb = mat.num_blocks
         self._br, self._bc = mat.block_rows, mat.block_cols
+        self._shard()
         self._row_perm = None
         self.Q, self.R = Q, R
         self._local_perm = None
@@ -205,16 +268,18 @@ class BlockDiagonalQR(QRSolver):
         blocks = to_aos(self._a_soa, self._br, self._bc)
         self.Q, self.R, _ = block_diagonal_factorize(blocks, pivot=False)
 
+    def _diag_blocks(self) -> torch.Tensor:
+        """Per-block pivot diagonals of this rank's blocks ``[b1 - b0, k]``."""
+        if self._kernel_mode:
+            return _packed_diag(self._r_soa, self._bc)
+        return torch.diagonal(self.R, dim1=1, dim2=2)
+
     def r_diagonal(self) -> torch.Tensor:
         """Pivot diagonal of R straight from the factors — no dense R.
         Portrait: [ncols] (columns past nb*bc report 0).  Landscape: the
         nb*br leading pivots."""
-        if self._kernel_mode:
-            return _packed_diag(self._r_soa, self._bc, self._ncols)
-        d = torch.diagonal(self.R, dim1=1, dim2=2).reshape(-1)
-        if self._landscape:
-            return d
-        return _pad_to(d, self._ncols)
+        d = self._gather(self._diag_blocks()).reshape(-1)
+        return d if self._landscape else _pad_to(d, self._ncols)
 
     # --- Q application ------------------------------------------------------------
     def _index_maps(self, device):
@@ -236,7 +301,8 @@ class BlockDiagonalQR(QRSolver):
         m2 = m[:, None] if vec else m
         k = m2.shape[1]
         nb, br, bc = self._nb, self._br, self._bc
-        outb = torch.einsum("bij,bik->bjk", self.Q, m2[: nb * br].reshape(nb, br, k))
+        own = m2[self._b0 * br : self._b1 * br].reshape(-1, br, k)
+        outb = self._gather(torch.einsum("bij,bik->bjk", self.Q, own))
         if self._block_diagonal_q():
             out = torch.cat([outb.reshape(nb * br, k), m2[nb * br :]], dim=0)
         else:
@@ -261,24 +327,26 @@ class BlockDiagonalQR(QRSolver):
             coords = torch.cat(
                 [m2[econ].reshape(nb, bc, k), m2[comp].reshape(nb, br - bc, k)], dim=1
             )
-        outb = torch.einsum("bij,bjk->bik", self.Q, coords)
+        outb = self._gather(torch.einsum("bij,bjk->bik", self.Q, coords[self._b0 : self._b1]))
         out = torch.cat([outb.reshape(nb * br, k), m2[nb * br :]], dim=0)
         return out[:, 0] if vec else out
 
     # --- R --------------------------------------------------------------------------
+    def _r_row_stride(self) -> int:
+        """Row stride of the per-block R rows in the global R: FULL_Q stacks
+        them at i*bc, BLOCK_DIAGONAL_Q (and landscape blocks, under both
+        formats, whose stacked rows are already upper-triangular) at i*br."""
+        return self._br if self._block_diagonal_q() else self._bc
+
     def matrix_r_dense(self) -> torch.Tensor:
-        self._ensure_dense_factors()
+        _, Rb = self._global_factors()
         nb, br, bc = self._nb, self._br, self._bc
         k = min(br, bc)
-        if self._landscape:
-            row_stride = br  # both formats: stacked rows are upper-triangular
-        else:
-            row_stride = bc if self.q_format == QFormat.FULL_Q else br
-        R = self.R.new_zeros((self._nrows, self._ncols))
+        R = Rb.new_zeros((self._nrows, self._ncols))
         i = torch.arange(nb, device=R.device)
-        rows = i[:, None] * row_stride + torch.arange(k, device=R.device)
+        rows = i[:, None] * self._r_row_stride() + torch.arange(k, device=R.device)
         cols = i[:, None] * bc + torch.arange(bc, device=R.device)
-        R[rows[:, :, None], cols[:, None, :]] = self.R
+        R[rows[:, :, None], cols[:, None, :]] = Rb
         return R
 
     @highest_precision()
@@ -289,7 +357,7 @@ class BlockDiagonalQR(QRSolver):
         if self.q_format != QFormat.FULL_Q:
             raise ValueError("solve_r requires QFormat.FULL_Q")
         nb, br, bc = self._nb, self._br, self._bc
-        yb = y[: nb * bc].reshape(nb, bc)
+        yb = y[: nb * bc].reshape(nb, bc)[self._b0 : self._b1]
         if self.pivot:
             # per-block rank-masked basic solution: ColPiv clusters each
             # block's dead pivots at its tail
@@ -297,33 +365,36 @@ class BlockDiagonalQR(QRSolver):
             xb = rank_masked_triangular_solve(self.R, yb, ks)
         else:
             xb = torch.linalg.solve_triangular(self.R, yb[..., None], upper=True)[..., 0]
-        return _pad_to(xb.reshape(nb * bc), self._ncols)
+        return _pad_to(self._gather(xb).reshape(nb * bc), self._ncols)
 
     def _solve_r_landscape(self, y: torch.Tensor) -> torch.Tensor:
         """Basic solution of the underdetermined per-block systems: the wide
         [br, bc] trapezoid is embedded in a [bc, bc] triangle whose tail rows
         are identity, so x is supported only on the leading pivot columns."""
         nb, br, bc = self._nb, self._br, self._bc
-        yb = y[: nb * br].reshape(nb, br)
-        rhs = torch.cat([yb, yb.new_zeros((nb, bc - br))], dim=1)
+        yb = y[: nb * br].reshape(nb, br)[self._b0 : self._b1]
+        nbl = yb.shape[0]
+        rhs = torch.cat([yb, yb.new_zeros((nbl, bc - br))], dim=1)
         eye_tail = torch.eye(bc, dtype=self.R.dtype, device=self.R.device)[br:]
-        Rsq = torch.cat([self.R, eye_tail.expand(nb, bc - br, bc)], dim=1)
+        Rsq = torch.cat([self.R, eye_tail.expand(nbl, bc - br, bc)], dim=1)
         if self.pivot:
             ks = rank_from_diag(torch.diagonal(self.R[:, :br], dim1=1, dim2=2), br, bc)
             xb = rank_masked_triangular_solve(Rsq, rhs, ks)
         else:
             xb = torch.linalg.solve_triangular(Rsq, rhs[..., None], upper=True)[..., 0]
-        return _pad_to(xb.reshape(nb * bc), self._ncols)
+        return _pad_to(self._gather(xb).reshape(nb * bc), self._ncols)
 
     @highest_precision()
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve.  In the kernel tier a vector rhs is ONE fused
-        QR + solve kernel launch against the resident SoA operand; a matrix
-        rhs and the batched-torch tier use the generic path."""
+        QR + solve kernel launch against the resident SoA operand (on each
+        rank, for its blocks' rows; the x chunks are then gathered); a matrix
+        rhs and the batched-torch tier use the generic path.  The rhs tail
+        past nb*br is ignored; x is zero past nb*bc (zero tail columns)."""
         if self._kernel_mode and b.dim() == 1:
-            return _kernel_solve_vec(
-                self._a_soa, b, br=self._br, ncols=self._ncols, nb=self._nb
-            )
+            br = self._br
+            x = _kernel_solve_vec(self._a_soa, b[self._b0 * br : self._b1 * br], br=br)
+            return _pad_to(self._gather(x.reshape(-1, self._bc)).reshape(-1), self._ncols)
         return super().solve(b)
 
     def _unpermute(self, z: torch.Tensor) -> torch.Tensor:
@@ -352,13 +423,13 @@ class BlockDiagonalQR(QRSolver):
         return self._row_perm
 
     def matrix_r_sparse(self) -> SparseCSR:
-        """Sparse R in O(nnz(R)): block-diagonal of per-block upper triangles;
-        landscape blocks contribute their wide trapezoids at rows ``i*br``."""
-        self._ensure_dense_factors()
-        Rb = self.R.detach().cpu().numpy()
+        """Sparse R in O(nnz(R)): block-diagonal of per-block upper triangles
+        at the rows :meth:`matrix_r_dense` puts them (``i*bc`` under FULL_Q,
+        ``i*br`` under BLOCK_DIAGONAL_Q and for landscape blocks)."""
+        Rb = self._global_factors()[1].detach().cpu().numpy()
         nb, k, bc = Rb.shape
         r, c = np.triu_indices(k, 0, bc)
-        row_stride = self._br if self._landscape else bc
+        row_stride = self._r_row_stride()
         rows = (np.arange(nb)[:, None] * row_stride + r[None, :]).ravel()
         cols = (np.arange(nb)[:, None] * bc + c[None, :]).ravel()
         vals = Rb[:, r, c].ravel()
@@ -371,9 +442,8 @@ class BlockDiagonalQR(QRSolver):
         """Explicit sparse Q in O(nb·br²): FULL_Q orders columns [all economy
         blocks | all complements] (+ identity on zero tail rows);
         BLOCK_DIAGONAL_Q is block-diagonal."""
-        self._ensure_dense_factors()
         nb, br, bc = self._nb, self._br, self._bc
-        Qb = self.Q.detach().cpu().numpy()
+        Qb = self._global_factors()[0].detach().cpu().numpy()
         i = np.arange(nb)[:, None, None]
         r = np.arange(br)[None, :, None]
         c = np.arange(br)[None, None, :]
@@ -398,4 +468,7 @@ class BlockDiagonalQR(QRSolver):
         if not self.pivot:
             return min(self._ncols, self._nb * self._br)
         d = torch.diagonal(self.R, dim1=1, dim2=2)
-        return int(rank_from_diag(d, self._br, self._bc).sum().item())
+        k = rank_from_diag(d, self._br, self._bc).sum()
+        if self.mesh is not None:
+            k = all_reduce_sum(k, self.mesh, self.axis)
+        return int(k.item())

@@ -13,18 +13,31 @@ solve back-substitutes the boundary chain first, then the interiors.
 
 Plans the segmentation cannot take (short or non-uniform chains) delegate
 to a plain :class:`~qrkit_tpu_torch.solvers.banded_blocked.BandedBlockedQR`
-(``fallback=True``) or raise.  The reference's ``mesh=`` placement belongs
-to the mesh slice of the port.
+(``fallback=True``) or raise.
+
+With ``mesh=`` the segment axis is the distribution axis.  When S tiles the
+mesh axis each rank runs phase 1 and phase 2 on its S/world segments with
+no communication (kernels B3 and B4 per rank), one all-gather of the CAQR
+R factors feeds the boundary chain, which runs replicated (B5), and the
+solve mirrors it: Qᵀ and the interior back-substitution on the rank's
+segments, the boundary solve replicated, x gathered.  Each rank keeps only
+its segments' factors; Q products and the R exports run on factors
+gathered for the call.  When S does not tile the mesh nothing is sharded
+(the reference's rule).  The reference itself factors unsharded and only
+places the factors on the mesh afterwards.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import copy
 
 import numpy as np
 import torch
 
 from .._device import resolve
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
+from ..parallel.mesh import all_gather_leading
 from ..sparse import Permutation, SparseCSR
 from . import segmented_factorize, segmented_plan, segmented_solve
 from .banded_blocked import (
@@ -53,6 +66,10 @@ class SegmentedBandedQR(QRSolver):
     and the boundary-chain kernel (B5) where their own gates admit the plan;
     ``True`` demands B3 (raising on a plan it cannot take; on the CPU the
     kernels' plain versions run); ``False`` keeps the general forms.
+
+    ``mesh``/``axis`` shard the segment axis over the ranks of a
+    ``DeviceMesh`` axis (module docstring); every rank calls with the same
+    matrix, and every method is then collective.
     """
 
     DEFAULT_SEGMENT_BLOCKS = 32
@@ -65,6 +82,8 @@ class SegmentedBandedQR(QRSolver):
         block_cols: Optional[int] = None,
         block_overlap: Optional[int] = None,
         fallback: bool = True,
+        mesh=None,
+        axis: str = "dp",
         use_kernel="auto",
         *,
         device=None,
@@ -77,12 +96,15 @@ class SegmentedBandedQR(QRSolver):
         self._static = None not in (block_rows, block_cols, block_overlap)
         self._brows, self._bcols, self._boverlap = block_rows, block_cols, block_overlap
         self._fallback = fallback
+        self.mesh = mesh
+        self.axis = axis
         self.use_kernel = use_kernel
         self.device = resolve(device)
         self.dtype = dtype if dtype is not None else torch.float64
         self._delegate = None
         self._analysis_ok = False
         self._fac_kernel = False
+        self._segs, self._lead, self._global_maps = None, 0, {}
 
     @property
     def rows(self) -> int:
@@ -193,6 +215,30 @@ class SegmentedBandedQR(QRSolver):
         sm = np.full((S, self._max_seg_rows, 2 * o), nnz, dtype=np.int64)
         sm[seg_of[ok], (r_s - self._seg_row0_arr[seg_of])[ok], slabcol[ok]] = np.nonzero(sel)[0][ok]
         self._slab_gmap = torch.as_tensor(sm, device=self.device)
+        segmented_plan.shard_layout_maps(self, nnz)
+
+    # --- the segment shard of a mesh ------------------------------------------------
+    def _gather_segments(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-segment values of this rank's segments → all S (the identity
+        when nothing is sharded)."""
+        return t if self._segs is None else all_gather_leading(t, self.mesh, self.axis)
+
+    def _full(self) -> "SegmentedBandedQR":
+        """This solver with every segment's factors and maps (a shallow copy
+        over factors gathered for one call; ``self`` when nothing is
+        sharded): the Q products and R exports run on it."""
+        if self._segs is None:
+            return self
+        full = copy.copy(self)
+        for name, t in self._global_maps.items():
+            setattr(full, name, t)
+        g = self._gather_segments
+        full._Yws, full._Ts, full._r_panels, full._j2_top, full._Tb = (
+            g(t) for t in (self._Yws, self._Ts, self._r_panels, self._j2_top, self._Tb)
+        )
+        full._Yb = g(self._Yb.permute(2, 0, 1)).permute(1, 2, 0)  # segment axis last
+        full._segs, full._lead, full._global_maps = None, 0, {}
+        return full
 
     def compute(self, mat: SparseCSR, force_pattern_analysis: bool = False):
         if not self._analysis_ok or force_pattern_analysis:
@@ -236,7 +282,7 @@ class SegmentedBandedQR(QRSolver):
 
     def _apply(self, fn, m: torch.Tensor) -> torch.Tensor:
         vec = m.dim() == 1
-        out = fn(self, m[:, None] if vec else m)
+        out = fn(self._full(), m[:, None] if vec else m)
         return out[:, 0] if vec else out
 
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
@@ -267,7 +313,7 @@ class SegmentedBandedQR(QRSolver):
     def _sparse_apply_state(self):
         if self._delegate is not None:
             return self._delegate._sparse_apply_state()
-        return self, {}
+        return self._full(), {}
 
     def apply_qt_sparse(self, s: SparseCSR) -> SparseCSR:
         """``Qᵀ · S`` for a host sparse operand, kept sparse (plan-cached per
@@ -304,6 +350,8 @@ class SegmentedBandedQR(QRSolver):
         """Dense R in P_split column order (tests)."""
         if self._delegate is not None:
             return self._delegate.matrix_r_dense()
+        if self._segs is not None:
+            return self._full().matrix_r_dense()
         n, m1, m2, o = self._ncols, self._m1, self._m2, self._overlap
         rp = self._r_panels.cpu().numpy()  # [S, L, me, mc]
         R = np.zeros((self._nrows, n), dtype=rp.dtype)
@@ -335,6 +383,8 @@ class SegmentedBandedQR(QRSolver):
         the boundary slabs' top rows and the boundary chain's panels."""
         if self._delegate is not None:
             return self._delegate.matrix_r_sparse()
+        if self._segs is not None:
+            return self._full().matrix_r_sparse()
         m1, m2, o = self._m1, self._m2, self._overlap
         lg = self._loc_geom
         trips = []

@@ -14,6 +14,12 @@ the boundary chain in one launch of B5 (``chain_qr``) when its gate admits
 it.  Otherwise every stage runs its general form.  The reference's
 gather-free and merged extractions, the ``upto`` probes and the streaming
 phase-2 applies are TPU-tier variants with no counterpart here.
+
+Over a mesh every per-segment map and factor here is the rank's own
+(``segmented_plan.shard_segments``): phases 1 and 2 and the CAQR run on the
+rank's segments, one all-gather of the ``[S, 2o, 2o]`` CAQR R factors feeds
+the boundary chain, which every rank runs whole, and the health flag's
+interior part is all-reduced.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from ..ops.banded import chain_factorize, chain_qr, segment_apply_w, segment_chains
 from ..ops.compact_wy import TwoSegmentWYSeq, two_segment_apply
 from ..ops.householder import build_t_factor, highest_precision, panel_qr_yt_soa
+from ..parallel.mesh import all_reduce_sum
 from .base import _diag_health
 
 
@@ -52,22 +59,27 @@ def _fused_slab(self, slab, Yws, taus, Ts):
     src = p2w["src"]
     qt = torch.where((src == LA)[None, :, None], slab, emitted[:, src])
     ex = p2w["excl"]
-    qt[ex] = two_segment_apply(
-        Yws[ex], Ts[ex], self._starts[ex], self._rows2d[ex], self._carry2d[ex], slab[ex],
-        self._kw["max_carry"], True,
-    )
+    if ex.numel():  # a rank of a mesh may hold no generic segment
+        qt[ex] = two_segment_apply(
+            Yws[ex], Ts[ex], self._starts[ex], self._rows2d[ex], self._carry2d[ex], slab[ex],
+            self._kw["max_carry"], True,
+        )
     return qt
 
 
 def r_diagonal(self, Vs, chain_r) -> torch.Tensor:
     """diag(R) in P_split column order from the interior panels
-    ``[S, L, me, mc]`` and the boundary chain's R panels."""
+    ``[S, L, me, mc]`` and the boundary chain's R panels (over a mesh the
+    rank's interior part, summed over the ranks: the segments' columns are
+    disjoint)."""
     n = self._ncols
     d = torch.diagonal(Vs, dim1=2, dim2=3)  # [S, L, k]
     j = torch.arange(d.shape[2], device=d.device)
     live = (j < self._emit_d[..., None]) & self._active_d[..., None]
     idx = torch.where(live, self._seg_col0_d[:, None, None] + self._starts[..., None] + j, n)
     out = d.new_zeros(n + 1).scatter_(0, idx.reshape(-1), d.reshape(-1))
+    if self._segs is not None:
+        out = all_reduce_sum(out, self.mesh, self.axis)
     cg = self._chain_geom_dev
     d2 = torch.diagonal(chain_r, dim1=1, dim2=2)
     j2 = torch.arange(d2.shape[1], device=d.device)
@@ -81,20 +93,23 @@ def factorize(self, vals: torch.Tensor, kernel: bool) -> None:
     """Factor from the permuted value vector ``vals [nnz]`` on the device;
     stores ``_Yws, _Ts, _r_panels, _j2_top, _Yb, _Tb, _chain_seq,
     _chain_r`` and leaves the health flag on the device."""
-    S, o = self.S, self._overlap
+    o = self._overlap
     kw, ckw = self._kw, self._chain_kw
     pad = torch.cat([vals, vals.new_zeros(1)])
     slab = pad[self._slab_gmap]  # [S, R, 2o]
-    panels = pad[self._panel_gmap]  # [S, L, ma, mc], carry shift folded in
+    # [S, L, ma, mc], carry shift folded in (behind _lead idle segments on
+    # a rank of a mesh whose first segment is not segment 0)
+    panels = pad[self._panel_gmap]
+    lead = self._lead
     if kernel:
         ci, ci0_rest = self._kernel_ci
-        Yws, taus, Vs = segment_chains(
+        Yws, taus, Vs = (t[lead:] for t in segment_chains(
             panels, self._kernel_act, mca=kw["max_carry"], me=kw["max_emit"],
             ci=ci, ci0_rest=ci0_rest,
-        )
+        ))
     else:
         Yws, taus, Vs = chain_factorize(
-            panels, self._colinc_d, self._active_d, kw["max_carry"], kw["max_emit"]
+            panels[lead:], self._colinc_d, self._active_d, kw["max_carry"], kw["max_emit"]
         )
     Ts = build_t_factor(Yws, taus)
     if kernel and self._p2w is not None:
@@ -107,16 +122,17 @@ def factorize(self, vals: torch.Tensor, kernel: bool) -> None:
     nloc, rbm = self._nloc_max, self._rbot_max
     j2_top = torch.where(self._top_valid[..., None], qt_slab[:, :nloc], zero)
     # each segment's bottom rows: the contiguous run after its local columns
-    qs_pad = torch.cat([qt_slab, qt_slab.new_zeros((S, rbm, 2 * o))], dim=1)
+    qs_pad = torch.cat([qt_slab, qt_slab.new_zeros((qt_slab.shape[0], rbm, 2 * o))], dim=1)
     rows = self._bot_starts[:, None] + torch.arange(rbm, device=qt_slab.device)
     bot = qs_pad.gather(1, rows[..., None].expand(-1, -1, 2 * o))
     bot = torch.where(self._bot_valid[..., None], bot, zero)
     # chain block 0 has no leading boundary: its columns are the slab's last o
-    bot = torch.cat([bot[:1].roll(-o, dims=2), bot[1:]])
+    if self._segs is None or self._segs[0] == 0:
+        bot = torch.cat([bot[:1].roll(-o, dims=2), bot[1:]])
     # CAQR: one batched QR reduces each [rbot, 2o] slab to its [2o, 2o] R
     Yb, Tb_soa, Rb_top = panel_qr_yt_soa(bot.permute(1, 2, 0))
     Tb = Tb_soa.permute(2, 0, 1)
-    comp = torch.triu(Rb_top.permute(2, 0, 1))
+    comp = self._gather_segments(torch.triu(Rb_top.permute(2, 0, 1)))
     pan = torch.cat([comp.reshape(-1), comp.new_zeros(1)])[self._chain_map]
     cg = self._chain_geom_dev
     if kernel and self._chain_kernel is not None:

@@ -24,7 +24,10 @@ to it).  What differs:
   regroup map for its XLA scan and a shifted X-layout map for its kernel);
 * the interior back-substitution's shared-scalar gate (``_bs_*``), the
   streaming-apply plans and the gather-free extraction detection serve
-  TPU-tier variants the port does not have.
+  TPU-tier variants the port does not have;
+* over a mesh (:func:`shard_segments`) each rank cuts every per-segment map
+  to its own segments at plan time, where the reference places the
+  computed factors sharded.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.banded import SMEM_LIMIT, apply_w_smem_bytes, chain_smem_bytes
+from ..parallel.mesh import mesh_rank, shard_bounds
 from ..plan import BlockInfo, StructurePlan
 from ..sparse import Permutation
 from .banded_blocked import banded_geometry
@@ -331,6 +335,59 @@ def prepare_segmentation(self):
     prepare_kernel_gate(self)
     prepare_p2_gate(self)
     prepare_p2w(self)
+    shard_segments(self)
+
+
+# per-segment device maps (leading axis S) that a rank of a mesh cuts to its
+# own segments; the layout-keyed panel and slab maps follow at compute
+SEGMENT_MAPS = (
+    "_starts", "_rows2d", "_carry2d", "_colinc_d", "_ncols_d", "_active_d", "_emit_d",
+    "_seg_col0_d", "_top_valid", "_bot_starts", "_bot_valid", "_x2_idx", "_rbot_gather",
+    "_rest_pos", "_seg_gather", "_col_gather",
+)
+
+
+def shard_segments(self):
+    """The segment shard of a mesh: when S tiles the mesh axis, this rank
+    keeps segments ``[lo, hi)`` of every per-segment map (the whole maps stay
+    in ``_global_maps`` for the surfaces that run on gathered factors);
+    otherwise nothing is sharded, the reference's rule
+    (``segmented_banded.py:373``).
+
+    The segment-chain kernel (B3) cuts segment 0's first carry at ``ci`` and
+    every other segment's at ``ci0_rest``, by its index in the launch.  A
+    rank whose first segment is not segment 0 therefore launches one idle
+    leading segment (``_lead``: a panel map of sentinels, activity 0) ahead
+    of its own, so that every segment keeps its index class."""
+    self._segs, self._lead, self._global_maps = None, 0, {}
+    if self.mesh is None or self.S % mesh_rank(self.mesh, self.axis)[1]:
+        return
+    lo, hi = self._segs = shard_bounds(self.S, self.mesh, self.axis)
+    for name in SEGMENT_MAPS:
+        self._global_maps[name] = t = getattr(self, name)
+        setattr(self, name, t[lo:hi])
+    self._lead = int(lo > 0)
+    if self._kernel_gate:
+        act = self._kernel_act
+        self._global_maps["_kernel_act"] = act
+        self._kernel_act = torch.cat([act.new_zeros((self._lead, self.L)), act[lo:hi]])
+    if self._p2w is not None:
+        ex = self._p2w["excl"]
+        self._p2w = dict(self._p2w, excl=ex[(ex >= lo) & (ex < hi)] - lo)
+
+
+def shard_layout_maps(self, sentinel: int):
+    """Cut the layout-keyed maps (panels ``[S, L, ma, mc]``, slabs ``[S, R,
+    2o]``) to this rank's segments, the panel map behind ``_lead`` segments
+    of ``sentinel`` (the appended zero value; see :func:`shard_segments`)."""
+    if self._segs is None:
+        return
+    lo, hi = self._segs
+    for name in ("_panel_gmap", "_slab_gmap"):
+        self._global_maps[name] = getattr(self, name)
+    gm = self._panel_gmap
+    self._panel_gmap = torch.cat([torch.full_like(gm[: self._lead], sentinel), gm[lo:hi]])
+    self._slab_gmap = self._slab_gmap[lo:hi]
 
 
 def _p2_stream_ok(s1t, s2t, spt) -> bool:

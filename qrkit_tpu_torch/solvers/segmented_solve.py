@@ -7,6 +7,11 @@ kernel runs in a solve.  The reference's shared-scalar and unrolled
 back-substitutions (``_banded_solve_chunk_shared(_static)``,
 ``_interior_backsub_split``) and its segment-space fast paths are TPU-tier
 variants with no counterpart here.
+
+Over a mesh the per-segment maps and factors are the rank's own: Qᵀ, the
+CAQR Qbᵀ and the interior back-substitution run on the rank's segments,
+their chain rows and interior solutions are gathered, and the boundary
+chain's Qᵀ and solve run replicated.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ def backsub(self, y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
         ypad, self._r_panels, self._starts, self._emit_d, self._ncols_d, self._active_d,
         max_emit=self._max_emit, max_cols=self._max_cols,
     )
-    x1 = _scatter_rows(self._col_gather.reshape(-1), xs.reshape(-1, k), m1)
+    col_gather = self._global_maps.get("_col_gather", self._col_gather)
+    x1 = _scatter_rows(col_gather.reshape(-1), self._gather_segments(xs).reshape(-1, k), m1)
     return torch.cat([x1, x2])
 
 
@@ -59,7 +65,9 @@ def solve(self, b: torch.Tensor) -> torch.Tensor:
     top = top[self._row_order]
     w = _with_zero_row(top[m1:])[self._rbot_gather]  # [S, rbm, k]
     w2o = _batched_wy_soa(self._Yb, self._Tb, w.permute(1, 2, 0), True, out_rows=2 * o)
-    ybot = self._chain_seq.apply_qt(w2o.permute(2, 0, 1).reshape(self._nbot2, k))
+    ybot = self._chain_seq.apply_qt(
+        self._gather_segments(w2o.permute(2, 0, 1)).reshape(self._nbot2, k)
+    )
     z = backsub(self, top[:m1], ybot[: self._m2])
     if self._gather_cols is not None:
         z = z[self._gather_cols]

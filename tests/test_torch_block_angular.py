@@ -135,12 +135,21 @@ def test_tsqr_matches(rng, n_shards):
     close(tqr.apply_q(tqr.apply_qt(torch.as_tensor(b))), b)
 
 
-def test_tsqr_mesh_is_slice_4():
-    """The mesh paths raise, naming the mesh slice of the port."""
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        TSQRDenseQR(2, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        qt.BlockAngularQR(qt.BlockDiagonalQR(), qt.DenseColPivQR(), mesh=object())
+def test_tsqr_mesh_is_slice_4(rng):
+    """The mesh is taken, not refused: TSQRDenseQR and BlockAngularQR keep
+    it, and a mesh on the composite or its left solver switches the fused
+    programs off, as in the reference (the sharded paths themselves run in
+    tests/test_torch_parallel.py)."""
+    mesh = object()
+    assert TSQRDenseQR(2, mesh=mesh, axis="x").mesh is mesh
+    blocks = rng.uniform(0.5, 5.0, size=(8, 3, 2))
+    mat = qt.BlockMatrix1x2(qt.BlockDiagonal.from_dense_batch(blocks, device=DEV),
+                            torch.as_tensor(rng.uniform(0.5, 5.0, size=(24, 2))))
+    flagship = lambda m, left_m: qt.BlockAngularQR(  # noqa: E731
+        qt.BlockDiagonalQR(pivot=False, mesh=left_m), qt.DenseColPivQR(), mesh=m)
+    assert flagship(None, None)._uses_fused_dense(mat)
+    assert not flagship(mesh, None)._uses_fused_dense(mat)
+    assert not flagship(None, mesh)._uses_fused_dense(mat)
 
 
 # --- BlockAngularQR -------------------------------------------------------------------------
