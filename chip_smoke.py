@@ -70,8 +70,8 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   nonzeros and on a copy with 3 columns replaced by copies of others (rank
   253, residual against the host's fp64 ``lstsq``);
 * the launch floor of B1/B2 (phase ``launch_floor``): the device time of a
-  kernel that does nothing, launched on B1/B2's grid at 10,000 × 7×2 and
-  5,000 × 19×3;
+  kernel that does nothing, launched on B1/B2's grid (the launcher picks it
+  by n) at 10,000 × 7×2, 5,000 × 19×3 and 1M × 7×2;
 * the mesh paths (phase ``mesh``, last): a one-rank NCCL process group in
   this process (a ``FileStore`` under ``build/``) and ``default_mesh()``;
   every ``mesh=`` path at full width against its ``mesh=None`` result in
@@ -125,7 +125,8 @@ DEVICE = "cuda"
 # block shapes with a B1/B2 library: config 2's 7×2, the tests', and the
 # bundle point blocks [2C+3, 3] at C = 8 and C = 3
 KERNEL_SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4), (19, 3), (9, 3)]
-KERNEL_NS = [1, 1000, 10_007]
+# batch sizes that take every CTA size the block-diagonal launchers pick (32 … 256)
+KERNEL_NS = [1, 31, 4225, 10_007, 20_000, 200_003]
 BR, BC = 7, 2                       # the flagship block shape (BASELINE.json config 2)
 NB_CONFIG2, NB_REAL = 10_000, 1_000_000
 RESID_GATE = 1e-4                   # fp32 relative residual gate (bench.py)
@@ -263,22 +264,27 @@ def phase_build():
 
 
 def phase_kernel_vs_plain(rng):
+    """B1 and B2 against their plain versions, every shape, fp32 and fp64,
+    every batch of ``KERNEL_NS``: bitwise equal, or the phase fails."""
     worst = {}
     for name in KERNELS:
         for br, bc in KERNEL_SHAPES:
             for dtype in (torch.float32, torch.float64):
-                max_abs, bitwise = 0.0, True
+                max_abs = 0.0
                 for n in KERNEL_NS:
                     a, b = soa_operands(rng, n, br, bc, dtype, DEVICE)
                     out = run_kernel(name, a, b, br)
                     torch.cuda.synchronize()
                     e, eq = compare(out, run_plain(name, a, b, br), dtype)
-                    max_abs, bitwise = max(max_abs, e), bitwise and eq
+                    if not eq:  # built with --fmad=false, summing in the plain version's order
+                        raise AssertionError(f"{name} {br}x{bc} {dtype} n={n}: not bitwise equal "
+                                             f"to its plain version (max_abs_err={e})")
+                    max_abs = max(max_abs, e)
                 rtol, atol_rel = tolerance(dtype)
                 emit({
                     "phase": "kernel_vs_plain", "kernel": name, "shape": [br, bc],
                     "dtype": str(dtype).split(".")[1], "ns": KERNEL_NS,
-                    "max_abs_err": max_abs, "bitwise_equal": bitwise,
+                    "max_abs_err": max_abs, "bitwise_equal": True,
                     "rtol": rtol, "atol_x_max_abs": atol_rel,
                 })
                 worst[(name, br, bc)] = max(worst.get((name, br, bc), 0.0), max_abs)
@@ -841,7 +847,7 @@ def phase_blockdiag_options(rng, smi):
     for br, bc in KERNEL_SHAPES:
         for dtype in (torch.float32, torch.float64):
             for scaled, stepnorm in OPTION_COMBOS:
-                err_x, err_sn, bitwise = 0.0, 0.0, True
+                err_x, err_sn = 0.0, 0.0
                 scale = torch.tensor(-1.75, dtype=dtype, device=DEVICE) if scaled else None
                 for n in KERNEL_NS:
                     a, b = soa_operands(rng, n, br, bc, dtype, DEVICE)
@@ -855,11 +861,14 @@ def phase_blockdiag_options(rng, smi):
                         e, _ = compare(sn, ref_sn, dtype, stepnorm_tolerance(dtype))
                         err_sn = max(err_sn, e)
                     e, eq = compare(out, ref, dtype)
-                    err_x, bitwise = max(err_x, e), bitwise and eq
+                    if not eq:
+                        raise AssertionError(f"blockdiag_lstsq options {scaled, stepnorm} {br}x{bc} "
+                                             f"{dtype} n={n}: x not bitwise equal (max_abs_err={e})")
+                    err_x = max(err_x, e)
                 emit({
                     "phase": "blockdiag_lstsq_options", "shape": [br, bc],
                     "dtype": str(dtype).split(".")[1], "b_scale": scaled, "stepnorm": stepnorm,
-                    "ns": KERNEL_NS, "max_abs_err_x": err_x, "x_bitwise_equal": bitwise,
+                    "ns": KERNEL_NS, "max_abs_err_x": err_x, "x_bitwise_equal": True,
                     "max_abs_err_stepnorm": err_sn if stepnorm else None,
                     "stepnorm_rtol": stepnorm_tolerance(dtype)[0] if stepnorm else None,
                 })
@@ -1604,23 +1613,36 @@ def phase_blocked_thin(rng, smi):
             raise AssertionError(f"blocked thin {label}: {rec}")
 
 
-LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P))
+LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P), (BR, BC, NB_REAL))
+
+
+def blockdiag_grid(n, lanes):
+    """(CTAs, threads per CTA) the block-diagonal launchers pick for n
+    blocks of ``lanes`` threads each (``grid_for`` in csrc/blockdiag_qr.cu),
+    for the record."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = 256
+    while t > 32 and -(-n * lanes // t) < sms:
+        t //= 2
+    return -(-n * lanes // t), t
 
 
 def phase_launch_floor(smi):
-    """Device time of a kernel that does nothing on B1/B2's grid (one thread
-    per block, CTAs of 256) at config 2's 10,000 × 7×2 and the bundle's
-    5,000 × 19×3: what a launch of that grid costs before any byte moves.
-    Returns {"{n}x{br}x{bc}": ms}."""
+    """Device time of a kernel that does nothing on B1/B2's grid at config
+    2's 10,000 × 7×2, the bundle's 5,000 × 19×3 and the 1M-block point: what
+    a launch of that grid costs before any byte moves.  Returns
+    {"{n}x{br}x{bc}": ms}."""
     out = {}
+    dev = torch.cuda.current_device()
     for br, bc, n in LAUNCH_FLOOR_CASES:
-        lib = _build.load(br, bc)
-        dev = torch.device(DEVICE)
-        ms = device_time_ms(lambda: _build.launch(lib.qrk_blockdiag_empty, lib, dev, n), one_kernel=True)
+        empty = _build.blockdiag_launcher("empty", br, bc)
+        ms = device_time_ms(lambda: empty(dev, n), one_kernel=True)
         out[f"{n}x{br}x{bc}"] = ms
-        emit({"phase": "launch_floor", "n": n, "shape": [br, bc], "grid_ctas": -(-n // 256),
-              "device_ms": ms, "method": "torch.profiler's mean kernel duration over the records it "
-              "kept of 20 launches of the empty kernel", "gpu": smi})
+        lanes = _build.blockdiag_lanes(br, bc)
+        ctas, threads = blockdiag_grid(n, lanes)
+        emit({"phase": "launch_floor", "n": n, "shape": [br, bc], "lanes": lanes, "grid_ctas": ctas,
+              "cta_threads": threads, "device_ms": ms, "method": "torch.profiler's mean kernel "
+              "duration over the records it kept of 20 launches of the empty kernel", "gpu": smi})
     return out
 
 
@@ -1883,15 +1905,18 @@ def main():
             "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
-            "config2_10k": {k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                                                              "bound_ms", "bound_by")},
-            "launch_floor_device_ms": floor,
+            "floor_device_ms": floor[f"{NB_REAL}x{BR}x{BC}"],
+            "config2_10k": {**{k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms",
+                                                                 "library_ms", "bound_ms", "bound_by")},
+                            "floor_device_ms": floor[f"{NB_CONFIG2}x{BR}x{BC}"]},
         })
         if name == "blockdiag_qr_r":
+            br19 = 2 * BUNDLE_CAMS + 3
             kernels[-1]["bundle_19x3"] = {
                 "n": BUNDLE_HOST_P, "launches_per_host_loop_iteration": bundle_b2 / max(bundle_iters, 1),
                 **{k: b2_bundle_timing[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by", "device_ms")},
+                "floor_device_ms": floor[f"{BUNDLE_HOST_P}x{br19}x3"],
             }
     for name, replaces in BANDED_KERNELS.items():
         t = banded_timings[name]  # config 3; B5 on the plain chain

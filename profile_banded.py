@@ -120,7 +120,7 @@ def kernel_vs_plain(cs, emit):
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_KERNEL = re.compile(r"((?:chain|apply_w)_(?:reg|smem)_kernel)I([fd])((?:Li\d+E)*)E")
+_KERNEL = re.compile(r"\d+([a-z][a-z_]*_kernel)I([fd])((?:L[ib]\d+E)*)E")
 
 
 def kernel_name(entry):
@@ -128,18 +128,21 @@ def kernel_name(entry):
     m = _KERNEL.search(entry)
     if not m:
         return entry
-    args = ["float" if m.group(2) == "f" else "double"] + re.findall(r"Li(\d+)E", m.group(3))
+    args = ["float" if m.group(2) == "f" else "double"] + re.findall(r"L[ib](\d+)E", m.group(3))
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def run_ptxas(_args):
+def ptxas(source, defines=(), name="kernels"):
+    """Compile ``source`` once with ``-Xptxas=-v`` and the ``-D`` defines
+    (into ``build/``); returns (seconds, flags, one dict per kernel
+    instantiation with its registers, stack frame and spills)."""
     sys.path.insert(0, str(ROOT))
     from qrkit_tpu_torch.ops import _build
 
     out = ROOT / "build" / "qrkit_tpu_torch" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-o", str(out / "banded_chain.so"),
-           str(BANDED_CU)]
+    flags = [*_build.NVCC_FLAGS, "-Xptxas=-v", *(f"-D{k}={v}" for k, v in defines)]
+    cmd = [_build.find_nvcc(), *flags, "-o", str(out / f"{name}.so"), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -158,9 +161,13 @@ def run_ptxas(_args):
             m = _REGS.search(line)
             if m:
                 cur["registers"] = int(m.group(1))
-    print(json.dumps({"phase": "ptxas", "seconds": time.perf_counter() - t0,
-                      "flags": [*_build.NVCC_FLAGS, "-Xptxas=-v"]}), flush=True)
-    for k in sorted(kernels, key=lambda k: k["kernel"]):
+    return time.perf_counter() - t0, flags, sorted(kernels, key=lambda k: k["kernel"])
+
+
+def run_ptxas(_args):
+    seconds, flags, kernels = ptxas(BANDED_CU, name="banded_chain")
+    print(json.dumps({"phase": "ptxas", "seconds": seconds, "flags": flags}), flush=True)
+    for k in kernels:
         print(json.dumps(k), flush=True)
 
 

@@ -9,10 +9,17 @@ flags, so an edited source never loads a stale library.  Libraries go under
 ``build/qrkit_tpu_torch/`` at the root of the checkout.
 
 * ``blockdiag_qr.cu``: one library per block shape (br, bc), compiled with
-  ``-DQRK_BR=br -DQRK_BC=bc`` so the per-thread recurrence unrolls fully
-  into registers (:func:`build`, :func:`load`).
+  ``-DQRK_BR=br -DQRK_BC=bc -DQRK_LANES=G`` (G = :func:`blockdiag_lanes`)
+  so the per-lane recurrence unrolls fully into registers (:func:`build`,
+  :func:`load`).
 * ``banded_chain.cu``: one library for every shape; the banded kernels take
   their geometry as arguments (:func:`load_banded`).
+
+Each launcher takes its operands' CUDA ordinal first and makes that device
+current in the library's own (static) CUDA runtime before it launches, so
+the kernels run on any ``cuda:N``.  :func:`blockdiag_launcher` /
+:func:`banded_launcher` bind a launcher once (:class:`Launcher`); a call
+then costs one ctypes call and one read of the device's current stream.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
@@ -32,8 +39,8 @@ from typing import Tuple
 import torch
 
 __all__ = [
-    "NVCC_FLAGS", "build", "build_source", "find_nvcc", "launch", "load", "load_banded",
-    "load_source",
+    "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_lanes", "blockdiag_launcher", "build",
+    "build_source", "current_stream", "find_nvcc", "load", "load_banded", "load_source",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,27 +54,29 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+_DEV, _PTR, _I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
 BLOCKDIAG_SOURCE = "blockdiag_qr.cu"
 BANDED_SOURCE = "banded_chain.cu"
-# launcher name -> argument types (each returns a cudaError_t as int)
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# launcher name -> argument types: the device ordinal, the kernel's own, the
+# stream (each returns a cudaError_t as int)
 _BLOCKDIAG_SIGNATURES = tuple(
-    (f"qrk_blockdiag_{kind}_{dt}", args)
+    (f"qrk_blockdiag_{kind}_{dt}", (_DEV, *args, _PTR))
     for dt in ("f32", "f64")
     for kind, args in (
-        ("lstsq", (_PTR, _PTR, _PTR, _I64, _PTR)),
-        ("lstsq_opt", (_PTR,) * 6 + (_I64, _PTR)),
-        ("qr_r", (_PTR, _PTR, _I64, _PTR)),
+        ("lstsq", (_PTR, _PTR, _PTR, _I64)),
+        ("lstsq_opt", (_PTR,) * 6 + (_I64,)),
+        ("qr_r", (_PTR, _PTR, _I64)),
     )
 )
-_BLOCKDIAG_SIGNATURES += (("qrk_blockdiag_empty", (_I64, _PTR)),)
+_BLOCKDIAG_SIGNATURES += (("qrk_blockdiag_empty", (_DEV, _I64, _PTR)),)
 _BANDED_SIGNATURES = tuple(
-    (f"qrk_banded_{kind}_{dt}", args)
+    (f"qrk_banded_{kind}_{dt}", (_DEV, *args, _PTR))
     for dt in ("f32", "f64")
     for kind, args in (
-        ("segment_chains", (_PTR,) * 5 + (_I64,) * 8 + (_PTR,)),
-        ("chain_qr", (_PTR,) * 5 + (_I64,) * 7 + (_PTR,)),
-        ("apply_w", (_PTR,) * 5 + (_I64,) * 8 + (_PTR,)),
+        ("segment_chains", (_PTR,) * 5 + (_I64,) * 8),
+        ("chain_qr", (_PTR,) * 5 + (_I64,) * 7),
+        ("apply_w", (_PTR,) * 5 + (_I64,) * 8),
     )
 )
 
@@ -144,8 +153,16 @@ def load_source(
     return lib
 
 
+def blockdiag_lanes(br: int, bc: int) -> int:
+    """Lanes (threads) per block of the block-diagonal kernels for a br×bc
+    shape: 1 up to 8 rows, 2 up to 12, 4 beyond.  Each lane holds
+    ``ceil(br / G)`` rows; the plain versions sum in the same lane order."""
+    return 1 if br <= 8 else 2 if br <= 12 else 4
+
+
 def _blockdiag_defines(br: int, bc: int):
-    return (("QRK_BR", int(br)), ("QRK_BC", int(bc))), f"_{br}x{bc}"
+    defines = (("QRK_BR", int(br)), ("QRK_BC", int(bc)), ("QRK_LANES", blockdiag_lanes(br, bc)))
+    return defines, f"_{br}x{bc}"
 
 
 def build(br: int, bc: int) -> Path:
@@ -167,14 +184,44 @@ def load_banded() -> ctypes.CDLL:
     return load_source(BANDED_SOURCE, (), _BANDED_SIGNATURES)
 
 
-def launch(fn, lib, device, *args) -> None:
-    """Call one ctypes launcher on the current stream of ``device`` (tensors
-    pass their data pointers, None a null pointer, ints as they are) and raise on a non-zero
+def current_stream(device: int) -> int:
+    """The raw handle of ``cuda:device``'s current stream, without building
+    a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+class Launcher:
+    """One ctypes launcher of a loaded library, bound once.
+
+    ``launcher(device, *args)`` passes the operands' CUDA ordinal, ``args``
+    (data pointers as ints, None for a null pointer, ints as they are) and
+    that device's current stream, and raises on a non-zero
     ``cudaGetLastError()``: a refused launch never runs, and a later
     synchronize would not report it."""
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"{fn.__name__} launch failed: CUDA error {err} ({lib.qrk_error_string(err).decode()})"
-        )
+
+    __slots__ = ("fn", "_lib")
+
+    def __init__(self, lib: ctypes.CDLL, name: str):
+        self.fn, self._lib = getattr(lib, name), lib
+
+    def __call__(self, device: int, *args) -> None:
+        err = self.fn(device, *args, current_stream(device))
+        if err:
+            raise RuntimeError(
+                f"{self.fn.__name__} launch failed on cuda:{device}: CUDA error {err} "
+                f"({self._lib.qrk_error_string(err).decode()})"
+            )
+
+
+@functools.lru_cache(maxsize=None)
+def blockdiag_launcher(kind: str, br: int, bc: int, dtype=None) -> Launcher:
+    """``qrk_blockdiag_<kind>_<f32|f64>`` of the br×bc library (no suffix
+    without a dtype: ``empty``), built and bound at first use."""
+    name = f"qrk_blockdiag_{kind}" + ("" if dtype is None else f"_{_SUFFIX[dtype]}")
+    return Launcher(load(br, bc), name)
+
+
+@functools.lru_cache(maxsize=None)
+def banded_launcher(kind: str, dtype) -> Launcher:
+    """``qrk_banded_<kind>_<f32|f64>``, built and bound at first use."""
+    return Launcher(load_banded(), f"qrk_banded_{kind}_{_SUFFIX[dtype]}")

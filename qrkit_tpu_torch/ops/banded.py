@@ -28,7 +28,8 @@ groups have no counterpart): panels and Y ``[S, L, ma, mc]``, τ
 ``[S, L, ma, ko]``; :func:`chain_qr` drops the leading S.
 
 Each kernel wrapper runs its CUDA kernel (``csrc/banded_chain.cu``) on a
-CUDA tensor, or raises; it runs its plain version only for a CPU tensor.
+CUDA tensor, on that tensor's card, or raises; it runs its plain version
+only for a CPU tensor.
 The launcher picks one of two forms per geometry (:func:`register_shape`):
 one warp per chain (or per operand column) with the rows in registers, or
 several warps with the panel (or window) in shared memory;
@@ -174,9 +175,6 @@ def _check(t: torch.Tensor, name: str, dim: int) -> None:
         raise ValueError(f"{name} must have {dim} dimensions, got {tuple(t.shape)}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
-    if t.device.type == "cuda" and t.device.index not in (None, 0):
-        # the launchers' own CUDA runtime addresses device 0 only
-        raise ValueError(f"the CUDA kernels run on cuda:0, got {t.device}")
 
 
 def _check_like(ref: torch.Tensor, t: torch.Tensor, name: str, shape) -> None:
@@ -237,10 +235,9 @@ def segment_chains(
     y, tau, v = _chain_outputs(panels, me)
     if S == 0 or L == 0:
         return y, tau, v
-    lib = _build.load_banded()
-    _build.launch(
-        getattr(lib, f"qrk_banded_segment_chains_{_SUFFIX[panels.dtype]}"), lib, panels.device,
-        panels, act, y, tau, v, S, L, ma, mc, mca, me, ci, ci0_rest,
+    _build.banded_launcher("segment_chains", panels.dtype)(
+        panels.device.index, *(t.data_ptr() for t in (panels, act, y, tau, v)),
+        S, L, ma, mc, mca, me, ci, ci0_rest,
     )
     segment_chains.launches += 1
     return y, tau, v
@@ -279,10 +276,9 @@ def chain_qr(
     y, tau, v = _chain_outputs(panels, me)
     if nb == 0:
         return y, tau, v
-    lib = _build.load_banded()
-    _build.launch(
-        getattr(lib, f"qrk_banded_chain_qr_{_SUFFIX[panels.dtype]}"), lib, panels.device,
-        panels, act, y, tau, v, nb, ma, mc, mca, me, ci, ci0,
+    _build.banded_launcher("chain_qr", panels.dtype)(
+        panels.device.index, *(t.data_ptr() for t in (panels, act, y, tau, v)),
+        nb, ma, mc, mca, me, ci, ci0,
     )
     chain_qr.launches += 1
     return y, tau, v
@@ -366,10 +362,9 @@ def segment_apply_w(
     wq = torch.empty_like(w)
     if S == 0 or L == 0:
         return wq
-    lib = _build.load_banded()
-    _build.launch(
-        getattr(lib, f"qrk_banded_apply_w_{_SUFFIX[y.dtype]}"), lib, y.device,
-        y, tau, w, ab, wq, S, L, ma, mc, mca, ko, h, wrows,
+    _build.banded_launcher("apply_w", y.dtype)(
+        y.device.index, *(t.data_ptr() for t in (y, tau, w, ab, wq)),
+        S, L, ma, mc, mca, ko, h, wrows,
     )
     segment_apply_w.launches += 1
     return wq

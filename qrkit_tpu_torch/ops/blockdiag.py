@@ -15,14 +15,17 @@ Counterpart of ``qrkit_tpu/ops/pallas_blockdiag.py``:
 The SoA layout is ``[br*bc, n]``: entry (r, c) of block k at
 ``[r*bc + c, k]``, the block index contiguous, so one GPU thread per block
 reads coalesced rows.  Unlike the TPU version nothing is padded: the kernels
-mask the ragged edge themselves.
+mask the ragged edge themselves.  Tall blocks take several lanes (threads)
+each (``_build.blockdiag_lanes``).
 
 Each SoA wrapper runs its hand-written CUDA kernel (``csrc/blockdiag_qr.cu``)
 on a CUDA tensor, or raises; it runs the plain version beside it only for a
 CPU tensor.  The plain versions (:func:`_lstsq_soa_plain`,
 :func:`_qr_r_soa_plain`) are the same unrolled recurrence on per-entry
-tensors of shape ``[n]``, batched over blocks.  Each wrapper carries a
-``launches`` counter, incremented once per kernel launch and nowhere else.
+tensors of shape ``[n]``, batched over blocks, summing σ and every dot
+product in the kernels' order (:func:`_row_sum`), so kernel and plain
+version agree to the bit on the card.  Each wrapper carries a ``launches``
+counter, incremented once per kernel launch and nowhere else.
 """
 from __future__ import annotations
 
@@ -39,49 +42,63 @@ __all__ = [
     "block_diagonal_qr_r_soa",
 ]
 
-_MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in one thread's registers
-_THREADS = 256  # threads per CTA of the kernels (kThreads in the source)
+_MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in registers
+_MIN_THREADS = 32  # the smallest CTA the kernels launch (grid_for in the source)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _householder_inplace(a, rhs_list, br: int, bc: int) -> None:
-    """Unrolled Householder QR on per-entry tensors ``a[r][c]`` (each
-    ``[n]``, one value per block); every rhs in ``rhs_list`` (a list of
-    per-row tensors) is updated by Hᵀ too.  Unnormalized reflector
-    ``H = I − u uᵀ / (β(β−x₀))`` with ``u = (x₀−β, a[j+1..])``; column j is
-    never updated, its diagonal is written directly (β, or x₀ when the
-    column is already zero below the diagonal).  Every multiply and add
-    rounds on its own, as in the CUDA kernel built with ``--fmad=false``."""
-    for j in range(bc):
-        x0 = a[j][j]
+def _pairwise(terms):
+    """``terms[0] + … + terms[-1]`` as the kernels' balanced tree (split at
+    the middle); None marks a term outside the sum, where the kernels add
+    -0, an exact identity.  None when every term is."""
+    if len(terms) == 1:
+        return terms[0]
+    lo, hi = _pairwise(terms[: len(terms) // 2]), _pairwise(terms[len(terms) // 2:])
+    return hi if lo is None else lo if hi is None else lo + hi
+
+
+def _row_sum(terms, lanes: int):
+    """A sum over a block's rows in the kernels' order: ``terms[r]`` (None
+    when row r takes no part) sits on lane ``r % lanes`` in slot
+    ``r // lanes``; each lane's slots as a tree, then the lanes' partials in
+    the xor butterfly, which is the tree over the lanes."""
+    slots = -(-len(terms) // lanes)
+    terms = list(terms) + [None] * (slots * lanes - len(terms))
+    return _pairwise([_pairwise(terms[g::lanes]) for g in range(lanes)])
+
+
+def _householder_inplace(cols, rhs_list, br: int, lanes: int) -> None:
+    """Unrolled Householder QR on per-entry tensors ``cols[c][r]`` (each
+    ``[n]``, one value per block, column-major as the kernels hold a block);
+    every rhs in ``rhs_list`` (a list of per-row tensors) is updated by Hᵀ
+    too.  Unnormalized reflector ``H = I − u uᵀ / (β(β−x₀))`` with
+    ``u = (x₀−β, a[j+1..][j])``; column j is never updated, its diagonal is
+    written directly (β, or x₀ when the column is already zero below the
+    diagonal).  Every multiply and add rounds on its own, as in the CUDA
+    kernel built with ``--fmad=false``, and σ and the dot products sum in its
+    order over ``lanes`` lanes (:func:`_row_sum`)."""
+    for j, col in enumerate(cols):
+        x0 = col[j]
         one = torch.ones_like(x0)
-        sigma = torch.zeros_like(x0)
-        for r in range(j + 1, br):
-            sigma = sigma + a[r][j] * a[r][j]
+        sigma = _row_sum([col[r] * col[r] if r > j else None for r in range(br)], lanes)
+        if sigma is None:  # no row below the diagonal: the kernels' empty sum
+            sigma = torch.full_like(x0, -0.0)
         norm = torch.sqrt(x0 * x0 + sigma)
         beta = torch.where(x0 >= 0, -norm, norm)
         degen = sigma <= 0
         t = beta * (beta - x0)
         c_scale = torch.where(degen, torch.zeros_like(x0), one / torch.where(degen, one, t))
-        u = [None] * br
-        u[j] = x0 - beta
-        for r in range(j + 1, br):
-            u[r] = a[r][j]
-        a[j][j] = torch.where(degen, x0, beta)
-        for c in range(j + 1, bc):
-            w = u[j] * a[j][c]
-            for r in range(j + 1, br):
-                w = w + u[r] * a[r][c]
-            w = c_scale * w
+        u = [None] * j + [x0 - beta] + col[j + 1:]
+        col[j] = torch.where(degen, x0, beta)
+        for v in cols[j + 1:] + rhs_list:
+            w = c_scale * _row_sum([u[r] * v[r] if r >= j else None for r in range(br)], lanes)
             for r in range(j, br):
-                a[r][c] = a[r][c] - u[r] * w
-        for rhs in rhs_list:
-            w = u[j] * rhs[j]
-            for r in range(j + 1, br):
-                w = w + u[r] * rhs[r]
-            w = c_scale * w
-            for r in range(j, br):
-                rhs[r] = rhs[r] - u[r] * w
+                v[r] = v[r] - u[r] * w
+
+
+def _columns(a_soa: torch.Tensor, br: int, bc: int):
+    """``cols[c][r]``: the per-entry rows of an SoA operand, column-major."""
+    return [[a_soa[r * bc + c] for r in range(br)] for c in range(bc)]
 
 
 def _lstsq_soa_plain(
@@ -89,22 +106,24 @@ def _lstsq_soa_plain(
     b_soa: torch.Tensor,
     b_scale: Optional[torch.Tensor] = None,
     stepnorm: bool = False,
+    lanes: Optional[int] = None,
 ):
     """Plain PyTorch version of the fused QR + LS-solve kernel:
     ``a_soa [br*bc, n]``, ``b_soa [br, n]`` → ``x_soa [bc, n]``, multiplied
     by ``b_scale`` after the back-substitution when given; with ``stepnorm``
-    returns ``(x_soa, Σ x²)``."""
+    returns ``(x_soa, Σ x²)``.  ``lanes``: the kernel's lanes per block
+    (default that of the shape's library)."""
     br = b_soa.shape[0]
     bc = a_soa.shape[0] // br
-    a = [[a_soa[r * bc + c] for c in range(bc)] for r in range(br)]
+    cols = _columns(a_soa, br, bc)
     rhs = [b_soa[r] for r in range(br)]
-    _householder_inplace(a, [rhs], br, bc)
+    _householder_inplace(cols, [rhs], br, lanes or _build.blockdiag_lanes(br, bc))
     x = [None] * bc
     for j in range(bc - 1, -1, -1):
         acc = rhs[j]
         for c in range(j + 1, bc):
-            acc = acc - a[j][c] * x[c]
-        x[j] = acc / a[j][j]
+            acc = acc - cols[c][j] * x[c]
+        x[j] = acc / cols[j][j]
     if b_scale is not None:
         x = [xj * b_scale.reshape(()) for xj in x]
     x = torch.stack(x)
@@ -113,13 +132,14 @@ def _lstsq_soa_plain(
     return x
 
 
-def _qr_r_soa_plain(a_soa: torch.Tensor, br: int) -> torch.Tensor:
+def _qr_r_soa_plain(a_soa: torch.Tensor, br: int, lanes: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the packed-R kernel: ``a_soa [br*bc, n]`` →
-    ``[bc(bc+1)/2, n]`` in row-major (j, c >= j) order."""
+    ``[bc(bc+1)/2, n]`` in row-major (j, c >= j) order; ``lanes`` as in
+    :func:`_lstsq_soa_plain`."""
     bc = a_soa.shape[0] // br
-    a = [[a_soa[r * bc + c] for c in range(bc)] for r in range(br)]
-    _householder_inplace(a, [], br, bc)
-    return torch.stack([a[j][c] for j in range(bc) for c in range(j, bc)])
+    cols = _columns(a_soa, br, bc)
+    _householder_inplace(cols, [], br, lanes or _build.blockdiag_lanes(br, bc))
+    return torch.stack([cols[c][j] for j in range(bc) for c in range(j, bc)])
 
 
 def _check_operand(a_soa: torch.Tensor, br: int) -> int:
@@ -137,9 +157,6 @@ def _check_operand(a_soa: torch.Tensor, br: int) -> int:
         )
     if a_soa.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {a_soa.device}")
-    if a_soa.device.type == "cuda" and a_soa.device.index not in (None, 0):
-        # the launchers' own CUDA runtime addresses device 0 only
-        raise ValueError(f"the CUDA kernels run on cuda:0, got {a_soa.device}")
     return bc
 
 
@@ -155,8 +172,8 @@ def block_diagonal_lstsq_soa(
     [bc, n]`` with x_k = argmin ‖A_k x − b_k‖ for every block k.  Blocks
     are portrait (br >= bc) with br*bc <= 64, float32 or float64, and both
     operands contiguous on one device.  A CUDA tensor runs the CUDA kernel
-    (built at first use) or raises; a CPU tensor runs the plain version.
-    The CUDA path takes tensors on ``cuda:0``.
+    (built at first use) on its own card, ``cuda:N``, or raises; a CPU
+    tensor runs the plain version.
 
     ``b_scale`` (a one-element tensor on the operands' device, never a host
     float, so nothing waits for the device) solves for ``b_scale · b`` by
@@ -182,24 +199,23 @@ def block_diagonal_lstsq_soa(
         return _lstsq_soa_plain(a_soa, b_soa, b_scale, stepnorm)
     if not (a_soa.is_contiguous() and b_soa.is_contiguous()):
         raise ValueError("a_soa and b_soa must be contiguous")
-    x = torch.empty((bc, n), dtype=a_soa.dtype, device=a_soa.device)
+    x = a_soa.new_empty((bc, n))
     if n == 0:
         return (x, x.new_zeros(())) if stepnorm else x
-    lib = _build.load(br, bc)
-    dt = _SUFFIX[a_soa.dtype]
-    sn = None
+    dev = a_soa.device.index
+    partials = sn = None
     if b_scale is None and not stepnorm:
-        _build.launch(getattr(lib, f"qrk_blockdiag_lstsq_{dt}"), lib, x.device, a_soa, b_soa, x, n)
+        _build.blockdiag_launcher("lstsq", br, bc, a_soa.dtype)(
+            dev, a_soa.data_ptr(), b_soa.data_ptr(), x.data_ptr(), n)
     else:
-        partials = None
-        if stepnorm:  # the finish kernel writes sn
-            partials = torch.empty(-(-n // _THREADS), dtype=a_soa.dtype, device=a_soa.device)
-            sn = torch.empty((), dtype=a_soa.dtype, device=a_soa.device)
+        # one partial per CTA, at most n·G/32 of them; the finish kernel writes sn
+        if stepnorm:
+            partials = a_soa.new_empty(-(-n * _build.blockdiag_lanes(br, bc) // _MIN_THREADS))
+            sn = a_soa.new_empty(())
         scale = b_scale.reshape(1).contiguous() if b_scale is not None else None
-        _build.launch(
-            getattr(lib, f"qrk_blockdiag_lstsq_opt_{dt}"), lib, x.device, a_soa, b_soa, x,
-            scale, partials, sn, n,
-        )
+        _build.blockdiag_launcher("lstsq_opt", br, bc, a_soa.dtype)(
+            dev, a_soa.data_ptr(), b_soa.data_ptr(), x.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (scale, partials, sn)), n)
     block_diagonal_lstsq_soa.launches += 1
     return (x, sn) if stepnorm else x
 
@@ -219,11 +235,11 @@ def block_diagonal_qr_r_soa(a_soa: torch.Tensor, br: int) -> torch.Tensor:
         return _qr_r_soa_plain(a_soa, br)
     if not a_soa.is_contiguous():
         raise ValueError("a_soa must be contiguous")
-    r_soa = torch.empty((bc * (bc + 1) // 2, n), dtype=a_soa.dtype, device=a_soa.device)
+    r_soa = a_soa.new_empty((bc * (bc + 1) // 2, n))
     if n == 0:
         return r_soa
-    lib = _build.load(br, bc)
-    _build.launch(getattr(lib, f"qrk_blockdiag_qr_r_{_SUFFIX[a_soa.dtype]}"), lib, r_soa.device, a_soa, r_soa, n)
+    _build.blockdiag_launcher("qr_r", br, bc, a_soa.dtype)(
+        a_soa.device.index, a_soa.data_ptr(), r_soa.data_ptr(), n)
     block_diagonal_qr_r_soa.launches += 1
     return r_soa
 

@@ -718,58 +718,83 @@ cudaError_t launch_apply_w(const T* y, const T* tau, const T* w, const int32_t* 
   return cudaGetLastError();
 }
 
+// Make `device` current in this library's CUDA runtime (linked statically,
+// so its own current device, 0 until set); a no-op when it already is.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
 }  // namespace
 
-// Plain C interface, bound with ctypes (ops/banded.py).  Each launcher
-// enqueues one kernel on the caller's stream, does not synchronize, and
-// returns cudaGetLastError() (0 on success).  The caller allocates every
-// buffer and checks the shared-memory size (ops.banded.chain_smem_bytes /
+// Plain C interface, bound with ctypes (ops/_build.py).  Each launcher makes
+// `device` (its operands' CUDA ordinal) current, enqueues one kernel on the
+// caller's stream of that device, does not synchronize, and returns
+// cudaGetLastError() (0 on success).  The caller allocates every buffer and
+// checks the shared-memory size (ops.banded.chain_smem_bytes /
 // apply_w_smem_bytes, at most SMEM_LIMIT; above 48 KB the launcher opts in).
+#define QRK_ON_DEVICE(device)                   \
+  do {                                          \
+    const cudaError_t err_ = use_device(device); \
+    if (err_ != cudaSuccess) return (int)err_;  \
+  } while (0)
+
 extern "C" {
 
 // S chains of L steps; chain 0's first step cuts its carry at ci, the
 // first step of chains >= 1 at ci0_rest (their dropped leading overlap).
-int qrk_banded_segment_chains_f32(const float* panels, const float* act, float* y, float* tau,
-                                  float* v, int64_t S, int64_t L, int64_t ma, int64_t mc,
-                                  int64_t mca, int64_t me, int64_t ci, int64_t ci0_rest,
-                                  cudaStream_t stream) {
+int qrk_banded_segment_chains_f32(int device, const float* panels, const float* act, float* y,
+                                  float* tau, float* v, int64_t S, int64_t L, int64_t ma,
+                                  int64_t mc, int64_t mca, int64_t me, int64_t ci,
+                                  int64_t ci0_rest, cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_chains<float>(panels, act, y, tau, v, S, L, ma, mc, mca, me, ci, ci,
                                    ci0_rest, stream);
 }
 
-int qrk_banded_segment_chains_f64(const double* panels, const double* act, double* y,
-                                  double* tau, double* v, int64_t S, int64_t L, int64_t ma,
-                                  int64_t mc, int64_t mca, int64_t me, int64_t ci,
+int qrk_banded_segment_chains_f64(int device, const double* panels, const double* act,
+                                  double* y, double* tau, double* v, int64_t S, int64_t L,
+                                  int64_t ma, int64_t mc, int64_t mca, int64_t me, int64_t ci,
                                   int64_t ci0_rest, cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_chains<double>(panels, act, y, tau, v, S, L, ma, mc, mca, me, ci, ci,
                                     ci0_rest, stream);
 }
 
 // One chain of nb steps; its first step cuts the carry at ci0.
-int qrk_banded_chain_qr_f32(const float* panels, const float* act, float* y, float* tau,
-                            float* v, int64_t nb, int64_t ma, int64_t mc, int64_t mca,
-                            int64_t me, int64_t ci, int64_t ci0, cudaStream_t stream) {
+int qrk_banded_chain_qr_f32(int device, const float* panels, const float* act, float* y,
+                            float* tau, float* v, int64_t nb, int64_t ma, int64_t mc,
+                            int64_t mca, int64_t me, int64_t ci, int64_t ci0,
+                            cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_chains<float>(panels, act, y, tau, v, 1, nb, ma, mc, mca, me, ci, ci0, ci0,
                                    stream);
 }
 
-int qrk_banded_chain_qr_f64(const double* panels, const double* act, double* y, double* tau,
-                            double* v, int64_t nb, int64_t ma, int64_t mc, int64_t mca,
-                            int64_t me, int64_t ci, int64_t ci0, cudaStream_t stream) {
+int qrk_banded_chain_qr_f64(int device, const double* panels, const double* act, double* y,
+                            double* tau, double* v, int64_t nb, int64_t ma, int64_t mc,
+                            int64_t mca, int64_t me, int64_t ci, int64_t ci0,
+                            cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_chains<double>(panels, act, y, tau, v, 1, nb, ma, mc, mca, me, ci, ci0, ci0,
                                     stream);
 }
 
-int qrk_banded_apply_w_f32(const float* y, const float* tau, const float* w, const int32_t* ab,
-                           float* wq, int64_t S, int64_t L, int64_t ma, int64_t mc, int64_t mca,
-                           int64_t ko, int64_t h, int64_t wrows, cudaStream_t stream) {
+int qrk_banded_apply_w_f32(int device, const float* y, const float* tau, const float* w,
+                           const int32_t* ab, float* wq, int64_t S, int64_t L, int64_t ma,
+                           int64_t mc, int64_t mca, int64_t ko, int64_t h, int64_t wrows,
+                           cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_apply_w<float>(y, tau, w, ab, wq, S, L, ma, mc, mca, ko, h, wrows, stream);
 }
 
-int qrk_banded_apply_w_f64(const double* y, const double* tau, const double* w,
+int qrk_banded_apply_w_f64(int device, const double* y, const double* tau, const double* w,
                            const int32_t* ab, double* wq, int64_t S, int64_t L, int64_t ma,
                            int64_t mc, int64_t mca, int64_t ko, int64_t h, int64_t wrows,
                            cudaStream_t stream) {
+  QRK_ON_DEVICE(device);
   return (int)launch_apply_w<double>(y, tau, w, ab, wq, S, L, ma, mc, mca, ko, h, wrows, stream);
 }
 

@@ -9,16 +9,25 @@ The CUDA case carries the ``cuda`` marker and skips without a card.  JAX is
 imported inside the helpers, so on a GPU machine without JAX the CUDA case
 runs alone with ``python -m pytest --noconftest -m cuda
 tests/test_torch_blockdiag_kernels.py``.
+
+The device tests at the end need no card: a CPU tensor that reports
+``cuda:N`` takes a wrapper's kernel path, and the launchers are swapped for
+recorders, so they show which device ordinal reaches each launcher.
 """
 import numpy as np
 import pytest
 import torch
 
 from qrkit_tpu_torch import profiling
+from qrkit_tpu_torch.ops import _build
+from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
 
-SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4)]
+# config 2's 7x2, small and square shapes, and the bundle's 19x3 point blocks
+SHAPES = [(7, 2), (2, 1), (3, 3), (8, 8), (16, 4), (19, 3)]
 SHAPE_IDS = [f"{br}x{bc}" for br, bc in SHAPES]
+# batch sizes that take every CTA size the launchers pick (32 ... 256 threads)
+CUDA_NS = (1, 31, 4225, 10_007, 20_000, 200_003)
 
 
 def _operands(seed, n, br, bc):
@@ -77,6 +86,44 @@ def test_qr_r_plain_matches_pallas(br, bc):
     r = bd.block_diagonal_qr_r_soa(torch.as_tensor(a_soa), br)
     assert r.shape == (bc * (bc + 1) // 2, 37)
     np.testing.assert_allclose(r.numpy(), _jax_qr_r_soa(a_soa, br, bc), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_plain_lane_orders_match_pallas(lanes):
+    """Each lane count's summation order (the kernels' G lanes per block)
+    stays within the tolerances of the Pallas kernels."""
+    _, a_soa, b_soa = _operands(8, 37, 9, 3)
+    a, b = torch.as_tensor(a_soa), torch.as_tensor(b_soa)
+    x = bd._lstsq_soa_plain(a, b, lanes=lanes)
+    np.testing.assert_allclose(x.numpy(), _jax_lstsq_soa(a_soa, b_soa, 3), rtol=0, atol=1e-9)
+    r = bd._qr_r_soa_plain(a, 9, lanes=lanes)
+    np.testing.assert_allclose(r.numpy(), _jax_qr_r_soa(a_soa, 9, 3), rtol=1e-12, atol=1e-12)
+
+
+class _Sym:
+    """A term that records the order of the additions made with it."""
+
+    def __init__(self, text):
+        self.text = text
+
+    def __add__(self, other):
+        return _Sym(f"({self.text}+{other.text})")
+
+
+@pytest.mark.parametrize(
+    "lanes,want",
+    [
+        (1, "((t1+t2)+((t3+t4)+(t5+t6)))"),
+        (2, "((t2+(t4+t6))+((t1+t3)+t5))"),
+        (4, "((t4+(t1+t5))+((t2+t6)+t3))"),
+    ],
+)
+def test_row_sum_order(lanes, want):
+    """σ of column 0 of a 7-row block: lane g holds rows g, g+G, ... in its
+    slots, sums them as a tree split at the middle, and the lanes' partials
+    meet in the butterfly; row 0 takes no part (the kernels add -0 there)."""
+    terms = [None] + [_Sym(f"t{r}") for r in range(1, 7)]
+    assert bd._row_sum(terms, lanes).text == want
 
 
 OPTIONS = [(True, False), (False, True), (True, True)]
@@ -169,10 +216,11 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_cuda_kernels_match_plain(cuda_device, dtype):
     """Each CUDA kernel against its plain version on the card, every shape,
-    ragged batch sizes; built with --fmad=false, the two agree to the bit."""
+    ragged batch sizes that take every launch geometry; built with
+    --fmad=false and summing in the same order, the two agree to the bit."""
     profiling.reset_launch_counts()
     for br, bc in SHAPES:
-        for n in (1, 1000, 10_007):
+        for n in CUDA_NS:
             _, a_soa, b_soa = _operands(5, n, br, bc)
             a = torch.as_tensor(a_soa, dtype=dtype, device=cuda_device)
             b = torch.as_tensor(b_soa, dtype=dtype, device=cuda_device)
@@ -181,7 +229,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             torch.cuda.synchronize()
             assert torch.equal(x, bd._lstsq_soa_plain(a, b))
             assert torch.equal(r, bd._qr_r_soa_plain(a, br))
-    n_cases = len(SHAPES) * 3
+    n_cases = len(SHAPES) * len(CUDA_NS)
     counts = profiling.launch_counts()
     assert (counts.pop("blockdiag_lstsq"), counts.pop("blockdiag_qr_r")) == (n_cases, n_cases)
     assert not any(counts.values())  # no banded kernel on this path
@@ -198,7 +246,7 @@ def test_cuda_lstsq_options_match_plain(cuda_device, dtype, scaled, stepnorm):
     profiling.reset_launch_counts()
     ncalls = 0
     for br, bc in SHAPES:
-        for n in (1, 1000, 10_007):
+        for n in CUDA_NS:
             _, a_soa, b_soa = _operands(7, n, br, bc)
             a = torch.as_tensor(a_soa, dtype=dtype, device=cuda_device)
             b = torch.as_tensor(b_soa, dtype=dtype, device=cuda_device)
@@ -213,3 +261,92 @@ def test_cuda_lstsq_options_match_plain(cuda_device, dtype, scaled, stepnorm):
             else:
                 assert torch.equal(out, ref)
     assert profiling.launch_counts()["blockdiag_lstsq"] == ncalls
+
+
+class _OnCuda1(torch.Tensor):
+    """A CPU tensor that reports cuda:1, so a wrapper takes its kernel path."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 1)
+
+
+class _OnCuda0(torch.Tensor):
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def launch_recorder(monkeypatch):
+    """Every launcher swapped for a recorder of (name, args); the stream of
+    cuda:N reads as 1000 + N.  The launch counters are restored after."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            def record(*args):
+                calls.append((name, args))
+                return 0
+
+            record.__name__ = name
+            return record
+
+    monkeypatch.setattr(_build, "load", lambda br, bc: Library())
+    monkeypatch.setattr(_build, "load_banded", lambda: Library())
+    monkeypatch.setattr(_build, "current_stream", lambda device: 1000 + device)
+    for fn in profiling._KERNEL_WRAPPERS.values():
+        monkeypatch.setattr(fn, "launches", 0)
+    _build.blockdiag_launcher.cache_clear()
+    _build.banded_launcher.cache_clear()
+    yield calls
+    _build.blockdiag_launcher.cache_clear()
+    _build.banded_launcher.cache_clear()
+
+
+def _wrapper_cases():
+    """(kernel, wrapper call on operands, operands, launcher name); every
+    operand a float64 CPU tensor but ``ab`` (int32)."""
+    rng = np.random.default_rng(9)
+    f = lambda *shape: torch.as_tensor(rng.uniform(0.5, 5.0, size=shape))  # noqa: E731
+    ab = torch.tensor([[0, 2], [1, 3], [2, 4]], dtype=torch.int32)
+    chain = dict(mca=2, me=2, ci=1)
+    return [
+        ("blockdiag_lstsq", lambda a, b: bd.block_diagonal_lstsq_soa(a, b), [f(14, 5), f(7, 5)],
+         "qrk_blockdiag_lstsq_f64"),
+        ("blockdiag_lstsq", lambda a, b, s: bd.block_diagonal_lstsq_soa(a, b, b_scale=s, stepnorm=True),
+         [f(57, 5), f(19, 5), f(1)], "qrk_blockdiag_lstsq_opt_f64"),
+        ("blockdiag_qr_r", lambda a: bd.block_diagonal_qr_r_soa(a, 19), [f(57, 5)], "qrk_blockdiag_qr_r_f64"),
+        ("banded_segment_chains", lambda p, act: bk.segment_chains(p, act, ci0_rest=0, **chain),
+         [f(2, 3, 6, 2), f(2, 3)], "qrk_banded_segment_chains_f64"),
+        ("banded_chain_qr", lambda p, act: bk.chain_qr(p, act, ci0=0, **chain), [f(3, 6, 2), f(3)],
+         "qrk_banded_chain_qr_f64"),
+        ("banded_apply_w", lambda y, t, w, ab: bk.segment_apply_w(y, t, w, ab, mca=2, h=6, wrows=10),
+         [f(2, 3, 6, 2), f(2, 3, 2), f(2, 3, 6, 4), ab], "qrk_banded_apply_w_f64"),
+    ]
+
+
+_CASE_IDS = ["lstsq", "lstsq_options", "qr_r", "segment_chains", "chain_qr", "apply_w"]
+
+
+@pytest.mark.parametrize("case", range(6), ids=_CASE_IDS)
+def test_kernels_launch_on_the_operands_card(launch_recorder, case):
+    """An operand on cuda:1 reaches its launcher with ordinal 1 and cuda:1's
+    stream; the wrapper counts the launch."""
+    kernel, call, operands, launcher = _wrapper_cases()[case]
+    call(*(t.as_subclass(_OnCuda1) for t in operands))
+    ((name, args),) = launch_recorder
+    assert name == launcher and args[0] == 1 and args[-1] == 1001
+    assert profiling.launch_counts()[kernel] == 1
+
+
+@pytest.mark.parametrize("case", [0, 1, 3, 4, 5], ids=[_CASE_IDS[i] for i in (0, 1, 3, 4, 5)])
+def test_kernels_refuse_operands_on_two_cards(launch_recorder, case):
+    """Operands split over cuda:1 and cuda:0 raise before any launch (B2
+    takes one operand)."""
+    _, call, operands, _ = _wrapper_cases()[case]
+    on = [t.as_subclass(_OnCuda1) for t in operands]
+    on[-1] = operands[-1].as_subclass(_OnCuda0)
+    with pytest.raises(ValueError):
+        call(*on)
+    assert not launch_recorder and not any(profiling.launch_counts().values())
