@@ -9,8 +9,10 @@ paths' shapes, fp32: config 2's 10,000 × 7×2, the bundle host loop's 5,000 ×
 19×3 (B2) and the 1M × 7×2 point.  Each case: torch.profiler's device time
 (``chip_smoke.device_time_ms``), the per-call time (CUDA events around one
 call, ``profiling.cuda_time_ms``, which includes the wrapper's host time),
-the byte bound and the launch floor (the tree's empty kernel on its grid),
-three passes in turns.  Then config 2's ``BlockDiagonalQR`` compute + solve
+the host's time per call (``host_us``: the host clock over 200 calls back
+to back, the fastest of 5 such batches: the wrapper's launch path), the
+byte bound and the launch floor (the tree's empty kernel on its grid),
+three passes.  Then config 2's ``BlockDiagonalQR`` compute + solve
 (``chip_smoke.mesh_turns``: CUDA events around one call, synchronize before
 and after).  ``--tree`` imports ``qrkit_tpu_torch`` from another checkout
 (its kernels built into its own ``build/``); operands and timing are this
@@ -26,13 +28,13 @@ tree in its own process::
 every shape and batch ``chip_smoke.py`` checks, fp32 and fp64.
 
 ``ptxas``: registers, stack frame and spills of every kernel instantiation
-of ``blockdiag_qr.cu`` for 7×2, 19×3 and 8×8 (each with its library's lanes).
+of ``blockdiag_qr.cu`` for 7×2, 19×3 and 8×8.
 
-``sweep``: lanes per block (1, 2, 4) × CTA size (32, 64, 128, 256, and the
-launcher's choice by n) at 10,000 and 1M × 7×2 and 5,000 × 19×3, each
-variant built with ``-DQRK_LANES`` / ``-DQRK_CTA_THREADS``, held bitwise
-against the plain version summing over the same lanes, then its device time,
-two passes.  This is how each shape's lanes and the CTA rule were chosen.
+``sweep``: CTA size (32, 64, 128, 256, and the launcher's choice by n) at
+10,000 and 1M × 7×2 and 5,000 × 19×3, each variant built with
+``-DQRK_CTA_THREADS``, held bitwise against the plain version, then its
+device time, two passes.  (At commit c5f28c7 the sweep also crossed lanes
+per block, 1, 2 or 4; that is how the lanes were measured and dropped.)
 
 One JSON line per case, each with the label, the checkout and the card.
 """
@@ -57,7 +59,6 @@ CASES = (
     ("blockdiag_qr_r", 7, 2, 1_000_000),
 )
 SWEEP_SHAPES = ((7, 2, (10_000, 1_000_000)), (19, 3, (5_000,)))
-SWEEP_LANES = (1, 2, 4)
 SWEEP_CTAS = (None, 32, 64, 128, 256)  # None: the launcher's rule
 
 
@@ -78,6 +79,23 @@ def empty_launch(cs, br, bc, n):
         return lambda: fn(torch.cuda.current_device(), n)
     lib = b.load(br, bc)  # a tree from before the launchers took the device
     return lambda: b.launch(lib.qrk_blockdiag_empty, lib, torch.device("cuda"), n)
+
+
+def host_us(fn, calls=200, batches=5):
+    """The host's time per call of ``fn`` in µs: the host clock over
+    ``calls`` calls back to back (the card keeps up, so the host's launch
+    path sets the pace), synchronized after; the fastest of ``batches``."""
+    import torch
+
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    return best
 
 
 def run_time(args):
@@ -116,10 +134,12 @@ def run_time(args):
             nbytes = case_bytes(kernel, br, bc, n)
             bound_ms, bound_by = cs.bound(nbytes, 0)
             emit(kernel=kernel, shape=[br, bc], n=n, rep=rep, device_ms=device_ms, per_call_ms=per_call,
-                 floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                 host_us=host_us(fn), floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bytes=nbytes,
                  method="device_ms / floor_ms: torch.profiler's mean kernel duration over the records it "
                         "kept of 20 calls; per_call_ms: CUDA events around each call, median of 50 "
-                        "after 10 warm-ups, no synchronize between calls")
+                        "after 10 warm-ups, no synchronize between calls; host_us: the host clock over "
+                        "200 calls back to back, synchronized after, the fastest of 5 batches")
     blocks, rhs = cs.flagship_system(rng, cs.NB_CONFIG2)
     a_soa = np.ascontiguousarray(blocks.transpose(1, 2, 0).reshape(cs.BR * cs.BC, cs.NB_CONFIG2))
     mat = cs.qt.BlockDiagonal.from_soa(a_soa, cs.BR, cs.BC, device=cs.DEVICE, dtype=torch.float32)
@@ -151,11 +171,11 @@ def run_sweep(_args):
 
     b = cs._build
     smi = cs.phase_device()
-    variants = [(br, bc, g, t) for br, bc, _ in SWEEP_SHAPES for g in SWEEP_LANES for t in SWEEP_CTAS]
+    variants = [(br, bc, t) for br, bc, _ in SWEEP_SHAPES for t in SWEEP_CTAS]
 
-    def defines(br, bc, g, t):
-        d = (("QRK_BR", br), ("QRK_BC", bc), ("QRK_LANES", g))
-        return d + ((("QRK_CTA_THREADS", t),) if t else ()), f"_{br}x{bc}_g{g}_t{t or 'auto'}"
+    def defines(br, bc, t):
+        d, tag = b._blockdiag_defines(br, bc)
+        return d + ((("QRK_CTA_THREADS", t),) if t else ()), f"{tag}_t{t or 'auto'}"
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
@@ -170,8 +190,8 @@ def run_sweep(_args):
     dev = torch.cuda.current_device()
     results = {}
     for rep in range(2):
-        for br, bc, g, t in variants:
-            d, tag = defines(br, bc, g, t)
+        for br, bc, t in variants:
+            d, tag = defines(br, bc, t)
             lib = b.load_source(b.BLOCKDIAG_SOURCE, d, b._BLOCKDIAG_SIGNATURES, tag)
             lstsq = b.Launcher(lib, "qrk_blockdiag_lstsq_f32")
             qr_r = b.Launcher(lib, "qrk_blockdiag_qr_r_f32")
@@ -188,17 +208,17 @@ def run_sweep(_args):
                     for fn in calls.values():
                         fn()
                     torch.cuda.synchronize()
-                    if not (torch.equal(x, cs.bd._lstsq_soa_plain(a, rhs, lanes=g))
-                            and torch.equal(r, cs.bd._qr_r_soa_plain(a, br, lanes=g))):
+                    if not (torch.equal(x, cs.bd._lstsq_soa_plain(a, rhs))
+                            and torch.equal(r, cs.bd._qr_r_soa_plain(a, br))):
                         raise AssertionError(f"sweep variant {tag} at n={n} differs from its plain version")
                 for kernel, fn in calls.items():
                     ms = cs.device_time_ms(fn, one_kernel=True)
-                    results.setdefault((kernel, br, bc, n, g, t), []).append(ms)
+                    results.setdefault((kernel, br, bc, n, t), []).append(ms)
                     print(json.dumps({"phase": "sweep", "kernel": kernel, "shape": [br, bc], "n": n,
-                                      "lanes": g, "cta_threads": t or "auto", "rep": rep,
-                                      "device_ms": ms, "bitwise_equal": True, "gpu": smi}), flush=True)
-    for (kernel, br, bc, n, g, t), ms in sorted(results.items(), key=lambda kv: (kv[0][:4], statistics.mean(kv[1]))):
-        print(json.dumps({"phase": "sweep_summary", "kernel": kernel, "shape": [br, bc], "n": n, "lanes": g,
+                                      "cta_threads": t or "auto", "rep": rep, "device_ms": ms,
+                                      "bitwise_equal": True, "gpu": smi}), flush=True)
+    for (kernel, br, bc, n, t), ms in sorted(results.items(), key=lambda kv: (kv[0][:4], min(kv[1]))):
+        print(json.dumps({"phase": "sweep_summary", "kernel": kernel, "shape": [br, bc], "n": n,
                           "cta_threads": t or "auto", "device_ms_mean": statistics.mean(ms)}), flush=True)
 
 
@@ -213,7 +233,8 @@ def main():
     t.set_defaults(run=run_time)
     sub.add_parser("ptxas", help="registers and spills of blockdiag_qr.cu at 7x2, 19x3, 8x8").set_defaults(
         run=run_ptxas)
-    sub.add_parser("sweep", help="lanes x CTA size at the main paths' shapes").set_defaults(run=run_sweep)
+    sub.add_parser("sweep", help="B1/B2 over CTA sizes at the main paths' shapes").set_defaults(
+        run=run_sweep)
     args = ap.parse_args()
     args.run(args)
 

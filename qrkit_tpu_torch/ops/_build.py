@@ -9,9 +9,8 @@ flags, so an edited source never loads a stale library.  Libraries go under
 ``build/qrkit_tpu_torch/`` at the root of the checkout.
 
 * ``blockdiag_qr.cu``: one library per block shape (br, bc), compiled with
-  ``-DQRK_BR=br -DQRK_BC=bc -DQRK_LANES=G`` (G = :func:`blockdiag_lanes`)
-  so the per-lane recurrence unrolls fully into registers (:func:`build`,
-  :func:`load`).
+  ``-DQRK_BR=br -DQRK_BC=bc`` so the per-thread recurrence unrolls fully
+  into registers (:func:`build`, :func:`load`).
 * ``banded_chain.cu``: one library for every shape; the banded kernels take
   their geometry as arguments (:func:`load_banded`).
 
@@ -39,7 +38,7 @@ from typing import Tuple
 import torch
 
 __all__ = [
-    "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_lanes", "blockdiag_launcher", "build",
+    "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
     "build_source", "current_stream", "find_nvcc", "load", "load_banded", "load_source",
 ]
 
@@ -153,16 +152,8 @@ def load_source(
     return lib
 
 
-def blockdiag_lanes(br: int, bc: int) -> int:
-    """Lanes (threads) per block of the block-diagonal kernels for a br×bc
-    shape: 1 up to 8 rows, 2 up to 12, 4 beyond.  Each lane holds
-    ``ceil(br / G)`` rows; the plain versions sum in the same lane order."""
-    return 1 if br <= 8 else 2 if br <= 12 else 4
-
-
 def _blockdiag_defines(br: int, bc: int):
-    defines = (("QRK_BR", int(br)), ("QRK_BC", int(bc)), ("QRK_LANES", blockdiag_lanes(br, bc)))
-    return defines, f"_{br}x{bc}"
+    return (("QRK_BR", int(br)), ("QRK_BC", int(bc))), f"_{br}x{bc}"
 
 
 def build(br: int, bc: int) -> Path:

@@ -57,7 +57,7 @@ __all__ = [
     "segment_chains",
 ]
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = _build._SUFFIX  # the dtypes the kernels take
 # dynamic shared memory a CTA can use on the H100 (the launchers opt in above
 # the default 48 KB)
 SMEM_LIMIT = 227 * 1024

@@ -15,17 +15,14 @@ Counterpart of ``qrkit_tpu/ops/pallas_blockdiag.py``:
 The SoA layout is ``[br*bc, n]``: entry (r, c) of block k at
 ``[r*bc + c, k]``, the block index contiguous, so one GPU thread per block
 reads coalesced rows.  Unlike the TPU version nothing is padded: the kernels
-mask the ragged edge themselves.  Tall blocks take several lanes (threads)
-each (``_build.blockdiag_lanes``).
+mask the ragged edge themselves.
 
 Each SoA wrapper runs its hand-written CUDA kernel (``csrc/blockdiag_qr.cu``)
 on a CUDA tensor, or raises; it runs the plain version beside it only for a
 CPU tensor.  The plain versions (:func:`_lstsq_soa_plain`,
 :func:`_qr_r_soa_plain`) are the same unrolled recurrence on per-entry
-tensors of shape ``[n]``, batched over blocks, summing σ and every dot
-product in the kernels' order (:func:`_row_sum`), so kernel and plain
-version agree to the bit on the card.  Each wrapper carries a ``launches``
-counter, incremented once per kernel launch and nowhere else.
+tensors of shape ``[n]``, batched over blocks.  Each wrapper carries a
+``launches`` counter, incremented once per kernel launch and nowhere else.
 """
 from __future__ import annotations
 
@@ -42,63 +39,49 @@ __all__ = [
     "block_diagonal_qr_r_soa",
 ]
 
-_MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in registers
+_MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in one thread's registers
 _MIN_THREADS = 32  # the smallest CTA the kernels launch (grid_for in the source)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = _build._SUFFIX  # the dtypes the kernels take
 
 
-def _pairwise(terms):
-    """``terms[0] + … + terms[-1]`` as the kernels' balanced tree (split at
-    the middle); None marks a term outside the sum, where the kernels add
-    -0, an exact identity.  None when every term is."""
-    if len(terms) == 1:
-        return terms[0]
-    lo, hi = _pairwise(terms[: len(terms) // 2]), _pairwise(terms[len(terms) // 2:])
-    return hi if lo is None else lo if hi is None else lo + hi
-
-
-def _row_sum(terms, lanes: int):
-    """A sum over a block's rows in the kernels' order: ``terms[r]`` (None
-    when row r takes no part) sits on lane ``r % lanes`` in slot
-    ``r // lanes``; each lane's slots as a tree, then the lanes' partials in
-    the xor butterfly, which is the tree over the lanes."""
-    slots = -(-len(terms) // lanes)
-    terms = list(terms) + [None] * (slots * lanes - len(terms))
-    return _pairwise([_pairwise(terms[g::lanes]) for g in range(lanes)])
-
-
-def _householder_inplace(cols, rhs_list, br: int, lanes: int) -> None:
-    """Unrolled Householder QR on per-entry tensors ``cols[c][r]`` (each
-    ``[n]``, one value per block, column-major as the kernels hold a block);
-    every rhs in ``rhs_list`` (a list of per-row tensors) is updated by Hᵀ
-    too.  Unnormalized reflector ``H = I − u uᵀ / (β(β−x₀))`` with
-    ``u = (x₀−β, a[j+1..][j])``; column j is never updated, its diagonal is
-    written directly (β, or x₀ when the column is already zero below the
-    diagonal).  Every multiply and add rounds on its own, as in the CUDA
-    kernel built with ``--fmad=false``, and σ and the dot products sum in its
-    order over ``lanes`` lanes (:func:`_row_sum`)."""
-    for j, col in enumerate(cols):
-        x0 = col[j]
+def _householder_inplace(a, rhs_list, br: int, bc: int) -> None:
+    """Unrolled Householder QR on per-entry tensors ``a[r][c]`` (each
+    ``[n]``, one value per block); every rhs in ``rhs_list`` (a list of
+    per-row tensors) is updated by Hᵀ too.  Unnormalized reflector
+    ``H = I − u uᵀ / (β(β−x₀))`` with ``u = (x₀−β, a[j+1..])``; column j is
+    never updated, its diagonal is written directly (β, or x₀ when the
+    column is already zero below the diagonal).  Every multiply and add
+    rounds on its own, as in the CUDA kernel built with ``--fmad=false``."""
+    for j in range(bc):
+        x0 = a[j][j]
         one = torch.ones_like(x0)
-        sigma = _row_sum([col[r] * col[r] if r > j else None for r in range(br)], lanes)
-        if sigma is None:  # no row below the diagonal: the kernels' empty sum
-            sigma = torch.full_like(x0, -0.0)
+        sigma = torch.zeros_like(x0)
+        for r in range(j + 1, br):
+            sigma = sigma + a[r][j] * a[r][j]
         norm = torch.sqrt(x0 * x0 + sigma)
         beta = torch.where(x0 >= 0, -norm, norm)
         degen = sigma <= 0
         t = beta * (beta - x0)
         c_scale = torch.where(degen, torch.zeros_like(x0), one / torch.where(degen, one, t))
-        u = [None] * j + [x0 - beta] + col[j + 1:]
-        col[j] = torch.where(degen, x0, beta)
-        for v in cols[j + 1:] + rhs_list:
-            w = c_scale * _row_sum([u[r] * v[r] if r >= j else None for r in range(br)], lanes)
+        u = [None] * br
+        u[j] = x0 - beta
+        for r in range(j + 1, br):
+            u[r] = a[r][j]
+        a[j][j] = torch.where(degen, x0, beta)
+        for c in range(j + 1, bc):
+            w = u[j] * a[j][c]
+            for r in range(j + 1, br):
+                w = w + u[r] * a[r][c]
+            w = c_scale * w
             for r in range(j, br):
-                v[r] = v[r] - u[r] * w
-
-
-def _columns(a_soa: torch.Tensor, br: int, bc: int):
-    """``cols[c][r]``: the per-entry rows of an SoA operand, column-major."""
-    return [[a_soa[r * bc + c] for r in range(br)] for c in range(bc)]
+                a[r][c] = a[r][c] - u[r] * w
+        for rhs in rhs_list:
+            w = u[j] * rhs[j]
+            for r in range(j + 1, br):
+                w = w + u[r] * rhs[r]
+            w = c_scale * w
+            for r in range(j, br):
+                rhs[r] = rhs[r] - u[r] * w
 
 
 def _lstsq_soa_plain(
@@ -106,24 +89,22 @@ def _lstsq_soa_plain(
     b_soa: torch.Tensor,
     b_scale: Optional[torch.Tensor] = None,
     stepnorm: bool = False,
-    lanes: Optional[int] = None,
 ):
     """Plain PyTorch version of the fused QR + LS-solve kernel:
     ``a_soa [br*bc, n]``, ``b_soa [br, n]`` → ``x_soa [bc, n]``, multiplied
     by ``b_scale`` after the back-substitution when given; with ``stepnorm``
-    returns ``(x_soa, Σ x²)``.  ``lanes``: the kernel's lanes per block
-    (default that of the shape's library)."""
+    returns ``(x_soa, Σ x²)``."""
     br = b_soa.shape[0]
     bc = a_soa.shape[0] // br
-    cols = _columns(a_soa, br, bc)
+    a = [[a_soa[r * bc + c] for c in range(bc)] for r in range(br)]
     rhs = [b_soa[r] for r in range(br)]
-    _householder_inplace(cols, [rhs], br, lanes or _build.blockdiag_lanes(br, bc))
+    _householder_inplace(a, [rhs], br, bc)
     x = [None] * bc
     for j in range(bc - 1, -1, -1):
         acc = rhs[j]
         for c in range(j + 1, bc):
-            acc = acc - cols[c][j] * x[c]
-        x[j] = acc / cols[j][j]
+            acc = acc - a[j][c] * x[c]
+        x[j] = acc / a[j][j]
     if b_scale is not None:
         x = [xj * b_scale.reshape(()) for xj in x]
     x = torch.stack(x)
@@ -132,14 +113,13 @@ def _lstsq_soa_plain(
     return x
 
 
-def _qr_r_soa_plain(a_soa: torch.Tensor, br: int, lanes: Optional[int] = None) -> torch.Tensor:
+def _qr_r_soa_plain(a_soa: torch.Tensor, br: int) -> torch.Tensor:
     """Plain PyTorch version of the packed-R kernel: ``a_soa [br*bc, n]`` →
-    ``[bc(bc+1)/2, n]`` in row-major (j, c >= j) order; ``lanes`` as in
-    :func:`_lstsq_soa_plain`."""
+    ``[bc(bc+1)/2, n]`` in row-major (j, c >= j) order."""
     bc = a_soa.shape[0] // br
-    cols = _columns(a_soa, br, bc)
-    _householder_inplace(cols, [], br, lanes or _build.blockdiag_lanes(br, bc))
-    return torch.stack([cols[c][j] for j in range(bc) for c in range(j, bc)])
+    a = [[a_soa[r * bc + c] for c in range(bc)] for r in range(br)]
+    _householder_inplace(a, [], br, bc)
+    return torch.stack([a[j][c] for j in range(bc) for c in range(j, bc)])
 
 
 def _check_operand(a_soa: torch.Tensor, br: int) -> int:
@@ -208,9 +188,9 @@ def block_diagonal_lstsq_soa(
         _build.blockdiag_launcher("lstsq", br, bc, a_soa.dtype)(
             dev, a_soa.data_ptr(), b_soa.data_ptr(), x.data_ptr(), n)
     else:
-        # one partial per CTA, at most n·G/32 of them; the finish kernel writes sn
+        # one partial per CTA, at most n/32 of them; the finish kernel writes sn
         if stepnorm:
-            partials = a_soa.new_empty(-(-n * _build.blockdiag_lanes(br, bc) // _MIN_THREADS))
+            partials = a_soa.new_empty(-(-n // _MIN_THREADS))
             sn = a_soa.new_empty(())
         scale = b_scale.reshape(1).contiguous() if b_scale is not None else None
         _build.blockdiag_launcher("lstsq_opt", br, bc, a_soa.dtype)(

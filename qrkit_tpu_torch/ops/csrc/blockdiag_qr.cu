@@ -14,80 +14,74 @@
 // a[(r*BC + c)*n + k], rhs row r at b[r*n + k], x row j at x[j*n + k], packed
 // R entry e = (j, c >= j) in row-major order at r_out[e*n + k].
 //
-// Mapping: G lanes per block (QRK_LANES: 1, 2 or 4, chosen per block shape by
-// ops/_build.py's blockdiag_lanes), neighbouring threads of one warp.  Lane g
-// holds rows g, g + G, g + 2G, ... of its block in registers (ceil(BR/G)
-// "slots"), so a warp's load of one entry row covers 32/G neighbouring
-// blocks in G runs of at least one 32-byte sector, and every row is read
-// once, coalesced.  BR, BC and G are compile-time constants (one library per
-// shape), so every loop unrolls fully, as the TPU kernel's did at trace time.
-// The CTA size is chosen by n at launch (grid_for): the largest of 256, 128,
-// 64 and 32 threads that still gives every SM a CTA, so 10,000 blocks of 7x2
-// spread over 157 CTAs of 64 threads (all 132 SMs of an H100) while 1M blocks
-// run CTAs of 256.  The ragged edge is masked (k < n), never padded.
+// Mapping: one thread per block; the ragged edge is masked with k < n (no
+// padding blocks).  Neighbouring threads read neighbouring addresses, so
+// every row e of the operand is one coalesced stream.  The whole block and
+// its rhs live in registers; BR and BC are compile-time constants (one
+// library per shape), so every loop below unrolls fully, as the TPU kernel's
+// did at trace time.
 //
-// Sums: sigma and every dot product of a column are a balanced tree over the
-// lane's slots (split at the middle; a row that takes no part adds -0, the
-// exact identity of IEEE addition), then the lanes' partials in an xor
-// butterfly of warp shuffles, which leaves the same bits on every lane.  The
-// dependent chain of a column is then log2(slots) + log2(G) adds deep instead
-// of BR - j.  The back substitution runs on every lane, on R's triangle and
-// Q^T b broadcast from the lanes that hold them.
+// Grid: the CTA size is chosen by n at launch (grid_for): the largest of 256,
+// 128, 64 and 32 threads that still gives at least half of the SMs a CTA.
+// The solvers' main paths launch small batches (10,000 blocks of 7x2 for
+// config 2, 5,000 of 19x3 for the bundle's point blocks, under 1.3 MB),
+// where 256-thread CTAs filled only 40 and 20 of the H100's 132 SMs, each SM
+// queueing 8 warps of loads; they now run 79 CTAs of 128 and 79 of 64.  More,
+// smaller CTAs cost more to launch than they save (profile_blockdiag.py
+// sweep).  1M blocks still run CTAs of 256.  The sweep also measured several
+// threads ("lanes") per block with shuffle reductions, and sums as balanced
+// trees: both were slower at every shape the solvers launch (PERF.md §6),
+// so the recurrence stays one thread's, summed left to right.
 //
 // Bound: device-memory bandwidth at large n.  A 7x2 fp32 block moves
 // (14 + 7 + 2)*4 = 92 bytes for roughly 100 flops (about 1 flop/byte, against
-// the H100's ~20 fp32 flops/byte), so each input is read once and each output
-// written once.  At the batches of the solvers' main paths (5,000-10,000
-// blocks, under 1.3 MB) the grid is small and the time is the launch plus
-// one thread's dependent chain; the small CTAs and the lanes shorten both
-// the per-SM queue of loads and that chain.
+// the H100's ~20 fp32 flops/byte), so the kernels do no more than read each
+// input once and write each output once.  At the main paths' small batches
+// the time is the launch (the empty kernel on the same grid) plus one
+// thread's loads and dependent chain.
 //
 // Options (template flags, so the plain instantiation is the code it was):
 //   SCALED    x is multiplied by *scale, a device scalar read by every thread
 //             (never a host float: no host sync); by linearity that is the
 //             solution for scale * b.  Applied after the back substitution,
 //             as the TPU kernel does.
-//   STEPNORM  sum of x^2 over every block: lane 0 of each block sums its
+//   STEPNORM  sum of x^2 over every block: each thread sums its block's
 //             (scaled) x_j^2, the CTA reduces them (warp shuffles, then one
 //             value per warp in shared memory) into partials[blockIdx.x],
 //             and stepnorm_finish_kernel adds the partials in a fixed order
 //             (no atomics: the same inputs on the same grid give the same
 //             bits).  Threads past the ragged edge contribute exactly 0.
 //
-// Numerics: true division and sqrt (no --use_fast_math), one reciprocal per
-// column, and the build turns off FMA contraction (--fmad=false) so every
-// multiply and add rounds on its own, exactly as the op-by-op plain PyTorch
-// version in ops/blockdiag.py does (which sums in the same tree and lane
-// order).  The kernel then agrees with the plain version to the bit, even on
+// Numerics: true division and sqrt (no --use_fast_math), and the build turns
+// off FMA contraction (--fmad=false) so every multiply and add rounds on its
+// own, exactly as the op-by-op plain PyTorch version in ops/blockdiag.py
+// does.  The kernel then agrees with the plain version to the bit, even on
 // ill-conditioned blocks where one ulp in R is amplified by cond(A) in x.
 //
 // Device: each launcher first makes its operands' device current in this
-// library's CUDA runtime (linked statically, so its own current device, 0
-// until set), then launches on the stream it is given.
+// library's CUDA runtime (linked statically, so it has its own current
+// device, 0 until set), then launches on the stream it is given.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-//        -shared -Xcompiler -fPIC -DQRK_BR=<rows> -DQRK_BC=<cols> -DQRK_LANES=<G>
+//        -shared -Xcompiler -fPIC -DQRK_BR=<rows> -DQRK_BC=<cols>
 // (ops/_build.py does this at first use, one library per block shape).
-// -DQRK_CTA_THREADS=<t> fixes the CTA size instead (profile_blockdiag.py's
+// -DQRK_CTA_THREADS=<t> fixes the CTA size instead (profile_blockdiag.py
 // sweep).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#if !defined(QRK_BR) || !defined(QRK_BC) || !defined(QRK_LANES)
-#error "compile with -DQRK_BR=<block rows> -DQRK_BC=<block cols> -DQRK_LANES=<lanes per block>"
+#if !defined(QRK_BR) || !defined(QRK_BC)
+#error "compile with -DQRK_BR=<block rows> -DQRK_BC=<block cols>"
 #endif
 
 static_assert(QRK_BC >= 1 && QRK_BR >= QRK_BC, "portrait blocks only (br >= bc >= 1)");
 static_assert(QRK_BR * QRK_BC <= 64, "the register-resident recurrence is for br*bc <= 64");
-static_assert((QRK_LANES == 1 || QRK_LANES == 2 || QRK_LANES == 4) && QRK_LANES <= QRK_BR,
-              "1, 2 or 4 lanes per block, each with a row");
 
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kMaxDevices = 64;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Make `device` current in this library's runtime; a no-op when it is.
 cudaError_t use_device(int device) {
@@ -110,129 +104,82 @@ struct Grid {
   unsigned ctas, threads;
 };
 
-// G threads per block, in CTAs of the largest of 256, 128, 64, 32 threads that
-// still leaves no SM without a CTA (32 when even that cannot).
+// One thread per block, in CTAs of the largest of 256, 128, 64, 32 threads
+// that still gives at least half of the SMs a CTA (32 when even that cannot).
 Grid grid_for(int64_t n, int device) {
-  const int64_t total = n * QRK_LANES;
 #ifdef QRK_CTA_THREADS
   (void)device;
   const int64_t t = QRK_CTA_THREADS;
 #else
-  const int64_t sms = sm_count(device);
+  const int64_t half = (sm_count(device) + 1) / 2;
   int64_t t = kMaxThreads;
-  while (t > 32 && (total + t - 1) / t < sms) t >>= 1;
+  while (t > 32 && (n + t - 1) / t < half) t >>= 1;
 #endif
-  return {(unsigned)((total + t - 1) / t), (unsigned)t};
+  return {(unsigned)((n + t - 1) / t), (unsigned)t};
 }
 
-__host__ __device__ constexpr int rows_per_lane(int br, int g) { return (br + g - 1) / g; }
-
-// t[LO] + ... + t[HI-1] as a balanced tree split at LO + (HI - LO) / 2.
-template <int LO, int HI, typename T, int N>
-__device__ __forceinline__ T tree_sum(const T (&t)[N]) {
-  if constexpr (HI - LO == 1) {
-    return t[LO];
-  } else {
-    constexpr int MID = LO + (HI - LO) / 2;
-    return tree_sum<LO, MID>(t) + tree_sum<MID, HI>(t);
-  }
-}
-
-// A sum over the block's rows: each lane's slots as a tree, then the lanes'
-// partials in an xor butterfly ((p0 + p1) + (p2 + p3) on every lane).
-template <int G, typename T, int N>
-__device__ __forceinline__ T row_sum(const T (&t)[N]) {
-  T p = tree_sum<0, N>(t);
-#pragma unroll
-  for (int m = 1; m < G; m <<= 1) p = p + __shfl_xor_sync(kFull, p, m);
-  return p;
-}
-
-// v as held by lane `src` of this thread's block.
-template <int G, typename T>
-__device__ __forceinline__ T from_lane(T v, int src) {
-  if constexpr (G == 1) {
-    return v;
-  } else {
-    return __shfl_sync(kFull, v, src, G);
-  }
-}
-
-// One reflector applied to one column v of the block (or to the rhs):
-// w = c * (u . v) over the rows r >= j, then v_r -= u_r w on those rows.
-template <int BR, int G, typename T, int RPL>
-__device__ __forceinline__ void reflect(const T (&u)[RPL], T c, int j, int g, T (&v)[RPL]) {
-  T terms[RPL];
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    const int r = g + G * i;
-    terms[i] = (r >= j && r < BR) ? u[i] * v[i] : T(-0.0);
-  }
-  const T w = c * row_sum<G>(terms);
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    const int r = g + G * i;
-    if (r >= j && r < BR) v[i] = v[i] - u[i] * w;
-  }
-}
-
-// Unrolled Householder QR of one block in place, column-major in registers
-// (a[c][i]: column c, slot i = row g + G*i of lane g), in the unnormalized
-// reflector form H = I - u u^T / (beta (beta - x0)) with
-// u = (x0 - beta, a[j+1..][j]): one reciprocal per column.  Column j itself
-// is never updated; only its diagonal survives into R, written directly as
-// beta (or x0 when the column is already zero below the diagonal).  With
-// WITH_RHS, H is applied to rhs as well, so rhs ends as Q^T b.  A row outside
-// a sum adds -0: x + (-0) == x for every x, so the tree's bits are those of
-// its present terms in their places.
-template <typename T, int BR, int BC, int G, bool WITH_RHS, int RPL = rows_per_lane(BR, G)>
-__device__ __forceinline__ void householder_inplace(T (&a)[BC][RPL], T (&rhs)[RPL], int g) {
+// Unrolled Householder QR of a[BR][BC] in place, in the unnormalized
+// reflector form H = I - u u^T / (beta (beta - x0)) with u = (x0 - beta,
+// a[j+1..][j]): one reciprocal per column.  Column j itself is never
+// updated; only its diagonal survives into R, written directly as beta (or
+// x0 when the column is already zero below the diagonal).  With WITH_RHS,
+// H is applied to rhs as well, so rhs ends as Q^T b.
+template <typename T, int BR, int BC, bool WITH_RHS>
+__device__ __forceinline__ void householder_inplace(T (&a)[BR][BC], T (&rhs)[BR]) {
 #pragma unroll
   for (int j = 0; j < BC; ++j) {
-    const T x0 = from_lane<G>(a[j][j / G], j % G);
-    T terms[RPL];
+    const T x0 = a[j][j];
+    T sigma = T(0);
 #pragma unroll
-    for (int i = 0; i < RPL; ++i) {
-      const int r = g + G * i;
-      terms[i] = (r > j && r < BR) ? a[j][i] * a[j][i] : T(-0.0);
-    }
-    const T sigma = row_sum<G>(terms);
+    for (int r = j + 1; r < BR; ++r) sigma = sigma + a[r][j] * a[r][j];
     const T norm = sqrt(x0 * x0 + sigma);
     const T beta = x0 >= T(0) ? -norm : norm;
     const bool degen = sigma <= T(0);
     // u^T u = 2 beta (beta - x0); H = I - u u^T * c, c = 1 / (beta (beta - x0))
     const T t = beta * (beta - x0);
     const T c = degen ? T(0) : T(1) / t;
-    T u[RPL];
+    T u[BR];
+    u[j] = x0 - beta;
 #pragma unroll
-    for (int i = 0; i < RPL; ++i) u[i] = g + G * i == j ? x0 - beta : a[j][i];
-    if (g == j % G) a[j][j / G] = degen ? x0 : beta;
+    for (int r = j + 1; r < BR; ++r) u[r] = a[r][j];
+    a[j][j] = degen ? x0 : beta;
 #pragma unroll
-    for (int col = j + 1; col < BC; ++col) reflect<BR, G>(u, c, j, g, a[col]);
-    if constexpr (WITH_RHS) reflect<BR, G>(u, c, j, g, rhs);
+    for (int col = j + 1; col < BC; ++col) {
+      T w = u[j] * a[j][col];
+#pragma unroll
+      for (int r = j + 1; r < BR; ++r) w = w + u[r] * a[r][col];
+      w = c * w;
+#pragma unroll
+      for (int r = j; r < BR; ++r) a[r][col] = a[r][col] - u[r] * w;
+    }
+    if constexpr (WITH_RHS) {
+      T w = u[j] * rhs[j];
+#pragma unroll
+      for (int r = j + 1; r < BR; ++r) w = w + u[r] * rhs[r];
+      w = c * w;
+#pragma unroll
+      for (int r = j; r < BR; ++r) rhs[r] = rhs[r] - u[r] * w;
+    }
   }
 }
 
-template <typename T, int BR, int BC, int G, int RPL = rows_per_lane(BR, G)>
-__device__ __forceinline__ void load_rows(const T* __restrict__ a, int64_t n, int64_t k, int g,
-                                          bool live, T (&m)[BC][RPL]) {
+template <typename T, int BR, int BC>
+__device__ __forceinline__ void load_block(const T* __restrict__ a, int64_t n, int64_t k,
+                                           T (&m)[BR][BC]) {
 #pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    const int r = g + G * i;
+  for (int r = 0; r < BR; ++r)
 #pragma unroll
-    for (int c = 0; c < BC; ++c)
-      m[c][i] = (live && r < BR) ? a[(int64_t)(r * BC + c) * n + k] : T(0);
-  }
+    for (int c = 0; c < BC; ++c) m[r][c] = a[(int64_t)(r * BC + c) * n + k];
 }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(kFull, v, m);
+  for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, m);
   return v;
 }
 
-// The sum of v over the CTA (runtime blockDim.x, a multiple of 32 up to
+// The sum of v over the CTA (blockDim.x a multiple of 32, at most
 // kMaxThreads): warp shuffles, one value per warp in shared memory, then
 // warp 0 adds those.  Thread 0 holds the result.
 template <typename T>
@@ -248,52 +195,45 @@ __device__ __forceinline__ T cta_sum(T v) {
   return v;
 }
 
-template <typename T, int BR, int BC, int G, bool SCALED = false, bool STEPNORM = false>
+template <typename T, int BR, int BC, bool SCALED = false, bool STEPNORM = false>
 __global__ void __launch_bounds__(kMaxThreads)
 blockdiag_lstsq_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ x,
                        int64_t n, const T* __restrict__ scale = nullptr,
                        T* __restrict__ partials = nullptr) {
-  constexpr int RPL = rows_per_lane(BR, G);
-  const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  const int g = (int)(threadIdx.x % G);
-  const bool live = k < n;
-  if constexpr (G == 1 && !STEPNORM) {
-    if (!live) return;  // no shuffle below needs this thread
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (!STEPNORM) {
+    if (k >= n) return;
   }
-  T m[BC][RPL];
-  T rhs[RPL];
-  load_rows<T, BR, BC, G>(a, n, k, g, live, m);
+  T sq = T(0);  // this block's sum of x_j^2 (STEPNORM only)
+  if (k < n) {
+    T m[BR][BC];
+    T rhs[BR];
+    load_block<T, BR, BC>(a, n, k, m);
 #pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    const int r = g + G * i;
-    rhs[i] = (live && r < BR) ? b[(int64_t)r * n + k] : T(0);
-  }
-  householder_inplace<T, BR, BC, G, true>(m, rhs, g);
-  // back substitution on the BC x BC upper triangle, on every lane
-  T xs[BC];
+    for (int r = 0; r < BR; ++r) rhs[r] = b[(int64_t)r * n + k];
+    householder_inplace<T, BR, BC, true>(m, rhs);
+    // back substitution on the BC x BC upper triangle
+    T xs[BC];
 #pragma unroll
-  for (int j = BC - 1; j >= 0; --j) {
-    T acc = from_lane<G>(rhs[j / G], j % G);
+    for (int j = BC - 1; j >= 0; --j) {
+      T acc = rhs[j];
 #pragma unroll
-    for (int c = j + 1; c < BC; ++c) acc = acc - from_lane<G>(m[c][j / G], j % G) * xs[c];
-    xs[j] = acc / from_lane<G>(m[j][j / G], j % G);
-  }
-  if constexpr (SCALED) {
-    const T s = *scale;
+      for (int c = j + 1; c < BC; ++c) acc = acc - m[j][c] * xs[c];
+      xs[j] = acc / m[j][j];
+    }
+    if constexpr (SCALED) {
+      const T s = *scale;
 #pragma unroll
-    for (int j = 0; j < BC; ++j) xs[j] = xs[j] * s;
-  }
-  if (live) {
+      for (int j = 0; j < BC; ++j) xs[j] = xs[j] * s;
+    }
 #pragma unroll
-    for (int j = 0; j < BC; ++j)
-      if (g == j % G) x[(int64_t)j * n + k] = xs[j];
-  }
-  if constexpr (STEPNORM) {
-    T sq = T(0);  // this block's sum of x_j^2, on its lane 0
-    if (live && g == 0) {
+    for (int j = 0; j < BC; ++j) x[(int64_t)j * n + k] = xs[j];
+    if constexpr (STEPNORM) {
 #pragma unroll
       for (int j = 0; j < BC; ++j) sq = sq + xs[j] * xs[j];
     }
+  }
+  if constexpr (STEPNORM) {
     sq = cta_sum(sq);
     if (threadIdx.x == 0) partials[blockIdx.x] = sq;
   }
@@ -310,28 +250,20 @@ stepnorm_finish_kernel(const T* __restrict__ partials, int64_t nparts, T* __rest
   if (threadIdx.x == 0) *out = v;
 }
 
-template <typename T, int BR, int BC, int G>
+template <typename T, int BR, int BC>
 __global__ void __launch_bounds__(kMaxThreads)
 blockdiag_qr_r_kernel(const T* __restrict__ a, T* __restrict__ r_out, int64_t n) {
-  constexpr int RPL = rows_per_lane(BR, G);
-  const int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  const int g = (int)(threadIdx.x % G);
-  const bool live = k < n;
-  if constexpr (G == 1) {
-    if (!live) return;
-  }
-  T m[BC][RPL];
-  T unused[RPL];
-  load_rows<T, BR, BC, G>(a, n, k, g, live, m);
-  householder_inplace<T, BR, BC, G, false>(m, unused, g);
-  if (!live) return;
+  const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  T m[BR][BC];
+  T unused[BR];
+  load_block<T, BR, BC>(a, n, k, m);
+  householder_inplace<T, BR, BC, false>(m, unused);
   int e = 0;
 #pragma unroll
-  for (int j = 0; j < BC; ++j) {
+  for (int j = 0; j < BC; ++j)
 #pragma unroll
-    for (int c = j; c < BC; ++c, ++e)
-      if (g == j % G) r_out[(int64_t)e * n + k] = m[c][j / G];
-  }
+    for (int c = j; c < BC; ++c) r_out[(int64_t)(e++) * n + k] = m[j][c];
 }
 
 // The launch floor of B1/B2: a kernel that does nothing, on their grid.
@@ -340,7 +272,7 @@ blockdiag_qr_r_kernel(const T* __restrict__ a, T* __restrict__ r_out, int64_t n)
 // (chip_smoke.py times it).
 __global__ void __launch_bounds__(kMaxThreads) empty_kernel() {}
 
-// Make the device current, pick the grid for n, enqueue, return
+// Make the device current, pick the grid for n, enqueue; returns
 // cudaGetLastError().
 template <typename F>
 int launch_on(int device, int64_t n, F&& enqueue) {
@@ -351,30 +283,28 @@ int launch_on(int device, int64_t n, F&& enqueue) {
 
 template <typename T>
 cudaError_t launch_lstsq(const T* a, const T* b, T* x, int64_t n, Grid gr, cudaStream_t stream) {
-  blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, QRK_LANES>
-      <<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n);
+  blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC><<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n);
   return cudaGetLastError();
 }
 
 // The options: scale may be null (no b_scale); partials and sn_out are both
 // null (no stepnorm) or both set, partials holding one value per CTA (at
-// most ceil(n * QRK_LANES / 32)).
+// most ceil(n / 32)).
 template <typename T>
 cudaError_t launch_lstsq_opt(const T* a, const T* b, T* x, const T* scale, T* partials,
                              T* sn_out, int64_t n, Grid gr, cudaStream_t stream) {
-  constexpr int BR = QRK_BR, BC = QRK_BC, G = QRK_LANES;
   const bool scaled = scale != nullptr, stepnorm = partials != nullptr;
   if (scaled && stepnorm) {
-    blockdiag_lstsq_kernel<T, BR, BC, G, true, true>
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, true, true>
         <<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n, scale, partials);
   } else if (scaled) {
-    blockdiag_lstsq_kernel<T, BR, BC, G, true, false>
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, true, false>
         <<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n, scale, nullptr);
   } else if (stepnorm) {
-    blockdiag_lstsq_kernel<T, BR, BC, G, false, true>
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC, false, true>
         <<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n, nullptr, partials);
   } else {
-    blockdiag_lstsq_kernel<T, BR, BC, G><<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n);
+    blockdiag_lstsq_kernel<T, QRK_BR, QRK_BC><<<gr.ctas, gr.threads, 0, stream>>>(a, b, x, n);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !stepnorm) return err;
@@ -384,8 +314,7 @@ cudaError_t launch_lstsq_opt(const T* a, const T* b, T* x, const T* scale, T* pa
 
 template <typename T>
 cudaError_t launch_qr_r(const T* a, T* r_out, int64_t n, Grid gr, cudaStream_t stream) {
-  blockdiag_qr_r_kernel<T, QRK_BR, QRK_BC, QRK_LANES>
-      <<<gr.ctas, gr.threads, 0, stream>>>(a, r_out, n);
+  blockdiag_qr_r_kernel<T, QRK_BR, QRK_BC><<<gr.ctas, gr.threads, 0, stream>>>(a, r_out, n);
   return cudaGetLastError();
 }
 
