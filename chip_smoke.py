@@ -1616,16 +1616,6 @@ def phase_blocked_thin(rng, smi):
 LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P), (BR, BC, NB_REAL))
 
 
-def blockdiag_grid(n):
-    """(CTAs, threads per CTA) the block-diagonal launchers pick for n
-    blocks (``grid_for`` in csrc/blockdiag_qr.cu), for the record."""
-    half = (torch.cuda.get_device_properties(0).multi_processor_count + 1) // 2
-    t = 256
-    while t > 32 and -(-n // t) < half:
-        t //= 2
-    return -(-n // t), t
-
-
 def phase_launch_floor(smi):
     """Device time of a kernel that does nothing on B1/B2's grid at config
     2's 10,000 × 7×2, the bundle's 5,000 × 19×3 and the 1M-block point: what
@@ -1637,9 +1627,8 @@ def phase_launch_floor(smi):
         empty = _build.blockdiag_launcher("empty", br, bc)
         ms = device_time_ms(lambda: empty(dev, n), one_kernel=True)
         out[f"{n}x{br}x{bc}"] = ms
-        ctas, threads = blockdiag_grid(n)
-        emit({"phase": "launch_floor", "n": n, "shape": [br, bc], "grid_ctas": ctas,
-              "cta_threads": threads, "device_ms": ms, "method": "torch.profiler's mean kernel "
+        emit({"phase": "launch_floor", "n": n, "shape": [br, bc], "device_ms": ms,
+              "method": "torch.profiler's mean kernel "
               "duration over the records it kept of 20 launches of the empty kernel", "gpu": smi})
     return out
 

@@ -2,7 +2,6 @@
 
     python3 profile_blockdiag.py time --label NAME [--tree CHECKOUT] [--errors]
     python3 profile_blockdiag.py ptxas
-    python3 profile_blockdiag.py sweep
 
 ``time``: B1 (``blockdiag_lstsq``) and B2 (``blockdiag_qr_r``) at the main
 paths' shapes, fp32: config 2's 10,000 × 7×2, the bundle host loop's 5,000 ×
@@ -30,11 +29,9 @@ every shape and batch ``chip_smoke.py`` checks, fp32 and fp64.
 ``ptxas``: registers, stack frame and spills of every kernel instantiation
 of ``blockdiag_qr.cu`` for 7×2, 19×3 and 8×8.
 
-``sweep``: CTA size (32, 64, 128, 256, and the launcher's choice by n) at
-10,000 and 1M × 7×2 and 5,000 × 19×3, each variant built with
-``-DQRK_CTA_THREADS``, held bitwise against the plain version, then its
-device time, two passes.  (At commit c5f28c7 the sweep also crossed lanes
-per block, 1, 2 or 4; that is how the lanes were measured and dropped.)
+The CTA-size sweep that chose the launchers' rule (``grid_for`` in
+``blockdiag_qr.cu``) is this script's ``sweep`` at commit 9ec7e69; at
+commit c5f28c7 it also crossed lanes per block, 1, 2 or 4.
 
 One JSON line per case, each with the label, the checkout and the card.
 """
@@ -43,7 +40,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
-import statistics
 import time
 from pathlib import Path
 
@@ -58,8 +54,6 @@ CASES = (
     ("blockdiag_lstsq", 7, 2, 1_000_000),
     ("blockdiag_qr_r", 7, 2, 1_000_000),
 )
-SWEEP_SHAPES = ((7, 2, (10_000, 1_000_000)), (19, 3, (5_000,)))
-SWEEP_CTAS = (None, 32, 64, 128, 256)  # None: the launcher's rule
 
 
 def case_bytes(kernel, br, bc, n, itemsize=4):
@@ -73,12 +67,9 @@ def empty_launch(cs, br, bc, n):
     """The tree's empty kernel on B1/B2's grid for n blocks of br×bc."""
     import torch
 
-    b = cs._build
-    if hasattr(b, "blockdiag_launcher"):
-        fn = b.blockdiag_launcher("empty", br, bc)
-        return lambda: fn(torch.cuda.current_device(), n)
-    lib = b.load(br, bc)  # a tree from before the launchers took the device
-    return lambda: b.launch(lib.qrk_blockdiag_empty, lib, torch.device("cuda"), n)
+    fn = cs._build.blockdiag_launcher("empty", br, bc)
+    dev = torch.cuda.current_device()
+    return lambda: fn(dev, n)
 
 
 def host_us(fn, calls=200, batches=5):
@@ -164,64 +155,6 @@ def run_ptxas(_args):
             print(json.dumps({"shape": [br, bc], **k}), flush=True)
 
 
-def run_sweep(_args):
-    cs = load_smoke(None)
-    import numpy as np
-    import torch
-
-    b = cs._build
-    smi = cs.phase_device()
-    variants = [(br, bc, t) for br, bc, _ in SWEEP_SHAPES for t in SWEEP_CTAS]
-
-    def defines(br, bc, t):
-        d, tag = b._blockdiag_defines(br, bc)
-        return d + ((("QRK_CTA_THREADS", t),) if t else ()), f"{tag}_t{t or 'auto'}"
-
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-        list(pool.map(lambda v: b.build_source(b.BLOCKDIAG_SOURCE, *defines(*v)), variants))
-    print(json.dumps({"phase": "sweep_build", "libraries": len(variants),
-                      "seconds": time.perf_counter() - t0}), flush=True)
-    rng = np.random.default_rng(cs.SEED)
-    ops = {}
-    for br, bc, ns in SWEEP_SHAPES:
-        for n in ns:
-            ops[br, bc, n] = cs.soa_operands(rng, n, br, bc, torch.float32, cs.DEVICE, degenerate=False)
-    dev = torch.cuda.current_device()
-    results = {}
-    for rep in range(2):
-        for br, bc, t in variants:
-            d, tag = defines(br, bc, t)
-            lib = b.load_source(b.BLOCKDIAG_SOURCE, d, b._BLOCKDIAG_SIGNATURES, tag)
-            lstsq = b.Launcher(lib, "qrk_blockdiag_lstsq_f32")
-            qr_r = b.Launcher(lib, "qrk_blockdiag_qr_r_f32")
-            for (sbr, sbc, n), (a, rhs) in ops.items():
-                if (sbr, sbc) != (br, bc):
-                    continue
-                x = torch.empty((bc, n), device=cs.DEVICE)
-                r = torch.empty((bc * (bc + 1) // 2, n), device=cs.DEVICE)
-                calls = {
-                    "blockdiag_lstsq": lambda: lstsq(dev, a.data_ptr(), rhs.data_ptr(), x.data_ptr(), n),
-                    "blockdiag_qr_r": lambda: qr_r(dev, a.data_ptr(), r.data_ptr(), n),
-                }
-                if rep == 0:
-                    for fn in calls.values():
-                        fn()
-                    torch.cuda.synchronize()
-                    if not (torch.equal(x, cs.bd._lstsq_soa_plain(a, rhs))
-                            and torch.equal(r, cs.bd._qr_r_soa_plain(a, br))):
-                        raise AssertionError(f"sweep variant {tag} at n={n} differs from its plain version")
-                for kernel, fn in calls.items():
-                    ms = cs.device_time_ms(fn, one_kernel=True)
-                    results.setdefault((kernel, br, bc, n, t), []).append(ms)
-                    print(json.dumps({"phase": "sweep", "kernel": kernel, "shape": [br, bc], "n": n,
-                                      "cta_threads": t or "auto", "rep": rep, "device_ms": ms,
-                                      "bitwise_equal": True, "gpu": smi}), flush=True)
-    for (kernel, br, bc, n, t), ms in sorted(results.items(), key=lambda kv: (kv[0][:4], min(kv[1]))):
-        print(json.dumps({"phase": "sweep_summary", "kernel": kernel, "shape": [br, bc], "n": n,
-                          "cta_threads": t or "auto", "device_ms_mean": statistics.mean(ms)}), flush=True)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="command", required=True)
@@ -233,8 +166,6 @@ def main():
     t.set_defaults(run=run_time)
     sub.add_parser("ptxas", help="registers and spills of blockdiag_qr.cu at 7x2, 19x3, 8x8").set_defaults(
         run=run_ptxas)
-    sub.add_parser("sweep", help="B1/B2 over CTA sizes at the main paths' shapes").set_defaults(
-        run=run_sweep)
     args = ap.parse_args()
     args.run(args)
 

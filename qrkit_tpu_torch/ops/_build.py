@@ -14,11 +14,12 @@ flags, so an edited source never loads a stale library.  Libraries go under
 * ``banded_chain.cu``: one library for every shape; the banded kernels take
   their geometry as arguments (:func:`load_banded`).
 
-Each launcher takes its operands' CUDA ordinal first and makes that device
-current in the library's own (static) CUDA runtime before it launches, so
-the kernels run on any ``cuda:N``.  :func:`blockdiag_launcher` /
-:func:`banded_launcher` bind a launcher once (:class:`Launcher`); a call
-then costs one ctypes call and one read of the device's current stream.
+Each launcher takes its operands' CUDA ordinal first, makes that device
+current for the launch and the caller's device current again after it, so
+the kernels run on any ``cuda:N`` and leave PyTorch's current device as it
+was.  :func:`blockdiag_launcher` / :func:`banded_launcher` bind a launcher
+once (:class:`Launcher`); a call then costs one ctypes call and one read of
+the device's current stream.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises with
 the compiler's output.

@@ -40,7 +40,9 @@ __all__ = [
 ]
 
 _MAX_ENTRIES = 64  # br*bc cap: the recurrence lives in one thread's registers
-_MIN_THREADS = 32  # the smallest CTA the kernels launch (grid_for in the source)
+# the smallest CTA the kernels launch (kMinThreads in the source, which
+# static_asserts this value): one stepnorm partial per CTA, at most n/32
+_MIN_THREADS = 32
 _SUFFIX = _build._SUFFIX  # the dtypes the kernels take
 
 

@@ -718,28 +718,45 @@ cudaError_t launch_apply_w(const T* y, const T* tau, const T* w, const int32_t* 
   return cudaGetLastError();
 }
 
-// Make `device` current in this library's CUDA runtime (linked statically,
-// so its own current device, 0 until set); a no-op when it already is.
-cudaError_t use_device(int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess || current == device) return err;
-  return cudaSetDevice(device);
-}
+// Makes `device` current for the guard's lifetime, then the caller's device
+// again.  This library's CUDA runtime (linked statically) and PyTorch's both
+// follow the thread's current CUDA context, so a switch left in place would
+// move PyTorch's current device too.  Costs one cudaGetDevice when `device`
+// is current already.  (The same guard as blockdiag_qr.cu's.)
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      switched_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = -1;
+  bool switched_ = false;
+  cudaError_t err_ = cudaSuccess;
+};
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py).  Each launcher makes
 // `device` (its operands' CUDA ordinal) current, enqueues one kernel on the
-// caller's stream of that device, does not synchronize, and returns
+// caller's stream of that device, makes the caller's device current again
+// (the guard's destructor, on return), does not synchronize, and returns
 // cudaGetLastError() (0 on success).  The caller allocates every buffer and
 // checks the shared-memory size (ops.banded.chain_smem_bytes /
 // apply_w_smem_bytes, at most SMEM_LIMIT; above 48 KB the launcher opts in).
-#define QRK_ON_DEVICE(device)                   \
-  do {                                          \
-    const cudaError_t err_ = use_device(device); \
-    if (err_ != cudaSuccess) return (int)err_;  \
-  } while (0)
+#define QRK_ON_DEVICE(device)                  \
+  const DeviceGuard device_guard_(device);     \
+  if (device_guard_.error() != cudaSuccess) return (int)device_guard_.error()
 
 extern "C" {
 

@@ -21,17 +21,19 @@
 // library per shape), so every loop below unrolls fully, as the TPU kernel's
 // did at trace time.
 //
-// Grid: the CTA size is chosen by n at launch (grid_for): the largest of 256,
-// 128, 64 and 32 threads that still gives at least half of the SMs a CTA.
-// The solvers' main paths launch small batches (10,000 blocks of 7x2 for
-// config 2, 5,000 of 19x3 for the bundle's point blocks, under 1.3 MB),
-// where 256-thread CTAs filled only 40 and 20 of the H100's 132 SMs, each SM
+// Grid: the CTA size is chosen by n alone at launch (grid_for): the largest
+// of 256, 128, 64 and 32 threads that still makes kMinCtas CTAs, half of the
+// H100's 132 SMs.  The solvers' main paths launch small batches (10,000
+// blocks of 7x2 for config 2, 5,000 of 19x3 for the bundle's point blocks,
+// under 1.3 MB), where 256-thread CTAs filled only 40 and 20 SMs, each SM
 // queueing 8 warps of loads; they now run 79 CTAs of 128 and 79 of 64.  More,
-// smaller CTAs cost more to launch than they save (profile_blockdiag.py
-// sweep).  1M blocks still run CTAs of 256.  The sweep also measured several
-// threads ("lanes") per block with shuffle reductions, and sums as balanced
-// trees: both were slower at every shape the solvers launch (PERF.md §6),
-// so the recurrence stays one thread's, summed left to right.
+// smaller CTAs cost more to launch than they save.  1M blocks still run CTAs
+// of 256.  The sweep that measured this (CTA sizes, and several threads
+// ("lanes") per block with shuffle reductions, and sums as balanced trees,
+// both slower at every shape the solvers launch; PERF.md §6) is
+// profile_blockdiag.py's `sweep` at commits c5f28c7 and 9ec7e69; the
+// recurrence stays one thread's, summed left to right.  The grid does not
+// depend on the card, so the stepnorm sum's bits depend on n alone.
 //
 // Bound: device-memory bandwidth at large n.  A 7x2 fp32 block moves
 // (14 + 7 + 2)*4 = 92 bytes for roughly 100 flops (about 1 flop/byte, against
@@ -58,15 +60,13 @@
 // does.  The kernel then agrees with the plain version to the bit, even on
 // ill-conditioned blocks where one ulp in R is amplified by cond(A) in x.
 //
-// Device: each launcher first makes its operands' device current in this
-// library's CUDA runtime (linked statically, so it has its own current
-// device, 0 until set), then launches on the stream it is given.
+// Device: each launcher makes its operands' device current for the launch
+// and makes the caller's device current again after it (DeviceGuard), then
+// launches on the stream it is given.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -shared -Xcompiler -fPIC -DQRK_BR=<rows> -DQRK_BC=<cols>
 // (ops/_build.py does this at first use, one library per block shape).
-// -DQRK_CTA_THREADS=<t> fixes the CTA size instead (profile_blockdiag.py
-// sweep).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -81,40 +81,47 @@ static_assert(QRK_BR * QRK_BC <= 64, "the register-resident recurrence is for br
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr int kMaxDevices = 64;
+constexpr int kMinThreads = 32;
+constexpr int64_t kMinCtas = 66;  // half of the H100's 132 SMs
+// ops/blockdiag.py sizes the stepnorm partials, one per CTA, as ceil(n / 32)
+static_assert(kMinThreads == 32, "the stepnorm partials buffer holds ceil(n / 32) values");
 
-// Make `device` current in this library's runtime; a no-op when it is.
-cudaError_t use_device(int device) {
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess || current == device) return err;
-  return cudaSetDevice(device);
-}
+// Makes `device` current for the guard's lifetime, then the caller's device
+// again.  This library's CUDA runtime (linked statically) and PyTorch's both
+// follow the thread's current CUDA context, so a switch left in place would
+// move PyTorch's current device too.  Costs one cudaGetDevice when `device`
+// is current already.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      switched_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  DeviceGuard(const DeviceGuard&) = delete;
+  DeviceGuard& operator=(const DeviceGuard&) = delete;
+  cudaError_t error() const { return err_; }
 
-int sm_count(int device) {
-  static int cached[kMaxDevices] = {};
-  if (device >= 0 && device < kMaxDevices && cached[device]) return cached[device];
-  int sms = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
-  if (device >= 0 && device < kMaxDevices) cached[device] = sms;
-  return sms;
-}
+ private:
+  int prev_ = -1;
+  bool switched_ = false;
+  cudaError_t err_ = cudaSuccess;
+};
 
 struct Grid {
   unsigned ctas, threads;
 };
 
 // One thread per block, in CTAs of the largest of 256, 128, 64, 32 threads
-// that still gives at least half of the SMs a CTA (32 when even that cannot).
-Grid grid_for(int64_t n, int device) {
-#ifdef QRK_CTA_THREADS
-  (void)device;
-  const int64_t t = QRK_CTA_THREADS;
-#else
-  const int64_t half = (sm_count(device) + 1) / 2;
+// that still makes kMinCtas CTAs (32 when even that cannot).
+Grid grid_for(int64_t n) {
   int64_t t = kMaxThreads;
-  while (t > 32 && (n + t - 1) / t < half) t >>= 1;
-#endif
+  while (t > kMinThreads && (n + t - 1) / t < kMinCtas) t >>= 1;
   return {(unsigned)((n + t - 1) / t), (unsigned)t};
 }
 
@@ -272,13 +279,13 @@ blockdiag_qr_r_kernel(const T* __restrict__ a, T* __restrict__ r_out, int64_t n)
 // (chip_smoke.py times it).
 __global__ void __launch_bounds__(kMaxThreads) empty_kernel() {}
 
-// Make the device current, pick the grid for n, enqueue; returns
-// cudaGetLastError().
+// Make the device current, pick the grid for n, enqueue, restore the
+// caller's device; returns cudaGetLastError().
 template <typename F>
 int launch_on(int device, int64_t n, F&& enqueue) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)enqueue(grid_for(n, device));
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  return (int)enqueue(grid_for(n));
 }
 
 template <typename T>
@@ -323,9 +330,9 @@ cudaError_t launch_qr_r(const T* a, T* r_out, int64_t n, Grid gr, cudaStream_t s
 // Plain C interface, bound with ctypes (ops/_build.py).  Each launcher makes
 // `device` (its operands' CUDA ordinal) current, enqueues one kernel on the
 // caller's stream of that device (the lstsq_opt launcher with stepnorm a
-// second, the finish kernel), does not synchronize, and returns
-// cudaGetLastError() (0 on success).  n >= 1; the caller allocates every
-// buffer.
+// second, the finish kernel), makes the caller's device current again, does
+// not synchronize, and returns cudaGetLastError() (0 on success).  n >= 1;
+// the caller allocates every buffer.
 extern "C" {
 
 int qrk_blockdiag_lstsq_f32(int device, const float* a, const float* b, float* x, int64_t n,

@@ -312,3 +312,24 @@ def test_kernels_refuse_operands_on_two_cards(launch_recorder, case):
     with pytest.raises(ValueError):
         call(*on)
     assert not launch_recorder and not any(profiling.launch_counts().values())
+
+
+def _flat(out):
+    return [t for o in out for t in _flat(o)] if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6), ids=_CASE_IDS)
+def test_cuda_kernels_on_a_second_card(cuda_device, case):
+    """With cuda:0 current, each kernel runs on a cuda:1 operand's card,
+    gives the bits it gives on cuda:0, and leaves cuda:0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _, call, operands, _ = _wrapper_cases()[case]
+    torch.cuda.set_device(0)
+    want = _flat(call(*(t.to("cuda:0") for t in operands)))
+    got = _flat(call(*(t.to("cuda:1") for t in operands)))
+    assert torch.cuda.current_device() == 0
+    assert all(t.device == torch.device("cuda", 1) for t in got)
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w.cpu())
