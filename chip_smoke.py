@@ -69,6 +69,23 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   ``BlockedThinSparseQR`` on a 100,000 × 256 sparse matrix of about 800k
   nonzeros and on a copy with 3 columns replaced by copies of others (rank
   253, residual against the host's fp64 ``lstsq``);
+* captured programs (phase ``programs``): each refactorize and solve that
+  qrkit_tpu runs as one jitted program is one CUDA graph replay in the port
+  (``qrkit_tpu_torch._program``); each such path at full width against the
+  same call under ``_program.eager()``: config 2 at 10,000 and 1M × 7×2
+  (``BlockDiagonalQR`` compute with B2 and solve with B1,
+  ``functional.block_diagonal_lstsq``), config 3 through
+  ``SegmentedBandedQR`` (``factorize_values`` with B3, B4 and B5; solve,
+  vector and k = 3) and ``BandedBlockedQR`` (B5), the tall-block p2w
+  geometry (4,096 blocks of 10×4 overlapping 2, 8 per segment; B3, B4, B5),
+  ``DenseHouseholderQR`` / ``DenseColPivQR`` at 24×8 and 20,000×32, and
+  config 4's fused dense compute and solve at N = 100,000: the first call's
+  time (eager), the second's (warm-up + capture) and the capture's, a warm
+  call's replays, ATen ops, host-issued launches and host reads (one
+  replay, at most 3 ops, none and none), the launches inside a replay, host
+  µs, wall µs and device time per call for replay and eager in turns, the
+  graph pool's bytes, and the replay bitwise equal to eager; every kernel
+  must run inside some replay;
 * the launch floor of B1/B2 (phase ``launch_floor``): the device time of a
   kernel that does nothing, launched on B1/B2's grid (the launcher picks it
   by n) at 10,000 × 7×2, 5,000 × 19×3 and 1M × 7×2;
@@ -112,7 +129,7 @@ import numpy as np
 import torch
 
 import qrkit_tpu_torch as qt
-from qrkit_tpu_torch import dryrun, functional, lm, profiling
+from qrkit_tpu_torch import _program, dryrun, functional, lm, profiling
 from qrkit_tpu_torch.__main__ import main as cli_main
 from qrkit_tpu_torch.examples import bundle, ellipse
 from qrkit_tpu_torch.ops import _build
@@ -1849,6 +1866,228 @@ def phase_mesh(rng, smi):
     return total
 
 
+# --- phase programs: each refactorize and solve as one captured CUDA graph ----------
+PROGRAM_BUDGET_OPS = 3  # ATen ops outside the replay: copy in, clone out, one view
+P2W_NB, P2W_BR, P2W_BC, P2W_OV, P2W_SEGMENT_BLOCKS = 4096, 10, 4, 2, 8  # the tallblock_p2w geometry
+DENSE_SHAPES = ((24, 8), (20_000, 32))  # the reference test's, and one past 16 columns (the panel recursion)
+PROGRAM_ROUNDS = ("replay", "eager", "eager", "replay")
+
+
+def eagerly(call):
+    """``call`` under ``_program.eager()``: the same call, no capture, no replay."""
+    def run():
+        with _program.eager():
+            return call()
+    return run
+
+
+def host_and_wall_us(call, n):
+    """(host µs to issue one call, wall µs per call ending in synchronize)
+    over ``n`` calls back to back."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / n * 1e6, (t2 - t0) / n * 1e6
+
+
+def latest_program(programs, name):
+    found = [p for key, p in programs.programs().items() if key[0] == name]
+    if not found:
+        raise AssertionError(f"{name}: no captured program after its second call on the card")
+    return found[-1]
+
+
+def drive_program(path, label, programs, name, call, read, want, reps, eager_reps, smi):
+    """One captured call at full width: the first call (eager), the second
+    (warm-up + capture), the budget of a warm call, bitwise equality with ``_program.eager()``,
+    then replay and eager in turns (host µs per call, wall µs per call,
+    device time).  ``read(out)`` gives a fresh tensor of what the call left
+    or returned; ``want`` the launches inside one replay.  Returns the
+    launches the warm call counted."""
+    torch.cuda.synchronize()
+    t0 = start = time.perf_counter()
+    with profiling.count_dispatches() as d1:
+        call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if d1.programs:
+        raise AssertionError(f"programs {path} {label}: the first call replayed a program")
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    capture_call_s = time.perf_counter() - t0
+    prog = latest_program(programs, name)
+    call()
+    with profiling.count_dispatches() as d:
+        out = call()
+    torch.cuda.synchronize()
+    replay_val = read(out)
+    with profiling.count_dispatches() as de:
+        eager_val = read(eagerly(call)())
+    again = read(call())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in d.launches.items() if v}
+    warm = {"programs": d.programs, "ops": d.ops, "host_reads": d.host_reads,
+            "host_launches": {k: v for k, v in d.host_launches.items() if v}}
+    bitwise = bool(torch.equal(replay_val, eager_val) and torch.equal(again, eager_val))
+    problems = []
+    if d.programs != 1 or d.ops > PROGRAM_BUDGET_OPS or d.host_reads or warm["host_launches"]:
+        problems.append(f"warm call {warm} outside the budget (1 replay, <= {PROGRAM_BUDGET_OPS} "
+                        "ops, no host read, no host-issued launch)")
+    if launches != want or prog.launches != want:
+        problems.append(f"launches {launches} (captured {prog.launches}), want {want}")
+    if not bitwise:
+        problems.append("replay differs from the eager call")
+    if not bool(torch.isfinite(replay_val).all()):
+        problems.append("non-finite output")
+    if problems:
+        raise AssertionError(f"programs {path} {label}: " + "; ".join(problems))
+    times = {"replay": [], "eager": []}
+    for kind in PROGRAM_ROUNDS:
+        fn = call if kind == "replay" else eagerly(call)
+        times[kind].append(host_and_wall_us(fn, reps if kind == "replay" else eager_reps))
+    call()  # the solver's factors back on the program's outputs
+    dev = {kind: device_time_ms(call if kind == "replay" else eagerly(call),
+                                reps=min(reps, 5) if kind == "replay" else min(eager_reps, 2))
+           for kind in ("replay", "eager")}
+    call()
+    torch.cuda.synchronize()
+    mean = lambda xs, i: statistics.mean(x[i] for x in xs)  # noqa: E731
+    line = {
+        "phase": "programs", "path": path, "call": label, "program": name,
+        "capture_s": prog.capture_seconds, "first_call_s": first_s,
+        "capture_call_s": capture_call_s,
+        "warm": warm, "launches_per_replay": launches,
+        "eager_ops": de.ops, "eager_launches": {k: v for k, v in de.launches.items() if v},
+        "replay_host_us": mean(times["replay"], 0), "eager_host_us": mean(times["eager"], 0),
+        "replay_wall_us": mean(times["replay"], 1), "eager_wall_us": mean(times["eager"], 1),
+        "replay_device_ms": dev["replay"], "eager_device_ms": dev["eager"],
+        "pool_bytes": programs.pool_bytes(), "bitwise_equal_eager": bitwise,
+        "reps": [reps, eager_reps], "seconds": time.perf_counter() - start,
+        "method": "first_call_s: the first call (eager), synchronized; capture_call_s: the "
+                  "second, warm-up + capture + instantiate, synchronized; capture_s: "
+                  "torch.cuda.graph's block alone; host_us: host clock over reps calls back to "
+                  "back before the synchronize, over reps; wall_us: the same ending in "
+                  "synchronize; rounds replay, eager, eager, replay (eager = "
+                  "_program.eager()), means of the rounds; device_ms: torch.profiler's kernel "
+                  "time per call; pool_bytes: the graph pool of the solver (of the module for "
+                  "a function), every program captured in it so far (memory_snapshot)",
+        "gpu": smi,
+    }
+    emit(line)
+    return launches
+
+
+def concat(*ts):
+    """One fresh flat tensor of ``ts`` (what a factorize left: its outputs are
+    overwritten by the next replay)."""
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def phase_programs(rng, smi):
+    """Each captured path at full width against its ``_program.eager()`` form:
+    config 2 at 10k and 1M × 7×2 (``BlockDiagonalQR`` compute with B2,
+    solve with B1, ``functional.block_diagonal_lstsq``), config 3 through
+    ``SegmentedBandedQR`` (``factorize_values`` with B3, B4, B5; solve,
+    vector and k = 3) and ``BandedBlockedQR`` (B5), the tallblock_p2w
+    geometry at 4,096 blocks (B3, B4, B5), the dense solvers at 24×8 and
+    20,000×32, and config 4's fused dense compute and solve at N = 100,000;
+    fp32.  Returns the launches of the warm calls by kernel."""
+    total = {name: 0 for name in profiling.launch_counts()}
+
+    def drive(*args):
+        for name, n in drive_program(*args, smi=smi).items():
+            total[name] += n
+
+    def dev(arr):
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float32, device=DEVICE)
+
+    for nb in (NB_CONFIG2, NB_REAL):
+        blocks_np, b_np = flagship_system(rng, nb)
+        blocks, b = dev(blocks_np), dev(b_np)
+        mat = qt.BlockDiagonal(blocks, nb * BR, nb * BC)
+        qr = qt.BlockDiagonalQR(pivot=False)
+        path = f"config2_{nb}x{BR}x{BC}"
+        reps = 50 if nb == NB_CONFIG2 else 20
+        drive(path, "compute", qr._programs, "BlockDiagonalQR.compute", lambda: qr.compute(mat),
+              lambda _: qr._r_soa.clone(), {"blockdiag_qr_r": 1}, reps, reps)
+        if not qr._kernel_mode:
+            raise AssertionError(f"programs {path}: the kernel tier was not taken")
+        drive(path, "solve", qr._programs, "BlockDiagonalQR.solve", lambda: qr.solve(b),
+              lambda x: x, {"blockdiag_lstsq": 1}, reps, reps)
+        resid = host_residual(blocks_np, qr.solve(b), b_np)
+        if not resid < RESID_GATE:
+            raise AssertionError(f"programs {path}: fp32 relative residual {resid}")
+        drive(path, "functional.block_diagonal_lstsq", functional._LSTSQ_PROGRAMS,
+              "functional.block_diagonal_lstsq",
+              lambda: functional.block_diagonal_lstsq(blocks, b), lambda x: x, {}, reps, reps)
+
+    def banded_paths(path, mat, solver, reps, eager_reps, want):
+        with _program.eager():  # the layout maps; the second factorize_values captures
+            solver.compute(mat)
+        if not solver._fac_kernel:
+            raise AssertionError(f"programs {path}: the kernel route was not taken")
+        values = dev(mat.data * 0.75)
+        b = dev(mat.matvec(rng.normal(size=mat.ncols)))
+        B = dev(rng.normal(size=(mat.nrows, 3)))
+        cls = type(solver).__name__
+        if isinstance(solver, qt.SegmentedBandedQR):
+            factors = lambda: concat(solver._r_panels, solver._Yws, solver._chain_r, solver._j2_top)  # noqa: E731
+        else:
+            factors = lambda: concat(solver._r_panels, solver.q_seq.Y, solver.q_seq.T)  # noqa: E731
+        drive(path, "factorize_values", solver._programs, f"{cls}.factorize",
+              lambda: solver.factorize_values(values), lambda _: factors(), want, reps, eager_reps)
+        for label, rhs in (("solve", b), ("solve_k3", B)):
+            drive(path, label, solver._programs, f"{cls}.solve", lambda rhs=rhs: solver.solve(rhs),
+                  lambda x: x, {}, reps, eager_reps)
+        x = solver.solve(b * 0.75)  # the factors are 0.75 A's
+        resid = host_residual_sparse(mat, x, b.double().cpu().numpy())
+        if not resid < RESID_GATE:
+            raise AssertionError(f"programs {path}: fp32 relative residual {resid} after the replays")
+
+    c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
+    seg_want = {name: 1 for name in BANDED_KERNELS}
+    banded_paths("config3_segmented", c3, qt.SegmentedBandedQR(
+        suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, device=DEVICE,
+        dtype=torch.float32), 20, 10, seg_want)
+    banded_paths("config3_plain", c3, qt.BandedBlockedQR(
+        suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32), 1, 1,
+        {"banded_chain_qr": 1})
+    p2w = banded_matrix(rng, P2W_NB, P2W_BR, P2W_BC, P2W_OV)
+    banded_paths("tallblock_p2w_4096", p2w, qt.SegmentedBandedQR(
+        suggested_block_cols=P2W_BC, segment_blocks=P2W_SEGMENT_BLOCKS, device=DEVICE,
+        dtype=torch.float32), 20, 10, seg_want)
+
+    for m, n in DENSE_SHAPES:
+        a = dev(rng.normal(size=(m, n)))
+        for cls in (qt.DenseHouseholderQR, qt.DenseColPivQR):
+            qr = cls()
+            drive(f"dense_{m}x{n}", "compute", qr._programs, f"{cls.__name__}.compute",
+                  lambda qr=qr: qr.compute(a), lambda _, qr=qr: concat(qr._R, qr._Y, qr._T), {},
+                  20, 20)
+
+    blocks_np, a2_np, b_np = block_angular_problem(rng, BA_NS[0])
+    n = BA_NS[0]
+    mat = qt.BlockMatrix1x2(qt.BlockDiagonal(dev(blocks_np), 2 * n, n), dev(a2_np))
+    b = dev(b_np)
+    ba = ba_solver()
+    drive(f"config4_fused_dense_{n}", "compute", ba._programs, "BlockAngularQR.compute",
+          lambda: ba.compute(mat), lambda _: concat(ba.left.R, ba.right._R, ba._r12), {}, 20, 20)
+    if not ba._fused_dense:
+        raise AssertionError("programs config4: the fused dense path was not taken")
+    drive(f"config4_fused_dense_{n}", "solve", ba._programs, "BlockAngularQR.solve",
+          lambda: ba.solve(b), lambda x: x, {}, 20, 20)
+
+    missing = [name for name in profiling.launch_counts() if not total[name]]
+    if missing:
+        raise AssertionError(f"programs: kernels never launched inside a replay: {missing}")
+    return total
+
+
 def main():
     rng = np.random.default_rng(SEED)
     smi = phase_device()
@@ -1862,6 +2101,9 @@ def main():
     banded_worst, c3_ops = phase_banded_kernel_vs_plain(rng)
     banded_counts, _ = phase_banded_main_path(rng, smi)
     banded_timings = phase_banded_timing(c3_ops, smi)
+    profiling.reset_launch_counts()
+    replayed = phase_programs(rng, smi)
+    program_counts = profiling.launch_counts()
     options_worst = phase_blockdiag_options(rng, smi)
     ba_b2 = phase_block_angular(rng, smi)
     phase_ellipse_lm(smi)
@@ -1875,7 +2117,8 @@ def main():
     floor = phase_launch_floor(smi)
     mesh_counts = phase_mesh(rng, smi)
     # the block-angular, ellipse, bundle, CLI, sparse-product and mesh main paths
-    extra = {name: cli_counts[name] + sp_counts[name] + mesh_counts[name] for name in cli_counts}
+    extra = {name: cli_counts[name] + sp_counts[name] + mesh_counts[name] + program_counts[name]
+             for name in cli_counts}
     extra["blockdiag_qr_r"] += ba_b2 + bundle_b2
     extra["banded_chain_qr"] += ell_b5
     kernels = []
@@ -1892,6 +2135,7 @@ def main():
             "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
+            "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
             "floor_device_ms": floor[f"{NB_REAL}x{BR}x{BC}"],
             "config2_10k": {**{k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms",
                                                                  "library_ms", "bound_ms", "bound_by")},
@@ -1916,6 +2160,7 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,  # no single PyTorch call
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
+            "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

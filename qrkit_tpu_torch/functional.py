@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ._program import Programs
 from .ops.householder import (
     apply_wy,
     build_t_factor,
@@ -35,6 +36,7 @@ __all__ = [
     "block_angular_lstsq",
     "block_diagonal_factorize",
     "block_diagonal_lstsq",
+    "clear_programs",
     "lm_damped_step_blockdiag",
     "lm_damped_step_blockdiag1",
 ]
@@ -112,6 +114,17 @@ class _BlockDiagonalLstsq(torch.autograd.Function):
         return g_blocks, g_b, None
 
 
+# the captured programs of block_diagonal_lstsq, by pivot and operand shapes:
+# one program a shape, the four shapes last captured
+_LSTSQ_PROGRAMS = Programs(limit=4)
+
+
+def clear_programs() -> None:
+    """Drop :func:`block_diagonal_lstsq`'s captured programs and free
+    their static buffers and graph pool."""
+    _LSTSQ_PROGRAMS.clear()
+
+
 def block_diagonal_lstsq(blocks: torch.Tensor, b: torch.Tensor, pivot: bool = False):
     """Fused factorize + least-squares solve for a block-diagonal system.
 
@@ -119,8 +132,20 @@ def block_diagonal_lstsq(blocks: torch.Tensor, b: torch.Tensor, pivot: bool = Fa
     rows); returns x [nb*bc].  Batched compact-WY QR, Qᵀb through the
     implicit Y/T factors, batched triangular solve and the pivot
     back-permutation.  Differentiable w.r.t. ``blocks`` and ``b`` through an
-    implicit-function-theorem backward (full-rank blocks assumed)."""
-    return _BlockDiagonalLstsq.apply(blocks, b, pivot)
+    implicit-function-theorem backward (full-rank blocks assumed).
+
+    On card operands that do not require grad the call is one captured
+    program (the reference's jitted function; :mod:`~qrkit_tpu_torch._program`),
+    captured on the second call in a row with one ``pivot`` and operand
+    shapes; the four shapes last captured keep their programs, with their
+    static operands and graph pool, until :func:`clear_programs`.  Operands
+    that require grad run eagerly, so autograd records the call."""
+    if torch.is_grad_enabled() and (blocks.requires_grad or b.requires_grad):
+        return _BlockDiagonalLstsq.apply(blocks, b, pivot)
+    return _LSTSQ_PROGRAMS.solve(
+        None, "functional.block_diagonal_lstsq", pivot,
+        lambda _, blocks, b: _block_diagonal_lstsq_primal(blocks, b, pivot)[0], blocks, b,
+    )
 
 
 def _solve_upper(R: torch.Tensor, y: torch.Tensor, transpose: bool = False) -> torch.Tensor:

@@ -7,10 +7,12 @@ asynchronously, so every timer here ends in a real
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
 :mod:`qrkit_tpu_torch.ops.blockdiag` and :mod:`qrkit_tpu_torch.ops.banded`
-keep.  :func:`count_dispatches` counts the ATen ops a block dispatches (the
-port's eager paths run many, one host round of launch work each) plus those
-kernel launches, and the reads that make the host wait for the device;
-:func:`trace` writes a ``torch.profiler`` trace.
+keep; a replay of a captured program (:mod:`qrkit_tpu_torch._program`)
+adds the launches its graph holds.  :func:`count_dispatches` counts the
+ATen ops a block dispatches (the port's eager paths run many, one host
+round of launch work each), the program replays, the kernel launches, and
+the reads that make the host wait for the device; :func:`trace` writes a
+``torch.profiler`` trace.
 """
 from __future__ import annotations
 
@@ -51,8 +53,28 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in _KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    _set_launch_counts({name: 0 for name in _KERNEL_WRAPPERS})
+
+
+def _set_launch_counts(counts: Dict[str, int]) -> None:
+    for name, fn in _KERNEL_WRAPPERS.items():
+        fn.launches = counts[name]
+
+
+class _Replays:
+    """Program replays since import, and the kernel launches they added to
+    the wrappers' counters (by kernel name)."""
+
+    count = 0
+    launches: Dict[str, int] = defaultdict(int)
+
+
+def _note_replay(launches: Dict[str, int]) -> None:
+    """One replay of a captured program holding ``launches``."""
+    _Replays.count += 1
+    for name, n in launches.items():
+        _KERNEL_WRAPPERS[name].launches += n
+        _Replays.launches[name] += n
 
 
 def _sync() -> None:
@@ -115,33 +137,52 @@ class Timer:
         return "\n".join(lines)
 
 
+def _replay_state():
+    return _Replays.count, dict(_Replays.launches)
+
+
 class DispatchCount:
     """Counter handed out by :func:`count_dispatches`: ``ops`` ATen ops,
-    ``launches`` kernel launches by the port's wrappers (by kernel), and
+    ``programs`` replays of captured programs, ``launches`` kernel
+    executions by the port's wrappers (by kernel; a replay's count as its
+    graph's), ``host_launches`` those the host issued outside a replay, and
     ``host_reads`` reads of device data by the host (``.item()``, ``bool()``
     and copies from a device to the CPU), all since the block was entered.
-    ``count`` is ``ops`` plus the launches."""
+    ``count`` is ``ops`` plus the replays plus the host-issued launches."""
 
     def __init__(self):
         self.ops = 0
         self.host_reads = 0
-        self._start = launch_counts()
+        self._start = launch_counts(), _replay_state()
         self._end = None
+
+    def _now(self):
+        return self._end if self._end is not None else (launch_counts(), _replay_state())
 
     @property
     def launches(self) -> Dict[str, int]:
-        now = self._end if self._end is not None else launch_counts()
-        return {k: now[k] - self._start[k] for k in now}
+        now, start = self._now()[0], self._start[0]
+        return {k: now[k] - start[k] for k in now}
+
+    @property
+    def programs(self) -> int:
+        return self._now()[1][0] - self._start[1][0]
+
+    @property
+    def host_launches(self) -> Dict[str, int]:
+        now, start = self._now()[1][1], self._start[1][1]
+        return {k: n - now.get(k, 0) + start.get(k, 0) for k, n in self.launches.items()}
 
     @property
     def count(self) -> int:
-        return self.ops + sum(self.launches.values())
+        return self.ops + self.programs + sum(self.host_launches.values())
 
     def __int__(self) -> int:
         return self.count
 
     def __repr__(self) -> str:
-        return f"DispatchCount({self.count}, ops={self.ops}, host_reads={self.host_reads})"
+        return (f"DispatchCount({self.count}, ops={self.ops}, programs={self.programs}, "
+                f"host_reads={self.host_reads})")
 
 
 def _counting_mode(counter: DispatchCount):
@@ -178,15 +219,17 @@ def count_dispatches():
 
     Every ATen op dispatched in the block counts once (a
     ``TorchDispatchMode``, so CPU tensors count too and the CPU tests can
-    pin a path), and so does every launch by the port's kernel wrappers
-    (ctypes calls that bypass ATen).  Counters nest.  The mode adds Python
+    pin a path), and so do every replay of a captured program and every
+    launch the port's kernel wrappers issue outside a replay (ctypes calls
+    that bypass ATen).  ``launches`` counts every kernel execution, a
+    replay's included.  Counters nest.  The mode adds Python
     work to every op: time a path outside the block."""
     counter = DispatchCount()
     try:
         with _counting_mode(counter):
             yield counter
     finally:
-        counter._end = launch_counts()
+        counter._end = launch_counts(), _replay_state()
 
 
 @contextlib.contextmanager

@@ -16,6 +16,12 @@ may vary.  The panel row shift by each step's carry depth (the reference's
 ``_shift_panels`` on the device) is folded into the host-built gather map,
 so a factorize is one gather of the value vector plus the chain.  The
 reference's ``_CHUNK`` compile-bounding loop has no counterpart.
+
+On the card a refactorize (``compute``'s device part, ``factorize_values``)
+and a solve are each one captured program (:mod:`~qrkit_tpu_torch._program`,
+the reference's jitted ``_fac`` / ``_fac_k`` and ``_sol``): the factorize keyed
+by the layout maps and the route, the solve by the rhs shape and the
+factors it reads; the factors are the factorize program's outputs.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from .._program import Programs
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
 from ..ops.banded import SMEM_LIMIT, chain_factorize, chain_qr, chain_smem_bytes
 from ..ops.compact_wy import TwoSegmentWYSeq, _rows
@@ -101,23 +108,38 @@ def shifted_gather_map(
 
 
 def banded_factorize(
-    shifted: torch.Tensor, geom: dict, *, max_carry: int, max_emit: int, m: int
+    shifted: torch.Tensor, geom: dict, *, max_carry: int, max_emit: int
 ):
     """Banded-chain factorization of pre-shifted panels ``[nb, ma, mc]``
-    with the general recurrence.  ``geom`` holds int64 tensors ``col_inc``,
-    ``cols``, ``rows``, ``carry_rows`` on the panels' device.  Returns
-    ``(TwoSegmentWYSeq, R panels [nb, max_emit, mc])``."""
+    with the general recurrence.  ``geom`` holds int64 tensors ``col_inc``
+    on the panels' device.  Returns ``(Y [nb, ma, mc], taus [nb, mc], R
+    panels [nb, max_emit, mc])``."""
     nb = shifted.shape[0]
     active = torch.ones((1, nb), dtype=torch.bool, device=shifted.device)
     Y, taus, V = chain_factorize(shifted[None], geom["col_inc"][None], active, max_carry, max_emit)
-    return _wy_seq(Y[0], taus[0], geom, max_carry, m), V[0]
+    return Y[0], taus[0], V[0]
 
 
-def _wy_seq(Y, taus, geom, max_carry: int, m: int) -> TwoSegmentWYSeq:
-    return TwoSegmentWYSeq(
-        Y, build_t_factor(Y, taus), geom["cols"], geom["rows"], geom["carry_rows"],
-        h1=max(max_carry, 1), m=m,
-    )
+def _factorize_program(self, vals: torch.Tensor):
+    """The refactorize of :class:`BandedBlockedQR` from the stored-order
+    value vector: the row permutation's gather, the shifted panels' gather,
+    the chain (B5 or the general recurrence), T and the health flag →
+    ``(Y, T, R panels, health)``, all on the device."""
+    if self._data_perm is not None:
+        vals = vals[self._data_perm]
+    pad = torch.cat([vals, vals.new_zeros(1)])
+    panels = pad[self._panel_gmap]  # [nb, max_active, max_cols]
+    g = self._geom_dev
+    if self._fac_kernel:
+        Y, taus, V = chain_qr(panels, self._chain_act, **self._chain_kernel)
+    else:
+        Y, taus, V = banded_factorize(panels, g, max_carry=self._max_carry, max_emit=self._max_emit)
+    health = _diag_health(_rdiag_from_panels(V, g["cols"], g["emit_rows"], self._ncols))
+    return Y, build_t_factor(Y, taus), V, health
+
+
+def _solve_program(self, b: torch.Tensor) -> torch.Tensor:
+    return self.solve_r(self.apply_qt(b))
 
 
 @highest_precision()
@@ -207,9 +229,10 @@ def value_perm(mat: SparseCSR, row_perm: Permutation, device) -> Optional[torch.
 
 
 def device_values(solver, values) -> torch.Tensor:
-    """``factorize_values``' input as the solver's permuted device vector: a
-    tensor (already on the device: no host work, no copy) or a NumPy array
-    (uploaded), in the analyzed matrix's stored order, ``mat.nnz`` long."""
+    """``factorize_values``' input as a device vector of the solver's dtype,
+    in the analyzed matrix's stored order (the factorize program applies the
+    row permutation): a tensor (already on the device: no host work, no
+    copy) or a NumPy array (uploaded), ``mat.nnz`` long."""
     if getattr(solver, "_panel_gmap", None) is None:
         raise ValueError(
             "factorize_values requires a prior compute() on a matrix "
@@ -223,7 +246,7 @@ def device_values(solver, values) -> torch.Tensor:
             f"values must be [{solver._vals_nnz}] (the analyzed matrix's "
             f"stored-nonzero count), got {tuple(vals.shape)}"
         )
-    return vals if solver._data_perm is None else vals[solver._data_perm]
+    return vals
 
 
 def _rdiag_from_panels(r_panels, cols, emit_rows, ncols: int) -> torch.Tensor:
@@ -271,6 +294,8 @@ class BandedBlockedQR(QRSolver):
         self.dtype = dtype if dtype is not None else torch.float64
         self._analysis_ok = False
         self._fac_kernel = False
+        self._programs = Programs()
+        self._layout_version = 0  # keys the factorize program: bumped with the maps
 
     @property
     def rows(self) -> int:
@@ -366,6 +391,7 @@ class BandedBlockedQR(QRSolver):
         gms = shifted_gather_map(gm, g["carry_rows"], g["nrows"], self._max_active, pmat.nnz)
         self._panel_gmap = torch.as_tensor(gms, dtype=torch.int64, device=self.device)
         self._vals_nnz, self._data_perm = mat.nnz, value_perm(mat, self._row_perm, self.device)
+        self._layout_version += 1
 
     def compute(self, mat: SparseCSR, force_pattern_analysis: bool = False):
         if not self._analysis_ok or force_pattern_analysis:
@@ -375,26 +401,23 @@ class BandedBlockedQR(QRSolver):
         if self._panel_gmap is None or fp != self._gmap_fp:
             self._layout_maps(mat, pmat)
             self._gmap_fp = fp
-        self._factorize(upload_values(pmat.data, self.device, self.dtype))
+        self._factorize(upload_values(mat.data, self.device, self.dtype))
         return self
 
     def _factorize(self, vals: torch.Tensor) -> None:
-        """Gather the shifted panels from the value vector and run the chain
-        (kernel B5 or the general recurrence); leaves the health flag on the
-        device."""
+        """Refactorize from the stored-order value vector: one captured
+        program on the card (:func:`_factorize_program`); leaves the health
+        flag on the device."""
         self._fac_kernel = self._kernel_active()
-        pad = torch.cat([vals, vals.new_zeros(1)])
-        panels = pad[self._panel_gmap]  # [nb, max_active, max_cols]
+        Y, T, self._r_panels, health = self._programs.factorize(
+            self, "BandedBlockedQR.factorize", (self._layout_version, self._fac_kernel),
+            _factorize_program, vals,
+        )
         g = self._geom_dev
-        if self._fac_kernel:
-            Y, taus, V = chain_qr(panels, self._chain_act, **self._chain_kernel)
-            self.q_seq = _wy_seq(Y, taus, g, self._max_carry, self._nrows)
-            self._r_panels = V
-        else:
-            self.q_seq, self._r_panels = banded_factorize(
-                panels, g, max_carry=self._max_carry, max_emit=self._max_emit, m=self._nrows
-            )
-        self._set_success(_diag_health(self.r_diagonal()))
+        self.q_seq = TwoSegmentWYSeq(
+            Y, T, g["cols"], g["rows"], g["carry_rows"], h1=max(self._max_carry, 1), m=self._nrows
+        )
+        self._set_success(health)
 
     def factorize_values(self, values) -> "BandedBlockedQR":
         """Refactorize from a vector of stored-nonzero values in the analyzed
@@ -407,8 +430,9 @@ class BandedBlockedQR(QRSolver):
 
     @property
     def r_panels(self) -> torch.Tensor:
-        """R panels ``[nb, max_emit, max_cols]``."""
-        return self._r_panels
+        """R panels ``[nb, max_emit, max_cols]``, a copy: the factor is the
+        factorize program's output, which the next refactorize overwrites."""
+        return self._r_panels.clone()
 
     def r_diagonal(self) -> torch.Tensor:
         g = self._geom_dev
@@ -487,9 +511,10 @@ class BandedBlockedQR(QRSolver):
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for a vector ``[rows]`` or a matrix ``[rows,
-        k]`` rhs: Qᵀb, then one batched back-substitution (no kernel).  The
-        caller pre-applies ``rows_permutation()``."""
-        return self.solve_r(self.apply_qt(b))
+        k]`` rhs: Qᵀb, then one batched back-substitution (no kernel), one
+        captured program on the card.  The caller pre-applies
+        ``rows_permutation()``."""
+        return self._programs.solve(self, "BandedBlockedQR.solve", (), _solve_program, b)
 
     def rows_permutation(self) -> Permutation:
         return self._row_perm

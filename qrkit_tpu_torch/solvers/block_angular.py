@@ -18,7 +18,10 @@ then back-substitutes through the left solver's structured R.
 The flagship stack (``BlockDiagonalQR`` FULL_Q non-pivoting left, dense
 right, dense A2) runs the fused programs of
 :mod:`~qrkit_tpu_torch.solvers.block_angular_fused`; the lane-major one
-when the caller hands SoA left blocks or a transposed A2.  Other stacks run
+when the caller hands SoA left blocks or a transposed A2.  On the card the
+fused dense ``compute`` and its vector ``solve`` are each one captured
+program (:mod:`~qrkit_tpu_torch._program`); the children's factors are the
+compute program's outputs.  Other stacks run
 the generic composition, where a ``BlockDiagonalQR`` left on a CUDA operand
 factors with kernel B2 and a ``BandedBlockedQR`` left with kernel B5.  A
 sparse A2 stays sparse: with a block-diagonal left through
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..containers import BlockDiagonal, BlockMatrix1x2
 from ..ops.householder import highest_precision
 from ..sparse import Permutation, SparseCSR
@@ -62,6 +66,22 @@ from .dense import DenseColPivQR, DenseHouseholderQR
 from .segmented_banded import SegmentedBandedQR
 
 __all__ = ["BlockAngularQR"]
+
+
+def _fused_dense_program(self, blocks, a2):
+    """The fused dense-A2 compute (:func:`fused_dense_compute`) and the
+    composite health flag, all on the device."""
+    out = fused_dense_compute(
+        blocks, a2, bc=blocks.shape[2], colpiv=isinstance(self.right, DenseColPivQR)
+    )
+    return out + (out[-2] & out[-1],)
+
+
+def _fused_dense_solve_program(self, b):
+    return fused_dense_solve(
+        self.left.Q, self.left.R, self.right._Y, self.right._T, self.right._R,
+        self._fused_perm2, self._r12, b, bc=self.left._bc, colpiv=self._fused_colpiv,
+    )
 
 
 def _to_device_dense(block, device, dtype) -> torch.Tensor:
@@ -192,6 +212,7 @@ class BlockAngularQR(QRSolver):
         # pattern bookkeeping shared across computes on one sparsity (LM
         # refactorizes one structure per iteration)
         self._plan_cache: dict = {}
+        self._programs = Programs()
 
     @property
     def rows(self) -> int:
@@ -260,6 +281,7 @@ class BlockAngularQR(QRSolver):
         self._cols_perm = None
         self._solve_gather = None
         self._rows_perm = Permutation.identity(self._n1)
+        self._programs.bind_eager()
         self._info = ComputationInfo.SUCCESS
         self._health = health
 
@@ -284,11 +306,12 @@ class BlockAngularQR(QRSolver):
                 mat.left.blocks, a2, b, bc=mat.left.block_cols, colpiv=colpiv
             )
             self._adopt_dense_outputs(mat, out[:-1], colpiv)
+            self._programs.bind_eager()
             return out[-1]
         self.compute(mat)
         return self.solve(b)
 
-    def _adopt_dense_outputs(self, mat: BlockMatrix1x2, out, colpiv: bool):
+    def _adopt_dense_outputs(self, mat: BlockMatrix1x2, out, colpiv: bool, health=None):
         (Q, R, j2_top, Y2, T2, R2, perm2, r12, h1, h2) = out
         self.left._adopt_factors(mat.left, Q, R, h1)
         nbot = self._n1 - self._m1
@@ -304,7 +327,7 @@ class BlockAngularQR(QRSolver):
         self._cols_perm = None
         self._solve_gather = None
         self._rows_perm = Permutation.identity(self._n1)
-        self._set_success()
+        self._set_success(health)
 
     def compute(self, mat: BlockMatrix1x2) -> "BlockAngularQR":
         sparse_a2 = self._compute_preamble(mat)
@@ -317,12 +340,14 @@ class BlockAngularQR(QRSolver):
             )
             self._adopt_soa_outputs(mat, out, colpiv)
             return self
-        # the flagship dense-A2 stack: steps 1-5 in one fused program, the
-        # children filled from its outputs
+        # the flagship dense-A2 stack: steps 1-5 in one fused program (one
+        # captured program on the card), the children filled from its outputs
         if not sparse_a2 and self._uses_fused_dense(mat):
             a2 = _to_device_dense(mat.right, *self._home(mat))
-            out = fused_dense_compute(mat.left.blocks, a2, bc=mat.left.block_cols, colpiv=colpiv)
-            self._adopt_dense_outputs(mat, out, colpiv)
+            out = self._programs.factorize(
+                self, "BlockAngularQR.compute", colpiv, _fused_dense_program, mat.left.blocks, a2
+            )
+            self._adopt_dense_outputs(mat, out[:-1], colpiv, health=out[-1])
             return self
 
         # 1) left factorization
@@ -377,6 +402,7 @@ class BlockAngularQR(QRSolver):
         rp = np.arange(self._n1, dtype=np.int64)
         rp[: self.left.rows] = self.left.rows_permutation().indices
         self._rows_perm = Permutation(rp)
+        self._programs.bind_eager()
         self._set_success()
         return self
 
@@ -576,8 +602,12 @@ class BlockAngularQR(QRSolver):
         """Composite health with each child's own zero-pivot semantics (a
         rank-revealing right solver's deficiency is no numerical issue; a
         non-pivoting left solver's zero pivot is): the flags each child's
-        compute left on the device, combined there."""
+        compute left on the device, combined there (``health`` when a fused
+        program already combined them)."""
         self._info = ComputationInfo.SUCCESS
+        if health is not None:
+            self._health = health
+            return
 
         def child_health(c, ncols):
             h = getattr(c, "_health", None)
@@ -703,9 +733,8 @@ class BlockAngularQR(QRSolver):
                 self._sR2, self._fused_perm2, self._sr12t, b, colpiv=self._fused_colpiv,
             )
         if b.dim() == 1 and getattr(self, "_fused_dense", False):
-            return fused_dense_solve(
-                self.left.Q, self.left.R, self.right._Y, self.right._T, self.right._R,
-                self._fused_perm2, self._r12, b, bc=self.left._bc, colpiv=self._fused_colpiv,
+            return self._programs.solve(
+                self, "BlockAngularQR.solve", (), _fused_dense_solve_program, b
             )
         self._ensure_children_fused()
         y = self.apply_qt(b)

@@ -28,6 +28,16 @@ factorization gathers its per-block pivots once, at ``compute``.  Every
 method of a sharded solver is therefore collective (call it on every rank).
 Sparse R follows the Q format's row layout, as dense R does; the reference
 places it by the FULL_Q layout under both formats.
+
+Without a mesh, ``compute`` on a card operand (either tier) and the kernel
+tier's vector ``solve`` are each one captured program
+(:mod:`~qrkit_tpu_torch._program`; the reference's jitted
+``_pallas_compute``, ``_pallas_solve_vec`` and ``_factorize_blocks``):
+B2 launches inside the compute's graph, B1 inside the solve's.  The
+factors are the compute program's outputs; the compute reads the
+container's blocks in place (the kernel tier its SoA, cached by the
+container for AoS storage), so a compute is captured for one container
+and a new container runs eagerly until it is computed twice in a row.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._program import Programs
 from ..containers import BlockDiagonal
 from ..functional import block_diagonal_factorize
 from ..ops.blockdiag import block_diagonal_lstsq_soa, block_diagonal_qr_r_soa, to_aos
@@ -85,6 +96,31 @@ def _kernel_compute(a_soa: torch.Tensor, *, br: int, ncols: int):
     r_soa = block_diagonal_qr_r_soa(a_soa, br)
     d = _pad_to(_packed_diag(r_soa, bc).reshape(-1), ncols)
     return r_soa, _diag_health(d, check_zero=True)
+
+
+def _compute_program(self, a_in):
+    """The factorize of :meth:`BlockDiagonalQR.compute` on this rank's
+    blocks (``a_in`` SoA ``[br*bc, nb]`` in the kernel tier, else AoS
+    ``[nb, br, bc]``).  Kernel tier: ``(r_soa, health)``; batched tier:
+    ``(Q, R, local_perm, health)`` (``local_perm`` None without
+    pivoting)."""
+    if self._kernel_mode:
+        return _kernel_compute(a_in, br=self._br, ncols=self._ncols_own)
+    Q, R, local_perm = block_diagonal_factorize(a_in, pivot=self.pivot)
+    d = torch.diagonal(R, dim1=1, dim2=2).reshape(-1)
+    health = _diag_health(
+        d if self._landscape else _pad_to(d, self._ncols_own),
+        check_zero=self._health_check_zero_pivot,
+    )
+    return Q, R, (local_perm if self.pivot else None), health
+
+
+def _solve_program(self, b):
+    """The kernel tier's vector solve: B1 on this rank's rows, the x chunks
+    gathered over the mesh, zero tail columns → x [ncols]."""
+    br = self._br
+    x = _kernel_solve_vec(self._a_soa, b[self._b0 * br : self._b1 * br], br=br)
+    return _pad_to(self._gather(x.reshape(-1, self._bc)).reshape(-1), self._ncols)
 
 
 @highest_precision()
@@ -136,6 +172,7 @@ class BlockDiagonalQR(QRSolver):
         self._kernel_mode = False
         self._health_check_zero_pivot = not pivot
         self._computed = False
+        self._programs = Programs()
 
     def _kernel_supported(self, mat: BlockDiagonal) -> bool:
         br, bc = mat.block_rows, mat.block_cols
@@ -186,27 +223,30 @@ class BlockDiagonalQR(QRSolver):
         self._row_perm = row_perm
         b0, b1 = self._b0, self._b1
         self._kernel_mode = self._kernel_active(mat)
+        # the container's SoA (its storage, or the layout it caches) is the
+        # kernels' operand as it is, read in place by the program (no copy in)
         if self._kernel_mode:
             soa = mat.soa()
-            self._a_soa = soa if (b0, b1) == (0, self._nb) else soa[:, b0:b1].contiguous()
-            self._r_soa, health = _kernel_compute(self._a_soa, br=self._br, ncols=self._ncols_own)
+            a_in = soa if (b0, b1) == (0, self._nb) else soa[:, b0:b1].contiguous()
+        else:
+            a_in = mat.blocks[b0:b1]
+        key = (self._kernel_mode, self.pivot, self._landscape, self._ncols_own)
+        out = self._programs.factorize(
+            self, "BlockDiagonalQR.compute", key, _compute_program, a_in,
+            capture=self.mesh is None, resident=1,
+        )
+        self._computed = True
+        if self._kernel_mode:
+            self._a_soa = a_in
+            self._r_soa, health = out
             self.Q = self.R = None
             self._local_perm = None
-            self._computed = True
-            self._set_success(self._all_healthy(health))
-            return self
-
-        self.Q, self.R, local_perm = block_diagonal_factorize(mat.blocks[b0:b1], pivot=self.pivot)
-        # the pivot order stays on the device (gathered over the mesh);
-        # cols_permutation() fetches it on first use, and solve() scatters
-        # with it on the device
-        self._local_perm = self._gather(local_perm) if self.pivot else None
-        self._computed = True
-        d = self._diag_blocks().reshape(-1)
-        health = _diag_health(
-            d if self._landscape else _pad_to(d, self._ncols_own),
-            check_zero=self._health_check_zero_pivot,
-        )
+        else:
+            self.Q, self.R, local_perm, health = out
+            # the pivot order stays on the device (gathered over the mesh);
+            # cols_permutation() fetches it on first use, and solve() scatters
+            # with it on the device
+            self._local_perm = self._gather(local_perm) if self.pivot else None
         self._set_success(self._all_healthy(health))
         return self
 
@@ -257,6 +297,7 @@ class BlockDiagonalQR(QRSolver):
         self.Q, self.R = Q, R
         self._local_perm = None
         self._computed = True
+        self._programs.bind_eager()
         self._set_success(health)
 
     def _ensure_dense_factors(self) -> None:
@@ -392,9 +433,9 @@ class BlockDiagonalQR(QRSolver):
         rhs and the batched-torch tier use the generic path.  The rhs tail
         past nb*br is ignored; x is zero past nb*bc (zero tail columns)."""
         if self._kernel_mode and b.dim() == 1:
-            br = self._br
-            x = _kernel_solve_vec(self._a_soa, b[self._b0 * br : self._b1 * br], br=br)
-            return _pad_to(self._gather(x.reshape(-1, self._bc)).reshape(-1), self._ncols)
+            return self._programs.solve(
+                self, "BlockDiagonalQR.solve", (), _solve_program, b, capture=self.mesh is None
+            )
         return super().solve(b)
 
     def _unpermute(self, z: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@ Counterpart of ``qrkit_tpu/solvers/dense.py`` (``_dense_qr(_h)``,
 ``_dense_colpiv_qr(_h)``, ``DenseHouseholderQR``, ``DenseColPivQR``): the
 raw Eigen ``HouseholderQR`` / ``ColPivHouseholderQR`` that the reference
 plugs into its composite solvers, a single compact-WY block over the whole
-matrix.  No kernel: batched plain torch on either device.
+matrix.  No kernel: batched plain torch on either device.  ``compute`` on
+a card tensor is one captured program (:mod:`~qrkit_tpu_torch._program`,
+the reference's jitted ``_dense_qr_h`` / ``_dense_colpiv_qr_h``), keyed by
+the matrix's shape and dtype; its factors are the program's outputs,
+overwritten by the next ``compute`` of that shape.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..ops.householder import (
     apply_wy,
     build_t_factor,
@@ -57,6 +62,7 @@ class _DenseQRBase(QRSolver):
 
     def __init__(self, *, device=None, dtype=None):
         self.device, self.dtype = device, dtype
+        self._programs = Programs()
 
     @property
     def rows(self) -> int:
@@ -73,7 +79,12 @@ class _DenseQRBase(QRSolver):
         return apply_wy(self._Y, self._T, m, transpose=True)
 
     def matrix_r_dense(self) -> torch.Tensor:
-        return self._R
+        """R [rows, cols], a copy: the factor is the compute program's
+        output, which the next compute of the same shape overwrites."""
+        return self._R.clone()
+
+    def r_diagonal(self) -> torch.Tensor:
+        return torch.diagonal(self._R[: self._n, : self._n])
 
     def _square_r(self) -> torch.Tensor:
         """R's leading [n, n] triangle; for wide input (m < n) the trapezoid
@@ -110,6 +121,7 @@ class _DenseQRBase(QRSolver):
         :meth:`compute`."""
         self._m, self._n = int(m), int(n)
         self._Y, self._T, self._R = Y, T, R
+        self._programs.bind_eager()
         self._set_success(health)
 
 
@@ -119,7 +131,9 @@ class DenseHouseholderQR(_DenseQRBase):
     def compute(self, mat) -> "DenseHouseholderQR":
         a = self._coerce(mat)
         self._m, self._n = map(int, a.shape)
-        self._Y, self._T, self._R, health = _dense_qr_h(a)
+        self._Y, self._T, self._R, health = self._programs.factorize(
+            self, "DenseHouseholderQR.compute", (), lambda s, a: _dense_qr_h(a), a
+        )
         self._set_success(health)
         return self
 
@@ -132,7 +146,9 @@ class DenseColPivQR(_DenseQRBase):
     def compute(self, mat) -> "DenseColPivQR":
         a = self._coerce(mat)
         self._m, self._n = map(int, a.shape)
-        self._Y, self._T, self._R, perm, health = _dense_colpiv_qr_h(a)
+        self._Y, self._T, self._R, perm, health = self._programs.factorize(
+            self, "DenseColPivQR.compute", (), lambda s, a: _dense_colpiv_qr_h(a), a
+        )
         # the pivot order stays on the device: fetching it here would make
         # every compute wait for the device; cols_permutation() fetches it
         self._perm_dev = perm

@@ -25,6 +25,12 @@ its segments' factors; Q products and the R exports run on factors
 gathered for the call.  When S does not tile the mesh nothing is sharded
 (the reference's rule).  The reference itself factors unsharded and only
 places the factors on the mesh afterwards.
+
+Unsharded on the card, a refactorize (``compute``'s device part,
+``factorize_values``) and a solve (vector or matrix rhs) are each one
+captured program (:mod:`~qrkit_tpu_torch._program`; the reference's
+per-plan factorize and solve programs), B3, B4 and B5 launched inside the
+factorize's graph.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from .._program import Programs
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
 from ..parallel.mesh import all_gather_leading
 from ..sparse import Permutation, SparseCSR
@@ -105,6 +112,8 @@ class SegmentedBandedQR(QRSolver):
         self._analysis_ok = False
         self._fac_kernel = False
         self._segs, self._lead, self._global_maps = None, 0, {}
+        self._programs = Programs()
+        self._layout_version = 0  # keys the factorize program: bumped with the maps
 
     @property
     def rows(self) -> int:
@@ -216,6 +225,7 @@ class SegmentedBandedQR(QRSolver):
         sm[seg_of[ok], (r_s - self._seg_row0_arr[seg_of])[ok], slabcol[ok]] = np.nonzero(sel)[0][ok]
         self._slab_gmap = torch.as_tensor(sm, device=self.device)
         segmented_plan.shard_layout_maps(self, nnz)
+        self._layout_version += 1
 
     # --- the segment shard of a mesh ------------------------------------------------
     def _gather_segments(self, t: torch.Tensor) -> torch.Tensor:
@@ -251,12 +261,18 @@ class SegmentedBandedQR(QRSolver):
         if self._panel_gmap is None or fp != self._gmap_fp:
             self._layout_maps(mat, pmat)
             self._gmap_fp = fp
-        self._factorize(upload_values(pmat.data, self.device, self.dtype))
+        self._factorize(upload_values(mat.data, self.device, self.dtype))
         return self
 
     def _factorize(self, vals: torch.Tensor) -> None:
+        """Refactorize from the stored-order value vector: one captured
+        program on the card without a mesh."""
         self._fac_kernel = self._kernel_active()
-        segmented_factorize.factorize(self, vals, self._fac_kernel)
+        out = self._programs.factorize(
+            self, "SegmentedBandedQR.factorize", (self._layout_version, self._fac_kernel),
+            segmented_factorize.factorize, vals, capture=self._segs is None,
+        )
+        segmented_factorize.adopt(self, out)
 
     def _take_delegate_status(self):
         self._info = self._delegate._info
@@ -344,7 +360,10 @@ class SegmentedBandedQR(QRSolver):
         pre-applies ``rows_permutation()``.  No kernel runs here."""
         if self._delegate is not None:
             return self._delegate.solve(b)
-        return segmented_solve.solve(self, b)
+        return self._programs.solve(
+            self, "SegmentedBandedQR.solve", (), segmented_solve.solve, b,
+            capture=self._segs is None,
+        )
 
     def matrix_r_dense(self) -> torch.Tensor:
         """Dense R in P_split column order (tests)."""

@@ -89,12 +89,17 @@ def r_diagonal(self, Vs, chain_r) -> torch.Tensor:
 
 
 @highest_precision()
-def factorize(self, vals: torch.Tensor, kernel: bool) -> None:
-    """Factor from the permuted value vector ``vals [nnz]`` on the device;
-    stores ``_Yws, _Ts, _r_panels, _j2_top, _Yb, _Tb, _chain_seq,
-    _chain_r`` and leaves the health flag on the device."""
+def factorize(self, vals: torch.Tensor):
+    """Factor from the stored-order value vector ``vals [nnz]`` on the
+    device (kernels where ``self._fac_kernel``) → ``(Yws, Ts, Vs, j2_top,
+    Yb, Tb, Ywc, Tc, chain_r, health)``, the health flag on the device too;
+    :func:`adopt` stores them.  This is the segmented solver's factorize
+    program."""
     o = self._overlap
     kw, ckw = self._kw, self._chain_kw
+    kernel = self._fac_kernel
+    if self._data_perm is not None:
+        vals = vals[self._data_perm]
     pad = torch.cat([vals, vals.new_zeros(1)])
     slab = pad[self._slab_gmap]  # [S, R, 2o]
     # [S, L, ma, mc], carry shift folded in (behind _lead idle segments on
@@ -145,10 +150,19 @@ def factorize(self, vals: torch.Tensor, kernel: bool) -> None:
                 pan[None], cg["col_inc"][None], active, ckw["max_carry"], ckw["max_emit"]
             )
         )
+    health = _diag_health(r_diagonal(self, Vs, chain_r))
+    return Yws, Ts, Vs, j2_top, Yb, Tb, Ywc, build_t_factor(Ywc, taus_c), chain_r, health
+
+
+def adopt(self, out) -> None:
+    """Store :func:`factorize`'s outputs as the solver's factors and leave
+    the health flag on the device."""
+    Yws, Ts, Vs, j2_top, Yb, Tb, Ywc, Tc, chain_r, health = out
+    cg, ckw = self._chain_geom_dev, self._chain_kw
     self._chain_seq = TwoSegmentWYSeq(
-        Ywc, build_t_factor(Ywc, taus_c), cg["cols"], cg["rows"], cg["carry_rows"],
-        h1=max(ckw["max_carry"], 1), m=self._nbot2,
+        Ywc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=max(ckw["max_carry"], 1),
+        m=self._nbot2,
     )
     self._Yws, self._Ts, self._r_panels, self._j2_top = Yws, Ts, Vs, j2_top
     self._Yb, self._Tb, self._chain_r = Yb, Tb, chain_r
-    self._set_success(_diag_health(r_diagonal(self, Vs, chain_r)))
+    self._set_success(health)
