@@ -5,7 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds every CUDA kernel from the sources in ``qrkit_tpu_torch/ops/csrc/``
-with nvcc (sm_90a), one nvcc per library, all started together, and then:
+with nvcc (sm_90a), one nvcc per library, all started together (and prints
+the driver's and the toolkit's CUDA versions: the captured LM loop's
+conditional WHILE node needs 12.3 in both), and then:
 
 * block-diagonal path (kernels B1, B2): checks each kernel against its plain
   PyTorch version, drives ``SparseCSR`` → ``BlockDiagonal`` →
@@ -37,9 +39,10 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   (kernel B2 once per compute), each against the port's fp64 CPU result;
 * LM ellipse fit (phase ``ellipse_lm``): ``fit_ellipse`` on the device loop
   at N = 100,000 and 500,000 (fp32, ``LMConfig(max_iters=40, ftol=1e-8,
-  xtol=1e-8)``), its host reads per iteration, wall time and device busy
-  share, and ``fit_ellipse_batch`` on 16 problems of 10,000 points against
-  the solo fits;
+  xtol=1e-8)``): the first fit of each key captures its loop (host reads
+  and launches checked: iteration 1 eager, then the fit as one launch),
+  warm fits' wall time and device busy share, and ``fit_ellipse_batch`` on
+  16 problems of 10,000 points against the solo fits;
 * banded-left ellipse step (phase ``ellipse_banded_left``): one
   ``EllipseFitting.damped_step_banded`` at N = 2,000 (kernel B5 on a chain of
   2,000 steps of 4×1 panels) against ``damped_step``, fp64 and fp32, and B5
@@ -48,9 +51,22 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   (8 cameras, noise 1e-3, seed 3, its perturbation; ``LMConfig(max_iters=
   40)``), fp32: ``fit_bundle`` (host loop, kernel B2 on the 19×3 point
   blocks every iteration) at 5,000 points and ``fit_bundle_device`` at
-  5,000 and 20,000 points, each a warm-up fit and a timed one, with rms
-  reprojection, host reads and B2 launches per iteration, the two loops held
-  to each other by cost; B2 timed at the 19×3 batch;
+  5,000 and 20,000 points (its key's first fit: the capture), each a
+  counted fit and a timed one, with rms reprojection, host reads and B2
+  launches per iteration, the two loops held to each other by cost; B2
+  timed at the 19×3 batch;
+* one LM fit as one program (phase ``lm_programs``): ``fit_ellipse`` at
+  100,000 and 500,000 points, ``fit_ellipse_batch`` at 16 × 10,000 and
+  ``fit_bundle_device`` at 5,000 and 20,000 points, fp32: the eager loop
+  (``_program.eager()``), the key's first fit (capture) and a warm fit,
+  which must be one graph launch with one host read, no host-issued launch
+  and kernel L1 (``csrc/graph_loop.cu``, the conditional WHILE node's
+  condition) once before the loop and once an iteration, each bitwise equal
+  to the eager fit (x, cost, λ, iterations, converged), L1's log of every
+  evaluation against the plain condition, the parameter / rms gates; capture
+  seconds, pool bytes, wall ms of eager and captured fits in turns, device
+  ms per fit and per iteration, and L1's device time inside the loop; then
+  L1 against its plain version on its own (phase ``loop_cond``), timed;
 * ``auto_qr`` and the CLI (phase ``auto_cli``): config 3 and config 2 (10,000
   blocks of 7×2, rows permuted) written as MatrixMarket files and run
   through ``qrkit_tpu_torch.__main__.main`` in this process (fp32,
@@ -78,8 +94,11 @@ with nvcc (sm_90a), one nvcc per library, all started together, and then:
   ``SegmentedBandedQR`` (``factorize_values`` with B3, B4 and B5; solve,
   vector and k = 3) and ``BandedBlockedQR`` (B5), the tall-block p2w
   geometry (4,096 blocks of 10×4 overlapping 2, 8 per segment; B3, B4, B5),
-  ``DenseHouseholderQR`` / ``DenseColPivQR`` at 24×8 and 20,000×32, and
-  config 4's fused dense compute and solve at N = 100,000: the first call's
+  ``DenseHouseholderQR`` / ``DenseColPivQR`` at 24×8 and 20,000×32,
+  config 4's fused dense compute and solve at N = 100,000, the functional
+  programs (``block_diagonal_factorize``, ``block_angular_lstsq``,
+  ``lm_damped_step_blockdiag(1)``) at the ellipse's width (100,000 points)
+  and config 4's lane-major compute, solve and compute_solve: the first call's
   time (eager), the second's (warm-up + capture) and the capture's, a warm
   call's replays, ATen ops, host-issued launches and host reads (one
   replay, at most 3 ops, none and none), the launches inside a replay, host
@@ -135,6 +154,7 @@ from qrkit_tpu_torch.examples import bundle, ellipse
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
+from qrkit_tpu_torch.ops import graph_loop
 from qrkit_tpu_torch.solvers import segmented_factorize
 
 SEED = 0
@@ -153,6 +173,8 @@ HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 SOURCE = "qrkit_tpu_torch/ops/csrc/blockdiag_qr.cu"
 BANDED_SOURCE = "qrkit_tpu_torch/ops/csrc/banded_chain.cu"
 BLOCKDIAG_KERNELS = ("blockdiag_lstsq", "blockdiag_qr_r")
+KERNEL_NAMES = ("blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
+                "banded_chain_qr")  # B1-B5
 BANDED_KERNELS = {  # name -> TPU kernel replaced
     "banded_segment_chains": "qrkit_tpu/ops/pallas_banded.py:61",
     "banded_apply_w": "qrkit_tpu/ops/pallas_banded.py:148",
@@ -268,16 +290,23 @@ def phase_build():
     t0 = time.perf_counter()
     jobs = [lambda s=s: _build.build(*s) for s in KERNEL_SHAPES]
     jobs.append(lambda: _build.build_source(_build.BANDED_SOURCE))
+    jobs.append(lambda: _build.build_source(_build.GRAPH_LOOP_SOURCE))
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = [f.result() for f in [pool.submit(job) for job in jobs]]
     for br, bc in KERNEL_SHAPES:
         _build.load(br, bc)
     _build.load_banded()
+    driver, runtime = graph_loop.versions()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "nvcc": _build.find_nvcc(), "flags": list(_build.NVCC_FLAGS),
         "libraries": [p.name for p in paths],
     })
+    # conditional WHILE graph nodes (the captured LM loop) need 12.3 in both
+    emit({"phase": "cuda_versions", "driver": driver, "toolkit": runtime,
+          "torch_cuda": torch.version.cuda})
+    if min(driver, runtime) < 12030:
+        raise AssertionError(f"CUDA driver {driver} / toolkit {runtime}: conditional WHILE nodes need 12030")
 
 
 def phase_kernel_vs_plain(rng):
@@ -1014,15 +1043,16 @@ ELLIPSE_GATE = 1e-3  # canonical parameters against the truth, fp32
 LM_CFG = lm.LMConfig(max_iters=40, ftol=1e-8, xtol=1e-8)  # examples/bench_ellipse.py's
 
 
-def device_kernels(prof):
+def device_kernels(prof, part=""):
     """(kernel ms, kernel launches) under torch.profiler: the device-side
     events only, so each launch counts once (the CPU op that launched a
-    kernel carries its time too), as the profiler table's footer counts."""
+    kernel carries its time too), as the profiler table's footer counts;
+    only the kernels whose name holds ``part``."""
     from torch.autograd import DeviceType
 
     ms, launches = 0.0, 0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and part in e.key:
             ms += e.self_device_time_total / 1e3
             launches += e.count
     return ms, launches
@@ -1036,27 +1066,42 @@ def fit(pts, dtype=torch.float32):
     return result, params, time.perf_counter() - t0, lm.levenberg_marquardt_device.host_reads - reads0
 
 
+def first_fit_contract(label, iterations, reads, counts):
+    """A key's first fit: iteration 1 eager (one host read; a fit that it
+    finishes ends there), iteration 2 the capture's warm-up, then the whole
+    fit as one launch of the captured loop (one fetch; L1 once before the
+    loop and once an iteration, by its own count), no other kernel."""
+    k = int(iterations)
+    want_reads = 2 if k > 1 else 1
+    want = {name: (k + 1 if name == "graph_loop_cond" and k > 1 else 0) for name in counts}
+    if reads != want_reads or counts != want:
+        raise AssertionError(f"{label}: first fit of {k} iterations: {reads} host reads, launches "
+                             f"{counts}; want {want_reads} and {want}")
+
+
 def phase_ellipse_lm(smi):
     """fit_ellipse on the device loop at N = 100,000 and 500,000, fp32: the
-    launch counters around the first fit (the LM path runs no kernel), the
-    canonical parameters against the truth, host reads per iteration, the
-    wall time (a warm-up fit, then a median of 3) and, at N = 100,000, the
-    device busy share under torch.profiler.  Then fit_ellipse_batch on 16
-    problems of 10,000 points against the solo fits."""
+    first fit of each key captures its loop (iteration 1 eager, then the
+    fit as one launch: host reads and launches checked), the canonical
+    parameters against the truth, the wall time of warm fits (a median of 3)
+    and, at N = 100,000, the device busy share of a warm fit under
+    torch.profiler.  Then fit_ellipse_batch on 16 problems of 10,000 points
+    against the solo fits."""
     el = ellipse.Ellipse(*ELLIPSE_TRUTH)
+    lm.clear_programs()
     for n in ELLIPSE_NS:
         pts = ellipse.ellipse_points(el, n)
         profiling.reset_launch_counts()
         result, params, first_s, reads = fit(pts)
         counts = profiling.launch_counts()
-        if any(counts.values()):
-            raise AssertionError(f"ellipse LM N={n}: the LM path launched kernels {counts}")
+        first_fit_contract(f"ellipse LM N={n}", result.iterations, reads, counts)
         err = float(np.abs(params[n:] - np.array(ELLIPSE_TRUTH)).max())
         if not (np.isfinite(result.cost) and err < ELLIPSE_GATE and np.isfinite(params).all()):
             raise AssertionError(f"ellipse LM N={n}: cost {result.cost}, parameter error {err}")
-        if reads != result.iterations:
-            raise AssertionError(f"ellipse LM N={n}: {reads} host reads in {result.iterations} iterations")
-        times = sorted(fit(pts)[2] * 1e3 for _ in range(3))
+        timed = [fit(pts) for _ in range(3)]
+        if any(r[3] != 1 for r in timed):
+            raise AssertionError(f"ellipse LM N={n}: warm fits read {[r[3] for r in timed]} times")
+        times = sorted(r[2] * 1e3 for r in timed)
         busy = None
         if n == ELLIPSE_NS[0]:
             from torch.profiler import ProfilerActivity, profile
@@ -1072,17 +1117,15 @@ def phase_ellipse_lm(smi):
             "phase": "ellipse_lm", "n": n, "dtype": "float32", "iterations": result.iterations,
             "converged": result.converged, "cost": result.cost, "max_param_err": err,
             "gate": ELLIPSE_GATE, "params": [float(v) for v in params[n:]],
-            "host_reads": reads, "host_reads_per_iteration": reads / max(result.iterations, 1),
-            "launches": counts, "first_fit_s": first_s, "ms": times[1], "times_ms": times,
+            "first_fit_host_reads": reads, "warm_fit_host_reads": 1,
+            "first_fit_launches": counts, "first_fit_s": first_s, "ms": times[1], "times_ms": times,
             "profiler": busy,
-            "method": "host wall time of fit_ellipse (ends in a host fetch and synchronize), "
-                      "one warm-up fit, median of 3", "gpu": smi,
+            "method": "host wall time of a warm fit_ellipse (one captured loop; ends in its one "
+                      "fetch and a synchronize), median of 3; first_fit_s includes the capture",
+            "gpu": smi,
         })
     nb, n = 16, 10_000
-    pts_b = np.stack([
-        ellipse.ellipse_points(ellipse.Ellipse(7.5 + 0.1 * i, 2.0, 17.0, 23.0, 0.23 + 0.01 * i), n)
-        for i in range(nb)
-    ])
+    pts_b = ellipse_batch_points(nb, n)
     ellipse.fit_ellipse_batch(pts_b[:2], LM_CFG, dtype=torch.float32, device=DEVICE)  # warm-up
     t0 = time.perf_counter()
     batch = ellipse.fit_ellipse_batch(pts_b, LM_CFG, dtype=torch.float32, device=DEVICE)
@@ -1097,8 +1140,21 @@ def phase_ellipse_lm(smi):
         "phase": "ellipse_lm_batch", "problems": nb, "n": n, "dtype": "float32",
         "iterations": [int(v) for v in batch.iterations], "max_abs_err_vs_solo": worst,
         "rtol": tolerance(torch.float32)[0], "atol_x_max_abs": tolerance(torch.float32)[1],
-        "batch_s": batch_s, "sum_of_solo_s": solo_s, "gpu": smi,
+        "batch_s_first_fit_of_key": batch_s, "sum_of_solo_s": solo_s,
+        "note": "the batch is its key's first fit (capture included); of the solo fits the first "
+                "captures, the others are warm", "gpu": smi,
     })
+
+
+def ellipse_batch_points(nb=16, n=10_000):
+    """``nb`` ellipses of ``n`` points, problem i with a = 7.5 + 0.1 i and
+    r = 0.23 + 0.01 i (their truths: :func:`ellipse_batch_truth`)."""
+    return np.stack([ellipse.ellipse_points(ellipse.Ellipse(*ellipse_batch_truth(i)), n)
+                     for i in range(nb)])
+
+
+def ellipse_batch_truth(i):
+    return (7.5 + 0.1 * i, 2.0, 17.0, 23.0, 0.23 + 0.01 * i)
 
 
 BANDED_LEFT_N = 2000  # a row of the published ellipse table
@@ -1219,16 +1275,19 @@ def busy_share(fn):
 def phase_bundle(smi):
     """fit_bundle (host loop; B2 once per damped step) at 5,000 points and
     fit_bundle_device at 5,000 and 20,000 points, fp32 on the card: the
-    first fit counted (launches, host reads, ATen ops), then one timed fit
-    and one under the profiler; rms reprojection gated, the two loops held
-    to each other by final cost at 5,000 points.  Returns (B2 launches of
-    the host loop's counted fit, its iterations, its point-block shape)."""
+    first fit counted (launches, host reads, ATen ops; a device fit is its
+    key's first: iteration 1 eager, then the fit as one captured launch),
+    then one timed fit and one under the profiler (warm); rms reprojection
+    gated, the two loops held to each other by final cost at 5,000 points.
+    Returns (B2 launches of the host loop's counted fit, its iterations,
+    its point-block shape)."""
     f32 = dict(device=DEVICE, dtype=torch.float32)
     out = {}
     runs = [("host_loop", BUNDLE_HOST_P, bundle.fit_bundle)] + [
         ("device_loop", p, bundle.fit_bundle_device) for p in BUNDLE_DEVICE_PS
     ]
     b2 = iters = 0
+    lm.clear_programs()
     for loop, n_pts, fit_fn in runs:
         cams0, pts0, uv = bundle_start(n_pts)
         n_obs = 2 * n_pts * BUNDLE_CAMS
@@ -1247,11 +1306,14 @@ def phase_bundle(smi):
         if not (np.isfinite(res.cost) and rms < BUNDLE_RMS_GATE and np.isfinite(x_np).all()):
             raise AssertionError(f"bundle {loop} P={n_pts}: cost {res.cost}, rms {rms}")
         # the host loop makes one damped step, so one B2 launch, an
-        # iteration; the device loop's fused step runs no kernel
-        expected = {name: (it if loop == "host_loop" and name == "blockdiag_qr_r" else 0)
-                    for name in counts}
-        if counts != expected or (loop == "host_loop" and it < 1):
-            raise AssertionError(f"bundle {loop} P={n_pts}: launches {counts} in {it} iterations")
+        # iteration; the device loop's fused step runs no kernel, its
+        # captured loop L1 once before the loop and once an iteration
+        if loop == "host_loop":
+            expected = {name: (it if name == "blockdiag_qr_r" else 0) for name in counts}
+            if counts != expected or it < 1:
+                raise AssertionError(f"bundle {loop} P={n_pts}: launches {counts} in {it} iterations")
+        else:
+            first_fit_contract(f"bundle {loop} P={n_pts}", it, loop_reads, counts)
         if loop == "host_loop":
             b2, iters = counts["blockdiag_qr_r"], it
         t0 = time.perf_counter()
@@ -1267,13 +1329,15 @@ def phase_bundle(smi):
             "rms_reproj": rms, "gate": BUNDLE_RMS_GATE, "point_block": [2 * BUNDLE_CAMS + 3, 3],
             "launches": counts, "b2_launches_per_iteration": counts["blockdiag_qr_r"] / max(it, 1),
             "host_reads": d.host_reads, "host_reads_per_iteration": d.host_reads / max(it, 1),
-            "device_loop_done_reads": loop_reads, "aten_ops_per_iteration": d.ops / max(it, 1),
+            "device_loop_reads": loop_reads, "aten_ops_per_iteration": d.ops / max(it, 1),
             "first_fit_s_counted": first_s, "seconds": timed_s,
             "profiler": {"wall_ms": wall_ms, "device_ms": kernel_ms, "device_launches": launches,
                          "busy_share": kernel_ms / wall_ms if kernel_ms > 0 else None},
             "method": "first fit under count_dispatches (ATen ops, host reads: .item()/bool() and "
-                      "device-to-host copies) with the launch counters; seconds: a second fit, host "
-                      "wall time ending in synchronize; profiler: a third fit",
+                      "device-to-host copies) with the launch counters (the device loop's first fit "
+                      "captures its loop); device_loop_reads: the LM driver's reads that wait on the "
+                      "loop; seconds: a second fit, host wall time ending in synchronize; profiler: "
+                      "a third fit",
             "gpu": smi,
         })
     h, dv = out[("host_loop", BUNDLE_HOST_P)], out[("device_loop", BUNDLE_HOST_P)]
@@ -1995,8 +2059,10 @@ def phase_programs(rng, smi):
     ``SegmentedBandedQR`` (``factorize_values`` with B3, B4, B5; solve,
     vector and k = 3) and ``BandedBlockedQR`` (B5), the tallblock_p2w
     geometry at 4,096 blocks (B3, B4, B5), the dense solvers at 24×8 and
-    20,000×32, and config 4's fused dense compute and solve at N = 100,000;
-    fp32.  Returns the launches of the warm calls by kernel."""
+    20,000×32, config 4's fused dense compute and solve at N = 100,000,
+    and the functional and lane-major programs
+    (:func:`functional_and_soa_programs`); fp32.  Returns the launches of
+    the warm calls by kernel."""
     total = {name: 0 for name in profiling.launch_counts()}
 
     def drive(*args):
@@ -2082,10 +2148,268 @@ def phase_programs(rng, smi):
     drive(f"config4_fused_dense_{n}", "solve", ba._programs, "BlockAngularQR.solve",
           lambda: ba.solve(b), lambda x: x, {}, 20, 20)
 
-    missing = [name for name in profiling.launch_counts() if not total[name]]
+    functional_and_soa_programs(rng, drive, dev)
+
+    missing = [name for name in KERNEL_NAMES if not total[name]]
     if missing:
         raise AssertionError(f"programs: kernels never launched inside a replay: {missing}")
     return total
+
+
+def functional_and_soa_programs(rng, drive, dev):
+    """The functional programs and the lane-major BlockAngularQR route
+    (compute, solve, compute_solve) at the ellipse's width (N = 100,000
+    points; config 4 and its damped system), each through ``drive``."""
+    n = BA_NS[0]
+    blocks = dev(rng.uniform(0.5, 5.0, size=(n, 3, 1)))
+    right = dev(rng.uniform(0.5, 5.0, size=(3 * n + 5, BA_M2)))
+    rhs = dev(rng.normal(size=3 * n + 5))
+    left = dev(rng.normal(size=(2, n)))
+    left3 = left[:, None, :]  # the general step's [bl, bc, N] with bc = 1
+    sright = dev(rng.normal(size=(2, BA_M2, n)))
+    res = dev(rng.normal(size=(2, n)))
+    lam = torch.tensor(1e-3, dtype=torch.float32, device=DEVICE)
+    functional.clear_programs()
+    path = f"functional_{n}"
+    for label, programs, call in (
+        ("block_diagonal_factorize", functional._FACTORIZE_PROGRAMS,
+         lambda: functional.block_diagonal_factorize(blocks)),
+        ("block_angular_lstsq", functional._ANGULAR_PROGRAMS,
+         lambda: functional.block_angular_lstsq(blocks, right, rhs, 1, 5)),
+        ("lm_damped_step_blockdiag", functional._STEP_PROGRAMS,
+         lambda: functional.lm_damped_step_blockdiag(left3, sright, res, lam)),
+        ("lm_damped_step_blockdiag1", functional._STEP1_PROGRAMS,
+         lambda: functional.lm_damped_step_blockdiag1(left, sright, res, lam)),
+    ):
+        drive(path, label, programs, f"functional.{label}", call,
+              lambda out: concat(*(t.float() for t in (out if isinstance(out, tuple) else (out,)))),
+              {}, 20, 20)
+    blocks_np, a2_np, b_np = block_angular_problem(rng, n)
+    soa = qt.BlockMatrix1x2(
+        qt.BlockDiagonal.from_soa(dev(blocks_np.transpose(1, 2, 0).reshape(2, n)), 2, 1, nrows=2 * n),
+        dev(a2_np.T), right_t=True,
+    )
+    b = dev(b_np)
+    ba = ba_solver()
+    path = f"config4_fused_soa_{n}"
+    drive(path, "compute", ba._programs, "BlockAngularQR.soa_compute", lambda: ba.compute(soa),
+          lambda _: concat(ba._sR1, ba._sR2, ba._sr12t), {}, 20, 20)
+    if not ba._fused_soa:
+        raise AssertionError("programs config4: the lane-major path was not taken")
+    drive(path, "solve", ba._programs, "BlockAngularQR.soa_solve", lambda: ba.solve(b),
+          lambda x: x, {}, 20, 20)
+    drive(path, "compute_solve", ba._programs, "BlockAngularQR.soa_compute_solve",
+          lambda: ba.compute_solve(soa, b), lambda x: x, {}, 20, 20)
+
+
+# --- one LM fit as one program (the captured loop, L1) ---
+
+GRAPH_LOOP_SOURCE = "qrkit_tpu_torch/ops/csrc/graph_loop.cu"
+LM_BATCH = (16, 10_000)  # fit_ellipse_batch: problems, points each
+L1_REPLACES = "none: XLA's lax.while_loop predicate, qrkit_tpu/lm.py:149"
+LM_PROGRAM_ROUNDS = ("eager", "captured", "captured", "eager")
+
+
+def lm_program_fits():
+    """The five fits of phase ``lm_programs``: (label, fit() → (LMResult,
+    canonical ellipse parameters or None), gate(result, params) → (value,
+    bound))."""
+    el = ellipse.Ellipse(*ELLIPSE_TRUTH)
+    fits = []
+    for n in ELLIPSE_NS:
+        pts = ellipse.ellipse_points(el, n)
+
+        def ell(pts=pts):
+            return ellipse.fit_ellipse(pts, LM_CFG, dtype=torch.float32, device=DEVICE)
+
+        def ell_gate(res, params, n=n):
+            return float(np.abs(params[n:] - np.array(ELLIPSE_TRUTH)).max()), ELLIPSE_GATE
+
+        fits.append((f"fit_ellipse_{n}", ell, ell_gate))
+    nb, nbp = LM_BATCH
+    pts_b = ellipse_batch_points(nb, nbp)
+
+    def batch():
+        return ellipse.fit_ellipse_batch(pts_b, LM_CFG, dtype=torch.float32, device=DEVICE), None
+
+    def batch_gate(res, _):
+        errs = [np.abs(ellipse.canonicalize_ellipse(res.x[i], nbp)[nbp:] - np.array(ellipse_batch_truth(i))).max()
+                for i in range(nb)]
+        return float(max(errs)), ELLIPSE_GATE
+
+    fits.append((f"fit_ellipse_batch_{nb}x{nbp}", batch, batch_gate))
+    for p in BUNDLE_DEVICE_PS:
+        cams0, pts0, uv = bundle_start(p)
+
+        def bun(cams0=cams0, pts0=pts0, uv=uv):
+            return bundle.fit_bundle_device(cams0, pts0, uv, BUNDLE_CFG, device=DEVICE,
+                                            dtype=torch.float32), None
+
+        def bun_gate(res, _, p=p):
+            return float(np.sqrt(2.0 * np.max(res.cost) / (2 * p * BUNDLE_CAMS))), BUNDLE_RMS_GATE
+
+        fits.append((f"fit_bundle_device_{p}", bun, bun_gate))
+    return fits
+
+
+def lm_fields(res):
+    return [np.asarray(v) for v in (res.x, res.cost, res.lambda_final, res.iterations, res.converged)]
+
+
+def drive_lm_program(label, fit, gate, smi):
+    """One fit at full width: the eager loop (``_program.eager()``), the
+    key's first fit (capture), a warm fit counted (one program, one host
+    read, no host-issued launch, L1 once before the loop and once an
+    iteration), each bitwise equal to the eager fit, L1's log against the
+    plain condition on every iteration, the gate; then eager and captured
+    fits in turns (wall ms), device ms per fit under torch.profiler and
+    L1's device time in a captured fit.  Returns (L1 launches of the warm
+    fit, L1 device ms an evaluation or None)."""
+    lm.clear_programs()
+    start = time.perf_counter()
+    with _program.eager():
+        eager, _ = fit()
+    k = int(np.max(eager.iterations))
+    reads0 = lm.levenberg_marquardt_device.host_reads
+    t0 = time.perf_counter()
+    with profiling.count_dispatches() as d1:
+        first, _ = fit()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_reads = lm.levenberg_marquardt_device.host_reads - reads0
+    (prog,) = lm._LOOPS.programs().values()
+    prog.log.fill_(-1)
+    reads0 = lm.levenberg_marquardt_device.host_reads
+    with profiling.count_dispatches() as d:
+        warm, params = fit()
+    torch.cuda.synchronize()
+    warm_reads = lm.levenberg_marquardt_device.host_reads - reads0
+    log = prog.log.cpu().tolist()[: k + 1]
+    launches = {n: v for n, v in d.launches.items() if v}
+    bitwise = {"first": all(np.array_equal(a, b) for a, b in zip(lm_fields(first), lm_fields(eager))),
+               "warm": all(np.array_equal(a, b) for a, b in zip(lm_fields(warm), lm_fields(eager)))}
+    value, bound_ = gate(warm, params)
+    problems = []
+    if d.programs != 1 or d.host_reads != 1 or warm_reads != 1 or any(d.host_launches.values()):
+        problems.append(f"warm fit: {d.programs} programs, {d.host_reads} host reads (driver "
+                        f"{warm_reads}), host launches {d.host_launches}; want 1, 1, none")
+    if launches != {"graph_loop_cond": k + 1}:
+        problems.append(f"warm fit launches {launches}, want L1 {k + 1} times")
+    if first_reads != (2 if k > 1 else 1):
+        problems.append(f"first fit: {first_reads} host reads")
+    if log != [1] * k + [0]:
+        problems.append(f"L1's evaluations {log} differ from the plain condition (true {k} times, then false)")
+    if not all(bitwise.values()):
+        problems.append(f"captured fits differ from the eager fit: {bitwise}")
+    if not (np.isfinite(warm.x).all() and np.isfinite(warm.cost).all() and value < bound_):
+        problems.append(f"gate: {value} (bound {bound_}), finite x {np.isfinite(warm.x).all()}")
+    if problems:
+        raise AssertionError(f"lm_programs {label}: " + "; ".join(problems))
+
+    def captured():
+        return fit()
+
+    def eager_fit():
+        with _program.eager():
+            return fit()
+
+    walls = {"eager": [], "captured": []}
+    for kind in LM_PROGRAM_ROUNDS:
+        fn = captured if kind == "captured" else eager_fit
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    dev_ms = {"captured": device_time_ms(captured, reps=2), "eager": device_time_ms(eager_fit, reps=1)}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        captured()
+        torch.cuda.synchronize()
+    l1_ms, l1_records = device_kernels(prof, "loop_cond")
+    l1_each = l1_ms / l1_records if l1_records else None
+    iters = k
+    line = {
+        "phase": "lm_programs", "fit": label, "dtype": "float32", "iterations": k,
+        "iterations_per_problem": [int(v) for v in np.atleast_1d(warm.iterations)],
+        "converged": bool(np.all(warm.converged)), "gate_value": value, "gate": bound_,
+        "program": prog.name, "capture_s": prog.capture_seconds, "first_fit_s": first_s,
+        "first_fit_host_reads": first_reads, "first_fit_ops": d1.ops,
+        "warm": {"programs": d.programs, "host_reads": d.host_reads, "ops": d.ops,
+                 "host_launches": {n: v for n, v in d.host_launches.items() if v},
+                 "launches": launches},
+        "l1_log_matches_plain": True, "bitwise_equal_eager": bitwise,
+        "pool_bytes": lm._LOOPS.pool_bytes(),
+        "wall_ms": {kind: statistics.mean(v) for kind, v in walls.items()}, "wall_ms_runs": walls,
+        "device_ms": dev_ms,
+        "device_ms_per_iteration": {kind: v / iters for kind, v in dev_ms.items()},
+        "l1_device_ms_each": l1_each, "l1_records": l1_records,
+        "body_device_ms_per_iteration": ((dev_ms["captured"] - l1_each * (k + 1)) / iters
+                                         if l1_records else None),
+        "seconds": time.perf_counter() - start,
+        "method": "eager: the same fit under _program.eager() (one host read an iteration); "
+                  "first: the key's first fit (iteration 1 eager, capture, the fit as one launch); warm: "
+                  "one launch, one fetch, under count_dispatches; wall_ms: host clock ending in "
+                  "synchronize, rounds eager, captured, captured, eager of 2 fits, means; "
+                  "device_ms: torch.profiler's kernel time per fit (device_time_ms); L1: the "
+                  "mean of the profiler's loop_cond_kernel records around one captured fit "
+                  "(records of an earlier profile may arrive late: l1_records can exceed k + 1); "
+                  "body: device ms less k + 1 L1 evaluations, over k",
+        "gpu": smi,
+    }
+    emit(line)
+    return k + 1, l1_each
+
+
+def phase_lm_programs(smi):
+    """Each device fit as one program: fit_ellipse at N = 100,000 and
+    500,000, fit_ellipse_batch at 16 × 10,000 and fit_bundle_device at
+    5,000 and 20,000 points, fp32 (:func:`drive_lm_program`).  Returns the
+    L1 device ms of an evaluation in each fit."""
+    l1 = {}
+    for label, fit_fn, gate in lm_program_fits():
+        _, l1[label] = drive_lm_program(label, fit_fn, gate, smi)
+    return l1
+
+
+def phase_loop_cond(smi, l1_in_loop):
+    """L1 against its plain version, ``(k < max_iters) & ~done.all()``, at
+    the main path's shapes (done [1] and [16]) and a few more, every k
+    around max_iters; then both timed at done [16] (device time), with the
+    byte bound.  Launches here are not the main path's."""
+    rng = np.random.default_rng(SEED)
+    mismatches = cases = 0
+    for nb in (1, 16, 1000, 5000):
+        for k in (0, 1, LM_CFG.max_iters - 1, LM_CFG.max_iters, LM_CFG.max_iters + 1):
+            for frac in (0.0, 0.5, 1.0):
+                done = torch.as_tensor(rng.random(nb) < frac, device=DEVICE)
+                kk = torch.tensor(k, dtype=torch.int32, device=DEVICE)
+                got = graph_loop.loop_condition(done, kk, LM_CFG.max_iters)
+                want = graph_loop._loop_condition_plain(done, kk, LM_CFG.max_iters)
+                mismatches += int(not torch.equal(got, want))
+                cases += 1
+    torch.cuda.synchronize()
+    if mismatches:
+        raise AssertionError(f"L1: {mismatches} of {cases} cases differ from the plain condition")
+    done = torch.zeros(16, dtype=torch.bool, device=DEVICE)
+    kk = torch.tensor(3, dtype=torch.int32, device=DEVICE)
+    rounds = {"kernel": [], "plain": []}
+    for kind in ("kernel", "plain", "plain", "kernel"):
+        fn = graph_loop.loop_condition if kind == "kernel" else graph_loop._loop_condition_plain
+        rounds[kind].append(device_time_ms(lambda fn=fn: fn(done, kk, LM_CFG.max_iters), reps=20,
+                                           one_kernel=kind == "kernel"))
+    nbytes = done.numel() + 4 + 1
+    bound_ms, bound_by = bound(nbytes, done.numel() + 2)
+    out = {"ms": statistics.mean(rounds["kernel"]), "plain_ms": statistics.mean(rounds["plain"]),
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
+    emit({"phase": "loop_cond", "cases": cases, "mismatches": mismatches, "shape": [16],
+          **out, "rounds": rounds, "in_loop_device_ms_each": l1_in_loop,
+          "method": "device time under torch.profiler of 20 calls (one kernel a call for L1; the "
+                    "plain expression: several), rounds kernel, plain, plain, kernel; bound: the "
+                    "bytes read and written over the HBM rate", "gpu": smi})
+    return out
 
 
 def main():
@@ -2110,6 +2434,10 @@ def main():
     ell_b5, ell_b5_worst, _ = phase_ellipse_banded(smi)
     bundle_b2, bundle_iters = phase_bundle(smi)
     bundle_step_breakdown(smi)
+    profiling.reset_launch_counts()
+    l1_in_loop = phase_lm_programs(smi)
+    lm_counts = profiling.launch_counts()
+    l1 = phase_loop_cond(smi, l1_in_loop)
     c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
     cli_counts = phase_auto_cli(rng, c3, smi)
     sp_counts = phase_sparse_apply(rng, c3, smi)
@@ -2162,6 +2490,12 @@ def main():
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
             "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
         })
+    kernels.append({
+        "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
+        "replaces": L1_REPLACES, "launches": lm_counts["graph_loop_cond"], **l1,
+        "library_ms": None,  # no PyTorch call sets a graph's condition
+        "in_loop_device_ms_each": l1_in_loop,
+    })
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

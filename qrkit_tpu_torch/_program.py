@@ -17,9 +17,10 @@ which the solver keeps anyway).  The first call of a key runs eagerly, as
 an uncaptured call would: a solver or a shape used once pays no capture.
 The second call in a row of the same key runs the function once on a side
 stream (the warm-up: cuBLAS workspaces, the kernels' one-time module
-loads, this call's result) and captures it; every later call is one copy
-of each non-resident input into the program's static buffer, one
-``graph.replay()`` and, for a solve, one clone of each output.  All of a
+loads, this call's result) and captures it; every later call copies the
+non-resident inputs into the program's static buffers (one
+``_foreach_copy_``), runs one ``graph.replay()`` and, for a solve, hands out
+fresh copies of the outputs (one op, :func:`_clones`).  All of a
 solver's graphs share one memory pool (``torch.cuda.graph_pool_handle()``),
 held, with the static buffers, for as long as the solver holds its programs
 (:meth:`Programs.clear` frees them).
@@ -46,22 +47,41 @@ issued, so a capture would count launches that never ran: a program
 records the launches its capture issued, sets the counters back, and adds
 them on each replay (:func:`qrkit_tpu_torch.profiling.count_dispatches`
 counts the replays as ``programs``).
+
+A :class:`LoopProgram` is the counterpart of ``lax.while_loop`` (the LM
+device fits, :mod:`qrkit_tpu_torch.lm`): an ``init``, a loop ``body`` and a
+``tail`` that update static state buffers in place, each captured with
+``torch.cuda.CUDAGraph(keep_graph=True)`` into its cache's pool after one
+warm-up of the body on the side stream (an iteration of the caller's loop),
+and built by :class:`qrkit_tpu_torch.ops.graph_loop.LoopGraph` into a graph
+whose conditional WHILE node replays the body while kernel L1 finds the
+condition ``(k < max_iters) & ~done.all()`` true.  A fit is then one graph
+launch and one fetch of the tail's output, which carries the loop counter
+and L1's own count of its evaluations: the body's launches are counted per
+iteration from the first, L1's from the second.  A loop also reads the
+tensors its functions hold (closure cells, a bound method's object): the
+program keeps them alive and is captured again when the functions hold
+others (:meth:`Loops.get`).  :class:`Loops` caches the loops by key
+(``limit`` keys, the oldest destroyed first: its graph before the pool).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import time
+import types
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from . import profiling
 
-__all__ = ["Program", "Programs", "eager"]
+__all__ = ["LoopProgram", "Loops", "Program", "Programs", "eager"]
 
 _EAGER = False
 _BACKEND = None  # a test's stand-in for _CudaGraph; None: CUDA graphs on CUDA tensors
+_LOOP_BACKEND = None  # a test's stand-in for _CudaLoop
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}  # warm-up and capture stream per card
 
 
@@ -91,12 +111,28 @@ def _use_backend(backend):
         _BACKEND = saved
 
 
-def _capturable(inputs) -> bool:
+@contextlib.contextmanager
+def _use_loop_backend(backend):
+    """The loop counterpart of :func:`_use_backend`: loop programs are
+    captured with ``backend`` (a class taking ``(init, body, tail, prog,
+    pool, stream)`` with ``.launch()`` and ``.close()``) on any device for
+    the block."""
+    global _LOOP_BACKEND
+    saved, _LOOP_BACKEND = _LOOP_BACKEND, backend
+    try:
+        yield
+    finally:
+        _LOOP_BACKEND = saved
+
+
+def _capturable(inputs, stand_in) -> bool:
+    """Whether a call on ``inputs`` is captured (``stand_in``: the test
+    backend in use, or None)."""
     if _EAGER:
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return False
-    if _BACKEND is not None:
+    if stand_in is not None:
         return True
     if not all(t.is_cuda for t in inputs):
         return False
@@ -132,6 +168,29 @@ def _on(stream):
 
 def _as_tuple(out) -> Tuple[Optional[torch.Tensor], ...]:
     return out if isinstance(out, tuple) else (out,)
+
+
+def _copy_in(static, inputs) -> None:
+    """Copy each input into its static buffer (None: read in place), as one
+    ``_foreach_copy_``."""
+    pairs = [(s, x) for s, x in zip(static, inputs) if s is not None and s is not x]
+    if len(pairs) == 1:
+        pairs[0][0].copy_(pairs[0][1])
+    elif pairs:
+        torch._foreach_copy_([s for s, _ in pairs], [x for _, x in pairs])
+
+
+def _clones(outs) -> Tuple[Optional[torch.Tensor], ...]:
+    """A fresh copy of each output (None stays None) in one op,
+    ``_foreach_mul`` by 1 (exact: x · 1 is x in every IEEE format, and in
+    integers); bool or complex outputs are cloned one by one."""
+    ts = [o for o in outs if o is not None]
+    if len(ts) > 1 and not any(t.dtype == torch.bool or t.is_complex() for t in ts):
+        fresh = torch._foreach_mul(ts, 1)
+    else:
+        fresh = [t.clone() for t in ts]
+    fresh = iter(fresh)
+    return tuple(next(fresh) if o is not None else None for o in outs)
 
 
 class _CudaGraph:
@@ -185,9 +244,7 @@ class Program:
         return out[0] if self._single else out
 
     def replay(self, inputs):
-        for s, x in zip(self.static_in, inputs):
-            if s is not None and s is not x:
-                s.copy_(x)
+        _copy_in(self.static_in, inputs)
         try:
             self._graph.replay()
         except RuntimeError as e:
@@ -195,7 +252,7 @@ class Program:
         profiling._note_replay(self.launches)
         if self.persistent:
             return self._result(self.out)
-        return self._result(tuple(o.clone() if o is not None else None for o in self.out))
+        return self._result(_clones(self.out))
 
 
 def _requires_grad(out) -> bool:
@@ -230,7 +287,7 @@ class Programs:
 
     def _run(self, owner, name, key, fn, inputs, persistent: bool, capture: bool,
              resident: int):
-        if not (capture and _capturable(inputs)):
+        if not (capture and _capturable(inputs, _BACKEND)):
             return fn(owner, *inputs), None
         slot = (name, key, _signature(inputs))
         addrs = tuple(t.data_ptr() for t in inputs[:resident])
@@ -306,9 +363,223 @@ class Programs:
         """Bytes of device memory reserved in this cache's graph pool
         (``torch.cuda.memory_snapshot``'s segments of the pool); None before
         any capture on the card or where the snapshot names no pool."""
-        if self._pool is None:
+        return _pool_bytes(self._pool)
+
+
+def _pool_bytes(pool) -> Optional[int]:
+    if pool is None:
+        return None
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+class _CudaLoop:
+    """The loop backend on the card: the body, init and tail captured with
+    ``torch.cuda.CUDAGraph(keep_graph=True)`` into the cache's pool on the
+    side stream, and the graph of :class:`~qrkit_tpu_torch.ops.graph_loop.LoopGraph`
+    built around them.  PyTorch's graphs are kept: they hold the pool."""
+
+    def __init__(self, init, body, tail, prog, pool, stream):
+        from .ops.graph_loop import LoopGraph
+
+        self.graphs = []
+        for fn in (body, init, tail):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                fn()
+            self.graphs.append(graph)
+        body_g, init_g, tail_g = (g.raw_cuda_graph() for g in self.graphs)
+        self.loop = LoopGraph(init_g, body_g, tail_g, prog.done, prog.k, prog.max_iters,
+                              prog.count, prog.log)
+
+    def launch(self) -> None:
+        self.loop.launch()
+
+    def close(self) -> None:
+        self.loop.close()  # the instantiated graph before the pool
+        self.graphs = []
+
+
+def _held_tensors(fns) -> Tuple[torch.Tensor, ...]:
+    """The tensors that ``fns`` read besides their arguments, in order,
+    each once: found through closure cells and defaults, bound methods and
+    their objects' attributes, callable objects' attributes, partials, and
+    the tuples, lists and dicts among them (not through module globals)."""
+    found, seen, stack = [], set(), list(reversed(fns))
+    while stack:
+        o = stack.pop()
+        if id(o) in seen or isinstance(o, (type, types.ModuleType)):
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            found.append(o)
+            continue
+        if isinstance(o, types.FunctionType):
+            cells = []
+            for c in o.__closure__ or ():
+                try:
+                    cells.append(c.cell_contents)
+                except ValueError:  # a cell not yet bound
+                    pass
+            kids = cells + list(o.__defaults__ or ()) + list((o.__kwdefaults__ or {}).values())
+        elif isinstance(o, types.MethodType):
+            kids = [o.__func__, *vars(o.__self__).values()] if hasattr(o.__self__, "__dict__") \
+                else [o.__func__]
+        elif isinstance(o, functools.partial):
+            kids = [o.func, *o.args, *o.keywords.values()]
+        elif isinstance(o, (tuple, list)):
+            kids = list(o)
+        elif isinstance(o, dict):
+            kids = list(o.values())
+        elif callable(o) and hasattr(o, "__dict__"):
+            kids = list(vars(o).values())
+        else:
+            continue
+        stack.extend(reversed(kids))
+    return tuple(found)
+
+
+def _held_signature(held):
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device) for t in held)
+
+
+class LoopProgram:
+    """One captured loop: ``init()`` sets the state from the static inputs
+    and zeroes ``k`` and ``count``, ``body()`` is one iteration (it ends by
+    adding one to the loop counter ``k``), ``tail()`` writes the result into
+    ``out``, whose last two entries are ``k`` and ``count``; all three
+    update static buffers in place.  ``done`` (bool ``[B]``) and ``k``
+    (int32) are the state the condition reads; each evaluation adds one to
+    ``count`` (int32) and writes the condition into ``log`` at index k
+    (int32, ``max_iters + 1``, -1 where none ran).  ``held``: the tensors
+    the captured functions read besides the inputs, kept alive for as long
+    as the graph reads their addresses.
+
+    :meth:`run` is a whole loop from new inputs: one launch followed by one
+    fetch of ``out``.  ``capture_seconds``: the three captures and the
+    build, the warm-up excluded."""
+
+    def __init__(self, name: str, init: Callable, body: Callable, tail: Callable, static_in,
+                 done: torch.Tensor, k: torch.Tensor, count: torch.Tensor, out: torch.Tensor,
+                 max_iters: int, held, pool, stream):
+        self.name, self.static_in, self.max_iters = name, tuple(static_in), int(max_iters)
+        self.done, self.k, self.count, self.out = done, k, count, out
+        self.held, self.held_signature = tuple(held), _held_signature(held)
+        self.log = torch.full((self.max_iters + 1,), -1, dtype=torch.int32, device=done.device)
+        self.launches: Dict[str, Dict[str, int]] = {}
+
+        def counted(part, fn):
+            def run():
+                before = profiling.launch_counts()
+                try:
+                    fn()
+                finally:
+                    after = profiling.launch_counts()
+                    profiling._set_launch_counts(before)  # a capture runs nothing
+                self.launches[part] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            return run
+
+        t0 = time.perf_counter()
+        try:
+            self._loop = (_LOOP_BACKEND or _CudaLoop)(
+                counted("init", init), counted("body", body), counted("tail", tail), self, pool, stream)
+        except RuntimeError as e:
+            raise RuntimeError(f"{name}: capture failed: {e}") from e
+        self.capture_seconds = time.perf_counter() - t0
+
+    def run(self, inputs):
+        """The loop from ``inputs`` (copied into the static inputs) to its
+        end: one launch, one fetch; returns ``out`` on the host (NumPy).
+        Raises if L1's count of its evaluations is not one more than the
+        iterations (a loop whose condition did not run as built)."""
+        _copy_in(self.static_in, inputs)
+        try:
+            self._loop.launch()
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.name}: launch failed: {e}") from e
+        host = self.out.cpu().numpy()  # the one fetch
+        iterations, evaluations = int(host[-2]), int(host[-1])
+        if evaluations != iterations + 1:
+            raise RuntimeError(f"{self.name}: L1 evaluated the loop condition {evaluations} times "
+                               f"in {iterations} iterations (want {iterations + 1})")
+        launches: Dict[str, int] = {"graph_loop_cond": evaluations}
+        for part, times in (("init", 1), ("body", iterations), ("tail", 1)):
+            for name, n in self.launches.get(part, {}).items():
+                launches[name] = launches.get(name, 0) + n * times
+        profiling._note_replay(launches)
+        return host
+
+    def close(self) -> None:
+        """Destroy the graph; the pool's memory goes once no graph holds it."""
+        if self._loop is not None:
+            self._loop.close()
+            self._loop = None
+
+
+class Loops:
+    """A module's captured loops by key and their shared memory pool.
+
+    :meth:`capture` runs the body once on the side stream (the warm-up: an
+    iteration of the caller's loop), then captures the loop; a key holds
+    one loop, ``limit`` keys are kept (the oldest closed first).  Loops of
+    one cache share a pool: they must not run concurrently (the LM fits run
+    one after another on the caller's stream).  :meth:`clear` closes every
+    loop and lets the pool go."""
+
+    def __init__(self, limit: int):
+        self._cache: Dict[tuple, LoopProgram] = {}
+        self._limit = limit
+        self._pool = None
+
+    def capturable(self, inputs) -> bool:
+        """Whether a loop over ``inputs`` is captured: CUDA tensors that do
+        not require grad, outside a capture and outside :func:`eager` (or
+        any device under a test backend)."""
+        return _capturable(inputs, _LOOP_BACKEND)
+
+    def get(self, key, reads=()) -> Optional[LoopProgram]:
+        """The key's loop, or None: none was captured, or the functions
+        ``reads`` now hold other tensors (:func:`_held_tensors`) than the
+        loop reads, which then goes (the caller captures again)."""
+        prog = self._cache.get(key)
+        if prog is not None and _held_signature(_held_tensors(reads)) != prog.held_signature:
+            self._cache.pop(key).close()
             return None
-        segs = torch.cuda.memory_snapshot()
-        if not segs or "segment_pool_id" not in segs[0]:
-            return None
-        return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) == tuple(self._pool))
+        return prog
+
+    def capture(self, key, name: str, init: Callable, body: Callable, tail: Callable, static_in,
+                done: torch.Tensor, k: torch.Tensor, count: torch.Tensor, out: torch.Tensor,
+                max_iters: int, reads=()) -> LoopProgram:
+        """Warm up (one ``body()`` on the side stream) and capture; the
+        program replaces the key's and is returned.  ``reads``: the
+        functions whose held tensors the loop reads (kept alive with it)."""
+        stream = _side_stream(done.device) if _LOOP_BACKEND is None else None
+        with _on(stream):
+            body()
+        if self._pool is None and _LOOP_BACKEND is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        prog = LoopProgram(name, init, body, tail, static_in, done, k, count, out, max_iters,
+                           _held_tensors(reads), self._pool, stream)
+        old = self._cache.pop(key, None)
+        if old is not None:
+            old.close()
+        self._cache[key] = prog
+        while len(self._cache) > self._limit:
+            self._cache.pop(next(iter(self._cache))).close()
+        return prog
+
+    def programs(self) -> Dict[tuple, LoopProgram]:
+        return dict(self._cache)
+
+    def clear(self) -> None:
+        """Close every loop (its graph first) and let the pool go."""
+        for prog in self._cache.values():
+            prog.close()
+        self._cache, self._pool = {}, None
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes reserved in this cache's graph pool (see
+        :meth:`Programs.pool_bytes`)."""
+        return _pool_bytes(self._pool)

@@ -216,6 +216,16 @@ def _own_points(x: torch.Tensor, n_cams: int, mesh, axis: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
+def _camera_scatter(n_cams: int, device: torch.device):
+    """The (row, column) of each ``jc`` entry of a point in its ``[2C, 6C]``
+    camera block, as index tensors on ``device``, built once (a capture
+    refuses the copy from the host)."""
+    c, k, j = np.meshgrid(np.arange(n_cams), np.arange(2), np.arange(6), indexing="ij")
+    return (torch.as_tensor((2 * c + k).ravel(), device=device),
+            torch.as_tensor((6 * c + j).ravel(), device=device))
+
+
+@functools.lru_cache(maxsize=8)
 def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
     """The damped bundle step with no host read: the camera block assembled
     as a dense ``[n1 + 6C, 6C]`` operand on the device (6C columns: dense is
@@ -234,10 +244,9 @@ def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
         left_d, rhs = _damped_left_rhs(jp, r, lam, n_cams)
         dt, dev = left_d.dtype, left_d.device
         # per-point camera block [2C, 6C] scattered from jc [P, C, 2, 6]
-        c, k, j = np.meshgrid(np.arange(n_cams), np.arange(2), np.arange(6), indexing="ij")
+        rows, cols = _camera_scatter(n_cams, dev)
         a2p = torch.zeros((n_pts, 2 * n_cams, c6), dtype=dt, device=dev)
-        a2p[:, torch.as_tensor((2 * c + k).ravel(), device=dev),
-            torch.as_tensor((6 * c + j).ravel(), device=dev)] = jc.reshape(n_pts, -1)
+        a2p[:, rows, cols] = jc.reshape(n_pts, -1)
         a2_blocks = torch.cat([a2p, a2p.new_zeros((n_pts, 3, c6))], dim=1).reshape(n_pts * brows, c6)
         sl = torch.sqrt(torch.as_tensor(lam, dtype=dt, device=dev))
         a2 = torch.cat([a2_blocks, sl * torch.eye(c6, dtype=dt, device=dev)])
@@ -271,16 +280,19 @@ def fit_bundle_device(
     dtype=torch.float64,
 ) -> LMResult:
     """Bundle adjustment with the LM state on the device: damped step,
-    acceptance, λ adaptation and convergence checks run with one host read
-    (the ``done`` flag) per iteration and one result fetch per fit.  Host
-    data goes to ``device`` (default CUDA) in ``dtype``.
+    acceptance, λ adaptation and convergence checks run with no host read
+    inside an iteration.  On the card a fit is one captured loop
+    (:func:`~qrkit_tpu_torch.lm.levenberg_marquardt_device`): when warm, one
+    graph launch and one fetch of the result (``lm.clear_programs()`` drops
+    it).  Host data goes to ``device`` (default CUDA) in ``dtype``.
 
     ``mesh``/``axis`` shard the point axis over the ranks of a
     ``DeviceMesh`` (every rank passes the whole scene; the point count must
     divide over the ranks): each rank keeps its points' observations and
     block QR, the camera-block TSQR all-gather is the step's only
     collective, and the cost and gradient are all-reduced, so every rank
-    returns the same :class:`LMResult`."""
+    returns the same :class:`LMResult`; these fits run the eager loop, one
+    host read of the ``done`` flag an iteration."""
     uvd = _device.as_tensor(np.asarray(uv), device, dtype)
     x0 = _initial_x(cams0, pts0, uvd.device, dtype)
     cfg = config or LMConfig(max_iters=50)

@@ -262,9 +262,12 @@ def fit_ellipse(
 ) -> Tuple[LMResult, np.ndarray]:
     """End-to-end LM ellipse fit; returns (LMResult, canonicalized params).
 
-    ``loop="device"`` (default) keeps the LM state on ``device`` with one
-    host read per iteration and the lane-major damped step; ``loop="host"``
-    runs the host loop with :meth:`EllipseFitting.damped_step`."""
+    ``loop="device"`` (default) keeps the LM state on ``device`` with the
+    lane-major damped step: on the card the fit is one captured loop
+    (:func:`~qrkit_tpu_torch.lm.levenberg_marquardt_device`), one graph
+    launch and one fetch of the result when warm (``lm.clear_programs()``
+    drops it; on the CPU, one host read an iteration); ``loop="host"`` runs
+    the host loop with :meth:`EllipseFitting.damped_step`."""
     functor = EllipseFitting(pts, dtype=dtype, fused=fused, device=device)
     cfg = config or LMConfig(max_iters=60)
     if loop == "device":
@@ -288,7 +291,8 @@ def fit_ellipse_batch(
     device=None,
 ) -> LMResult:
     """Fit B independent ellipses in one device loop (the solo fit's loop
-    over a leading problem axis).  ``pts_batch`` is host NumPy ``[B, 2,
+    over a leading problem axis; one captured loop on the card, as the solo
+    fit's).  ``pts_batch`` is host NumPy ``[B, 2,
     N]``; returns an :class:`LMResult` of NumPy arrays (``[B, N+5]``
     solutions, ``[B]`` costs, iterations and convergence flags)."""
     pts_batch = np.asarray(pts_batch)

@@ -11,6 +11,15 @@ lane-major layout (the point axis last and contiguous): on the GPU that is
 the coalesced layout, and every per-point scalar of the recurrence is one
 contiguous row.
 
+On card operands that do not require grad, :func:`block_diagonal_factorize`,
+:func:`block_diagonal_lstsq`, :func:`block_angular_lstsq` (``mesh=None``) and
+the LM steps :func:`lm_damped_step_blockdiag` / :func:`lm_damped_step_blockdiag1`
+are each one captured program, as the reference jits each
+(:mod:`~qrkit_tpu_torch._program`): captured on the second call in a row
+with one set of static arguments and operand shapes, four shapes kept per
+function until :func:`clear_programs`.  Operands that require grad and
+``mesh=`` calls run eagerly.
+
 ``block_angular_lstsq`` and ``lm_damped_step_blockdiag`` take a keyword-only
 ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``), where the reference only
 places its inputs sharded: each rank then passes its own blocks (points) and
@@ -52,13 +61,40 @@ def _qr_wy(blocks: torch.Tensor, pivot: bool):
     return Y, T, Ared, torch.arange(bc, device=blocks.device).expand(nb, bc)
 
 
+# the captured programs of each function below, by static arguments and
+# operand shapes: one program a shape, the four shapes last captured
+_FACTORIZE_PROGRAMS = Programs(limit=4)
+_LSTSQ_PROGRAMS = Programs(limit=4)
+_ANGULAR_PROGRAMS = Programs(limit=4)
+_STEP_PROGRAMS = Programs(limit=4)
+_STEP1_PROGRAMS = Programs(limit=4)
+_ALL_PROGRAMS = (_FACTORIZE_PROGRAMS, _LSTSQ_PROGRAMS, _ANGULAR_PROGRAMS, _STEP_PROGRAMS,
+                 _STEP1_PROGRAMS)
+
+
+def clear_programs() -> None:
+    """Drop every captured program of this module and free their static
+    buffers and graph pools."""
+    for programs in _ALL_PROGRAMS:
+        programs.clear()
+
+
 @highest_precision()
+def _block_diagonal_factorize(blocks: torch.Tensor, pivot: bool):
+    Y, T, Ared, perm = _qr_wy(blocks, pivot)
+    # perm is materialized: a program's output must not be an expanded view
+    return form_q(Y, T), torch.triu(Ared[:, : blocks.shape[2]]), perm.contiguous()
+
+
 def block_diagonal_factorize(blocks: torch.Tensor, pivot: bool = False):
     """Batched QR of a [nb, br, bc] block-diagonal batch → (Q [nb,br,br],
     R [nb,k,bc], perm [nb,bc]) with k = min(br, bc): square R for portrait
-    blocks, the wide upper trapezoid for landscape ones."""
-    Y, T, Ared, perm = _qr_wy(blocks, pivot)
-    return form_q(Y, T), torch.triu(Ared[:, : blocks.shape[2]]), perm
+    blocks, the wide upper trapezoid for landscape ones.  One captured
+    program on the card (the module docstring)."""
+    return _FACTORIZE_PROGRAMS.solve(
+        None, "functional.block_diagonal_factorize", pivot,
+        lambda _, blocks: _block_diagonal_factorize(blocks, pivot), blocks,
+    )
 
 
 def _scatter_cols(v: torch.Tensor, lperm: torch.Tensor) -> torch.Tensor:
@@ -112,17 +148,6 @@ class _BlockDiagonalLstsq(torch.autograd.Function):
         g_b = torch.zeros_like(b)
         g_b[: nb * br] = Au.reshape(nb * br)
         return g_blocks, g_b, None
-
-
-# the captured programs of block_diagonal_lstsq, by pivot and operand shapes:
-# one program a shape, the four shapes last captured
-_LSTSQ_PROGRAMS = Programs(limit=4)
-
-
-def clear_programs() -> None:
-    """Drop :func:`block_diagonal_lstsq`'s captured programs and free
-    their static buffers and graph pool."""
-    _LSTSQ_PROGRAMS.clear()
 
 
 def block_diagonal_lstsq(blocks: torch.Tensor, b: torch.Tensor, pivot: bool = False):
@@ -294,10 +319,20 @@ def block_angular_lstsq(
     ``right`` and ``b``, followed by the ``tail`` rows, which are the same on
     every rank; ``n_shards`` (divisible by the mesh size) counts TSQR shards
     over all ranks.  Every rank returns the global x ``[world·nb·bc + m2]``.
-    Gradients through the sharded form are not implemented."""
-    if mesh is None:
+    Gradients through the sharded form are not implemented.
+
+    Without a mesh, on card operands that do not require grad, the call is
+    one captured program (the module docstring)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (left_blocks, right, b))
+    if mesh is None and grad:
         return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (left_blocks, right, b)):
+    if mesh is None:
+        return _ANGULAR_PROGRAMS.solve(
+            None, "functional.block_angular_lstsq", (n_shards, tail),
+            lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, n_shards)[0],
+            left_blocks, right, b,
+        )
+    if grad:
         raise NotImplementedError(
             "gradients through block_angular_lstsq(mesh=...) are not implemented; "
             "differentiate the mesh=None form"
@@ -368,7 +403,14 @@ def _soa_tall_qr_solve_sharded(X, y, tail, m2: int, mesh, axis: str) -> torch.Te
     return _soa_tall_qr_solve(Xs[:m2], Xs[m2], m2)
 
 
-@highest_precision()
+def _as_lam(lam, like: torch.Tensor) -> torch.Tensor:
+    """λ as a 0-d tensor in ``like``'s dtype on its device (a host float is
+    copied here, outside any program: a capture refuses the copy)."""
+    if isinstance(lam, torch.Tensor):
+        return lam.to(like.dtype) if lam.dtype != like.dtype else lam
+    return torch.tensor(lam, dtype=like.dtype, device=like.device)
+
+
 def lm_damped_step_blockdiag(
     left: torch.Tensor,
     right: torch.Tensor,
@@ -394,13 +436,25 @@ def lm_damped_step_blockdiag(
     reduces across ranks by TSQR (the damping tail once, in the second
     stage) and x1 is gathered over the lanes of every rank.
 
+    Without a mesh the step is one captured program on the card (the module
+    docstring); a host ``lam`` is copied to the device before it.
+
     Returns ``(x1 [bc, nb], x2 [m2])``."""
+    lam = _as_lam(lam, left)
+    if mesh is not None:
+        return _damped_step(left, right, res, lam, mesh, axis)
+    return _STEP_PROGRAMS.solve(
+        None, "functional.lm_damped_step_blockdiag", (),
+        lambda _, l, r, v, s: _damped_step(l, r, v, s), left, right, res, lam,
+    )
+
+
+@highest_precision()
+def _damped_step(left, right, res, lam, mesh=None, axis: str = "dp"):
     bl, bc, nb = left.shape
     m2 = right.shape[1]
     dt, dev = left.dtype, left.device
-    if not isinstance(lam, torch.Tensor):
-        lam = torch.tensor(lam, dtype=dt, device=dev)
-    sl = torch.sqrt(lam.to(dt))
+    sl = torch.sqrt(lam)
 
     # damped block per point: a [br, bc, nb], br = bl + bc, damping rows √λ·I_bc
     eye_damp = (sl * torch.eye(bc, dtype=dt, device=dev))[:, :, None].expand(bc, bc, nb)
@@ -473,6 +527,17 @@ def lm_damped_step_blockdiag1(
     """Single-column (bc = 1) lane-major damped LM step: ``left [bl, nb]``
     (block i is ``left[:, i]``), ``right [bl, m2, nb]``, ``res [bl, nb]``;
     returns the flat ``[nb + m2]`` step the LM drivers consume (over a mesh,
-    the rank's points in, every point's step out)."""
-    x1, x2 = lm_damped_step_blockdiag(left[:, None, :], right, res, lam, mesh=mesh, axis=axis)
+    the rank's points in, every point's step out).  One captured program
+    without a mesh, as :func:`lm_damped_step_blockdiag`."""
+    lam = _as_lam(lam, left)
+    if mesh is not None:
+        return _damped_step1(left, right, res, lam, mesh, axis)
+    return _STEP1_PROGRAMS.solve(
+        None, "functional.lm_damped_step_blockdiag1", (),
+        lambda _, l, r, v, s: _damped_step1(l, r, v, s), left, right, res, lam,
+    )
+
+
+def _damped_step1(left, right, res, lam, mesh=None, axis: str = "dp"):
+    x1, x2 = _damped_step(left[:, None, :], right, res, lam, mesh, axis)
     return torch.cat([x1[0], x2])

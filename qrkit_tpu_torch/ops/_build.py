@@ -13,6 +13,9 @@ flags, so an edited source never loads a stale library.  Libraries go under
   into registers (:func:`build`, :func:`load`).
 * ``banded_chain.cu``: one library for every shape; the banded kernels take
   their geometry as arguments (:func:`load_banded`).
+* ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
+  functions that build a conditional WHILE graph around captured graphs,
+  linked against the driver (``-lcuda``; :func:`load_graph_loop`).
 
 Each launcher takes its operands' CUDA ordinal first, makes that device
 current for the launch and the caller's device current again after it, so
@@ -40,7 +43,8 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
-    "build_source", "current_stream", "find_nvcc", "load", "load_banded", "load_source",
+    "build_source", "current_stream", "find_nvcc", "load", "load_banded", "load_graph_loop",
+    "load_source",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,6 +61,9 @@ NVCC_FLAGS = (
 _DEV, _PTR, _I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
 BLOCKDIAG_SOURCE = "blockdiag_qr.cu"
 BANDED_SOURCE = "banded_chain.cu"
+GRAPH_LOOP_SOURCE = "graph_loop.cu"
+# libraries a source links besides the static CUDA runtime (after the source)
+_LINK = {GRAPH_LOOP_SOURCE: ("-lcuda",)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # launcher name -> argument types: the device ordinal, the kernel's own, the
 # stream (each returns a cudaError_t as int)
@@ -78,6 +85,14 @@ _BANDED_SIGNATURES = tuple(
         ("chain_qr", (_PTR,) * 5 + (_I64,) * 7),
         ("apply_w", (_PTR,) * 5 + (_I64,) * 8),
     )
+)
+_INT = ctypes.c_int
+_GRAPH_LOOP_SIGNATURES = (
+    ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
+    ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _INT, _PTR)),
+    ("qrk_loop_launch", (_PTR, _PTR)),
+    ("qrk_loop_destroy", (_PTR,)),
+    ("qrk_versions", (_PTR, _PTR)),
 )
 
 
@@ -103,7 +118,7 @@ def find_nvcc() -> str:
 
 def _library_path(source: str, defines: Tuple[Tuple[str, int], ...], tag: str) -> Path:
     h = hashlib.sha256((_CSRC / source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + _LINK.get(source, ())).encode())
     h.update(repr(defines).encode())
     return _BUILD_DIR / f"{Path(source).stem}{tag}_{h.hexdigest()[:16]}.so"
 
@@ -121,7 +136,8 @@ def build_source(source: str, defines: Tuple[Tuple[str, int], ...] = (), tag: st
     # a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines), "-o", tmp, str(_CSRC / source)]
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines), "-o", tmp, str(_CSRC / source),
+           *_LINK.get(source, ())]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -174,6 +190,12 @@ def load_banded() -> ctypes.CDLL:
     """Build (if needed) and load the banded-chain kernels (one library for
     every shape)."""
     return load_source(BANDED_SOURCE, (), _BANDED_SIGNATURES)
+
+
+def load_graph_loop() -> ctypes.CDLL:
+    """Build (if needed) and load the graph-loop library (L1 and the
+    conditional WHILE graphs)."""
+    return load_source(GRAPH_LOOP_SOURCE, (), _GRAPH_LOOP_SIGNATURES)
 
 
 def current_stream(device: int) -> int:

@@ -6,9 +6,10 @@ asynchronously, so every timer here ends in a real
 ``torch.cuda.synchronize()``; :func:`cuda_time_ms` times device work with
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
-:mod:`qrkit_tpu_torch.ops.blockdiag` and :mod:`qrkit_tpu_torch.ops.banded`
-keep; a replay of a captured program (:mod:`qrkit_tpu_torch._program`)
-adds the launches its graph holds.  :func:`count_dispatches` counts the
+:mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded` and
+:mod:`qrkit_tpu_torch.ops.graph_loop` keep; a replay of a captured program
+(:mod:`qrkit_tpu_torch._program`) adds the launches its graph holds (a
+captured loop: per iteration, from its fetched loop counter).  :func:`count_dispatches` counts the
 ATen ops a block dispatches (the port's eager paths run many, one host
 round of launch work each), the program replays, the kernel launches, and
 the reads that make the host wait for the device; :func:`trace` writes a
@@ -24,7 +25,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .ops import banded, blockdiag
+from .ops import banded, blockdiag, graph_loop
 
 __all__ = [
     "DispatchCount",
@@ -44,6 +45,7 @@ _KERNEL_WRAPPERS = {
     "banded_segment_chains": banded.segment_chains,
     "banded_apply_w": banded.segment_apply_w,
     "banded_chain_qr": banded.chain_qr,
+    "graph_loop_cond": graph_loop.loop_condition,
 }
 
 

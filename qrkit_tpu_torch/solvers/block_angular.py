@@ -19,9 +19,10 @@ The flagship stack (``BlockDiagonalQR`` FULL_Q non-pivoting left, dense
 right, dense A2) runs the fused programs of
 :mod:`~qrkit_tpu_torch.solvers.block_angular_fused`; the lane-major one
 when the caller hands SoA left blocks or a transposed A2.  On the card the
-fused dense ``compute`` and its vector ``solve`` are each one captured
-program (:mod:`~qrkit_tpu_torch._program`); the children's factors are the
-compute program's outputs.  Other stacks run
+fused dense ``compute`` and its vector ``solve``, and the lane-major
+``compute``, vector ``solve`` and ``compute_solve``, are each one captured
+program (:mod:`~qrkit_tpu_torch._program`); the children's factors (the
+lane-major factors) are the compute program's outputs.  Other stacks run
 the generic composition, where a ``BlockDiagonalQR`` left on a CUDA operand
 factors with kernel B2 and a ``BandedBlockedQR`` left with kernel B5.  A
 sparse A2 stays sparse: with a block-diagonal left through
@@ -81,6 +82,13 @@ def _fused_dense_solve_program(self, b):
     return fused_dense_solve(
         self.left.Q, self.left.R, self.right._Y, self.right._T, self.right._R,
         self._fused_perm2, self._r12, b, bc=self.left._bc, colpiv=self._fused_colpiv,
+    )
+
+
+def _fused_soa_solve_program(self, b):
+    return fused_soa_solve(
+        self._sU1, self._sc1, self._sR1, self._sU2, self._sc2, self._sR2, self._fused_perm2,
+        self._sr12t, b, colpiv=self._fused_colpiv,
     )
 
 
@@ -264,11 +272,14 @@ class BlockAngularQR(QRSolver):
             and self._uses_fused_dense(mat)
         )
 
-    def _soa_inputs(self, mat: BlockMatrix1x2):
+    def _soa_inputs(self, mat: BlockMatrix1x2, colpiv: bool):
+        """The lane-major program's operands and its static arguments."""
         lm = mat.left
         a_in = lm.soa() if lm.is_soa else lm.blocks
         a2_in = mat.right if mat.right_t else _to_device_dense(mat.right, *self._home(mat))
-        return a_in, a2_in, lm.block_rows, lm.block_cols
+        kw = dict(br=lm.block_rows, bc=lm.block_cols, colpiv=colpiv, aos=not lm.is_soa,
+                  a2_aos=not mat.right_t)
+        return a_in, a2_in, kw
 
     def _adopt_soa_outputs(self, mat: BlockMatrix1x2, out, colpiv: bool):
         (self._sU1, self._sc1, self._sR1, self._sj2t, self._sU2,
@@ -281,7 +292,6 @@ class BlockAngularQR(QRSolver):
         self._cols_perm = None
         self._solve_gather = None
         self._rows_perm = Permutation.identity(self._n1)
-        self._programs.bind_eager()
         self._info = ComputationInfo.SUCCESS
         self._health = health
 
@@ -293,13 +303,13 @@ class BlockAngularQR(QRSolver):
         sparse_a2 = self._compute_preamble(mat)
         colpiv = isinstance(self.right, DenseColPivQR)
         if self._uses_fused_soa(mat, sparse_a2):
-            a_in, a2_in, br, bc = self._soa_inputs(mat)
-            out = fused_soa_compute_solve(
-                a_in, a2_in, b, br=br, bc=bc, colpiv=colpiv,
-                aos=not mat.left.is_soa, a2_aos=not mat.right_t,
+            a_in, a2_in, kw = self._soa_inputs(mat, colpiv)
+            out = self._programs.factorize(
+                self, "BlockAngularQR.soa_compute_solve", tuple(kw.values()),
+                lambda _, a, a2, v: fused_soa_compute_solve(a, a2, v, **kw), a_in, a2_in, b,
             )
             self._adopt_soa_outputs(mat, out[:-1], colpiv)
-            return out[-1]
+            return out[-1].clone()  # a replay's x is the program's, overwritten by the next
         if not sparse_a2 and self._uses_fused_dense(mat):
             a2 = _to_device_dense(mat.right, *self._home(mat))
             out = fused_dense_compute_solve(
@@ -333,10 +343,10 @@ class BlockAngularQR(QRSolver):
         sparse_a2 = self._compute_preamble(mat)
         colpiv = isinstance(self.right, DenseColPivQR)
         if self._uses_fused_soa(mat, sparse_a2):
-            a_in, a2_in, br, bc = self._soa_inputs(mat)
-            out = fused_soa_compute(
-                a_in, a2_in, br=br, bc=bc, colpiv=colpiv,
-                aos=not mat.left.is_soa, a2_aos=not mat.right_t,
+            a_in, a2_in, kw = self._soa_inputs(mat, colpiv)
+            out = self._programs.factorize(
+                self, "BlockAngularQR.soa_compute", tuple(kw.values()),
+                lambda _, a, a2: fused_soa_compute(a, a2, **kw), a_in, a2_in,
             )
             self._adopt_soa_outputs(mat, out, colpiv)
             return self
@@ -728,9 +738,8 @@ class BlockAngularQR(QRSolver):
         fused stack runs the fused solve; the caller pre-applies
         ``rows_permutation()``."""
         if b.dim() == 1 and getattr(self, "_fused_soa", False):
-            return fused_soa_solve(
-                self._sU1, self._sc1, self._sR1, self._sU2, self._sc2,
-                self._sR2, self._fused_perm2, self._sr12t, b, colpiv=self._fused_colpiv,
+            return self._programs.solve(
+                self, "BlockAngularQR.soa_solve", (), _fused_soa_solve_program, b
             )
         if b.dim() == 1 and getattr(self, "_fused_dense", False):
             return self._programs.solve(

@@ -18,6 +18,7 @@ import qrkit_tpu_torch as qt
 from qrkit_tpu_torch import convert, profiling
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import blockdiag as bd
+from qrkit_tpu_torch.ops import graph_loop
 
 from generators import block_diagonal_matrix, tall_banded_matrix
 
@@ -178,6 +179,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(_build, "load_banded", no_build)
+    monkeypatch.setattr(_build, "load_graph_loop", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
     mat = qt.BlockDiagonal.from_dense_batch(blocks, device=DEV)
@@ -189,9 +191,10 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     seg = qt.SegmentedBandedQR(4, 8, use_kernel=True, device=DEV).compute(banded)
     plain = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=True, device=DEV).compute(banded)
     assert seg._fac_kernel and seg._p2w is not None and seg._chain_kernel and plain._fac_kernel
+    graph_loop.loop_condition(torch.zeros(3, dtype=torch.bool), torch.tensor(0, dtype=torch.int32), 5)
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
-        "banded_chain_qr",
+        "banded_chain_qr", "graph_loop_cond",
     }
     assert not any(profiling.launch_counts().values())
 
