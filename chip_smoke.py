@@ -1694,6 +1694,272 @@ def phase_blocked_thin(rng, smi):
             raise AssertionError(f"blocked thin {label}: {rec}")
 
 
+# --- phase sparse_programs: the sparse-operand recomputes as captured programs ----------
+SPARSE_PROGRAM_ROUNDS = ("captured", "eager", "eager", "captured")
+# a path whose eager call takes about a second (a 2,000-step chain) runs one
+# round of each, and its eager call is not profiled: its kernels are the
+# captured program's (the graph records the eager call's launches)
+SLOW_EAGER_ROUNDS = ("captured", "eager")
+SPARSE_PROGRAM_WARM = 3  # calls before the counted one: eager, capture, first replay
+THIN_POOL_GATE = 3  # the thin program's pool at most this many working matrices (m·n·itemsize)
+
+
+def host_arrays(*xs):
+    """Fresh host copies of tensors, arrays and the arrays of a SparseCSR."""
+    out = []
+    for x in xs:
+        if isinstance(x, qt.SparseCSR):
+            out += [x.indptr.copy(), x.indices.copy(), np.asarray(x.data).copy()]
+        elif isinstance(x, torch.Tensor):
+            out.append(x.detach().cpu().numpy().copy())
+        else:
+            out.append(np.array(x))
+    return out
+
+
+def drive_sparse_program(path, label, programs, names, call, read, pin, want, reps, smi,
+                         rounds=SPARSE_PROGRAM_ROUNDS):
+    """One sparse-operand recompute at full width: the warm-up calls (the
+    first eager, the second warm-up + capture), the warm call counted
+    against ``pin = (programs, counted, host reads)``, where counted is the
+    reference's count (ATen ops, replays, host-issued launches, less the
+    host reads: a fetch is a copy, not a launch), ``want`` the launches of
+    its replays by kernel; the captured result against the same call under
+    ``_program.eager()``, bitwise; then captured and eager in turns (host
+    µs and wall µs per call, device time; ``rounds``: the order, the eager
+    call profiled only in the default rounds).  ``read(out)`` gives host
+    arrays of what the call produced.  Returns the warm call's launches and
+    the pool's bytes."""
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(SPARSE_PROGRAM_WARM - 1):
+        call()
+    with profiling.count_dispatches() as d:
+        out = call()
+    torch.cuda.synchronize()
+    got = read(out)
+    progs = [p for key, p in programs.programs().items() if key[0] in names]
+    eager = read(eagerly(call)())
+    call()  # the left's program back (an eager call rebinds its factors)
+    again = read(call())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in d.launches.items() if v}
+    warm = {"programs": d.programs, "ops": d.ops, "host_reads": d.host_reads,
+            "counted": d.count - d.host_reads,
+            "host_launches": {k: v for k, v in d.host_launches.items() if v}}
+    bitwise = all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in zip(got, eager, again))
+    n_programs, budget, reads = pin
+    problems = []
+    if (d.programs != n_programs or warm["counted"] > budget or d.host_reads != reads
+            or warm["host_launches"]):
+        problems.append(f"warm call {warm} outside the pin ({n_programs} replays, counted <= "
+                        f"{budget}, {reads} host reads, no host-issued launch)")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} inside the replays")
+    if len(progs) != len(names):
+        problems.append(f"programs {sorted(p.name for p in progs)}, want {sorted(names)}")
+    if not bitwise:
+        problems.append("the captured call differs from the eager call")
+    if not all(np.isfinite(a).all() for a in got if a.dtype.kind == "f"):
+        problems.append("non-finite output")
+    if problems:
+        raise AssertionError(f"sparse_programs {path} {label}: " + "; ".join(problems))
+    times = {"captured": [], "eager": []}
+    for kind in rounds:
+        if kind == "captured":
+            call()
+        times[kind].append(host_and_wall_us(call if kind == "captured" else eagerly(call), reps))
+    call()
+    dev = {"captured": device_time_ms(call, reps=reps),
+           "eager": device_time_ms(eagerly(call), reps=reps) if rounds == SPARSE_PROGRAM_ROUNDS else None}
+    pool = programs.pool_bytes()
+    mean = lambda xs, i: statistics.mean(x[i] for x in xs)  # noqa: E731
+    emit({
+        "phase": "sparse_programs", "path": path, "call": label,
+        "programs": sorted(p.name for p in progs),
+        "capture_s": sum(p.capture_seconds for p in progs), "first_call_s": first_s,
+        "warm": warm, "pin": {"programs": n_programs, "counted": budget, "host_reads": reads},
+        "launches_per_replay": launches, "bitwise_equal_eager": bitwise,
+        "captured_host_us": mean(times["captured"], 0), "eager_host_us": mean(times["eager"], 0),
+        "captured_wall_us": mean(times["captured"], 1), "eager_wall_us": mean(times["eager"], 1),
+        "captured_device_ms": dev["captured"], "eager_device_ms": dev["eager"],
+        "pool_mb": (pool or 0) / 2**20, "reps": reps, "rounds": list(rounds),
+        "seconds": time.perf_counter() - start,
+        "method": "first_call_s: the first call (eager), synchronized; counted: ATen ops + "
+                  "replays + host-issued launches - host reads, of the fourth call; rounds "
+                  "as listed (eager = _program.eager(); one untimed call before a captured "
+                  "round binds the left's factors back); host_us: host clock over reps calls "
+                  "before the synchronize; wall_us: the same ending in synchronize; means of "
+                  "the rounds; device_ms: torch.profiler's kernel time per call (eager: not "
+                  "measured, null, in the two-round order); pool_mb: the solver's graph pool "
+                  "(memory_snapshot)",
+        "gpu": smi,
+    })
+    return launches, pool
+
+
+def phase_sparse_programs(rng, c3, smi):
+    """Each same-pattern sparse-operand recompute at full width, captured
+    against ``_program.eager()``, fp32: config 3's 48-column sparse operand
+    through both banded solvers (``apply_qt_sparse``, ``apply_q_sparse``),
+    ``BlockedThinSparseQR.compute`` on 100,000 × 256, config 4's sparse A2
+    at N = 100,000 (B2 in the left's replay), the banded-left sparse A2 at
+    N = 2,000 (B5) and config 3 as the segmented left of a sparse A2 (B3,
+    B4, B5), each within the reference's pin; then ``fit_bundle`` (host
+    loop) at P = 5,000, captured and eager fits in turns.  Returns the
+    launches of the warm calls' replays by kernel."""
+    total = {name: 0 for name in profiling.launch_counts()}
+
+    def drive(*args, **kw):
+        launches, pool = drive_sparse_program(*args, **kw, smi=smi)
+        for name, n in launches.items():
+            total[name] += n
+        return pool
+
+    S = sparse_operand(rng, c3.nrows)
+    # both directions on the segmented solver; Qᵀ on the plain one (its
+    # eager call takes ≈ 1.7 s: a 2,499-step chain)
+    for cls, kw, methods, reps, rounds in (
+            (qt.SegmentedBandedQR, dict(segment_blocks=C3_SEGMENT_BLOCKS),
+             ("apply_qt_sparse", "apply_q_sparse"), 3, SPARSE_PROGRAM_ROUNDS),
+            (qt.BandedBlockedQR, {}, ("apply_qt_sparse",), 1, SLOW_EAGER_ROUNDS)):
+        solver = cls(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32, **kw).compute(c3)
+        for method in methods:
+            name = f"{cls.__name__}.{method}"
+            drive(f"config3_{cls.__name__}", method, solver._programs, {name},
+                  lambda m=method: getattr(solver, m)(S), host_arrays, (1, 2, 1), {}, reps,
+                  rounds=rounds)
+
+    n = 256
+    rows = rng.integers(0, THIN_M, size=THIN_SPARSE_NNZ)
+    cols = np.concatenate([np.arange(n), rng.integers(0, n, size=THIN_SPARSE_NNZ - n)])
+    sp = qt.SparseCSR.from_triplets(rows, cols, rng.normal(size=rows.size), (THIN_M, n))
+    thin = qt.BlockedThinSparseQR(2, device=DEVICE, dtype=torch.float32)
+    pool = drive(f"thin_sparse_{THIN_M}x{n}", "compute", thin._programs, {"BlockedThinSparseQR.compute"},
+                 lambda: thin.compute(sp),
+                 lambda qr: host_arrays(qr._R, qr.q_seq.Y, qr.q_seq.T, qr._lperms), (1, 9, 0), {}, 2)
+    if not thin.rank == n:
+        raise AssertionError(f"sparse_programs thin: rank {thin.rank}, want {n}")
+    working = THIN_M * n * torch.finfo(torch.float32).bits // 8
+    if pool is None or pool > THIN_POOL_GATE * working:
+        raise AssertionError(f"sparse_programs thin: pool {pool} bytes, want at most "
+                             f"{THIN_POOL_GATE} x the {working}-byte working matrix")
+
+    def angular(path, left_solver, left_m, a2, want, reps, rounds=SPARSE_PROGRAM_ROUNDS):
+        qr = qt.BlockAngularQR(left_solver, qt.DenseColPivQR())
+        mat = qt.BlockMatrix1x2(left_m, a2)
+        route = "blockdiag" if isinstance(left_solver, qt.BlockDiagonalQR) else "chunked"
+        left_name = {qt.BlockDiagonalQR: "BlockDiagonalQR.compute", qt.BandedBlockedQR:
+                     "BandedBlockedQR.factorize", qt.SegmentedBandedQR: "SegmentedBandedQR.factorize"}
+        drive(path, "compute", _Both(qr), {f"BlockAngularQR.sparse_a2_{route}",
+                                           left_name[type(left_solver)]},
+              lambda: qr.compute(mat),
+              lambda q: host_arrays(q.r_diagonal(), q._r12_coo[1], q._r12_coo[2], q.right.inner._R),
+              (2, 6, 0), want, reps, rounds=rounds)
+        if qr._r12_coo is None or qr.info() != qt.ComputationInfo.SUCCESS:
+            raise AssertionError(f"sparse_programs {path}: the sparse path or info() {qr.info()}")
+
+    nba = BA_SPARSE_N
+    blocks_np, a2_np, _ = block_angular_problem(rng, nba)
+    blocks = torch.as_tensor(blocks_np, dtype=torch.float32, device=DEVICE)
+    angular(f"config4_sparse_a2_{nba}", qt.BlockDiagonalQR(qt.QFormat.FULL_Q, pivot=False),
+            qt.BlockDiagonal(blocks, 2 * nba, nba), qt.SparseCSR.from_dense(a2_np),
+            {"blockdiag_qr_r": 1}, 10)
+    f = ellipse.EllipseFitting(ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), BANDED_LEFT_N),
+                               dtype=torch.float32, device=DEVICE)
+    x0 = f.initial_params()
+    left_d, right_d, _ = f._damped(x0, f.residuals(x0), 1e-3)
+    nl = f.n
+    left_sp = qt.SparseCSR.from_triplets(np.arange(3 * nl), np.repeat(np.arange(nl), 3),
+                                         left_d.cpu().numpy().reshape(-1), (3 * nl + 5, nl))
+    angular(f"banded_left_sparse_a2_n{BANDED_LEFT_N}", qt.BandedBlockedQR(
+        3, 1, 0, 1, device=DEVICE, dtype=torch.float32), left_sp,
+        qt.SparseCSR.from_dense(right_d.double().cpu().numpy()), {"banded_chain_qr": 1}, 1,
+        rounds=SLOW_EAGER_ROUNDS)
+    angular("config3_segmented_left_sparse_a2", qt.SegmentedBandedQR(
+        suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, device=DEVICE,
+        dtype=torch.float32), c3, S, {name: 1 for name in BANDED_KERNELS}, 2)
+    missing = [name for name in ("blockdiag_qr_r", *BANDED_KERNELS) if not total[name]]
+    if missing:
+        raise AssertionError(f"sparse_programs: kernels never launched inside a replay: {missing}")
+
+    bundle_fits(smi)
+    return total
+
+
+class _Both:
+    """The programs of a BlockAngularQR and of its left solver, as one
+    ``programs()`` / ``pool_bytes()`` for :func:`drive_sparse_program`."""
+
+    def __init__(self, qr):
+        self.qr = qr
+
+    def programs(self):
+        return {**self.qr.left._programs.programs(), **self.qr._programs.programs()}
+
+    def pool_bytes(self):
+        return sum(p.pool_bytes() or 0 for p in (self.qr.left._programs, self.qr._programs))
+
+
+def bundle_fits(smi):
+    """``fit_bundle`` (the host LM loop) at P = 5,000, fp32: captured and
+    eager (``_program.eager()``) fits in turns, per fit and per iteration;
+    the sparse-A2 recompute replays from the third step of a fit (a fit
+    makes a new solver), the left's compute (B2) runs eagerly each step (a
+    new container a step).  The fits are held to the rms gate and to each
+    other's cost; not bitwise: each step's solve adds R12's products with
+    ``index_add_``, whose atomics sum in any order on the card (two eager
+    fits differ too)."""
+    cams0, pts0, uv = bundle_start(BUNDLE_HOST_P)
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+
+    def fit():
+        return bundle.fit_bundle(cams0, pts0, uv, BUNDLE_CFG, **f32)
+
+    fits = {"captured": [], "eager": []}
+    counts = {}
+    for kind in SPARSE_PROGRAM_ROUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.count_dispatches() as d:
+            res = fit() if kind == "captured" else eagerly(fit)()
+        torch.cuda.synchronize()
+        fits[kind].append((time.perf_counter() - t0, res, d.programs, d.host_reads, d.ops))
+        counts[kind] = d.launches
+    (cs, cres, cprog, creads, cops), (es, eres, *_ ) = fits["captured"][0], fits["eager"][0]
+    xc, xe = (np.asarray(r.x.detach().cpu().numpy() if isinstance(r.x, torch.Tensor) else r.x)
+              for r in (cres, eres))
+    it = int(cres.iterations)
+    rms = float(np.sqrt(2.0 * cres.cost / (2 * BUNDLE_HOST_P * BUNDLE_CAMS)))
+    bitwise = bool(np.array_equal(xc, xe)) and int(eres.iterations) == it
+    rel = abs(float(cres.cost) - float(eres.cost)) / float(eres.cost)
+    line = {
+        "phase": "sparse_programs", "path": f"bundle_host_loop_{BUNDLE_HOST_P}", "call": "fit_bundle",
+        "iterations": it, "eager_iterations": int(eres.iterations), "rms_reproj": rms,
+        "gate": BUNDLE_RMS_GATE, "rel_cost_diff_eager": rel, "cost_gate": BUNDLE_COST_GATE,
+        "bitwise_equal_eager": bitwise,
+        "captured_fit_s": statistics.mean(f[0] for f in fits["captured"]),
+        "eager_fit_s": statistics.mean(f[0] for f in fits["eager"]),
+        "captured_iteration_ms": statistics.mean(f[0] for f in fits["captured"]) / it * 1e3,
+        "eager_iteration_ms": statistics.mean(f[0] for f in fits["eager"]) / it * 1e3,
+        "captured_programs_per_fit": cprog, "captured_host_reads_per_iteration": creads / it,
+        "captured_aten_ops_per_iteration": cops / it,
+        "launches_captured_fit": {k: v for k, v in counts["captured"].items() if v},
+        "launches_eager_fit": {k: v for k, v in counts["eager"].items() if v},
+        "method": "host wall time of a whole fit ending in synchronize (a new solver a fit), rounds "
+                  "captured, eager, eager, captured, means; per iteration: the fit over its "
+                  "iterations; counts from the first captured fit",
+        "gpu": smi,
+    }
+    emit(line)
+    if not (rms < BUNDLE_RMS_GATE and rel < BUNDLE_COST_GATE and cprog >= it - 2):
+        raise AssertionError(f"sparse_programs bundle: {line}")
+
+
 LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P), (BR, BC, NB_REAL))
 
 
@@ -2442,11 +2708,14 @@ def main():
     cli_counts = phase_auto_cli(rng, c3, smi)
     sp_counts = phase_sparse_apply(rng, c3, smi)
     phase_blocked_thin(rng, smi)
+    profiling.reset_launch_counts()
+    sparse_replayed = phase_sparse_programs(rng, c3, smi)
+    sparse_counts = profiling.launch_counts()
     floor = phase_launch_floor(smi)
     mesh_counts = phase_mesh(rng, smi)
     # the block-angular, ellipse, bundle, CLI, sparse-product and mesh main paths
     extra = {name: cli_counts[name] + sp_counts[name] + mesh_counts[name] + program_counts[name]
-             for name in cli_counts}
+             + sparse_counts[name] for name in cli_counts}
     extra["blockdiag_qr_r"] += ba_b2 + bundle_b2
     extra["banded_chain_qr"] += ell_b5
     kernels = []
@@ -2464,6 +2733,8 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
             "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
+            "sparse_program_launches": sparse_counts[name],
+            "sparse_replayed_warm_launches": sparse_replayed[name],
             "floor_device_ms": floor[f"{NB_REAL}x{BR}x{BC}"],
             "config2_10k": {**{k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms",
                                                                  "library_ms", "bound_ms", "bound_by")},
@@ -2489,6 +2760,8 @@ def main():
             "bound_by": t["bound_by"], "library_ms": None,  # no single PyTorch call
             "device_ms": t["device_ms"], "mesh_launches": mesh_counts[name],
             "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
+            "sparse_program_launches": sparse_counts[name],
+            "sparse_replayed_warm_launches": sparse_replayed[name],
         })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,

@@ -38,9 +38,23 @@ materializes stays out of the solver.
 Calls run eagerly, with no capture, when an input lies on the CPU (the
 caller asked for the CPU), when an input or an output requires grad
 (autograd must see the ops: a solve against factors that require grad is
-never captured), inside another capture, under :func:`eager`, or when the caller
-says so (the ``mesh=`` paths).  On the card a capture or replay that fails
-raises with the program's name; nothing falls back to eager.
+never captured), inside another program's function, under :func:`eager`,
+or when the caller says so (the ``mesh=`` paths).  A program whose function
+calls another solver's captured call (``BlockAngularQR``'s sparse-A2
+recompute calls its right solver's ``compute``) runs that call inline, in
+its own first call, warm-up and capture alike, so the inner ops become part
+of the outer graph; the caller binds the inner solver's factors to the
+outer program's outputs.  On the card a capture or replay that fails raises
+with the program's name; nothing falls back to eager.
+
+Host values (a NumPy array where the function takes a tensor: the values
+of a host ``SparseCSR``) are uploads: the program keeps a static input of
+the solver's device and dtype, and each call writes the values into a host
+staging buffer (pinned on the card; the next call waits for the last copy
+out of it) and copies that into the static input in one asynchronous copy.
+A ``fetch`` call returns its outputs on the host (NumPy arrays): a replay
+copies each output into a pinned host buffer kept with the program (one
+copy each, the call's host read) and hands out a NumPy copy of it.
 
 The kernel wrappers' launch counters tick in Python, when a launch is
 issued, so a capture would count launches that never ran: a program
@@ -69,10 +83,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import time
 import types
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import profiling
@@ -80,9 +96,11 @@ from . import profiling
 __all__ = ["LoopProgram", "Loops", "Program", "Programs", "eager"]
 
 _EAGER = False
+_INLINE = 0  # depth of program functions running (first call, warm-up, capture, test replay)
 _BACKEND = None  # a test's stand-in for _CudaGraph; None: CUDA graphs on CUDA tensors
 _LOOP_BACKEND = None  # a test's stand-in for _CudaLoop
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}  # warm-up and capture stream per card
+_SERIAL = itertools.count()  # names each program for what reads its outputs
 
 
 @contextlib.contextmanager
@@ -125,22 +143,115 @@ def _use_loop_backend(backend):
         _LOOP_BACKEND = saved
 
 
-def _capturable(inputs, stand_in) -> bool:
+def _capturable(inputs, stand_in, upload=None) -> bool:
     """Whether a call on ``inputs`` is captured (``stand_in``: the test
-    backend in use, or None)."""
-    if _EAGER:
+    backend in use, or None; ``upload``: the (device, dtype) of the host
+    arrays among the inputs)."""
+    if _EAGER or _INLINE:
         return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+    tensors = [t for t in inputs if isinstance(t, torch.Tensor)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return False
     if stand_in is not None:
         return True
-    if not all(t.is_cuda for t in inputs):
+    devices = [t.device for t in tensors] + ([upload[0]] if len(tensors) < len(inputs) else [])
+    if not all(d.type == "cuda" for d in devices):
         return False
     return not torch.cuda.is_current_stream_capturing()
 
 
-def _signature(inputs):
-    return tuple((tuple(t.shape), t.stride(), t.dtype, t.device) for t in inputs)
+def _signature(inputs, upload=None):
+    """Shapes, strides, dtypes and devices of the inputs; a host array as
+    the static input it is uploaded into (so host values and a device
+    vector of the same shape share a program)."""
+    return tuple((tuple(t.shape), t.stride(), t.dtype, t.device) if isinstance(t, torch.Tensor)
+                 else _upload_signature(t.shape, upload) for t in inputs)
+
+
+def _upload_signature(shape, upload):
+    device, dtype = upload
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    strides, n = [], 1
+    for d in reversed(shape):
+        strides.append(n)
+        n *= max(d, 1)
+    return tuple(shape), tuple(reversed(strides)), dtype, device
+
+
+@contextlib.contextmanager
+def _inline():
+    """The block runs a program's function: the programs it calls run
+    inline (eagerly, into the caller's capture)."""
+    global _INLINE
+    _INLINE += 1
+    try:
+        yield
+    finally:
+        _INLINE -= 1
+
+
+def _upload(a, upload) -> torch.Tensor:
+    """A host array on ``upload = (device, dtype)`` for an eager call:
+    pinned and asynchronous on the card, so the call does not wait for the
+    device."""
+    device, dtype = upload
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _on_device(inputs, upload):
+    """The inputs with each host array uploaded (an eager call)."""
+    return tuple(t if isinstance(t, torch.Tensor) else _upload(t, upload) for t in inputs)
+
+
+class _Staging:
+    """A host input's staging buffer: each call writes the values into it
+    on the host (no ATen op) and copies it into the static input in one
+    asynchronous copy; on the card the buffer is pinned and an event keeps
+    the next write behind the last copy out of it."""
+
+    def __init__(self, static: torch.Tensor):
+        pinned = static.is_cuda
+        self.host = torch.empty(static.shape, dtype=static.dtype, pin_memory=pinned)
+        self.view = self.host.numpy()
+        self.event = torch.cuda.Event() if pinned else None
+
+    def copy(self, static: torch.Tensor, a) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+        np.copyto(self.view, a, casting="same_kind")
+        static.copy_(self.host, non_blocking=True)
+        if self.event is not None:
+            self.event.record()
+
+
+class _HostOut:
+    """A fetched output's host buffer (pinned on the card) and its NumPy
+    view, both made once: a fetch is one copy into it (the host read) and
+    a NumPy copy out of it; an output on the CPU is read through its own
+    view, no ATen op."""
+
+    def __init__(self, out: torch.Tensor):
+        self.host = None if out.device.type == "cpu" else torch.empty(
+            out.shape, dtype=out.dtype, pin_memory=True)
+        self.view = (out if self.host is None else self.host).numpy()
+
+    def read(self, out: torch.Tensor):
+        if self.host is not None:
+            self.host.copy_(out)
+        return self.view.copy()
+
+
+def _fetch(out):
+    """``out`` (a tensor or a tuple) on the host: each tensor a fresh NumPy
+    array (one copy from the device each; on the CPU a NumPy copy, no ATen
+    op)."""
+    host = tuple(None if t is None else t.numpy().copy() if t.device.type == "cpu"
+                 else t.cpu().numpy() for t in _as_tuple(out))
+    return host if isinstance(out, tuple) else host[0]
 
 
 def _side_stream(device: torch.device):
@@ -170,10 +281,17 @@ def _as_tuple(out) -> Tuple[Optional[torch.Tensor], ...]:
     return out if isinstance(out, tuple) else (out,)
 
 
-def _copy_in(static, inputs) -> None:
+def _copy_in(static, inputs, staging=None) -> None:
     """Copy each input into its static buffer (None: read in place), as one
-    ``_foreach_copy_``."""
-    pairs = [(s, x) for s, x in zip(static, inputs) if s is not None and s is not x]
+    ``_foreach_copy_``; a host array through its staging buffer (``staging``
+    by input index, made at its first use), one copy each."""
+    for i, x in enumerate(inputs):
+        if not isinstance(x, torch.Tensor):
+            if i not in staging:
+                staging[i] = _Staging(static[i])
+            staging[i].copy(static[i], x)
+    pairs = [(s, x) for s, x in zip(static, inputs)
+             if s is not None and s is not x and isinstance(x, torch.Tensor)]
     if len(pairs) == 1:
         pairs[0][0].copy_(pairs[0][1])
     elif pairs:
@@ -218,13 +336,15 @@ class Program:
     ``capture_seconds`` is the warm-up excluded: capture and instantiate."""
 
     def __init__(self, name: str, fn: Callable, static_in, first, *, resident: int,
-                 persistent: bool, pool, stream):
+                 persistent: bool, pool, stream, hosts=(), fetch: bool = False):
         self.name, self.persistent = name, persistent
+        self.serial = next(_SERIAL)
         self.addrs = tuple(t.data_ptr() for t in static_in[:resident])
         before = profiling.launch_counts()
         t0 = time.perf_counter()
         try:
-            self._graph = (_BACKEND or _CudaGraph)(fn, static_in, pool, stream)
+            with _inline():
+                self._graph = (_BACKEND or _CudaGraph)(fn, static_in, pool, stream)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: capture failed: {e}") from e
         finally:
@@ -233,7 +353,11 @@ class Program:
         self.capture_seconds = time.perf_counter() - t0
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self.static_in = (None,) * resident + tuple(static_in[resident:])
+        # host inputs' staging buffers by index, made now (a later call that
+        # passes host values where this one passed a tensor makes its own)
+        self.staging = {i: _Staging(static_in[i]) for i in hosts}
         self.out = _as_tuple(self._graph.out)
+        self.fetched = tuple(None if t is None else _HostOut(t) for t in self.out) if fetch else None
         self._single = not isinstance(self._graph.out, tuple)
         if persistent:  # the capture computed nothing: the warm-up's values
             for s, w in zip(self.out, first):
@@ -243,13 +367,17 @@ class Program:
     def _result(self, out):
         return out[0] if self._single else out
 
-    def replay(self, inputs):
-        _copy_in(self.static_in, inputs)
+    def replay(self, inputs, fetch: bool = False):
+        _copy_in(self.static_in, inputs, self.staging)
         try:
-            self._graph.replay()
+            with _inline():  # a test backend's replay runs the function again
+                self._graph.replay()
         except RuntimeError as e:
             raise RuntimeError(f"{self.name}: replay failed: {e}") from e
         profiling._note_replay(self.launches)
+        if fetch:
+            return self._result(tuple(None if h is None else h.read(t)
+                                      for h, t in zip(self.fetched, self.out)))
         if self.persistent:
             return self._result(self.out)
         return self._result(_clones(self.out))
@@ -286,57 +414,80 @@ class Programs:
         self._token = 0  # bumped whenever the factors are bound to other tensors
 
     def _run(self, owner, name, key, fn, inputs, persistent: bool, capture: bool,
-             resident: int):
-        if not (capture and _capturable(inputs, _BACKEND)):
-            return fn(owner, *inputs), None
-        slot = (name, key, _signature(inputs))
+             resident: int, upload=None, fetch: bool = False):
+        if upload is None and not all(isinstance(t, torch.Tensor) for t in inputs):
+            raise TypeError(f"{name}: a host input needs upload=(device, dtype)")
+        if not (capture and _capturable(inputs, _BACKEND, upload)):
+            out = fn(owner, *_on_device(inputs, upload))
+            return (_fetch(out) if fetch else out), None
+        slot = (name, key, _signature(inputs, upload))
         addrs = tuple(t.data_ptr() for t in inputs[:resident])
         prog = self._cache.get(slot)
         last = self._last.pop(slot, (None,))[0]  # the slot's previous call, if it ran eagerly
         if prog is not None and prog.addrs == addrs:
-            return prog.replay(inputs), prog
+            return prog.replay(inputs, fetch), prog
         if last != addrs:  # the first call in a row with these addresses: eager
-            out = fn(owner, *inputs)
+            with _inline():
+                out = fn(owner, *_on_device(inputs, upload))
             if not _requires_grad(out):
                 self._last[slot] = (addrs, persistent)
                 if len(self._last) > self._LAST_LIMIT:
                     del self._last[next(iter(self._last))]
-            return out, None
-        static_in = tuple(t if i < resident else t.clone() for i, t in enumerate(inputs))
-        stream = _side_stream(inputs[0].device) if _BACKEND is None else None
+            return (_fetch(out) if fetch else out), None
+        static_in = tuple(t if i < resident else t.clone()
+                          for i, t in enumerate(_on_device(inputs, upload)))
+        stream = _side_stream(static_in[0].device) if _BACKEND is None else None
         snap = copy.copy(owner)
 
         def bound(*xs):
             return fn(snap, *xs)
 
-        with _on(stream):  # the warm-up, and this call's result
+        with _on(stream), _inline():  # the warm-up, and this call's result
             first = bound(*static_in)
         if _requires_grad(first):  # autograd recorded the warm-up: nothing is captured
             return first, None
         if self._pool is None and _BACKEND is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = Program(name, bound, static_in, _as_tuple(first), resident=resident,
-                       persistent=persistent, pool=self._pool, stream=stream)
+                       persistent=persistent, pool=self._pool, stream=stream, fetch=fetch,
+                       hosts=[i for i, t in enumerate(inputs) if not isinstance(t, torch.Tensor)])
         self._cache.pop(slot, None)
         self._cache[slot] = prog
         if self._limit is not None and len(self._cache) > self._limit:
             del self._cache[next(iter(self._cache))]
+        if fetch:
+            return _fetch(first), prog
         return (prog._result(prog.out) if persistent else first), prog
 
     def factorize(self, owner, name: str, key, fn: Callable, *inputs, capture: bool = True,
-                  resident: int = 0):
+                  resident: int = 0, upload=None):
         """``fn(owner, *inputs)`` → the factor tensors (a tuple), captured
         once per key; the factors are the program's static outputs.  The
         first ``resident`` inputs are read where they lie (keyed by their
-        addresses, no copy in)."""
-        out, prog = self._run(owner, name, key, fn, inputs, True, capture, resident)
+        addresses, no copy in); a host array among the inputs is uploaded to
+        ``upload = (device, dtype)``."""
+        out, prog = self._run(owner, name, key, fn, inputs, True, capture, resident, upload)
         self._bind(prog)
         return out
 
-    def solve(self, owner, name: str, key, fn: Callable, *inputs, capture: bool = True):
+    def solve(self, owner, name: str, key, fn: Callable, *inputs, capture: bool = True,
+              upload=None, fetch: bool = False):
         """``fn(owner, *inputs)`` → fresh tensors, captured once per key and
-        factor state."""
-        return self._run(owner, name, (key, self._token), fn, inputs, False, capture, 0)[0]
+        factor state; with ``fetch``, the outputs on the host (NumPy)."""
+        return self._run(owner, name, (key, self._token), fn, inputs, False, capture, 0,
+                         upload, fetch)[0]
+
+    def drop(self, name: str) -> None:
+        """Forget every program named ``name`` (its key's maps went)."""
+        self._cache = {k: p for k, p in self._cache.items() if k[0] != name}
+        self._last = {k: v for k, v in self._last.items() if k[0] != name}
+
+    def state(self) -> Optional[int]:
+        """The serial number of the program whose outputs are the factors,
+        or None when they are tensors no program owns: a program of another
+        solver that reads the factors is keyed by it, and captured only
+        when it is not None (eager factors move at every call)."""
+        return None if self._state is None else self._state.serial
 
     def bind_eager(self) -> None:
         """The solver's factors were bound to tensors no program owns."""
@@ -455,7 +606,9 @@ class LoopProgram:
     ``count`` (int32) and writes the condition into ``log`` at index k
     (int32, ``max_iters + 1``, -1 where none ran).  ``held``: the tensors
     the captured functions read besides the inputs, kept alive for as long
-    as the graph reads their addresses.
+    as the graph reads their addresses; ``buffers``: the loop's state
+    tensors that the graphs read and write (allocated before the capture,
+    outside its pool), kept alive likewise.
 
     :meth:`run` is a whole loop from new inputs: one launch followed by one
     fetch of ``out``.  ``capture_seconds``: the three captures and the
@@ -463,8 +616,9 @@ class LoopProgram:
 
     def __init__(self, name: str, init: Callable, body: Callable, tail: Callable, static_in,
                  done: torch.Tensor, k: torch.Tensor, count: torch.Tensor, out: torch.Tensor,
-                 max_iters: int, held, pool, stream):
+                 max_iters: int, held, pool, stream, buffers=()):
         self.name, self.static_in, self.max_iters = name, tuple(static_in), int(max_iters)
+        self.buffers = tuple(buffers)
         self.done, self.k, self.count, self.out = done, k, count, out
         self.held, self.held_signature = tuple(held), _held_signature(held)
         self.log = torch.full((self.max_iters + 1,), -1, dtype=torch.int32, device=done.device)
@@ -551,17 +705,18 @@ class Loops:
 
     def capture(self, key, name: str, init: Callable, body: Callable, tail: Callable, static_in,
                 done: torch.Tensor, k: torch.Tensor, count: torch.Tensor, out: torch.Tensor,
-                max_iters: int, reads=()) -> LoopProgram:
+                max_iters: int, reads=(), buffers=()) -> LoopProgram:
         """Warm up (one ``body()`` on the side stream) and capture; the
         program replaces the key's and is returned.  ``reads``: the
-        functions whose held tensors the loop reads (kept alive with it)."""
+        functions whose held tensors the loop reads; ``buffers``: the state
+        tensors the loop updates in place (both kept alive with it)."""
         stream = _side_stream(done.device) if _LOOP_BACKEND is None else None
         with _on(stream):
             body()
         if self._pool is None and _LOOP_BACKEND is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = LoopProgram(name, init, body, tail, static_in, done, k, count, out, max_iters,
-                           _held_tensors(reads), self._pool, stream)
+                           _held_tensors(reads), self._pool, stream, buffers)
         old = self._cache.pop(key, None)
         if old is not None:
             old.close()

@@ -29,6 +29,8 @@ tests run :func:`mesh_cases` through it).
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import datetime
 import functools
 import json
@@ -44,9 +46,34 @@ import torch.distributed as dist
 from . import _device
 from .parallel.mesh import all_reduce_sum, default_mesh, mesh_rank, shard_bounds, shard_leading_axis
 
-__all__ = ["init_rank", "launch", "mesh_cases", "run_steps"]
+__all__ = ["count_collectives", "init_rank", "launch", "mesh_cases", "run_steps"]
 
 RANK_TIMEOUT_S = 300  # a collective that waits longer raises (a deadlock surfaces as an error)
+_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+                "reduce_scatter_tensor", "broadcast", "all_to_all", "all_to_all_single", "reduce",
+                "gather", "scatter", "barrier")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """The ``torch.distributed`` collectives the block calls, by name (a
+    ``Counter``)."""
+    calls = collections.Counter()
+    saved = {name: getattr(dist, name) for name in _COLLECTIVES}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 
 # --- ranks --------------------------------------------------------------------------
@@ -308,6 +335,31 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
                             local_blocks=qr.left.R.shape[0])
         return out
 
+    def lstsq_grad():
+        """Gradients of a loss of the replicated x (the same on every rank)
+        through the sharded ``block_angular_lstsq``, with and without tail
+        rows; the backward pass's collectives counted."""
+        from .functional import block_angular_lstsq
+
+        blocks, right, b, w = (inputs[k] for k in ("lg_blocks", "lg_right", "lg_b", "lg_w"))
+        nb, br, _ = blocks.shape
+        lo, hi = shard_bounds(nb, mesh)
+        out = {}
+        for tail in (0, right.shape[0] - nb * br):
+            rows = np.r_[lo * br : hi * br, nb * br : nb * br + tail]
+            lb, r, v = (T(a).requires_grad_() for a in (blocks[lo:hi], right[rows], b[rows]))
+            x = block_angular_lstsq(lb, r, v, n_shards=world, tail=tail, mesh=mesh, axis="dp")
+            loss = (T(w[: x.shape[0]]) * x).sum() + 0.5 * (x * x).sum()
+            with count_collectives() as calls:
+                loss.backward()
+            body = (hi - lo) * br
+            out[f"tail{tail}"] = dict(
+                x=x.detach(), collectives=dict(calls), tail_right=r.grad[body:],
+                tail_b=v.grad[body:], local_left=lb.grad, local_right=r.grad[:body],
+                local_b=v.grad[:body],
+            )
+        return out
+
     def soa_step():
         pts, params = T(inputs["soa_pts"]), T(inputs["soa_params"])
         lam = torch.tensor(1e-3, dtype=dt, device=dev)
@@ -366,6 +418,7 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
         blockdiag_kernel=functools.partial(blockdiag, False, True),
         uneven=uneven,
         block_angular=block_angular,
+        lstsq_grad=lstsq_grad,
         soa_step=soa_step,
         segmented=functools.partial(segmented, "seg"),
         segmented_kernel=functools.partial(segmented, "seg_kernel"),

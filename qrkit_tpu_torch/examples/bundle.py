@@ -142,9 +142,11 @@ class _BundleStep:
     """Damped-step functor: one block-angular QR solve per call.
 
     The camera block's pattern (which rows touch which camera columns) is
-    the same every iteration; its CSR structure is built once and each call
-    only orders the new values into it, and one ``BlockAngularQR`` is kept
-    across calls, so its sparse-A2 plan is built once."""
+    the same every iteration; its CSR structure and its layout token are
+    built once and each call only orders the new values into it, and one
+    ``BlockAngularQR`` is kept across calls, so its sparse-A2 plan is built
+    once and, on the card, its sparse-A2 recompute is one captured program
+    from the third call on."""
 
     def __init__(self, uv: np.ndarray, *, device=None, dtype=torch.float64):
         self.uv = _device.as_tensor(np.asarray(uv), device, dtype)
@@ -163,6 +165,9 @@ class _BundleStep:
         indptr = np.zeros(self.n1 + 1, dtype=np.int64)
         np.add.at(indptr, rows + 1, 1)
         self._indptr, self._indices = np.cumsum(indptr), cols[self._order]
+        # the layout's token, handed to every iteration's A2 (no re-hash)
+        self._fp = SparseCSR((self.n1, 6 * n_cams), self._indptr, self._indices,
+                             np.zeros(self._indices.size)).pattern_fingerprint()
         self._qr = BlockAngularQR(BlockDiagonalQR(pivot=False), DenseColPivQR())
         self.last_qr: Optional[BlockAngularQR] = None
 
@@ -173,6 +178,7 @@ class _BundleStep:
         sl = float(np.sqrt(lam))
         vals = np.concatenate([jc.detach().cpu().numpy().reshape(-1), np.full(6 * self.n_cams, sl)])
         a2 = SparseCSR((self.n1, 6 * self.n_cams), self._indptr, self._indices, vals[self._order])
+        a2._fp_memo = self._fp
         qr = self._qr.compute(BlockMatrix1x2(blk, a2))
         self.last_qr = qr
         b = torch.cat([rhs, rhs.new_zeros(6 * self.n_cams)])

@@ -25,7 +25,9 @@ function until :func:`clear_programs`.  Operands that require grad and
 places its inputs sharded: each rank then passes its own blocks (points) and
 their rows, the skinny bottom panel reduces across ranks by TSQR (a local QR,
 one all-gather of the R factors, a replicated second stage), and the block
-part of x is gathered, so every rank returns the global x.
+part of x is gathered, so every rank returns the global x.  The sharded
+``block_angular_lstsq`` has its backward too (the reference's ``custom_vjp``
+runs under SPMD): one all-reduce of an m2-vector.
 """
 from __future__ import annotations
 
@@ -253,6 +255,23 @@ def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None,
     return torch.cat([x1.reshape(-1), x2]), R1, r12, R2
 
 
+def _angular_grads(left_blocks, right, b, x1, x2, u1, u2, tail: int):
+    """∂b = A u, ∂A1 = per-block (r u1ᵀ − (Au) x1ᵀ) and ∂A2 = r u2ᵀ − (Au) x2ᵀ
+    with r = b − A x, over the rows of ``right`` and ``b`` (the blocks'
+    rows, then the ``tail`` rows)."""
+    nb, br, bc = left_blocks.shape
+    pad = x2.new_zeros(tail)
+    A1u = torch.einsum("bij,bj->bi", left_blocks, u1).reshape(nb * br)
+    A1x = torch.einsum("bij,bj->bi", left_blocks, x1).reshape(nb * br)
+    Au = torch.cat([A1u, pad]) + right @ u2
+    r = b - (torch.cat([A1x, pad]) + right @ x2)
+    g_left = torch.einsum("bi,bj->bij", r[: nb * br].reshape(nb, br), u1) - torch.einsum(
+        "bi,bj->bij", Au[: nb * br].reshape(nb, br), x1
+    )
+    g_right = torch.outer(r, u2) - torch.outer(Au, x2)
+    return g_left, g_right, Au
+
+
 class _BlockAngularLstsq(torch.autograd.Function):
     """Composite [A1 | A2] least squares with the implicit-function-theorem
     backward (the reference's ``jax.custom_vjp``)."""
@@ -269,12 +288,11 @@ class _BlockAngularLstsq(torch.autograd.Function):
     def backward(ctx, g):
         """u = (AᵀA)⁻¹ḡ by forward and back substitution on the composite
         R = [[R1, R12], [0, R2]] saved from the forward pass (the QR itself
-        is never differentiated), then ∂b = A u, ∂A1 = per-block
-        (r u1ᵀ − (Au) x1ᵀ) and ∂A2 = r u2ᵀ − (Au) x2ᵀ with r = b − A x."""
+        is never differentiated), then the gradients of
+        :func:`_angular_grads`."""
         left_blocks, right, b, x, R1, r12, R2 = ctx.saved_tensors
         nb, br, bc = left_blocks.shape
         m1 = nb * bc
-        x1, x2 = x[:m1].reshape(nb, bc), x[m1:]
         g1, g2 = g[:m1].reshape(nb, bc), g[m1:]
         # Rᵀ w = g (block forward substitution)
         w1 = _solve_upper(R1, g1, transpose=True)
@@ -282,17 +300,45 @@ class _BlockAngularLstsq(torch.autograd.Function):
         # R u = w (block back substitution)
         u2 = _solve_upper(R2, w2)
         u1 = _solve_upper(R1, (w1.reshape(m1) - r12 @ u2).reshape(nb, bc))
-        # A u and the residual r = b - A x over all rows (the tail included)
-        pad = x.new_zeros(ctx.tail)
-        A1u = torch.einsum("bij,bj->bi", left_blocks, u1).reshape(nb * br)
-        A1x = torch.einsum("bij,bj->bi", left_blocks, x1).reshape(nb * br)
-        Au = torch.cat([A1u, pad]) + right @ u2
-        r = b - (torch.cat([A1x, pad]) + right @ x2)
-        g_left = torch.einsum("bi,bj->bij", r[: nb * br].reshape(nb, br), u1) - torch.einsum(
-            "bi,bj->bij", Au[: nb * br].reshape(nb, br), x1
-        )
-        g_right = torch.outer(r, u2) - torch.outer(Au, x2)
-        return g_left, g_right, Au, None, None
+        grads = _angular_grads(left_blocks, right, b, x[:m1].reshape(nb, bc), x[m1:], u1, u2,
+                               ctx.tail)
+        return grads + (None, None)
+
+
+class _ShardedBlockAngularLstsq(torch.autograd.Function):
+    """The ``mesh=`` form of :class:`_BlockAngularLstsq`: each rank holds
+    its blocks' R1 and R12 rows, the replicated R2 and the global x.  The
+    cotangent of x is the replicated output's, the same on every rank; the
+    all-gather of x1 in the forward pass has a slice as its adjoint, so each
+    rank solves for w1 and u1 on its own blocks, and the one collective is
+    the all-reduce (sum) of the m2-vector R12ᵀ w1 before the R2 solves."""
+
+    @staticmethod
+    def forward(ctx, left_blocks, right, b, n_shards, tail, mesh, axis):
+        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b, n_shards, mesh, axis)
+        ctx.tail, ctx.mesh, ctx.axis = tail, mesh, axis
+        ctx.save_for_backward(left_blocks, right, b, x, R1, r12, R2)
+        return x
+
+    @staticmethod
+    @highest_precision()
+    def backward(ctx, g):
+        from .parallel.mesh import all_reduce_sum, mesh_rank
+
+        left_blocks, right, b, x, R1, r12, R2 = ctx.saved_tensors
+        nb, br, bc = left_blocks.shape
+        m1 = nb * bc
+        rank, world = mesh_rank(ctx.mesh, ctx.axis)
+        lo, top = rank * m1, world * m1  # this rank's x1 rows; where x2 starts
+        g1, g2 = g[lo : lo + m1].reshape(nb, bc), g[top:]
+        w1 = _solve_upper(R1, g1, transpose=True)
+        s = all_reduce_sum(r12.T @ w1.reshape(m1), ctx.mesh, ctx.axis)  # Σ_ranks R12ᵀ w1
+        w2 = _solve_upper(R2, g2 - s, transpose=True)
+        u2 = _solve_upper(R2, w2)
+        u1 = _solve_upper(R1, (w1.reshape(m1) - r12 @ u2).reshape(nb, bc))
+        grads = _angular_grads(left_blocks, right, b, x[lo : lo + m1].reshape(nb, bc), x[top:],
+                               u1, u2, ctx.tail)
+        return grads + (None,) * 4
 
 
 def block_angular_lstsq(
@@ -319,7 +365,12 @@ def block_angular_lstsq(
     ``right`` and ``b``, followed by the ``tail`` rows, which are the same on
     every rank; ``n_shards`` (divisible by the mesh size) counts TSQR shards
     over all ranks.  Every rank returns the global x ``[world·nb·bc + m2]``.
-    Gradients through the sharded form are not implemented.
+    The sharded form is differentiable too: x is replicated, so its
+    cotangent must be the same on every rank (every rank differentiates the
+    same function of x); each rank gets the gradients of its own blocks and
+    of its rows of ``right`` and ``b``, the tail rows' the same on every
+    rank, and the backward pass runs one collective, an all-reduce of an
+    m2-vector.
 
     Without a mesh, on card operands that do not require grad, the call is
     one captured program (the module docstring)."""
@@ -333,10 +384,7 @@ def block_angular_lstsq(
             left_blocks, right, b,
         )
     if grad:
-        raise NotImplementedError(
-            "gradients through block_angular_lstsq(mesh=...) are not implemented; "
-            "differentiate the mesh=None form"
-        )
+        return _ShardedBlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail, mesh, axis)
     return _block_angular_lstsq_primal(left_blocks, right, b, n_shards, mesh, axis)[0]
 
 

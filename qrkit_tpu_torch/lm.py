@@ -368,7 +368,7 @@ def _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state, 
         out.copy_(_pack(S[0], S[2], S[3], S[5], S[6], k, count))
 
     return _LOOPS.capture(key, name, init, body, tail, static_in, S[6], k, count, out,
-                          cfg.max_iters, reads=fns)
+                          cfg.max_iters, reads=fns, buffers=S)
 
 
 def levenberg_marquardt_device(

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
-from .._program import Programs
+from .._program import Programs, _upload
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
 from ..ops.banded import SMEM_LIMIT, chain_factorize, chain_qr, chain_smem_bytes
 from ..ops.compact_wy import TwoSegmentWYSeq, _rows
@@ -47,7 +47,6 @@ __all__ = [
     "banded_solve_r",
     "device_values",
     "shifted_gather_map",
-    "upload_values",
     "value_perm",
 ]
 
@@ -211,15 +210,6 @@ def banded_solve_r(
     return xpad[:n, 0] if vec else xpad[:n]
 
 
-def upload_values(data: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
-    """One host value vector to the device; pinned and asynchronous on CUDA,
-    so a factorize does not wait for the device."""
-    t = torch.from_numpy(np.ascontiguousarray(data)).to(dtype)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def value_perm(mat: SparseCSR, row_perm: Permutation, device) -> Optional[torch.Tensor]:
     """The row permutation's effect on a value vector, as a device gather
     (None for the identity)."""
@@ -239,7 +229,7 @@ def device_values(solver, values) -> torch.Tensor:
             "with this stored-nonzero layout"
         )
     if not isinstance(values, torch.Tensor):
-        values = upload_values(np.asarray(values), solver.device, solver.dtype)
+        values = _upload(np.asarray(values), (solver.device, solver.dtype))
     vals = values.to(device=solver.device, dtype=solver.dtype)
     if vals.dim() != 1 or vals.shape[0] != solver._vals_nnz:
         raise ValueError(
@@ -401,17 +391,18 @@ class BandedBlockedQR(QRSolver):
         if self._panel_gmap is None or fp != self._gmap_fp:
             self._layout_maps(mat, pmat)
             self._gmap_fp = fp
-        self._factorize(upload_values(mat.data, self.device, self.dtype))
+        self._factorize(np.asarray(mat.data))  # uploaded by the program
         return self
 
-    def _factorize(self, vals: torch.Tensor) -> None:
-        """Refactorize from the stored-order value vector: one captured
-        program on the card (:func:`_factorize_program`); leaves the health
-        flag on the device."""
+    def _factorize(self, vals) -> None:
+        """Refactorize from the stored-order value vector (a device tensor,
+        or host values the program uploads): one captured program on the
+        card (:func:`_factorize_program`); leaves the health flag on the
+        device."""
         self._fac_kernel = self._kernel_active()
         Y, T, self._r_panels, health = self._programs.factorize(
             self, "BandedBlockedQR.factorize", (self._layout_version, self._fac_kernel),
-            _factorize_program, vals,
+            _factorize_program, vals, upload=(self.device, self.dtype),
         )
         g = self._geom_dev
         self.q_seq = TwoSegmentWYSeq(

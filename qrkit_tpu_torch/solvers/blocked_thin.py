@@ -15,20 +15,27 @@ output column permutation.  The reference groups the panels into
 height-bucketed ``lax.scan`` runs only to bound TPU compile size; its own
 docstring states the bucket padding is exact, so here the panels run as one
 loop over their true extents, and every panel's pivot order stays on the
-device until one fetch after the loop.  ``fused=`` is kept for the
-reference's signature; both values run that loop.
+device until the first call that needs the column permutation or the rank.
+The pattern work (orderings, panel heights, each value's place in the dense
+working matrix) is cached per operand layout, so a same-layout compute
+uploads the ``nnz`` values and, with ``fused=True`` (the default) on the
+card, replays one captured program (:mod:`~qrkit_tpu_torch._program`):
+the reference's fused height-bucketed factorize.  ``fused=False`` runs the
+same loop eagerly.
 
 No kernel: plain torch on either device (a panel wider than 32 columns goes
 to the library's QR, :func:`~qrkit_tpu_torch.ops.householder.panel_qr_yt`).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Union
 
 import numpy as np
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..analysis import as_banded_as_possible, column_density
 from ..ops.compact_wy import CompactWYSeq
 from ..ops.householder import (
@@ -47,8 +54,9 @@ __all__ = ["BlockedThinDenseQR", "BlockedThinSparseQR"]
 
 
 def _thin_finish_r(working: torch.Tensor, n: int, check_zero: bool):
-    """(R, pivot diagonal, info() health flag), all on the device."""
-    R = torch.triu(working)
+    """(R, pivot diagonal, info() health flag), all on the device; R is
+    ``working``, made upper triangular in place."""
+    R = working.triu_()
     d = torch.diagonal(R[:n, :n])
     return R, d, _diag_health(d, check_zero=check_zero)
 
@@ -76,6 +84,29 @@ def _thin_dense_factorize(A: torch.Tensor, c: int):
         Ys.append(Y)
         Ts.append(T)
     return torch.stack(Ys), torch.stack(Ts), torch.triu(R)
+
+
+def _thin_sparse_factorize(self, vals: torch.Tensor, plan: dict):
+    """The values of one compute of :class:`BlockedThinSparseQR` into its
+    factors, all on the device: the values scattered into the permuted
+    dense ``working``, the panel loop over the planned heights, the WY
+    stacks and R.  Returns (Y [nb, maxh, c], T [nb, c, c], R [m, n], pivot
+    diagonal, health flag, in-panel pivots [n]).  Every panel writes into
+    ``working`` and the stacks in place, so a captured program's pool holds
+    little more than them (no trailing-update or stacking temporaries)."""
+    m, n, c = self._m, self._n, self.c
+    heights = plan["heights"]
+    working = vals.new_zeros(m * n)
+    working[plan["dest"]] = vals
+    working = working.view(m, n)
+    Y = vals.new_zeros((len(heights), max(heights), c))
+    T = vals.new_zeros((len(heights), c, c))
+    lperms = torch.empty(n, dtype=torch.int64, device=vals.device)
+    for i, (p0, h) in enumerate(zip(_panel_starts(n, c), heights)):
+        pc = min(c, n - p0)
+        self._panel(working, p0, h, pc, Y[i, :h, :pc], T[i, :pc, :pc], lperms[p0 : p0 + pc])
+    R, diag, health = _thin_finish_r(working, n=n, check_zero=self._health_check_zero_pivot)
+    return Y, T, R, diag, health, lperms
 
 
 class BlockedThinDenseQR(QRSolver):
@@ -148,6 +179,7 @@ class BlockedThinSparseQR(QRSolver):
         self.fused = fused
         self.device = _device.resolve(device)
         self.dtype = dtype if dtype is not None else torch.float64
+        self._programs = Programs()
 
     @property
     def rows(self) -> int:
@@ -189,59 +221,80 @@ class BlockedThinSparseQR(QRSolver):
         return heights
 
     @highest_precision()
-    def _panel(self, working: torch.Tensor, p0: int, h: int, pc: int, maxh: int):
+    def _panel(self, working: torch.Tensor, p0: int, h: int, pc: int, Y_out, T_out, perm_out):
         """One panel: ColPiv QR of its ``[h, pc]`` extent, the column reorder
         over the full height (rows above the diagonal included, as the
-        reference's R assembly), R into the panel and the trailing update.
-        Returns (Y padded to [maxh, c], T padded to [c, c], pivot order)."""
+        reference's R assembly), R into the panel and the trailing update,
+        all in ``working``; its Y, T and pivot order into ``Y_out [h, pc]``,
+        ``T_out [pc, pc]`` and ``perm_out [pc]``."""
         Y, taus, Rsub, lperm = colpiv_householder_qr(working[p0 : p0 + h, p0 : p0 + pc])
-        T = build_t_factor(Y, taus)
+        Y_out.copy_(Y)
+        T_out.copy_(build_t_factor(Y, taus))
+        perm_out.copy_(lperm)
         working[:, p0 : p0 + pc] = working[:, p0 + lperm]
         working[p0 : p0 + h, p0 : p0 + pc] = torch.triu(Rsub)
-        if p0 + pc < self._n:
-            working[p0 : p0 + h, p0 + pc :] = apply_wy(
-                Y, T, working[p0 : p0 + h, p0 + pc :], transpose=True
-            )
-        Yp = Y.new_zeros((maxh, self.c))
-        Yp[:h, :pc] = Y
-        Tp = T.new_zeros((self.c, self.c))
-        Tp[:pc, :pc] = T
-        return Yp, Tp, lperm
+        if p0 + pc < self._n:  # Qᵀ on the trailing columns: X += Y (Tᵀ (Yᵀ X)), in place
+            X = working[p0 : p0 + h, p0 + pc :]
+            X.addmm_(Y, T_out.mT @ (Y.mT @ X))
+
+    def _plan(self, mat: SparseCSR) -> dict:
+        """The pattern-only work of a compute, cached under the operand's
+        layout: the orderings, the panel heights and each stored value's
+        flat position in the permuted dense ``working`` (the CSR value
+        order, so a compute uploads ``nnz`` values, not ``m·n``)."""
+        key = (mat.pattern_fingerprint(), mat.shape, self.c, self.dtype, self.device)
+        plan = getattr(self, "_plan_cache", None)
+        if plan is not None and plan["key"] == key:
+            return plan
+        pmat, col_perm, row_perm = self._analyze(mat)
+        m, n = mat.shape
+        rows = np.repeat(np.arange(m), np.diff(mat.indptr))
+        inv_cols = col_perm.inverse().indices  # old col -> new col
+        dest = row_perm.indices[rows] * n + inv_cols[mat.indices]
+        self._plan_cache = plan = dict(
+            key=key, col_perm=col_perm, row_perm=row_perm, heights=self._panel_heights(pmat),
+            dest=torch.as_tensor(dest, dtype=torch.int64, device=self.device),
+            starts=torch.as_tensor(_panel_starts(n, self.c), dtype=torch.int64, device=self.device),
+        )
+        self._programs.drop("BlockedThinSparseQR.compute")  # they read the old maps
+        return plan
 
     def compute(self, mat: Union[SparseCSR, np.ndarray]) -> "BlockedThinSparseQR":
+        """Factorize: the pattern work once per layout (:meth:`_plan`), then
+        the values uploaded and the panel loop (:func:`_thin_sparse_factorize`),
+        one captured program on the card with ``fused=True``.  The
+        in-panel pivots stay on the device until the first call that needs
+        the column permutation or the rank."""
         if not isinstance(mat, SparseCSR):
             if isinstance(mat, torch.Tensor):
                 mat = mat.detach().cpu().numpy()
             mat = SparseCSR.from_dense(np.asarray(mat))
         self._m, self._n = mat.shape
-        pmat, self._col_perm, self._row_perm = self._analyze(mat)
-        heights = self._panel_heights(pmat)
-        working = torch.as_tensor(pmat.to_dense(), dtype=self.dtype, device=self.device)
-        maxh = max(heights)
-        n, c = self._n, self.c
-        Ys, Ts, lperms, starts = [], [], [], []
-        for p0, h in zip(_panel_starts(n, c), heights):
-            pc = min(c, n - p0)
-            Yp, Tp, lperm = self._panel(working, p0, h, pc, maxh)
-            Ys.append(Yp)
-            Ts.append(Tp)
-            lperms.append(lperm)
-            starts.append(p0)
-        self.q_seq = CompactWYSeq(torch.stack(Ys), torch.stack(Ts), starts, self._m)
-        self._R, self._diag_dev, health = _thin_finish_r(
-            working, n=n, check_zero=self._health_check_zero_pivot
+        plan = self._plan(mat)
+        self._col_perm, self._row_perm = plan["col_perm"], plan["row_perm"]
+        Y, T, self._R, self._diag_dev, health, self._lperms = self._programs.factorize(
+            self, "BlockedThinSparseQR.compute", (),
+            functools.partial(_thin_sparse_factorize, plan=plan), np.asarray(mat.data),
+            capture=self.fused, upload=(self.device, self.dtype),
         )
-        # the in-panel pivots, fetched once: house[p0 + j] = p0 + lperm[j]
-        # (the reference's m_houseColPerm before the zero-pivot reorder)
-        house = (np.arange(n) // c) * c + torch.cat(lperms).cpu().numpy()
-        # output column permutation: density ordering, then in-panel pivots
-        self._out_col_perm = Permutation(self._col_perm.indices[house])
+        self.q_seq = CompactWYSeq(Y, T, plan["starts"], self._m)
+        self._out_col_perm = None  # from the pivots, at the first use
         # the zero-pivot bookkeeping reads the diagonal lazily (first rank,
         # deficient_cols or rank-deficient solve), so compute never waits
         self._deficiency_cache = None
         self._repair = None  # lazy ColPiv factors of R for rank-deficient solves
         self._set_success(health)
         return self
+
+    def _cols_perm(self) -> Permutation:
+        """Output column permutation: the density ordering, then the
+        in-panel pivots, fetched once: house[p0 + j] = p0 + lperm[j] (the
+        reference's m_houseColPerm before the zero-pivot reorder)."""
+        if self._out_col_perm is None:
+            n, c = self._n, self.c
+            house = (np.arange(n) // c) * c + self._lperms.cpu().numpy()
+            self._out_col_perm = Permutation(self._col_perm.indices[house])
+        return self._out_col_perm
 
     def _deficiency(self):
         """(exact rank, house column permutation), derived once from the
@@ -269,7 +322,7 @@ class BlockedThinSparseQR(QRSolver):
         """Original column indices of the zero-pivot columns."""
         rank, house = self._deficiency()
         inv = house.inverse().indices  # newpos -> workingpos
-        return np.asarray(self._out_col_perm.indices)[inv[rank:]]
+        return np.asarray(self._cols_perm().indices)[inv[rank:]]
 
     def apply_q(self, m: torch.Tensor) -> torch.Tensor:
         return self.q_seq.apply_q(m)
@@ -301,7 +354,7 @@ class BlockedThinSparseQR(QRSolver):
         return z.new_zeros(n).index_put_((perm2,), z)
 
     def cols_permutation(self) -> Permutation:
-        return self._out_col_perm
+        return self._cols_perm()
 
     def rows_permutation(self) -> Permutation:
         return self._row_perm

@@ -51,7 +51,6 @@ from .banded_blocked import (
     BandedBlockedQR,
     device_values,
     shifted_gather_map,
-    upload_values,
     value_perm,
 )
 from .base import QRSolver
@@ -261,16 +260,18 @@ class SegmentedBandedQR(QRSolver):
         if self._panel_gmap is None or fp != self._gmap_fp:
             self._layout_maps(mat, pmat)
             self._gmap_fp = fp
-        self._factorize(upload_values(mat.data, self.device, self.dtype))
+        self._factorize(np.asarray(mat.data))  # uploaded by the program
         return self
 
-    def _factorize(self, vals: torch.Tensor) -> None:
-        """Refactorize from the stored-order value vector: one captured
-        program on the card without a mesh."""
+    def _factorize(self, vals) -> None:
+        """Refactorize from the stored-order value vector (a device tensor,
+        or host values the program uploads): one captured program on the
+        card without a mesh."""
         self._fac_kernel = self._kernel_active()
         out = self._programs.factorize(
             self, "SegmentedBandedQR.factorize", (self._layout_version, self._fac_kernel),
             segmented_factorize.factorize, vals, capture=self._segs is None,
+            upload=(self.device, self.dtype),
         )
         segmented_factorize.adopt(self, out)
 
@@ -336,12 +337,16 @@ class SegmentedBandedQR(QRSolver):
         operand layout; one apply over all of S's columns)."""
         from .sparse_apply import solver_sparse_apply
 
+        if self._delegate is not None:  # its program reads the delegate's factors
+            return self._delegate.apply_qt_sparse(s)
         return solver_sparse_apply(self, s, True)
 
     def apply_q_sparse(self, s: SparseCSR) -> SparseCSR:
         """``Q · S`` for a host sparse operand (see :meth:`apply_qt_sparse`)."""
         from .sparse_apply import solver_sparse_apply
 
+        if self._delegate is not None:
+            return self._delegate.apply_q_sparse(s)
         return solver_sparse_apply(self, s, False)
 
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:

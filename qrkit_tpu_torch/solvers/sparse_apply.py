@@ -22,8 +22,16 @@ equal the reference's exactly.  The structural fill is a superset of the
 numeric nonzeros; entries that cancel are stored as explicit zeros
 (setFromTriplets without prune), and :func:`solver_sparse_apply` prunes
 exact zeros as the reference does.
+
+On the card each same-layout call of :func:`solver_sparse_apply` is one
+captured program (:mod:`~qrkit_tpu_torch._program`): one upload of the
+operand's values into the program's input, one replay of the value program
+and one fetch of the planned values, keyed by the layout and the factor
+state, as the reference runs it as one jitted program.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -324,11 +332,19 @@ def build_fused_sparse_apply(
                 fill_cols=fill_cols, w=w, T=T)
 
 
+def _value_program(solver, vals, ent):
+    """The planned values of one product: the plan's value program over
+    the solver's factors (a captured program's function)."""
+    factors, meta = solver._sparse_apply_state()
+    return ent["plan"]["run"](factors, meta, vals, ent["plan"]["maps"], (ent["sel"],))[0]
+
+
 def solver_sparse_apply(solver, op, transpose: bool):
     """The banded family's ``apply_qt_sparse`` / ``apply_q_sparse``: the
     reference's ``matrixQ().transpose() * SparseMatrix``.  Plan-cached per
     (direction, operand layout); every call is one upload of the operand's
-    values, one value program and one fetch.  Exact zeros of the result are
+    values, one value program (one replay on the card, keyed by the layout and
+    the solver's factor state) and one fetch.  Exact zeros of the result are
     pruned, as the reference's setFromTriplets does, so nnz matches the
     dense product on generic data.  The values take the factors' dtype."""
     from ..sparse import SparseCSR
@@ -336,6 +352,7 @@ def solver_sparse_apply(solver, op, transpose: bool):
     cache = getattr(solver, "_sparse_apply_cache", None)
     if cache is None:
         cache = solver._sparse_apply_cache = {}
+    name = f"{type(solver).__name__}.{'apply_qt_sparse' if transpose else 'apply_q_sparse'}"
     key = (transpose, op.pattern_fingerprint(), op.shape)
     ent = cache.get(transpose)
     if ent is None or ent["key"] != key:
@@ -346,14 +363,13 @@ def solver_sparse_apply(solver, op, transpose: bool):
         ent = dict(key=key, plan=plan,
                    sel=torch.as_tensor(plan["flat_pos"][order], device=solver.device),
                    rows=fr[order], cols=fc[order])
+        solver._programs.drop(name)  # their maps go with the old plan
         cache[transpose] = ent
-    factors, meta = solver._sparse_apply_state()
-    (vals,) = ent["plan"]["run"](
-        factors, meta,
-        torch.as_tensor(np.asarray(op.data), dtype=solver.dtype, device=solver.device),
-        ent["plan"]["maps"], (ent["sel"],),
+    v = solver._programs.solve(
+        solver, name, key, functools.partial(_value_program, ent=ent),
+        np.asarray(op.data), upload=(solver.device, solver.dtype), fetch=True,
+        capture=getattr(solver, "_segs", None) is None,
     )
-    v = vals.cpu().numpy()
     nz = v != 0.0
     # the planned entries are distinct and in CSR order already: the CSR
     # is their row counts, with no sort (what from_triplets would build)

@@ -419,6 +419,23 @@ def test_fit_is_one_loop_program(name, recording):
     np.testing.assert_allclose(np.asarray(warm.x), np.asarray(want.x), **TOL)
 
 
+def test_loop_holds_what_its_graphs_read(recording):
+    """A captured loop's graphs read and write its state in place, and the
+    card's backend keeps no reference to the captured functions: the
+    program itself holds every tensor they reach (the inputs, the state
+    buffers, the counters and the functions' own tensors), so none is freed
+    while the graph lives."""
+    fit, _ = _fit_cases(DEV)["fit_ellipse_200"]
+    lm.clear_programs()
+    fit()
+    (prog,) = lm._LOOPS.programs().values()
+    reached = _program._held_tensors(prog._loop.parts)
+    kept = {id(t) for t in (*prog.static_in, *prog.buffers, *prog.held, prog.done, prog.k,
+                            prog.count, prog.out, prog.log)}
+    assert reached and prog.buffers
+    assert all(id(t) in kept for t in reached), [tuple(t.shape) for t in reached if id(t) not in kept]
+
+
 def test_loop_keys_are_bounded_and_cleared(recording):
     """A key is the functions, the config and the operands; four keys are
     kept (the oldest closed first) and ``clear_programs`` drops them all."""

@@ -85,6 +85,11 @@ def _make_inputs():
     dense = np.concatenate([_dense_blocks(inp["ba_blocks"]), inp["ba_right"]], axis=1)
     inp["ba_x"] = rng.normal(size=dense.shape[1])
     inp["ba_b"] = dense @ inp["ba_x"]
+    nb = WORLD * 3
+    inp["lg_blocks"] = rng.normal(size=(nb, 4, 2))
+    inp["lg_right"] = rng.normal(size=(nb * 4 + 3, 3))
+    inp["lg_b"] = rng.normal(size=nb * 4 + 3)
+    inp["lg_w"] = rng.normal(size=nb * 2 + 3)
     n = 16 * WORLD
     inp["soa_pts"] = ellipse_points(Ellipse(), n)
     params = np.zeros(n + 5)
@@ -231,13 +236,48 @@ def test_shard_leading_axis(ranks):
         assert c["odd"] is not None and "does not divide" in c["odd"]
 
 
-def test_sharded_block_angular_lstsq_gradients_raise():
-    """Gradients through the sharded functional solve are not implemented;
-    the error names them before any collective runs."""
-    left = torch.ones(4, 3, 1, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="gradients"):
-        qt.functional.block_angular_lstsq(left, torch.ones(12, 2, dtype=torch.float64),
-                                          torch.ones(12, dtype=torch.float64), mesh=object())
+@pytest.mark.parametrize("tail", [0, 3])
+def test_sharded_block_angular_lstsq_gradients(ranks, inputs, tail):
+    """∂left_blocks, ∂right and ∂b of a loss of the replicated x through
+    the sharded ``functional.block_angular_lstsq``: each rank's own blocks
+    and rows, and the tail rows (the same on every rank), against
+    ``jax.grad`` of qrkit_tpu's on the same global inputs, fp64 rtol 1e-9."""
+    from qrkit_tpu import functional as jfunctional
+
+    inp = inputs[0]
+    blocks, b, w = inp["lg_blocks"], inp["lg_b"], inp["lg_w"]
+    nb, br, bc = blocks.shape
+    right = inp["lg_right"][: nb * br + tail]
+    c = _case(ranks, "lstsq_grad")[f"tail{tail}"]
+
+    def loss(lb, r, v):
+        x = jfunctional.block_angular_lstsq(lb, r, v, n_shards=WORLD, tail=tail)
+        return jnp.sum(jnp.asarray(w[: x.shape[0]]) * x) + 0.5 * jnp.sum(x * x)
+
+    args = (jnp.asarray(blocks), jnp.asarray(right), jnp.asarray(b[: nb * br + tail]))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    got = (
+        np.concatenate([_np(r["lstsq_grad"][f"tail{tail}"]["local_left"]) for r in ranks]),
+        np.concatenate([_np(r["lstsq_grad"][f"tail{tail}"]["local_right"]) for r in ranks]
+                       + [_np(c["tail_right"])]),
+        np.concatenate([_np(r["lstsq_grad"][f"tail{tail}"]["local_b"]) for r in ranks]
+                       + [_np(c["tail_b"])]),
+    )
+    for g, wnt, name in zip(got, want, ("left_blocks", "right", "b")):
+        wnt = np.asarray(wnt)
+        assert g.shape == wnt.shape, name
+        np.testing.assert_allclose(g, wnt, rtol=1e-9, atol=1e-9 * np.abs(wnt).max(), err_msg=name)
+    x = jfunctional.block_angular_lstsq(*args, n_shards=WORLD, tail=tail)
+    _close_ref(c["x"], x)
+
+
+def test_sharded_block_angular_lstsq_backward_one_collective(ranks):
+    """The sharded backward pass issues exactly one collective on every
+    rank, the all-reduce of R12ᵀ w1 (the forward's all-gathers have a
+    slice as their adjoint)."""
+    for r in ranks:
+        for tail in ("tail0", "tail3"):
+            assert r["lstsq_grad"][tail]["collectives"] == {"all_reduce": 1}, r["lstsq_grad"][tail]
 
 
 def test_sharded_block_angular_end_to_end(ranks, inputs):
