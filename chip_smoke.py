@@ -105,6 +105,25 @@ conditional WHILE node needs 12.3 in both), and then:
   µs, wall µs and device time per call for replay and eager in turns, the
   graph pool's bytes, and the replay bitwise equal to eager; every kernel
   must run inside some replay;
+* sparse-operand recomputes (phase ``sparse_programs``): config 3's
+  48-column operand through both banded solvers' sparse Q products, the
+  thin sparse compute at 100,000 × 256, config 4's sparse A2 at N =
+  100,000 (B2), the banded left at N = 2,000 (B5) and config 3 as a
+  segmented left (B3–B5), each captured against eager within the
+  reference's pins;
+* the banded family's Q products and back-substitutions (phase
+  ``banded_programs``): config 3 through ``BandedBlockedQR`` (B5 in the
+  refactorize replay) and ``SegmentedBandedQR`` (B3, B4, B5):
+  ``apply_qt`` / ``apply_q`` on a vector and on 16 columns and
+  ``solve_r``; ``BlockAngularQR``'s generic solve over the banded left
+  at N = 2,000 with a sparse A2 (vector, 5 columns, compute + solve) and
+  over config 3 as a segmented left with the 48-column A2; each warm call
+  one replay with no host read, bitwise equal to eager, captured and
+  eager in turns (one eager call on the 2,000- and 2,499-step chains),
+  capture seconds and the pool each capture added (gated at 3 × its rhs
+  and factor bytes); then ``fit_bundle`` (host loop) at P = 5,000, two
+  captured fits and one eager, every fit bitwise equal to the first,
+  iterations included;
 * the launch floor of B1/B2 (phase ``launch_floor``): the device time of a
   kernel that does nothing, launched on B1/B2's grid (the launcher picks it
   by n) at 10,000 × 7×2, 5,000 × 19×3 and 1M × 7×2;
@@ -1809,9 +1828,8 @@ def phase_sparse_programs(rng, c3, smi):
     ``BlockedThinSparseQR.compute`` on 100,000 × 256, config 4's sparse A2
     at N = 100,000 (B2 in the left's replay), the banded-left sparse A2 at
     N = 2,000 (B5) and config 3 as the segmented left of a sparse A2 (B3,
-    B4, B5), each within the reference's pin; then ``fit_bundle`` (host
-    loop) at P = 5,000, captured and eager fits in turns.  Returns the
-    launches of the warm calls' replays by kernel."""
+    B4, B5), each within the reference's pin.  Returns the launches of
+    the warm calls' replays by kernel."""
     total = {name: 0 for name in profiling.launch_counts()}
 
     def drive(*args, **kw):
@@ -1886,8 +1904,6 @@ def phase_sparse_programs(rng, c3, smi):
     missing = [name for name in ("blockdiag_qr_r", *BANDED_KERNELS) if not total[name]]
     if missing:
         raise AssertionError(f"sparse_programs: kernels never launched inside a replay: {missing}")
-
-    bundle_fits(smi)
     return total
 
 
@@ -1905,15 +1921,17 @@ class _Both:
         return sum(p.pool_bytes() or 0 for p in (self.qr.left._programs, self.qr._programs))
 
 
+BUNDLE_FIT_ROUNDS = ("captured", "eager", "captured")
+
+
 def bundle_fits(smi):
-    """``fit_bundle`` (the host LM loop) at P = 5,000, fp32: captured and
-    eager (``_program.eager()``) fits in turns, per fit and per iteration;
-    the sparse-A2 recompute replays from the third step of a fit (a fit
-    makes a new solver), the left's compute (B2) runs eagerly each step (a
-    new container a step).  The fits are held to the rms gate and to each
-    other's cost; not bitwise: each step's solve adds R12's products with
-    ``index_add_``, whose atomics sum in any order on the card (two eager
-    fits differ too)."""
+    """``fit_bundle`` (the host LM loop) at P = 5,000, fp32: two captured
+    fits and one eager (``_program.eager()``) fit in turns, per fit and per
+    iteration; within a fit (a new solver) the sparse-A2 recompute replays
+    from the third step and the generic solve from the fourth, the left's
+    compute (B2) runs eagerly each step (a new container a step).  Every
+    fit is held bitwise to the first, iteration count included: R12's
+    products are summed in a fixed order, so one input gives one result."""
     cams0, pts0, uv = bundle_start(BUNDLE_HOST_P)
     f32 = dict(device=DEVICE, dtype=torch.float32)
 
@@ -1922,26 +1940,27 @@ def bundle_fits(smi):
 
     fits = {"captured": [], "eager": []}
     counts = {}
-    for kind in SPARSE_PROGRAM_ROUNDS:
+    for kind in BUNDLE_FIT_ROUNDS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profiling.count_dispatches() as d:
             res = fit() if kind == "captured" else eagerly(fit)()
         torch.cuda.synchronize()
         fits[kind].append((time.perf_counter() - t0, res, d.programs, d.host_reads, d.ops))
-        counts[kind] = d.launches
+        counts.setdefault(kind, d.launches)
     (cs, cres, cprog, creads, cops), (es, eres, *_ ) = fits["captured"][0], fits["eager"][0]
-    xc, xe = (np.asarray(r.x.detach().cpu().numpy() if isinstance(r.x, torch.Tensor) else r.x)
-              for r in (cres, eres))
+    results = [f[1] for kind in fits for f in fits[kind]]
+    host = [(np.asarray(r.x.detach().cpu().numpy() if isinstance(r.x, torch.Tensor) else r.x),
+             int(r.iterations), float(r.cost)) for r in results]
     it = int(cres.iterations)
     rms = float(np.sqrt(2.0 * cres.cost / (2 * BUNDLE_HOST_P * BUNDLE_CAMS)))
-    bitwise = bool(np.array_equal(xc, xe)) and int(eres.iterations) == it
+    bitwise = all(np.array_equal(x, host[0][0]) and i == host[0][1] and c == host[0][2]
+                  for x, i, c in host)
     rel = abs(float(cres.cost) - float(eres.cost)) / float(eres.cost)
     line = {
-        "phase": "sparse_programs", "path": f"bundle_host_loop_{BUNDLE_HOST_P}", "call": "fit_bundle",
-        "iterations": it, "eager_iterations": int(eres.iterations), "rms_reproj": rms,
-        "gate": BUNDLE_RMS_GATE, "rel_cost_diff_eager": rel, "cost_gate": BUNDLE_COST_GATE,
-        "bitwise_equal_eager": bitwise,
+        "phase": "banded_programs", "path": f"bundle_host_loop_{BUNDLE_HOST_P}", "call": "fit_bundle",
+        "iterations": [h[1] for h in host], "rms_reproj": rms, "gate": BUNDLE_RMS_GATE,
+        "rel_cost_diff_eager": rel, "bitwise_equal": bitwise,
         "captured_fit_s": statistics.mean(f[0] for f in fits["captured"]),
         "eager_fit_s": statistics.mean(f[0] for f in fits["eager"]),
         "captured_iteration_ms": statistics.mean(f[0] for f in fits["captured"]) / it * 1e3,
@@ -1951,13 +1970,281 @@ def bundle_fits(smi):
         "launches_captured_fit": {k: v for k, v in counts["captured"].items() if v},
         "launches_eager_fit": {k: v for k, v in counts["eager"].items() if v},
         "method": "host wall time of a whole fit ending in synchronize (a new solver a fit), rounds "
-                  "captured, eager, eager, captured, means; per iteration: the fit over its "
-                  "iterations; counts from the first captured fit",
+                  "captured, eager, captured, means; per iteration: the fit over its iterations; "
+                  "counts from the first fit of each kind; bitwise: x, iterations and cost of every "
+                  "fit equal to the first's",
         "gpu": smi,
     }
     emit(line)
-    if not (rms < BUNDLE_RMS_GATE and rel < BUNDLE_COST_GATE and cprog >= it - 2):
-        raise AssertionError(f"sparse_programs bundle: {line}")
+    # from the fourth step a step replays two programs: the sparse-A2
+    # recompute and the solve
+    if not (rms < BUNDLE_RMS_GATE and bitwise and cprog >= 2 * (it - 3)):
+        raise AssertionError(f"banded_programs bundle: {line}")
+
+
+BANDED_PROGRAM_ROUNDS = ("captured", "eager", "eager", "captured")
+# a 2,499- or 2,000-step chain's eager call takes seconds: one eager call,
+# whose result is also the bitwise comparison's, and no eager device time
+SLOW_PROGRAM_ROUNDS = ("captured", "eager", "captured")
+BANDED_POOL_GATE = 3  # a new program's pool at most this many times its rhs and factor bytes
+BANDED_RHS_COLS = 16  # config 3's matrix rhs
+BANDED_LEFT_RHS_COLS = 5
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def factor_bytes(*caches):
+    """Bytes of the factors the caches' factorize programs hold (their outputs)."""
+    return sum(nbytes(*p.out) for c in caches for p in c.programs().values() if p.persistent)
+
+
+class _Caches:
+    """Several solvers' program caches as one ``programs()`` /
+    ``pool_bytes()``."""
+
+    def __init__(self, *caches):
+        self.caches = caches
+
+    def programs(self):
+        return {k: p for c in self.caches for k, p in c.programs().items()}
+
+    def pool_bytes(self):
+        return sum(c.pool_bytes() or 0 for c in self.caches)
+
+
+def drive_banded_program(path, label, programs, names, call, pin, want, rhs_bytes, fac_bytes,
+                         reps, smi, rounds=BANDED_PROGRAM_ROUNDS, rewarm=0):
+    """One newly captured call at full width: the first call (eager), the
+    second (warm-up + capture; the pool it added gated at
+    ``BANDED_POOL_GATE`` × (rhs + factor bytes)), the warm call counted
+    against ``pin = (replays, counted, host reads)`` (counted: ATen ops +
+    replays + host-issued launches − host reads) with ``want`` the launches
+    of its replays; its result bitwise equal to the same call under
+    ``_program.eager()`` and to a later replay (``rewarm`` calls first: a
+    call whose eager form rebinds factors captures its solve again); then
+    captured and eager in turns (``rounds``; the slow rounds make one eager
+    call, the comparison's).  Returns the warm call's launches and its
+    result."""
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    pool0 = programs.pool_bytes() or 0
+    before = {id(p) for p in programs.programs().values()}
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    capture_call_s = time.perf_counter() - t0
+    pool1 = programs.pool_bytes() or 0
+    call()
+    with profiling.count_dispatches() as d:
+        out = call()
+    torch.cuda.synchronize()
+    got = out.clone()
+    # the programs this call captured (a compute + solve replays earlier ones)
+    progs = [p for p in programs.programs().values() if p.name in names and id(p) not in before]
+    missing = set(names) - {p.name for p in programs.programs().values()}
+    slow = rounds == SLOW_PROGRAM_ROUNDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = eagerly(call)()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    eager_once = ((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e6)
+    for _ in range(rewarm):
+        call()
+    again = call()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in d.launches.items() if v}
+    warm = {"programs": d.programs, "ops": d.ops, "host_reads": d.host_reads,
+            "counted": d.count - d.host_reads,
+            "host_launches": {k: v for k, v in d.host_launches.items() if v}}
+    bitwise = bool(torch.equal(got, eager) and torch.equal(got, again))
+    n_programs, budget, reads = pin
+    gate = BANDED_POOL_GATE * (rhs_bytes + fac_bytes)
+    problems = []
+    if (d.programs != n_programs or warm["counted"] > budget or d.host_reads != reads
+            or warm["host_launches"]):
+        problems.append(f"warm call {warm} outside the pin ({n_programs} replays, counted <= "
+                        f"{budget}, {reads} host reads, no host-issued launch)")
+    if launches != want:
+        problems.append(f"launches {launches}, want {want} inside the replays")
+    if missing:
+        problems.append(f"no program {sorted(missing)}")
+    if not bitwise:
+        problems.append("the captured call differs from the eager call")
+    if not bool(torch.isfinite(got).all()):
+        problems.append("non-finite output")
+    if pool1 - pool0 > gate:
+        problems.append(f"the capture added {pool1 - pool0} bytes to the pool, gate {gate}")
+    if problems:
+        raise AssertionError(f"banded_programs {path} {label}: " + "; ".join(problems))
+    times = {"captured": [], "eager": [eager_once] if slow else []}
+    for kind in rounds:
+        if kind == "captured":
+            for _ in range(1 + rewarm):
+                call()
+            times[kind].append(host_and_wall_us(call, reps))
+        elif not slow:
+            times[kind].append(host_and_wall_us(eagerly(call), reps))
+    for _ in range(1 + rewarm):
+        call()
+    dev = {"captured": device_time_ms(call, reps=reps),
+           "eager": None if slow else device_time_ms(eagerly(call), reps=reps)}
+    pool = programs.pool_bytes()
+    mean = lambda xs, i: statistics.mean(x[i] for x in xs)  # noqa: E731
+    emit({
+        "phase": "banded_programs", "path": path, "call": label,
+        "programs": sorted(p.name for p in progs),
+        "capture_s": sum(p.capture_seconds for p in progs), "first_call_s": first_s,
+        "capture_call_s": capture_call_s,
+        "warm": warm, "pin": {"programs": n_programs, "counted": budget, "host_reads": reads},
+        "launches_per_replay": launches, "bitwise_equal_eager": bitwise,
+        "captured_host_us": mean(times["captured"], 0), "eager_host_us": mean(times["eager"], 0),
+        "captured_wall_us": mean(times["captured"], 1), "eager_wall_us": mean(times["eager"], 1),
+        "captured_device_ms": dev["captured"], "eager_device_ms": dev["eager"],
+        "capture_pool_mb": (pool1 - pool0) / 2**20, "pool_mb": (pool or 0) / 2**20,
+        "pool_gate_mb": gate / 2**20, "rhs_mb": rhs_bytes / 2**20, "factor_mb": fac_bytes / 2**20,
+        "reps": reps, "rounds": list(rounds), "seconds": time.perf_counter() - start,
+        "method": "first_call_s: the first call (eager), synchronized; capture_call_s: the second "
+                  "(warm-up + capture), synchronized; capture_s: the capture alone; counted: ATen "
+                  "ops + replays + host-issued launches - host reads, of the fourth call; host_us: "
+                  "host clock over reps calls before the synchronize; wall_us: the same ending in "
+                  "synchronize; rounds as listed (eager = _program.eager(); untimed calls before a "
+                  "captured round bring its replays back), means; the slow rounds' one eager call "
+                  "is the bitwise comparison's; device_ms: torch.profiler's kernel time per call "
+                  "(eager: not measured, null, in the slow rounds); capture_pool_mb: what the "
+                  "capture added to the solvers' graph pools (memory_snapshot), gated at "
+                  f"{BANDED_POOL_GATE} x (rhs + factor bytes); pool_mb: the pools at the end",
+        "gpu": smi,
+    })
+    return launches, got
+
+
+def banded_left_problem():
+    """The banded-left ellipse stack's operands at N = 2,000 (fp32): the
+    3×1-block left as a host CSR with its 5 zero tail rows, the sparse A2
+    and the damped rhs, from the first LM step's damped system."""
+    f = ellipse.EllipseFitting(ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), BANDED_LEFT_N),
+                               dtype=torch.float32, device=DEVICE)
+    x0 = f.initial_params()
+    left_d, right_d, rhs = f._damped(x0, f.residuals(x0), 1e-3)
+    nl = f.n
+    left_sp = qt.SparseCSR.from_triplets(np.arange(3 * nl), np.repeat(np.arange(nl), 3),
+                                         left_d.cpu().numpy().reshape(-1), (3 * nl + 5, nl))
+    return left_sp, qt.SparseCSR.from_dense(right_d.double().cpu().numpy()), rhs
+
+
+def phase_banded_programs(rng, c3, smi):
+    """The banded family's Q products and back-substitutions as programs,
+    fp32, each captured against ``_program.eager()``: config 3 through
+    ``BandedBlockedQR`` (its refactorize B5) and ``SegmentedBandedQR`` (B3,
+    B4, B5): ``apply_qt`` / ``apply_q`` on a vector and on 16 columns,
+    ``solve_r`` on a vector; ``BlockAngularQR``'s generic solve over the
+    banded left at N = 2,000 with a sparse A2 (vector, 5 columns, and a
+    compute + solve; B5) and over config 3 as a segmented left with the
+    48-column A2; then the bundle host loop's fits, bitwise.  Each warm call
+    is one replay, no host read, no host-issued launch, bitwise equal to
+    eager; Q products keep b's norm and Q·(Qᵀb) is b, ``solve_r`` of Qᵀb's
+    top rows is the solve.  Returns the warm calls' launches by kernel."""
+    total = {name: 0 for name in profiling.launch_counts()}
+    solve_pin = (1, PROGRAM_BUDGET_OPS + 1, 0)  # the replay, copy in, clone out, one view
+
+    def drive(*args, **kw):
+        launches, out = drive_banded_program(*args, **kw, smi=smi)
+        for name, n in launches.items():
+            total[name] += n
+        return out
+
+    def close(got, want, what, path):
+        g, w = got.double().cpu(), want.double().cpu()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not err < 1e-4:
+            raise AssertionError(f"banded_programs {path}: {what}, relative error {err}")
+
+    for cls, kw, want, reps, rounds in (
+            (qt.SegmentedBandedQR, dict(segment_blocks=C3_SEGMENT_BLOCKS),
+             {name: 1 for name in BANDED_KERNELS}, 5, BANDED_PROGRAM_ROUNDS),
+            (qt.BandedBlockedQR, {}, {"banded_chain_qr": 1}, 1, SLOW_PROGRAM_ROUNDS)):
+        name = cls.__name__
+        path = f"config3_{name}"
+        solver = cls(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32, **kw).compute(c3)
+        values = torch.as_tensor(c3.data, dtype=torch.float32, device=DEVICE)
+        solver.factorize_values(values)  # the capture
+        with profiling.count_dispatches() as d:
+            solver.factorize_values(values)
+        if d.programs != 1 or {k: v for k, v in d.launches.items() if v} != want:
+            raise AssertionError(f"banded_programs {path}: refactorize {d.programs} replays, "
+                                 f"launches {d.launches}, want {want}")
+        for k, v in want.items():
+            total[k] += v
+        fac = factor_bytes(solver._programs)
+        b = torch.as_tensor(rng.normal(size=c3.nrows), dtype=torch.float32, device=DEVICE)
+        B = torch.as_tensor(rng.normal(size=(c3.nrows, BANDED_RHS_COLS)), dtype=torch.float32,
+                            device=DEVICE)
+        for label, rhs in (("apply_qt", b), (f"apply_qt_k{BANDED_RHS_COLS}", B)):
+            qtb = drive(path, label, solver._programs, {f"{name}.apply_qt"},
+                        lambda rhs=rhs: solver.apply_qt(rhs), solve_pin, {}, nbytes(rhs), fac, reps,
+                        rounds=rounds)
+            norms = (qtb.double().norm(dim=0), rhs.double().norm(dim=0))
+            close(norms[0], norms[1], "|Q^T b| against |b|", path)
+            qb = drive(path, label.replace("qt", "q"), solver._programs, {f"{name}.apply_q"},
+                       lambda qtb=qtb: solver.apply_q(qtb), solve_pin, {}, nbytes(rhs), fac, reps,
+                       rounds=rounds)
+            close(qb, rhs, "Q (Q^T b) against b", path)
+        y = solver.apply_qt(b)[: c3.ncols].clone()
+        z = drive(path, "solve_r", solver._programs, {f"{name}.solve_r"},
+                  lambda: solver.solve_r(y), solve_pin, {}, nbytes(y), fac, reps, rounds=rounds)
+        close(solver._unpermute(z), solver.solve(b), "solve_r(Q^T b) against solve(b)", path)
+
+    def angular(path, left_solver, left_m, a2, rhs_list, computes, reps, rounds, kernels):
+        qr = qt.BlockAngularQR(left_solver, qt.DenseColPivQR())
+        mat = qt.BlockMatrix1x2(left_m, a2)
+        for _ in range(3):  # the left's and the sparse-A2 programs captured
+            qr.compute(mat)
+        caches = _Caches(qr.left._programs, qr._programs)
+        fac = factor_bytes(qr.left._programs, qr._programs)
+        if qr._programs.state() is None or not qr._solve_capture()[0]:
+            raise AssertionError(f"banded_programs {path}: the generic solve is not capturable")
+        for label, rhs in rhs_list:
+            drive(path, label, caches, {"BlockAngularQR.generic_solve"},
+                  lambda rhs=rhs: qr.solve(rhs), solve_pin, {}, nbytes(rhs), fac, reps,
+                  rounds=rounds)
+        if computes:
+            rhs = rhs_list[0][1]
+
+            def compute_solve():
+                qr.compute(mat)
+                return qr.solve(rhs)
+
+            names = {"BlockAngularQR.generic_solve", "BlockAngularQR.sparse_a2_chunked",
+                     f"{type(left_solver).__name__}.factorize"}
+            # three replays: the left's refactorize, the sparse-A2 recompute
+            # (the reference's pin, counted <= 6) and the solve
+            drive(path, "compute+solve", caches, names, compute_solve, (3, 6 + solve_pin[1], 0),
+                  kernels, nbytes(rhs), fac, reps, rounds=rounds, rewarm=2)
+        if qr.info() != qt.ComputationInfo.SUCCESS:
+            raise AssertionError(f"banded_programs {path}: info() {qr.info()}")
+
+    left_sp, a2_sp, rhs = banded_left_problem()
+    rhs_k = torch.as_tensor(rng.normal(size=(left_sp.nrows, BANDED_LEFT_RHS_COLS)),
+                            dtype=torch.float32, device=DEVICE)
+    angular(f"banded_left_sparse_a2_n{BANDED_LEFT_N}", qt.BandedBlockedQR(
+        3, 1, 0, 1, device=DEVICE, dtype=torch.float32), left_sp, a2_sp,
+        (("solve", rhs), (f"solve_k{BANDED_LEFT_RHS_COLS}", rhs_k)), True, 1, SLOW_PROGRAM_ROUNDS,
+        {"banded_chain_qr": 1})
+    S = sparse_operand(rng, c3.nrows)
+    b3 = torch.as_tensor(rng.normal(size=c3.nrows), dtype=torch.float32, device=DEVICE)
+    angular("config3_segmented_left_sparse_a2", qt.SegmentedBandedQR(
+        suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS, device=DEVICE,
+        dtype=torch.float32), c3, S, (("solve", b3),), False, 5, BANDED_PROGRAM_ROUNDS, {})
+
+    bundle_fits(smi)
+    return total
 
 
 LAUNCH_FLOOR_CASES = ((BR, BC, NB_CONFIG2), (2 * BUNDLE_CAMS + 3, 3, BUNDLE_HOST_P), (BR, BC, NB_REAL))
@@ -2201,6 +2488,7 @@ PROGRAM_BUDGET_OPS = 3  # ATen ops outside the replay: copy in, clone out, one v
 P2W_NB, P2W_BR, P2W_BC, P2W_OV, P2W_SEGMENT_BLOCKS = 4096, 10, 4, 2, 8  # the tallblock_p2w geometry
 DENSE_SHAPES = ((24, 8), (20_000, 32))  # the reference test's, and one past 16 columns (the panel recursion)
 PROGRAM_ROUNDS = ("replay", "eager", "eager", "replay")
+SLOW_ROUNDS = ("replay", "eager", "replay")  # one eager call: a 2,499-step chain's takes seconds
 
 
 def eagerly(call):
@@ -2231,13 +2519,16 @@ def latest_program(programs, name):
     return found[-1]
 
 
-def drive_program(path, label, programs, name, call, read, want, reps, eager_reps, smi):
+def drive_program(path, label, programs, name, call, read, want, reps, eager_reps, smi,
+                  slow=False):
     """One captured call at full width: the first call (eager), the second
     (warm-up + capture), the budget of a warm call, bitwise equality with ``_program.eager()``,
     then replay and eager in turns (host µs per call, wall µs per call,
     device time).  ``read(out)`` gives a fresh tensor of what the call left
-    or returned; ``want`` the launches inside one replay.  Returns the
-    launches the warm call counted."""
+    or returned; ``want`` the launches inside one replay.  ``slow`` (a
+    2,499-step chain, seconds an eager call): the one eager call is the
+    bitwise comparison's, timed, between two replay rounds, and its device
+    time is not measured.  Returns the launches the warm call counted."""
     torch.cuda.synchronize()
     t0 = start = time.perf_counter()
     with profiling.count_dispatches() as d1:
@@ -2256,8 +2547,14 @@ def drive_program(path, label, programs, name, call, read, want, reps, eager_rep
         out = call()
     torch.cuda.synchronize()
     replay_val = read(out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profiling.count_dispatches() as de:
-        eager_val = read(eagerly(call)())
+        eager_out = eagerly(call)()
+    t1 = time.perf_counter()
+    eager_val = read(eager_out)
+    torch.cuda.synchronize()
+    eager_once = ((t1 - t0) * 1e6, (time.perf_counter() - t0) * 1e6)
     again = read(call())
     torch.cuda.synchronize()
     launches = {k: v for k, v in d.launches.items() if v}
@@ -2276,14 +2573,17 @@ def drive_program(path, label, programs, name, call, read, want, reps, eager_rep
         problems.append("non-finite output")
     if problems:
         raise AssertionError(f"programs {path} {label}: " + "; ".join(problems))
-    times = {"replay": [], "eager": []}
-    for kind in PROGRAM_ROUNDS:
-        fn = call if kind == "replay" else eagerly(call)
-        times[kind].append(host_and_wall_us(fn, reps if kind == "replay" else eager_reps))
-    call()  # the solver's factors back on the program's outputs
-    dev = {kind: device_time_ms(call if kind == "replay" else eagerly(call),
-                                reps=min(reps, 5) if kind == "replay" else min(eager_reps, 2))
-           for kind in ("replay", "eager")}
+    rounds = SLOW_ROUNDS if slow else PROGRAM_ROUNDS
+    times = {"replay": [], "eager": [eager_once] if slow else []}
+    for kind in rounds:
+        if kind == "replay":
+            call()  # the solver's factors back on the program's outputs
+            times[kind].append(host_and_wall_us(call, reps))
+        elif not slow:
+            times[kind].append(host_and_wall_us(eagerly(call), eager_reps))
+    call()
+    dev = {"replay": device_time_ms(call, reps=min(reps, 5)),
+           "eager": None if slow else device_time_ms(eagerly(call), reps=min(eager_reps, 2))}
     call()
     torch.cuda.synchronize()
     mean = lambda xs, i: statistics.mean(x[i] for x in xs)  # noqa: E731
@@ -2297,15 +2597,16 @@ def drive_program(path, label, programs, name, call, read, want, reps, eager_rep
         "replay_wall_us": mean(times["replay"], 1), "eager_wall_us": mean(times["eager"], 1),
         "replay_device_ms": dev["replay"], "eager_device_ms": dev["eager"],
         "pool_bytes": programs.pool_bytes(), "bitwise_equal_eager": bitwise,
-        "reps": [reps, eager_reps], "seconds": time.perf_counter() - start,
+        "reps": [reps, eager_reps], "rounds": list(rounds), "seconds": time.perf_counter() - start,
         "method": "first_call_s: the first call (eager), synchronized; capture_call_s: the "
                   "second, warm-up + capture + instantiate, synchronized; capture_s: "
                   "torch.cuda.graph's block alone; host_us: host clock over reps calls back to "
                   "back before the synchronize, over reps; wall_us: the same ending in "
-                  "synchronize; rounds replay, eager, eager, replay (eager = "
-                  "_program.eager()), means of the rounds; device_ms: torch.profiler's kernel "
-                  "time per call; pool_bytes: the graph pool of the solver (of the module for "
-                  "a function), every program captured in it so far (memory_snapshot)",
+                  "synchronize; rounds as listed (eager = _program.eager(); in the slow rounds "
+                  "the one eager call, the bitwise comparison's), means of the rounds; device_ms: "
+                  "torch.profiler's kernel time per call (eager: null in the slow rounds); "
+                  "pool_bytes: the graph pool of the solver (of the module for a function), every "
+                  "program captured in it so far (memory_snapshot)",
         "gpu": smi,
     }
     emit(line)
@@ -2331,8 +2632,8 @@ def phase_programs(rng, smi):
     the warm calls by kernel."""
     total = {name: 0 for name in profiling.launch_counts()}
 
-    def drive(*args):
-        for name, n in drive_program(*args, smi=smi).items():
+    def drive(*args, **kw):
+        for name, n in drive_program(*args, **kw, smi=smi).items():
             total[name] += n
 
     def dev(arr):
@@ -2358,7 +2659,7 @@ def phase_programs(rng, smi):
               "functional.block_diagonal_lstsq",
               lambda: functional.block_diagonal_lstsq(blocks, b), lambda x: x, {}, reps, reps)
 
-    def banded_paths(path, mat, solver, reps, eager_reps, want):
+    def banded_paths(path, mat, solver, reps, eager_reps, want, slow=False):
         with _program.eager():  # the layout maps; the second factorize_values captures
             solver.compute(mat)
         if not solver._fac_kernel:
@@ -2372,10 +2673,11 @@ def phase_programs(rng, smi):
         else:
             factors = lambda: concat(solver._r_panels, solver.q_seq.Y, solver.q_seq.T)  # noqa: E731
         drive(path, "factorize_values", solver._programs, f"{cls}.factorize",
-              lambda: solver.factorize_values(values), lambda _: factors(), want, reps, eager_reps)
+              lambda: solver.factorize_values(values), lambda _: factors(), want, reps, eager_reps,
+              slow=slow)
         for label, rhs in (("solve", b), ("solve_k3", B)):
             drive(path, label, solver._programs, f"{cls}.solve", lambda rhs=rhs: solver.solve(rhs),
-                  lambda x: x, {}, reps, eager_reps)
+                  lambda x: x, {}, reps, eager_reps, slow=slow)
         x = solver.solve(b * 0.75)  # the factors are 0.75 A's
         resid = host_residual_sparse(mat, x, b.double().cpu().numpy())
         if not resid < RESID_GATE:
@@ -2388,7 +2690,7 @@ def phase_programs(rng, smi):
         dtype=torch.float32), 20, 10, seg_want)
     banded_paths("config3_plain", c3, qt.BandedBlockedQR(
         suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32), 1, 1,
-        {"banded_chain_qr": 1})
+        {"banded_chain_qr": 1}, slow=True)
     p2w = banded_matrix(rng, P2W_NB, P2W_BR, P2W_BC, P2W_OV)
     banded_paths("tallblock_p2w_4096", p2w, qt.SegmentedBandedQR(
         suggested_block_cols=P2W_BC, segment_blocks=P2W_SEGMENT_BLOCKS, device=DEVICE,
@@ -2711,11 +3013,14 @@ def main():
     profiling.reset_launch_counts()
     sparse_replayed = phase_sparse_programs(rng, c3, smi)
     sparse_counts = profiling.launch_counts()
+    profiling.reset_launch_counts()
+    banded_replayed = phase_banded_programs(rng, c3, smi)
+    banded_program_counts = profiling.launch_counts()
     floor = phase_launch_floor(smi)
     mesh_counts = phase_mesh(rng, smi)
     # the block-angular, ellipse, bundle, CLI, sparse-product and mesh main paths
     extra = {name: cli_counts[name] + sp_counts[name] + mesh_counts[name] + program_counts[name]
-             + sparse_counts[name] for name in cli_counts}
+             + sparse_counts[name] + banded_program_counts[name] for name in cli_counts}
     extra["blockdiag_qr_r"] += ba_b2 + bundle_b2
     extra["banded_chain_qr"] += ell_b5
     kernels = []
@@ -2735,6 +3040,8 @@ def main():
             "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
             "sparse_program_launches": sparse_counts[name],
             "sparse_replayed_warm_launches": sparse_replayed[name],
+            "banded_program_launches": banded_program_counts[name],
+            "banded_replayed_launches": banded_replayed[name],
             "floor_device_ms": floor[f"{NB_REAL}x{BR}x{BC}"],
             "config2_10k": {**{k: timings[name][0][k] for k in ("ms", "device_ms", "plain_ms",
                                                                  "library_ms", "bound_ms", "bound_by")},
@@ -2762,6 +3069,8 @@ def main():
             "program_launches": program_counts[name], "replayed_warm_launches": replayed[name],
             "sparse_program_launches": sparse_counts[name],
             "sparse_replayed_warm_launches": sparse_replayed[name],
+            "banded_program_launches": banded_program_counts[name],
+            "banded_replayed_launches": banded_replayed[name],
         })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,

@@ -36,6 +36,8 @@ __all__ = [
     "form_q",
     "rank_from_diag",
     "rank_masked_triangular_solve",
+    "rank_masked_solve",
+    "upper_solve",
 ]
 
 
@@ -278,6 +280,23 @@ def rank_masked_triangular_solve(
     rhs = torch.where(live_i, y, y.new_zeros(()))
     x = torch.linalg.solve_triangular(U, rhs[..., None], upper=True)[..., 0]
     return torch.where(live_i, x, x.new_zeros(()))
+
+
+def rank_masked_solve(R: torch.Tensor, y: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """:func:`rank_masked_triangular_solve` of one ``R [n, n]`` for ``y
+    [n]`` or ``[n, c]``: a matrix's columns as a batch of vector solves,
+    each under the rank mask."""
+    if y.dim() == 1:
+        return rank_masked_triangular_solve(R, y, k)
+    return rank_masked_triangular_solve(R, y.mT, k).mT
+
+
+def upper_solve(R: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``R x = y`` for an upper-triangular ``R [n, n]`` and ``y [n]`` or
+    ``[n, c]`` (one triangular solve over the columns)."""
+    if y.dim() == 1:
+        return torch.linalg.solve_triangular(R, y[:, None], upper=True)[:, 0]
+    return torch.linalg.solve_triangular(R, y, upper=True)
 
 
 def rank_from_diag(d: torch.Tensor, m: int, n: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _device
-from ..ops.householder import apply_wy, highest_precision, panel_qr_yt
+from ..ops.householder import apply_wy, highest_precision, panel_qr_yt, upper_solve
 from ..solvers.base import ComputationInfo, QRSolver
 from ..sparse import SparseCSR
 from .mesh import all_gather_leading, mesh_rank, shard_bounds, shard_sizes
@@ -155,4 +155,4 @@ class TSQRDenseQR(QRSolver):
 
     @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        return torch.linalg.solve_triangular(self._R, y[: self._n, None], upper=True)[:, 0]
+        return upper_solve(self._R, y[: self._n])

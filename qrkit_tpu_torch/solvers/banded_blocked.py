@@ -17,11 +17,13 @@ may vary.  The panel row shift by each step's carry depth (the reference's
 so a factorize is one gather of the value vector plus the chain.  The
 reference's ``_CHUNK`` compile-bounding loop has no counterpart.
 
-On the card a refactorize (``compute``'s device part, ``factorize_values``)
-and a solve are each one captured program (:mod:`~qrkit_tpu_torch._program`,
-the reference's jitted ``_fac`` / ``_fac_k`` and ``_sol``): the factorize keyed
-by the layout maps and the route, the solve by the rhs shape and the
-factors it reads; the factors are the factorize program's outputs.
+On the card a refactorize (``compute``'s device part, ``factorize_values``),
+a solve, ``apply_q``, ``apply_qt`` and ``solve_r`` are each one captured
+program (:mod:`~qrkit_tpu_torch._program`, the reference's jitted ``_fac`` /
+``_fac_k`` and ``_sol``, ``CompactWYSeq._apply_seq`` and ``banded_solve_r``):
+the factorize keyed by the layout maps and the route, the others by the rhs
+shape and the factors they read; the factors are the factorize program's
+outputs.  Inside the solve program, ``apply_qt`` and ``solve_r`` run inline.
 """
 from __future__ import annotations
 
@@ -138,7 +140,23 @@ def _factorize_program(self, vals: torch.Tensor):
 
 
 def _solve_program(self, b: torch.Tensor) -> torch.Tensor:
-    return self.solve_r(self.apply_qt(b))
+    return self.solve_r(self.apply_qt(b))  # the inner programs run inline
+
+
+def _apply_q_program(self, m: torch.Tensor) -> torch.Tensor:
+    return self.q_seq.apply_q(m)
+
+
+def _apply_qt_program(self, m: torch.Tensor) -> torch.Tensor:
+    return self.q_seq.apply_qt(m)
+
+
+def _solve_r_program(self, y: torch.Tensor) -> torch.Tensor:
+    g = self._geom_dev
+    return banded_solve_r(
+        self._r_panels, g["cols"], g["emit_rows"], g["ncols"], y[: self._ncols],
+        max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols,
+    )
 
 
 @highest_precision()
@@ -431,10 +449,13 @@ class BandedBlockedQR(QRSolver):
 
     # --- Q / R --------------------------------------------------------------------
     def apply_q(self, m: torch.Tensor) -> torch.Tensor:
-        return self.q_seq.apply_q(m)
+        """Q · m for ``m [rows]`` or ``[rows, k]``: the chain in reverse, one
+        captured program on the card."""
+        return self._programs.solve(self, "BandedBlockedQR.apply_q", (), _apply_q_program, m)
 
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
-        return self.q_seq.apply_qt(m)
+        """Qᵀ · m (see :meth:`apply_q`)."""
+        return self._programs.solve(self, "BandedBlockedQR.apply_qt", (), _apply_qt_program, m)
 
     def matrix_q_sparse(self):
         """Explicit sparse Q of the row-permuted matrix (chunked Q·I)."""
@@ -494,11 +515,9 @@ class BandedBlockedQR(QRSolver):
         return torch.as_tensor(R, device=self.device)
 
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        g = self._geom_dev
-        return banded_solve_r(
-            self._r_panels, g["cols"], g["emit_rows"], g["ncols"], y[: self._ncols],
-            max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols,
-        )
+        """R x = y[:cols] for ``y [n]`` or ``[n, k]``: the blocked
+        back-substitution, one captured program on the card."""
+        return self._programs.solve(self, "BandedBlockedQR.solve_r", (), _solve_r_program, y)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for a vector ``[rows]`` or a matrix ``[rows,

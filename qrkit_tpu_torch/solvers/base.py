@@ -104,7 +104,8 @@ class QRSolver(abc.ABC):
 
     @abc.abstractmethod
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        """Solve R[:cols,:cols] x = y[:cols] with the structured R."""
+        """Solve R[:cols,:cols] x = y[:cols] with the structured R, for a
+        vector ``y [n]`` or the columns of ``y [n, k]``."""
 
     def cols_permutation(self) -> Permutation:
         return Permutation.identity(self.cols)
@@ -122,16 +123,11 @@ class QRSolver(abc.ABC):
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve: y = Qᵀ b, structured triangular solve on the
         leading block, column back-permutation.  ``b`` is a vector [rows] or
-        a matrix [rows, k] of rhs columns; the caller pre-applies
+        a matrix [rows, k] of rhs columns (one back-substitution over them:
+        every ``solve_r`` takes ``[n, k]``); the caller pre-applies
         ``rows_permutation()``."""
         y = self.apply_qt(b)
-        if b.dim() == 2:
-            z = torch.stack(
-                [self.solve_r(y[: self.cols, i]) for i in range(b.shape[1])], dim=1
-            )
-        else:
-            z = self.solve_r(y[: self.cols])
-        return self._unpermute(z)
+        return self._unpermute(self.solve_r(y[: self.cols]))
 
     def r_diagonal(self) -> torch.Tensor:
         """Leading diagonal of R [cols]; structured solvers override this so

@@ -114,6 +114,40 @@ def _factor_state(solver):
     return owner._programs.state()
 
 
+def _row_sum_map(rows: np.ndarray, nrows: int, device) -> torch.Tensor:
+    """The entries of each row of a COO matrix, in a fixed order: ``[nrows,
+    w]`` entry indices (w the most entries a row holds), each row's in
+    their stored order, padded with ``len(rows)`` (a zero appended to the
+    products).  Summing the gathered products along ``w`` adds each row's
+    entries in one order on every run, where an ``index_add_`` on the card
+    adds them with atomics in any order."""
+    rows = np.asarray(rows, dtype=np.int64)
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=nrows)
+    w = max(int(counts.max()) if counts.size else 0, 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(rows.size) - np.repeat(starts, counts)
+    out = np.full((nrows, w), rows.size, dtype=np.int64)
+    out[rows[order], slot] = order
+    return torch.as_tensor(out, device=device)
+
+
+def _row_sum(sum_map: torch.Tensor, prods: torch.Tensor) -> torch.Tensor:
+    """Each row's products (``[nnz]`` or ``[nnz, k]``) summed in the map's
+    fixed order (:func:`_row_sum_map`) → ``[nrows]`` or ``[nrows, k]``."""
+    pad = torch.cat([prods, prods.new_zeros((1,) + prods.shape[1:])])
+    return pad[sum_map].sum(1)
+
+
+def _generic_solve_program(self, b: torch.Tensor) -> torch.Tensor:
+    """The generic least-squares solve: Qᵀb through both children, the
+    block back-substitution (a matrix rhs in one, over its columns) and the
+    column back-permutation on the device; the children's programs run
+    inline."""
+    y = self.apply_qt(b)
+    return self._unpermute_cols(self.solve_r(y[: self.cols]))
+
+
 def _right_outputs(self, bot: torch.Tensor, plan: dict):
     """The right block from the bottom's values in CSR order: the
     row-subset scatter and the right solver's compute (inline in a
@@ -316,6 +350,9 @@ class BlockAngularQR(QRSolver):
         # refactorizes one structure per iteration)
         self._plan_cache: dict = {}
         self._programs = Programs()
+        self._perm_cache: dict = {}  # slot -> (host permutation, device, its device indices)
+        self._left_from_program = False
+        self._solve_key = None
 
     @property
     def rows(self) -> int:
@@ -340,6 +377,7 @@ class BlockAngularQR(QRSolver):
         self._m1, self._m2, self._n1 = mat.left_cols, mat.right_cols, mat.left_rows
         self._device = self._home(mat)[0]
         self._r12_coo = None
+        self._left_from_program = False
         self._fused_dense = False
         self._fused_soa = False
         if isinstance(self.right, _RowSubsetQR):  # recompute: unwrap
@@ -385,7 +423,6 @@ class BlockAngularQR(QRSolver):
         self._soa_mat = mat
         self._r12 = None
         self._cols_perm = None
-        self._solve_gather = None
         self._rows_perm = Permutation.identity(self._n1)
         self._info = ComputationInfo.SUCCESS
         self._health = health
@@ -430,7 +467,6 @@ class BlockAngularQR(QRSolver):
         self._fused_colpiv = colpiv
         self._fused_perm2 = perm2
         self._cols_perm = None
-        self._solve_gather = None
         self._rows_perm = Permutation.identity(self._n1)
         self._set_success(health)
 
@@ -484,7 +520,6 @@ class BlockAngularQR(QRSolver):
         # solver's pivot order from the device, so it waits for the first
         # cols_permutation(); solve() gathers on the device instead
         self._cols_perm = None
-        self._solve_gather = None
         rp = np.arange(self._n1, dtype=np.int64)
         rp[: self.left.rows] = self.left.rows_permutation().indices
         self._rows_perm = Permutation(rp)
@@ -585,10 +620,14 @@ class BlockAngularQR(QRSolver):
             else:
                 inner._adopt_factors(rs._k, rs._n, *factors, health)
             rs._take_health()
+        # the left's explicit factors are this program's outputs (the
+        # kernel tier's Q1, R1): a captured solve is keyed by this program
+        self._left_from_program = kernel and capture
         self._top_rows_dev = plan["top_rows_dev"]
         self._top_cols = plan["top_cols"]
         self._top_vals_dev = top_vals
         self._r12_coo = (self._top_rows_dev, cols12, top_vals)
+        self._r12_sum = plan["top_sum"]
         self._r12 = None
 
     def _blockdiag_a2_plan(self, a2: SparseCSR, dev) -> dict:
@@ -640,6 +679,7 @@ class BlockAngularQR(QRSolver):
             "pair_b": T(pair_b),
             "bot_order": T(order),
             "top_rows_dev": T(top_rows),
+            "top_sum": _row_sum_map(top_rows, m1, dev),
             "top_cols": top_cols,
             "top_cols_dev": T(top_cols),
             "bottom": _pattern(n1 - m1, self._m2, bot_rows, bot_cols[order]),
@@ -678,6 +718,7 @@ class BlockAngularQR(QRSolver):
             top_sel=T(plan["flat_pos"][top]),
             bot_sel=T(plan["flat_pos"][~top][order_b]),
             top_rows_dev=T(fr[top]),
+            top_sum=_row_sum_map(fr[top], m1, dev),
             top_cols=fc[top],
             top_cols_dev=T(fc[top]),
             bottom=_pattern(n1 - m1, self._m2, b_r, b_c[order_b]),
@@ -730,15 +771,28 @@ class BlockAngularQR(QRSolver):
         self._health = child_health(self.left, self._m1) & child_health(self.right, self._m2)
 
     # --- implicit Q (BlockAngularSparseQR.h:532-649) ------------------------------
+    def _perm_dev(self, slot: str, perm: Permutation, gather: bool) -> Optional[torch.Tensor]:
+        """``perm``'s gather indices (``gather``) or its indices on the
+        device, None for the identity; uploaded once while the permutation
+        stays the same (a pattern's), so a captured call reads them where
+        they lie (a copy from the host cannot be captured)."""
+        hit = self._perm_cache.get(slot)
+        if hit is None or hit[1] != self._device or not (
+                hit[0] is perm or np.array_equal(hit[0].indices, perm.indices)):
+            idx = None if perm.is_identity() else torch.as_tensor(
+                perm.gather_indices() if gather else perm.indices, device=self._device)
+            hit = self._perm_cache[slot] = (perm, self._device, idx)
+        return hit[2]
+
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
         self._ensure_children_fused()
         vec = m.dim() == 1
         m2d = m[:, None] if vec else m
         top = self.left.apply_qt(m2d)
         bottom = top[self._m1 :]
-        rperm = self.right.rows_permutation()
-        if not rperm.is_identity():
-            bottom = bottom[torch.as_tensor(rperm.gather_indices(), device=bottom.device)]
+        g = self._perm_dev("right_rows_gather", self.right.rows_permutation(), True)
+        if g is not None:
+            bottom = bottom[g]
         out = torch.cat([top[: self._m1], self.right.apply_qt(bottom)], dim=0)
         return out[:, 0] if vec else out
 
@@ -747,10 +801,9 @@ class BlockAngularQR(QRSolver):
         vec = m.dim() == 1
         m2d = m[:, None] if vec else m
         bottom = self.right.apply_q(m2d[self._m1 :])
-        rperm = self.right.rows_permutation()
-        if not rperm.is_identity():
-            # undo the row permutation applied in apply_qt
-            bottom = bottom[torch.as_tensor(rperm.indices, device=bottom.device)]
+        g = self._perm_dev("right_rows", self.right.rows_permutation(), False)
+        if g is not None:
+            bottom = bottom[g]  # undo the row permutation applied in apply_qt
         out = self.left.apply_q(torch.cat([m2d[: self._m1], bottom], dim=0))
         return out[:, 0] if vec else out
 
@@ -796,13 +849,15 @@ class BlockAngularQR(QRSolver):
 
     @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        """Block back-substitution: x2 from R2, then x1 from the structured R1."""
+        """Block back-substitution of ``y [n]`` or ``[n, k]``: x2 from R2,
+        then x1 from the structured R1; a sparse R12's products are summed
+        row by row in a fixed order (:func:`_row_sum`)."""
         self._ensure_children_fused()
         m1, m2 = self._m1, self._m2
         x2 = self.right.solve_r(y[m1 : m1 + m2])
         if self._r12_coo is not None:
-            rows, cols, vals = self._r12_coo
-            contrib = x2.new_zeros(m1).index_add_(0, rows, vals * x2[cols])
+            _, cols, vals = self._r12_coo
+            contrib = _row_sum(self._r12_sum, (vals if x2.dim() == 1 else vals[:, None]) * x2[cols])
         else:
             contrib = self._r12 @ x2
         return torch.cat([self.left.solve_r(y[:m1] - contrib), x2])
@@ -818,27 +873,50 @@ class BlockAngularQR(QRSolver):
     def rows_permutation(self) -> Permutation:
         return self._rows_perm
 
-    def _solve_gather_dev(self) -> torch.Tensor:
-        """The composed column back-permutation as a device gather:
-        ``inverse(concat(s1, m1+s2)) == concat(inverse(s1), m1+inverse(s2))``
-        (the two blocks permute disjoint ranges), the right block's inverse
-        formed on the device from the unfetched pivot order."""
-        if self._solve_gather is None:
-            pd = self._right_perm_dev()
-            dev = self._device
-            g1 = torch.as_tensor(self.left.cols_permutation().gather_indices(), device=dev)
-            if pd is None:
-                pd = torch.as_tensor(self.right.cols_permutation().indices, device=dev)
-            # inverse(concat(s1, m1 + s2)) == concat(inverse(s1), m1 + inverse(s2))
-            self._solve_gather = torch.cat([g1, (self._m1 + _inverse_perm(pd)).to(g1.dtype)])
-        return self._solve_gather
+    def _unpermute_cols(self, z: torch.Tensor) -> torch.Tensor:
+        """The composed column back-permutation of ``z`` (rows) on the
+        device: ``inverse(concat(s1, m1+s2)) == concat(inverse(s1),
+        m1+inverse(s2))`` (the two blocks permute disjoint ranges), the
+        left's from its host permutation (a pattern's, uploaded once), the
+        right's inverse formed on the device from its unfetched pivot order
+        (the base class would compose it on the host and wait for it)."""
+        m1 = self._m1
+        g1 = self._perm_dev("left_cols", self.left.cols_permutation(), True)
+        pd = self._right_perm_dev()
+        if pd is None:
+            pd = self._perm_dev("right_cols", self.right.cols_permutation(), False)
+        x1 = z[:m1] if g1 is None else z[g1]
+        x2 = z[m1:] if pd is None else z[m1:][_inverse_perm(pd)]
+        return torch.cat([x1, x2])
+
+    def _solve_capture(self):
+        """(capture, key) of the generic solve's program.  It reads this
+        solver's program outputs and plan maps (a compute that makes them
+        anew binds eager factors, which drops the program), the children's
+        factors and their maps.  Captured when the left's factors are a
+        program's outputs: this solver's sparse-A2 program's (the kernel
+        tier's Q1, R1) or the left's own, whose serial number keys it; a
+        dense right; no mesh.  Otherwise the solve is eager glue over the
+        children's programs."""
+        left = self.left
+        inner = self.right.inner if isinstance(self.right, _RowSubsetQR) else self.right
+        if (self.mesh is not None or getattr(left, "mesh", None) is not None
+                or getattr(left, "_segs", None) is not None
+                or not isinstance(inner, (DenseColPivQR, DenseHouseholderQR))
+                or not isinstance(left, (BandedBlockedQR, SegmentedBandedQR, BlockDiagonalQR))
+                or getattr(left, "pivot", False)):
+            return False, None
+        if self._left_from_program:
+            return self._programs.state() is not None, None
+        state = _factor_state(left)
+        return state is not None, state
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """Least-squares solve with the column back-permutation as a device
-        gather (the base class would compose the permutation on the host and
-        wait for the right solver's device pivot order).  A vector rhs on a
-        fused stack runs the fused solve; the caller pre-applies
-        ``rows_permutation()``."""
+        """Least-squares solve of ``b [rows]`` or ``[rows, k]``; the caller
+        pre-applies ``rows_permutation()``.  A vector rhs on a fused stack
+        runs the fused solve; otherwise the generic composition, one
+        captured program on the card when :meth:`_solve_capture` allows
+        (a matrix rhs back-substituted in one pass over its columns)."""
         if b.dim() == 1 and getattr(self, "_fused_soa", False):
             return self._programs.solve(
                 self, "BlockAngularQR.soa_solve", (), _fused_soa_solve_program, b
@@ -848,9 +926,9 @@ class BlockAngularQR(QRSolver):
                 self, "BlockAngularQR.solve", (), _fused_dense_solve_program, b
             )
         self._ensure_children_fused()
-        y = self.apply_qt(b)
-        if b.dim() == 2:
-            z = torch.stack([self.solve_r(y[: self.cols, i]) for i in range(b.shape[1])], dim=1)
-        else:
-            z = self.solve_r(y[: self.cols])
-        return z[self._solve_gather_dev()]
+        capture, key = self._solve_capture()
+        if capture and key != self._solve_key:  # the left's program changed
+            self._programs.drop("BlockAngularQR.generic_solve")
+            self._solve_key = key
+        return self._programs.solve(self, "BlockAngularQR.generic_solve", key,
+                                    _generic_solve_program, b, capture=capture)

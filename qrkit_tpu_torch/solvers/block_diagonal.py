@@ -80,10 +80,17 @@ def _packed_diag(r_soa: torch.Tensor, bc: int) -> torch.Tensor:
     return torch.stack([r_soa[i] for i in _diag_rows(bc)], dim=1)
 
 
+def _columns_first(yb: torch.Tensor) -> torch.Tensor:
+    """Per-block rhs ``[blocks, r]`` as they are, or ``[blocks, r, k]`` as
+    ``[k, blocks, r]``: a batch of the vector's solves, one a column."""
+    return yb.movedim(-1, 0) if yb.dim() == 3 else yb
+
+
 def _pad_to(v: torch.Tensor, n: int) -> torch.Tensor:
-    """Zero-extend a vector to length n (zero tail columns), or cut it."""
+    """Zero-extend a vector (or a matrix's rows) to length n (zero tail
+    columns), or cut it."""
     if v.shape[0] < n:
-        v = torch.cat([v, v.new_zeros(n - v.shape[0])])
+        v = torch.cat([v, v.new_zeros((n - v.shape[0],) + v.shape[1:])])
     return v[:n]
 
 
@@ -173,6 +180,7 @@ class BlockDiagonalQR(QRSolver):
         self._health_check_zero_pivot = not pivot
         self._computed = False
         self._programs = Programs()
+        self._maps = None  # (shape and device, FULL_Q destination rows), see _index_maps
 
     def _kernel_supported(self, mat: BlockDiagonal) -> bool:
         br, bc = mat.block_rows, mat.block_cols
@@ -325,12 +333,19 @@ class BlockDiagonalQR(QRSolver):
     # --- Q application ------------------------------------------------------------
     def _index_maps(self, device):
         """(econ_rows, comp_rows) destination rows for FULL_Q coordinates;
-        complement columns start right after the nb*bc economy columns."""
+        complement columns start right after the nb*bc economy columns.
+        Made once per shape and device and kept: a captured product reads
+        them where they lie (a copy from the host cannot be captured)."""
         nb, br, bc = self._nb, self._br, self._bc
-        econ = (np.arange(nb)[:, None] * bc + np.arange(bc)).reshape(-1)
-        comp_w = br - bc
-        comp = (nb * bc + np.arange(nb)[:, None] * comp_w + np.arange(comp_w)).reshape(-1)
-        return torch.as_tensor(econ, device=device), torch.as_tensor(comp, device=device)
+        key = (nb, br, bc, torch.device(device))
+        cached = self._maps
+        if cached is None or cached[0] != key:
+            econ = (np.arange(nb)[:, None] * bc + np.arange(bc)).reshape(-1)
+            comp_w = br - bc
+            comp = (nb * bc + np.arange(nb)[:, None] * comp_w + np.arange(comp_w)).reshape(-1)
+            self._maps = cached = (key, torch.as_tensor(econ, device=device),
+                                   torch.as_tensor(comp, device=device))
+        return cached[1], cached[2]
 
     def _block_diagonal_q(self) -> bool:
         return self.q_format == QFormat.BLOCK_DIAGONAL_Q or self._landscape
@@ -392,13 +407,16 @@ class BlockDiagonalQR(QRSolver):
 
     @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
+        """R x = y for ``y [n]`` or ``[n, k]``: the per-block triangular
+        solves, a matrix's columns as a batch of the vector's (each column
+        under its blocks' rank masks when pivoting)."""
         self._ensure_dense_factors()
         if self._landscape:
             return self._solve_r_landscape(y)
         if self.q_format != QFormat.FULL_Q:
             raise ValueError("solve_r requires QFormat.FULL_Q")
         nb, br, bc = self._nb, self._br, self._bc
-        yb = y[: nb * bc].reshape(nb, bc)[self._b0 : self._b1]
+        yb = _columns_first(y[: nb * bc].reshape((nb, bc) + y.shape[1:])[self._b0 : self._b1])
         if self.pivot:
             # per-block rank-masked basic solution: ColPiv clusters each
             # block's dead pivots at its tail
@@ -406,16 +424,16 @@ class BlockDiagonalQR(QRSolver):
             xb = rank_masked_triangular_solve(self.R, yb, ks)
         else:
             xb = torch.linalg.solve_triangular(self.R, yb[..., None], upper=True)[..., 0]
-        return _pad_to(self._gather(xb).reshape(nb * bc), self._ncols)
+        return self._x_from_blocks(xb, y)
 
     def _solve_r_landscape(self, y: torch.Tensor) -> torch.Tensor:
         """Basic solution of the underdetermined per-block systems: the wide
         [br, bc] trapezoid is embedded in a [bc, bc] triangle whose tail rows
         are identity, so x is supported only on the leading pivot columns."""
         nb, br, bc = self._nb, self._br, self._bc
-        yb = y[: nb * br].reshape(nb, br)[self._b0 : self._b1]
-        nbl = yb.shape[0]
-        rhs = torch.cat([yb, yb.new_zeros((nbl, bc - br))], dim=1)
+        yb = _columns_first(y[: nb * br].reshape((nb, br) + y.shape[1:])[self._b0 : self._b1])
+        nbl = yb.shape[-2]
+        rhs = torch.cat([yb, yb.new_zeros(yb.shape[:-1] + (bc - br,))], dim=-1)
         eye_tail = torch.eye(bc, dtype=self.R.dtype, device=self.R.device)[br:]
         Rsq = torch.cat([self.R, eye_tail.expand(nbl, bc - br, bc)], dim=1)
         if self.pivot:
@@ -423,7 +441,15 @@ class BlockDiagonalQR(QRSolver):
             xb = rank_masked_triangular_solve(Rsq, rhs, ks)
         else:
             xb = torch.linalg.solve_triangular(Rsq, rhs[..., None], upper=True)[..., 0]
-        return _pad_to(self._gather(xb).reshape(nb * bc), self._ncols)
+        return self._x_from_blocks(xb, y)
+
+    def _x_from_blocks(self, xb: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Per-block solutions (``[k, blocks, bc]`` for a matrix ``y``) →
+        x ``[ncols]`` or ``[ncols, k]``, gathered over the mesh."""
+        if y.dim() == 2:
+            xb = xb.movedim(0, -1)
+        nb, bc = self._nb, self._bc
+        return _pad_to(self._gather(xb).reshape((nb * bc,) + y.shape[1:]), self._ncols)
 
     @highest_precision()
     def solve(self, b: torch.Tensor) -> torch.Tensor:

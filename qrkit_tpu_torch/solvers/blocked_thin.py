@@ -45,7 +45,8 @@ from ..ops.householder import (
     highest_precision,
     panel_qr_yt,
     rank_from_diag,
-    rank_masked_triangular_solve,
+    rank_masked_solve,
+    upper_solve,
 )
 from ..sparse import Permutation, SparseCSR
 from .base import QRSolver, _diag_health
@@ -157,7 +158,7 @@ class BlockedThinDenseQR(QRSolver):
     @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
         n = self._n
-        return torch.linalg.solve_triangular(self._R[:n, :n], y[:n, None], upper=True)[:, 0]
+        return upper_solve(self._R[:n, :n], y[:n])
 
 
 class BlockedThinSparseQR(QRSolver):
@@ -338,7 +339,7 @@ class BlockedThinSparseQR(QRSolver):
         n = self._n
         R = self._R[:n, :n]
         if self._deficiency()[0] == n:
-            return torch.linalg.solve_triangular(R, y[:n, None], upper=True)[:, 0]
+            return upper_solve(R, y[:n])
         # rank-deficient: per-panel pivoting leaves the dead pivots scattered,
         # so complete the decomposition with one n×n ColPiv QR of R
         # (R·P2 = Q2·R2, dead pivots now at the tail) and take the basic
@@ -350,8 +351,8 @@ class BlockedThinSparseQR(QRSolver):
         Y2, T2, R2, perm2 = self._repair
         yq = apply_wy(Y2, T2, y[:n], transpose=True)
         k = rank_from_diag(torch.diagonal(R2[:n]), n, n)
-        z = rank_masked_triangular_solve(torch.triu(R2[:n]), yq[:n], k)
-        return z.new_zeros(n).index_put_((perm2,), z)
+        z = rank_masked_solve(torch.triu(R2[:n]), yq[:n], k)
+        return torch.zeros_like(z).index_put_((perm2,), z)
 
     def cols_permutation(self) -> Permutation:
         return self._cols_perm()

@@ -24,7 +24,8 @@ from ..ops.householder import (
     highest_precision,
     panel_qr_yt,
     rank_from_diag,
-    rank_masked_triangular_solve,
+    rank_masked_solve,
+    upper_solve,
 )
 from ..sparse import Permutation, SparseCSR
 from .base import QRSolver, _diag_health
@@ -100,14 +101,13 @@ class _DenseQRBase(QRSolver):
         n = self._n
         rhs = y[:n]
         if rhs.shape[0] < n:
-            rhs = torch.cat([rhs, rhs.new_zeros(n - rhs.shape[0])])
+            rhs = torch.cat([rhs, rhs.new_zeros((n - rhs.shape[0],) + rhs.shape[1:])])
         return rhs
 
     @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        return torch.linalg.solve_triangular(
-            self._square_r(), self._padded_rhs(y)[:, None], upper=True
-        )[:, 0]
+        """R x = y[:cols] for ``y [n]`` or ``[n, k]``."""
+        return upper_solve(self._square_r(), self._padded_rhs(y))
 
     def _coerce(self, mat) -> torch.Tensor:
         if isinstance(mat, SparseCSR):
@@ -171,9 +171,9 @@ class DenseColPivQR(_DenseQRBase):
         the tail, so the masked leading solve is the exact least-squares
         minimizer over solutions supported on the live pivot columns (wide
         input included: the trapezoid embeds in a square with identity dead
-        rows)."""
+        rows); ``y [n]`` or ``[n, k]``, the mask on each column."""
         k = rank_from_diag(torch.diagonal(self._R[: min(self._m, self._n)]), self._m, self._n)
-        return rank_masked_triangular_solve(self._square_r(), self._padded_rhs(y), k)
+        return rank_masked_solve(self._square_r(), self._padded_rhs(y), k)
 
     @property
     def rank(self) -> int:

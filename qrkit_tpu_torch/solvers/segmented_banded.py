@@ -27,10 +27,11 @@ gathered for the call.  When S does not tile the mesh nothing is sharded
 places the factors on the mesh afterwards.
 
 Unsharded on the card, a refactorize (``compute``'s device part,
-``factorize_values``) and a solve (vector or matrix rhs) are each one
-captured program (:mod:`~qrkit_tpu_torch._program`; the reference's
-per-plan factorize and solve programs), B3, B4 and B5 launched inside the
-factorize's graph.
+``factorize_values``), a solve, ``apply_qt``, ``apply_q`` and ``solve_r``
+(vector or matrix rhs) are each one captured program
+(:mod:`~qrkit_tpu_torch._program`; the reference's per-plan factorize and
+solve programs, ``_seg_qt_program`` and ``_seg_q_program``), B3, B4 and B5
+launched inside the factorize's graph.
 """
 from __future__ import annotations
 
@@ -57,6 +58,28 @@ from .base import QRSolver
 from .segmented_apply import seg_q, seg_qt
 
 __all__ = ["SegmentedBandedQR"]
+
+
+def _apply(fn, self, m: torch.Tensor) -> torch.Tensor:
+    vec = m.dim() == 1
+    out = fn(self._full(), m[:, None] if vec else m)
+    return out[:, 0] if vec else out
+
+
+def _apply_qt_program(self, m: torch.Tensor) -> torch.Tensor:
+    return _apply(seg_qt, self, m)
+
+
+def _apply_q_program(self, m: torch.Tensor) -> torch.Tensor:
+    return _apply(seg_q, self, m)
+
+
+def _solve_r_program(self, y: torch.Tensor) -> torch.Tensor:
+    vec = y.dim() == 1
+    y2 = y[:, None] if vec else y
+    m1 = self._m1
+    z = segmented_solve.backsub(self, y2[:m1], y2[m1 : m1 + self._m2])
+    return z[:, 0] if vec else z
 
 
 class SegmentedBandedQR(QRSolver):
@@ -297,20 +320,22 @@ class SegmentedBandedQR(QRSolver):
             return self._delegate.r_diagonal()
         return segmented_factorize.r_diagonal(self, self._r_panels, self._chain_r)
 
-    def _apply(self, fn, m: torch.Tensor) -> torch.Tensor:
-        vec = m.dim() == 1
-        out = fn(self._full(), m[:, None] if vec else m)
-        return out[:, 0] if vec else out
-
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
+        """Qᵀ · m for ``m [rows]`` or ``[rows, k]`` (rows in
+        :meth:`solve_r`'s order: per-segment R rows, chain rows,
+        pass-through rows); one captured program on the card without a
+        mesh."""
         if self._delegate is not None:
             return self._delegate.apply_qt(m)
-        return self._apply(seg_qt, m)
+        return self._programs.solve(self, "SegmentedBandedQR.apply_qt", (), _apply_qt_program,
+                                    m, capture=self._segs is None)
 
     def apply_q(self, m: torch.Tensor) -> torch.Tensor:
+        """Q · m, the inverse of :meth:`apply_qt`."""
         if self._delegate is not None:
             return self._delegate.apply_q(m)
-        return self._apply(seg_q, m)
+        return self._programs.solve(self, "SegmentedBandedQR.apply_q", (), _apply_q_program,
+                                    m, capture=self._segs is None)
 
     # --- sparse-operand Q products ---------------------------------------------------
     def _sparse_apply_parts(self, transpose: bool):
@@ -354,11 +379,8 @@ class SegmentedBandedQR(QRSolver):
         ``R z = y`` in P_split order."""
         if self._delegate is not None:
             return self._delegate.solve_r(y)
-        vec = y.dim() == 1
-        y2 = y[:, None] if vec else y
-        m1 = self._m1
-        z = segmented_solve.backsub(self, y2[:m1], y2[m1 : m1 + self._m2])
-        return z[:, 0] if vec else z
+        return self._programs.solve(self, "SegmentedBandedQR.solve_r", (), _solve_r_program, y,
+                                    capture=self._segs is None)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for ``b [rows]`` or ``[rows, k]``; the caller

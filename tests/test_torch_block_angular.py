@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import qrkit_tpu as jq
 from qrkit_tpu.parallel import tsqr as jtsqr
@@ -381,6 +382,110 @@ def test_banded_left_sparse_a2_is_slice_4(rng):
     assert tqr._r12_coo is not None and "banded_a2" in tqr._plan_cache
     b = rng.normal(size=left.nrows)
     close(tqr.solve(torch.as_tensor(b)), jqr.solve(jnp.asarray(b)))
+
+
+class _Ops(TorchDispatchMode):
+    """The ATen ops a block issues, by overload packet."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.seen.add(func.overloadpacket)
+        return func(*args, **(kwargs or {}))
+
+
+def _bundle_like(rng, nb=24, cams=2):
+    """A bundle-shaped system: points of ``2C + 3`` rows and 3 columns
+    (the block-diagonal left), each point's observation rows against its
+    cameras' 6 columns, the camera damping rows on the left's zero tail."""
+    br, c6 = 2 * cams + 3, 6 * cams
+    n1 = nb * br + c6
+    blocks = rng.uniform(0.5, 5.0, size=(nb, br, 3))
+    p, c, k, j = np.meshgrid(np.arange(nb), np.arange(cams), np.arange(2), np.arange(6),
+                             indexing="ij")
+    rows = np.concatenate([(p * br + 2 * c + k).ravel(), nb * br + np.arange(c6)])
+    cols = np.concatenate([(6 * c + j).ravel(), np.arange(c6)])
+    a2 = jq.SparseCSR.from_triplets(rows, cols, rng.normal(size=rows.size), (n1, c6))
+    return blocks, a2
+
+
+def test_r12_sum_has_a_fixed_order(rng):
+    """R12's products are summed row by row in a fixed order, whatever the
+    order its COO entries are stored in: ``solve_r`` issues no
+    ``index_add`` (atomics on the card) and equals qrkit_tpu's ``.at[rows]
+    .add`` at fp64 rtol 1e-12, for a vector and a matrix."""
+    import jax
+
+    from qrkit_tpu_torch.solvers.block_angular import _row_sum_map
+
+    blocks, ja2 = _bundle_like(rng)
+    nb, br, bc = blocks.shape
+    n1 = ja2.nrows
+    tqr = qt.BlockAngularQR(qt.BlockDiagonalQR(pivot=False, use_kernel=True), qt.DenseColPivQR())
+    tqr.compute(qt.BlockMatrix1x2(qt.BlockDiagonal(torch.as_tensor(blocks), n1, nb * bc),
+                                  _port_csr(ja2)))
+    jqr = jq.BlockAngularQR(jq.BlockDiagonalQR(pivot=False), jq.DenseColPivQR())
+    jqr.compute(jq.BlockMatrix1x2(jq.BlockDiagonal(jnp.asarray(blocks), n1, nb * bc), ja2))
+    assert tqr.left._kernel_mode and tqr._r12_coo is not None
+    rows, cols, vals = tqr._r12_coo
+    shuffle = torch.as_tensor(rng.permutation(rows.shape[0]))
+    tqr._r12_coo = (rows[shuffle], cols[shuffle], vals[shuffle])
+    tqr._r12_sum = _row_sum_map(rows[shuffle].numpy(), tqr._m1, DEV)
+    assert tqr._r12_sum.shape[1] == 6 * 2  # a row sums 6C products
+    y = rng.normal(size=(tqr.cols, 3))
+    for yy, want in ((y[:, 0], jqr.solve_r(jnp.asarray(y[:, 0]))),
+                     (y, jax.vmap(jqr.solve_r, in_axes=1, out_axes=1)(jnp.asarray(y)))):
+        with _Ops() as ops:
+            got = tqr.solve_r(torch.as_tensor(yy))
+        assert torch.ops.aten.index_add not in ops.seen and torch.ops.aten.index_add_ not in ops.seen
+        close(got, want, rtol=1e-12, atol=1e-13)
+
+
+def _segmented_left(rng, nb=32, br=10, bc=4, ov=2):
+    """A tall banded left the segmented solver splits (8 blocks a segment)."""
+    step = bc - ov
+    ncols = step * nb + ov
+    i, r, c = np.meshgrid(np.arange(nb), np.arange(br), np.arange(bc), indexing="ij")
+    rows, cols = (i * br + r).ravel(), (i * step + c).ravel()
+    keep = cols < ncols
+    return jq.SparseCSR.from_triplets(rows[keep], cols[keep], rng.uniform(0.5, 5.0, size=keep.sum()),
+                                      (br * nb, ncols))
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("left_kind", ["banded", "segmented"])
+def test_generic_solve_matrix_rhs(rng, left_kind, k):
+    """The generic solve of a ``[rows, k]`` rhs over a banded or segmented
+    left and a sparse A2: one back-substitution over the columns, equal to
+    qrkit_tpu's (its ``solve_r`` mapped over them) at fp64 rtol 1e-10."""
+    if left_kind == "banded":
+        left, a2 = _banded_left(rng)
+        kw = dict(block_rows=3, block_cols=1, block_overlap=0, suggested_block_cols=1)
+        tleft, jleft = qt.BandedBlockedQR(**kw, device=DEV), jq.BandedBlockedQR(**kw)
+    else:
+        left = _segmented_left(rng)
+        a2 = rng.normal(size=(left.nrows, 5))
+        kw = dict(suggested_block_cols=4, segment_blocks=8, fallback=False)
+        tleft = qt.SegmentedBandedQR(**kw, device=DEV)
+        jleft = jq.SegmentedBandedQR(**kw, use_pallas=False)
+    a2[rng.random(a2.shape) < 0.5] = 0.0
+    a2[np.arange(5), np.arange(5)] = 1.0  # no empty column
+    ja2 = jq.SparseCSR.from_dense(a2)
+    tqr = qt.BlockAngularQR(tleft, qt.DenseColPivQR())
+    jqr = jq.BlockAngularQR(jleft, jq.DenseColPivQR())
+    tqr.compute(qt.BlockMatrix1x2(_port_csr(left), _port_csr(ja2)))
+    jqr.compute(jq.BlockMatrix1x2(left, ja2))
+    assert tqr._r12_coo is not None
+    if left_kind == "segmented":
+        assert tqr.left._delegate is None
+    b = rng.normal(size=(left.nrows, k))
+    got = tqr.solve(torch.as_tensor(b))
+    assert got.shape == (tqr.cols, k)
+    close(got, jqr.solve(jnp.asarray(b)))
+    for i in range(k):  # each column is the vector solve's
+        close(got[:, i], tqr.solve(torch.as_tensor(b[:, i])), rtol=1e-12, atol=1e-13)
 
 
 # --- state converters -------------------------------------------------------------------

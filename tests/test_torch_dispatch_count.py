@@ -146,7 +146,14 @@ def _banded_setup(kind, geom):
         v = torch.as_tensor(mat.data * 1.000001, device=device)
         b = torch.as_tensor(rng.normal(size=mat.nrows), device=device)
         B = torch.as_tensor(rng.normal(size=(mat.nrows, 3)), device=device)
-        return dict(mat=mat, qr=qr, v=v, b=b, B=B, kind=kind)
+        n = mat.ncols
+        # Q's operands: on the uniform fixture only Q's first n columns are
+        # fixed (up to R's row signs), so Q is applied to rows past n zeroed
+        qb, qB = (x.clone() for x in (b, B))
+        if geom == "uniform":
+            qb[n:], qB[n:] = 0.0, 0.0
+        return dict(mat=mat, qr=qr, v=v, b=b, B=B, qb=qb, qB=qB, y=b[:n], Y=B[:n], n=n,
+                    kind=kind, geom=geom)
     return setup
 
 
@@ -173,22 +180,36 @@ def _same(out):
 
 
 def _banded_calls(st):
-    qr = st["qr"]
+    qr, n = st["qr"], st["n"]
+    # Qᵀ's rows past n are Q's complement, fixed only up to a rotation on
+    # the uniform fixture
+    top = (lambda out: out[:n]) if st["geom"] == "uniform" else _same
     return [
         ("factorize_values", lambda: qr.factorize_values(st["v"]), lambda _: qr.r_diagonal().abs()),
         ("solve", lambda: qr.solve(st["b"]), _same),
         ("solve_k3", lambda: qr.solve(st["B"]), _same),
+        ("apply_qt", lambda: qr.apply_qt(st["b"]), top),
+        ("apply_qt_k3", lambda: qr.apply_qt(st["B"]), top),
+        ("apply_q", lambda: qr.apply_q(st["qb"]), _same),
+        ("apply_q_k3", lambda: qr.apply_q(st["qB"]), _same),
+        ("solve_r", lambda: qr.solve_r(st["y"]), _same),
+        ("solve_r_k3", lambda: qr.solve_r(st["Y"]), _same),
     ]
 
 
 def _banded_reference(st):
+    """qrkit_tpu's values of every call, R's row signs taken into the
+    port's: with ``D = sign(diag R_port · diag R_ref)``, ``Qᵀb`` is ``D``
+    times the reference's on its first n rows, ``Q x`` the reference's
+    ``Q (D x)`` and ``R⁻¹ y`` the reference's ``R⁻¹ (D y)``."""
+    import jax
     import jax.numpy as jnp
 
     from qrkit_tpu.solvers import BandedBlockedQR as JBanded
     from qrkit_tpu.solvers import SegmentedBandedQR as JSegmented
     from qrkit_tpu.sparse import SparseCSR as JSparse
 
-    m = st["mat"]
+    m, n = st["mat"], st["n"]
     jm = JSparse(m.shape, m.indptr, m.indices, m.data)
     if st["kind"] == "banded":
         jq = JBanded(suggested_block_cols=4, use_pallas=False)
@@ -196,10 +217,31 @@ def _banded_reference(st):
         jq = JSegmented(suggested_block_cols=4, segment_blocks=8, fallback=False, use_pallas=False)
     jq.compute(jm)
     jq.factorize_values(jnp.asarray(_np(st["v"])))
+    with _program.eager():  # the port's factors of v, whose row signs the calls see
+        st["qr"].factorize_values(st["v"])
+    sign = np.sign(_np(st["qr"].r_diagonal()) * np.asarray(jq.r_diagonal()))
+
+    def signed(x):  # D on the first n rows
+        x = np.array(_np(x), dtype=np.float64)
+        x[:n] *= sign.reshape((n,) + (1,) * (x.ndim - 1))
+        return x
+
+    def qt_rows(x):
+        out = signed(jq.apply_qt(jnp.asarray(_np(x))))
+        return out[:n] if st["geom"] == "uniform" else out
+
     return {
         "factorize_values": abs(jq.r_diagonal()),
         "solve": jq.solve(jnp.asarray(_np(st["b"]))),
         "solve_k3": jq.solve(jnp.asarray(_np(st["B"]))),
+        "apply_qt": qt_rows(st["b"]),
+        "apply_qt_k3": qt_rows(st["B"]),
+        "apply_q": jq.apply_q(jnp.asarray(signed(st["qb"]))),
+        "apply_q_k3": jq.apply_q(jnp.asarray(signed(st["qB"]))),
+        "solve_r": jq.solve_r(jnp.asarray(signed(st["y"]))),
+        # qrkit_tpu's solve_r takes a vector: its columns, as its
+        # BlockAngularQR.solve maps them
+        "solve_r_k3": jax.vmap(jq.solve_r, in_axes=1, out_axes=1)(jnp.asarray(signed(st["Y"]))),
     }
 
 
@@ -287,6 +329,47 @@ def _angular_reference(st):
     return {"compute": jq.r_diagonal(), "solve": jq.solve(jnp.asarray(_np(st["b"])))}
 
 
+def _angular_banded_setup(rng, device):
+    """``BlockAngularQR(BandedBlockedQR, DenseColPivQR)`` on the uniform
+    fixture with a sparse 5-column A2 (40% kept), computed three times: the
+    left's factorize program and the sparse-A2 program are captured, so
+    the generic solve reads program outputs."""
+    left = overlapping_matrix(96, 336, rng)
+    dense = np.where(rng.random((336, 5)) < 0.4, rng.normal(size=(336, 5)), 0.0)
+    dense[np.arange(5), np.arange(5)] = 1.0  # no empty column
+    a2 = qt.SparseCSR.from_dense(dense)
+    qr = qt.BlockAngularQR(qt.BandedBlockedQR(suggested_block_cols=4, device=device),
+                           qt.DenseColPivQR())
+    mat = qt.BlockMatrix1x2(left, a2)
+    for _ in range(3):
+        qr.compute(mat)
+    b = torch.as_tensor(rng.normal(size=336), device=device)
+    B = torch.as_tensor(rng.normal(size=(336, 3)), device=device)
+    return dict(left=left, a2=a2, qr=qr, b=b, B=B)
+
+
+def _angular_banded_calls(st):
+    qr = st["qr"]
+    return [("solve", lambda: qr.solve(st["b"]), _same),
+            ("solve_k3", lambda: qr.solve(st["B"]), _same)]
+
+
+def _angular_banded_reference(st):
+    import jax.numpy as jnp
+
+    from qrkit_tpu.containers import BlockMatrix1x2 as JBlockMatrix1x2
+    from qrkit_tpu.solvers import BandedBlockedQR as JBanded
+    from qrkit_tpu.solvers import BlockAngularQR as JBlockAngularQR
+    from qrkit_tpu.solvers import DenseColPivQR as JColPiv
+    from qrkit_tpu.sparse import SparseCSR as JSparse
+
+    j = lambda m: JSparse(m.shape, m.indptr, m.indices, m.data)  # noqa: E731
+    jq = JBlockAngularQR(JBanded(suggested_block_cols=4, use_pallas=False), JColPiv())
+    jq.compute(JBlockMatrix1x2(j(st["left"]), j(st["a2"])))
+    return {"solve": jq.solve(jnp.asarray(_np(st["b"]))),
+            "solve_k3": jq.solve(jnp.asarray(_np(st["B"])))}
+
+
 PATHS = {
     "banded_uniform": (_banded_setup("banded", "uniform"), _banded_calls, _banded_reference),
     "banded_tallblock_p2w": (_banded_setup("banded", "tallblock_p2w"), _banded_calls,
@@ -297,6 +380,8 @@ PATHS = {
     "dense_24x8": (_dense_setup, _dense_calls, _dense_reference),
     "block_diagonal_512x7x2": (_blockdiag_setup, _blockdiag_calls, _blockdiag_reference),
     "block_angular_fused_dense": (_angular_setup, _angular_calls, _angular_reference),
+    "block_angular_banded_left": (_angular_banded_setup, _angular_banded_calls,
+                                  _angular_banded_reference),
 }
 
 
@@ -608,6 +693,74 @@ def test_replays_attribute_their_launches(recording, monkeypatch):
     assert outer.count == outer.ops + 2
 
 
+def test_inner_calls_run_inline(recording):
+    """A solve program calls ``apply_qt`` and ``solve_r``, themselves
+    programs: they run inline, so the solver records one solve graph and
+    none of its own for them; the generic ``BlockAngularQR`` solve likewise
+    records one graph, its banded left none."""
+    for kind in ("banded", "segmented"):
+        st = _banded_setup(kind, "tallblock_p2w")(np.random.default_rng(13), DEV)
+        qr = st["qr"]
+        for _ in range(3):
+            qr.solve(st["b"])
+        names = [k[0] for k in qr._programs.programs()]
+        assert names == [f"{type(qr).__name__}.solve"], names
+    st = _angular_banded_setup(np.random.default_rng(14), DEV)
+    qr = st["qr"]
+    for _ in range(3):
+        qr.solve(st["b"])
+    assert sorted(k[0] for k in qr.left._programs.programs()) == ["BandedBlockedQR.factorize"]
+    assert [k[0] for k in qr._programs.programs()].count("BlockAngularQR.generic_solve") == 1
+
+
+def _bundle_like(rng, device, nb=30, cams=2):
+    """A bundle-shaped sparse-A2 system: ``nb`` points of ``2C + 3`` rows
+    and 3 columns (the block-diagonal left in its kernel tier), each point's
+    ``2C`` observation rows against its cameras' 6 columns, and the ``6C``
+    camera damping rows as the left's zero tail (a row of R12 sums 6C
+    products)."""
+    br, c6 = 2 * cams + 3, 6 * cams
+    n1 = nb * br + c6
+    blocks = rng.uniform(0.5, 5.0, size=(nb, br, 3))
+    p, c, k, j = np.meshgrid(np.arange(nb), np.arange(cams), np.arange(2), np.arange(6),
+                             indexing="ij")
+    rows = np.concatenate([(p * br + 2 * c + k).ravel(), nb * br + np.arange(c6)])
+    cols = np.concatenate([(6 * c + j).ravel(), np.arange(c6)])
+    a2 = qt.SparseCSR.from_triplets(rows, cols, rng.normal(size=rows.size), (n1, c6))
+    left = qt.BlockDiagonal(torch.as_tensor(blocks, device=device), n1, 3 * nb)
+    qr = qt.BlockAngularQR(qt.BlockDiagonalQR(pivot=False, use_kernel=True), qt.DenseColPivQR())
+    b = torch.as_tensor(rng.normal(size=n1), device=device)
+    return qr, qt.BlockMatrix1x2(left, a2), b
+
+
+def test_kernel_tier_left_factors_are_program_outputs(recording):
+    """The kernel-tier left's explicit Q1, R1, which the generic solve
+    reads, are outputs of the sparse-A2 program (formed there from the
+    left's operand), not made inside the solve's capture: a recompute
+    overwrites them in place, and the captured solve then equals an eager
+    solve on the new factors."""
+    qr, mat, b = _bundle_like(np.random.default_rng(15), DEV)
+    for _ in range(3):  # eager, capture, replay of the sparse-A2 program
+        qr.compute(mat)
+    assert qr.left._kernel_mode and qr._left_from_program
+    (prog,) = [p for k, p in qr._programs.programs().items()
+               if k[0] == "BlockAngularQR.sparse_a2_blockdiag"]
+    assert any(t is qr.left.Q for t in prog.out) and any(t is qr.left.R for t in prog.out)
+    for _ in range(3):
+        qr.solve(b)
+    assert [k[0] for k in qr._programs.programs()].count("BlockAngularQR.generic_solve") == 1
+    Q = qr.left.Q
+    blocks = mat.left.blocks * 1.5
+    other = qt.BlockMatrix1x2(qt.BlockDiagonal(blocks, mat.left.nrows, mat.left.ncols), mat.right)
+    qr.compute(other)  # the left computes eagerly (a new container), the program replays
+    assert qr.left.Q is Q
+    with qt.count_dispatches() as d:
+        x = qr.solve(b)
+    assert d.programs == 1 and d.ops <= BUDGET_OPS, d
+    with _program.eager():
+        assert torch.equal(x, qr.solve(b))
+
+
 def test_host_read_in_a_capture_raises(recording):
     """What a capture on the card refuses raises with the program's name; a
     path never carries on eagerly."""
@@ -659,3 +812,19 @@ def test_cuda_budget_and_bitwise(path, cuda_device):
         replay = read(call())
         torch.cuda.synchronize()
         assert torch.equal(out, eager) and torch.equal(replay, eager), label
+
+
+@pytest.mark.cuda
+def test_cuda_block_angular_solve_is_reproducible(cuda_device):
+    """Two solves on the same factors are bitwise equal on the card (R12's
+    products summed in a fixed order, no atomics), eagerly and replayed, on
+    a bundle-shaped sparse-A2 system."""
+    qr, mat, b = _bundle_like(np.random.default_rng(16), cuda_device, nb=2000, cams=8)
+    for _ in range(3):
+        qr.compute(mat)
+    with _program.eager():
+        first, second = qr.solve(b), qr.solve(b)
+    replays = [qr.solve(b) for _ in range(4)][2:]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(first, x) for x in replays)

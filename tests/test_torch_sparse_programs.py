@@ -264,7 +264,7 @@ class AngularRecompute:
 
     def read(self, qr):
         """What the compute left: R's diagonal, R12 and the right factors
-        (not a solve: on the card its R12 product sums with atomics)."""
+        (the solve over them has its own program and tests)."""
         rows, cols, vals = qr._r12_coo
         inner = qr.right.inner
         return _flat(qr.r_diagonal(), cols, vals, inner._R, inner._Y, inner._perm_dev)
