@@ -138,7 +138,15 @@ conditional WHILE node needs 12.3 in both), and then:
   mesh)``, B2), the lane-major ellipse step at 100,000 points,
   ``fit_bundle_device`` at 20,000 points and the dry run's four steps
   (``qrkit_tpu_torch.dryrun``, its bundle step at 100,000 points); each
-  path timed with and without the mesh in turns; the group torn down.
+  path timed with and without the mesh in turns (the mesh calls replay
+  their captured programs from the second call on); each collective helper
+  timed eager and inside a graph; then (``mesh_programs``) every mesh path
+  as a captured program at those widths (``dryrun.program_checks``): a warm
+  call's replays, ops and host reads, bitwise equal to the eager call, the
+  same collectives, wall and stream ms captured against eager, capture
+  seconds, and the ``reduce=`` bundle fit at 20,000 points as the chunks
+  of its chunked loop, bitwise the eager loop's (B1–B5 and L1 each
+  launched); the group torn down.
 
 Each phase prints one JSON line per case.  Any failure raises, so the script
 exits non-zero without the final line; it also fails when no CUDA device is
@@ -2295,15 +2303,18 @@ def mesh_turns(none_fn, mesh_fn, reps):
 def mesh_check(label, none_fn, mesh_fn, bitwise, reps, smi, want=None, extra=None):
     """One mesh path: its mesh=None result, then its mesh result with the
     launch counters set to 0 right before and read right after (they must
-    equal ``want``), the two compared (fp32 rtol 1e-4, atol 1e-5·max|·|;
-    bitwise where ``bitwise``), then both timed in turns.  Returns the
-    mesh run's launches."""
+    equal ``want``, or what ``want()`` gives after the run), the two
+    compared (fp32 rtol 1e-4, atol 1e-5·max|·|; bitwise where
+    ``bitwise``), then both timed in turns (the mesh call's first run is
+    eager, its second captures: the rounds replay).  Returns the mesh
+    run's launches."""
     ref = none_fn()
     torch.cuda.synchronize()
     profiling.reset_launch_counts()
     out = mesh_fn()
     torch.cuda.synchronize()
     counts = profiling.launch_counts()
+    want = want() if callable(want) else want
     expected = {name: (want or {}).get(name, 0) for name in counts}
     if counts != expected:
         raise AssertionError(f"mesh {label}: launches {counts}, want {expected}")
@@ -2343,15 +2354,60 @@ def mesh_collective_costs(mesh, smi, reps=50):
     cases = [(f"all_gather_{n * BC}", lambda t=torch.zeros(n * BC, **f32): all_gather_leading(t, mesh))
              for n in (NB_CONFIG2, NB_REAL)]
     cases.append(("all_reduce_scalar", lambda t=torch.zeros((), **f32): all_reduce_sum(t, mesh)))
-    out = {}
+    out, captured = {}, {}
+    stream = torch.cuda.Stream()
     for label, fn in cases:
         out[label] = mesh_turns(fn, fn, reps)[0]
+        graph = torch.cuda.CUDAGraph()  # the helper alone inside a graph, replayed
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            fn()
+        captured[label] = mesh_turns(graph.replay, graph.replay, reps)[0]
+        del graph
     t0 = time.perf_counter()
     for _ in range(reps):
         mesh.get_group("dp")
     out["get_group_host"] = (time.perf_counter() - t0) * 1e3 / reps
-    emit({"phase": "mesh_collectives", "ms": out, "method": f"median of {reps} calls between CUDA "
-          "events, synchronize before and after (mesh_turns); get_group by the host clock", "gpu": smi})
+    emit({"phase": "mesh_collectives", "ms": out, "captured_ms": captured,
+          "method": f"median of {reps} calls between CUDA events, synchronize before and after "
+          "(mesh_turns); captured: a replay of a graph holding the one call "
+          "(capture_error_mode thread_local); get_group by the host clock", "gpu": smi})
+
+
+MESH_PROGRAM_REPS = 3  # timed calls a round (captured, eager, eager, captured)
+MESH_PROGRAM_KERNELS = KERNEL_NAMES + ("graph_loop_cond",)
+
+
+def mesh_programs(mesh, smi):
+    """Every mesh path as a captured program on this one-rank mesh, at the
+    widths above (``dryrun.program_checks``): per path a warm call's
+    replays, ATen ops and host reads, bitwise equality with the same call
+    under ``_program.eager()``, the same collectives, agreement with
+    ``mesh=None``, capture seconds, and wall and stream ms a call captured
+    against eager; the ``reduce=`` bundle fit at 20,000 points: one launch
+    and one host read a chunk of 8 iterations, its iterations, bitwise the
+    eager loop's.  Counters set
+    to 0 before, read after: B1–B5 and L1 must each have launched.
+    Returns those launches."""
+    profiling.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = dryrun.program_checks(mesh, dryrun.program_inputs(1, "full"), torch.float32,
+                                timed_reps=MESH_PROGRAM_REPS)
+    torch.cuda.synchronize()
+    counts = profiling.launch_counts()
+    lines = dryrun.check_pins(res, torch.float32, captured=True, fetch_reads=1)
+    for label, line in lines.items():
+        emit({"phase": "mesh_programs", "path": label, **line,
+              "method": "dryrun.program_checks: first call (eager), second (warm-up + capture; "
+                        "capture_call_s, synchronized), first replay, then the counted warm call; "
+                        "wall ms: host clock over reps calls ending in synchronize; stream ms: "
+                        "median of CUDA events around each of reps calls; rounds captured, "
+                        f"eager, eager, captured of {MESH_PROGRAM_REPS} (a fit: 1)", "gpu": smi})
+    missing = [k for k in MESH_PROGRAM_KERNELS if not counts[k]]
+    emit({"phase": "mesh_programs", "launches": counts, "seconds": time.perf_counter() - t0,
+          "gpu": smi})
+    if missing:
+        raise AssertionError(f"mesh programs: {missing} never launched")
+    return counts
 
 
 def phase_mesh(rng, smi):
@@ -2453,7 +2509,11 @@ def phase_mesh(rng, smi):
             fits[m is None] = r = bundle.fit_bundle_device(cams0, pts0, uv, BUNDLE_CFG, mesh=m, **f32)
             return torch.as_tensor(r.x)
 
+        # the reduce= fit's first run: iteration 1 eager, then the whole fit
+        # as the chunks of its captured loop (L1 once a gated iteration)
         add(mesh_check("bundle_device_fit", lambda: fit_b(None), lambda: fit_b(mesh), False, 1, smi,
+                       lambda: {"graph_loop_cond": _program.LOOP_CHUNK * _program.loop_chunks(
+                           fits[False].iterations, BUNDLE_CFG.max_iters)},
                        extra={"n_pts": MESH_BUNDLE_P, "n_cams": BUNDLE_CAMS}))
         costs = (fits[True].cost, fits[False].cost)
         rms = float(np.sqrt(2.0 * fits[False].cost / (2 * MESH_BUNDLE_P * BUNDLE_CAMS)))
@@ -2478,7 +2538,9 @@ def phase_mesh(rng, smi):
         add(mesh_check("bundle_step_100k", lambda: step_n(x0, rb, lam, uvt),
                        lambda: step_m(x0, rb, lam, uvt), False, 5, smi,
                        extra={"n_pts": MESH_DRYRUN_BUNDLE_P, "n_cams": 2}))
+        add(mesh_programs(mesh, smi))
     finally:
+        dryrun.release_programs()  # NCCL keeps a communicator while a graph holds it
         dist.destroy_process_group()
     return total
 
@@ -3074,7 +3136,9 @@ def main():
         })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
-        "replaces": L1_REPLACES, "launches": lm_counts["graph_loop_cond"], **l1,
+        "replaces": L1_REPLACES,
+        "launches": lm_counts["graph_loop_cond"] + mesh_counts["graph_loop_cond"], **l1,
+        "mesh_launches": mesh_counts["graph_loop_cond"],
         "library_ms": None,  # no PyTorch call sets a graph's condition
         "in_loop_device_ms_each": l1_in_loop,
     })

@@ -39,13 +39,31 @@ Calls run eagerly, with no capture, when an input lies on the CPU (the
 caller asked for the CPU), when an input or an output requires grad
 (autograd must see the ops: a solve against factors that require grad is
 never captured), inside another program's function, under :func:`eager`,
-or when the caller says so (the ``mesh=`` paths).  A program whose function
+or when the caller says so.  A program whose function
 calls another solver's captured call (``BlockAngularQR``'s sparse-A2
 recompute calls its right solver's ``compute``) runs that call inline, in
 its own first call, warm-up and capture alike, so the inner ops become part
 of the outer graph; the caller binds the inner solver's factors to the
 outer program's outputs.  On the card a capture or replay that fails raises
 with the program's name; nothing falls back to eager.
+
+Programs over a mesh (the ``mesh=`` paths, the reference's jitted SPMD
+programs) record their ``torch.distributed`` collectives inside the graph.
+A recorded collective runs only when every rank replays its graph, so
+every rank must take the same path at the same call: such a program is
+keyed by the mesh axis's group and size as well (``mesh=``), reads no
+input at its address (addresses differ between ranks; its inputs are
+copied in), and every decision (eager, capture, replay, eviction) follows
+from the call sequence, which SPMD makes the same on every rank.  The
+first call of a key runs eagerly, which creates the communicator before
+any capture, and the warm-up runs the collectives on every rank together.
+A program whose warm-up issued a collective is captured with
+``capture_error_mode="thread_local"`` (the process group's watchdog thread
+queries events while a capture runs, which the default mode refuses); the
+others keep the default.  Collectives are counted as the kernel launches
+are (:func:`qrkit_tpu_torch.profiling.collective_counts`): a capture
+records those it issued, sets the counters back and adds them at each
+replay.
 
 Host values (a NumPy array where the function takes a tensor: the values
 of a host ``SparseCSR``) are uploads: the program keeps a static input of
@@ -75,7 +93,12 @@ and L1's own count of its evaluations: the body's launches are counted per
 iteration from the first, L1's from the second.  A loop also reads the
 tensors its functions hold (closure cells, a bound method's object): the
 program keeps them alive and is captured again when the functions hold
-others (:meth:`Loops.get`).  :class:`Loops` caches the loops by key
+others (:meth:`Loops.get`).  A loop whose iteration issues collectives
+(an LM fit over a mesh, ``reduce=``) cannot hold them in a WHILE node's
+body: it runs as chunks of gated iterations in plain graphs
+(:class:`_ChunkedLoop`, one launch and one fetch a chunk), captured in
+``"thread_local"`` mode, its collectives counted per iteration run.
+:class:`Loops` caches the loops by key
 (``limit`` keys, the oldest destroyed first: its graph before the pool).
 """
 from __future__ import annotations
@@ -93,7 +116,9 @@ import torch
 
 from . import profiling
 
-__all__ = ["LoopProgram", "Loops", "Program", "Programs", "eager"]
+__all__ = ["LOOP_CHUNK", "LoopProgram", "Loops", "Program", "Programs", "eager", "loop_chunks"]
+
+LOOP_CHUNK = 8  # gated iterations a chunk graph runs (a loop that holds collectives)
 
 _EAGER = False
 _INLINE = 0  # depth of program functions running (first call, warm-up, capture, test replay)
@@ -314,44 +339,79 @@ def _clones(outs) -> Tuple[Optional[torch.Tensor], ...]:
 class _CudaGraph:
     """The capture backend on the card: ``torch.cuda.graph`` into the
     solver's pool, on the program's side stream (the one the warm-up ran
-    on, so cuBLAS's workspace for it exists)."""
+    on, so cuBLAS's workspace for it exists), in the program's
+    ``capture_error_mode``."""
 
-    def __init__(self, fn, static_in, pool, stream):
+    def __init__(self, fn, static_in, pool, stream, capture_error_mode: str = "global"):
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode=capture_error_mode):
             self.out = fn(*static_in)
 
     def replay(self) -> None:
         self.graph.replay()
 
 
+def _capture_mode(collective: bool) -> str:
+    """``torch.cuda.graph``'s ``capture_error_mode`` for a capture that
+    issues collectives or none: ``"thread_local"`` where it does (the
+    process group's watchdog thread queries CUDA events while a capture
+    runs, which the default ``"global"`` mode refuses), else the default."""
+    return "thread_local" if collective else "global"
+
+
+def _mesh_key(mesh, axis: str):
+    """What keys a program over ``mesh``: the axis's process group and its
+    size (None without a mesh).  Every rank computes the same key, so every
+    rank captures at the same call."""
+    if mesh is None:
+        return None
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    return group.group_name, dist.get_world_size(group)
+
+
+def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+
 class Program:
     """One captured call: static inputs, the graph, its static outputs and
-    the kernel launches its capture issued (by kernel name).
+    the kernel launches and collectives its capture issued (by name).
 
     The first ``resident`` inputs are read where they lie: the graph holds
     their addresses (``addrs``), no static copy.  ``persistent`` (a
     factorize): the outputs are returned as they are and stay the caller's
     state.  Otherwise (a solve) each call returns clones.
-    ``capture_seconds`` is the warm-up excluded: capture and instantiate."""
+    ``capture_seconds`` is the warm-up excluded: capture and instantiate.
+    ``collective``: the warm-up issued collectives (a mesh program), which
+    the graph then holds; it is captured in ``"thread_local"`` mode."""
 
     def __init__(self, name: str, fn: Callable, static_in, first, *, resident: int,
-                 persistent: bool, pool, stream, hosts=(), fetch: bool = False):
+                 persistent: bool, pool, stream, hosts=(), fetch: bool = False,
+                 collective: bool = False):
         self.name, self.persistent = name, persistent
         self.serial = next(_SERIAL)
         self.addrs = tuple(t.data_ptr() for t in static_in[:resident])
-        before = profiling.launch_counts()
+        self.capture_error_mode = _capture_mode(collective)
+        before, cbefore = profiling.launch_counts(), profiling.collective_counts()
         t0 = time.perf_counter()
         try:
             with _inline():
-                self._graph = (_BACKEND or _CudaGraph)(fn, static_in, pool, stream)
+                if _BACKEND is not None:
+                    self._graph = _BACKEND(fn, static_in, pool, stream)
+                else:
+                    self._graph = _CudaGraph(fn, static_in, pool, stream, self.capture_error_mode)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: capture failed: {e}") from e
         finally:
-            after = profiling.launch_counts()
+            after, cafter = profiling.launch_counts(), profiling.collective_counts()
             profiling._set_launch_counts(before)  # a capture runs nothing
+            profiling._set_collective_counts(cbefore)
         self.capture_seconds = time.perf_counter() - t0
-        self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        self.launches = _delta(after, before)
+        self.collectives = _delta(cafter, cbefore)
         self.static_in = (None,) * resident + tuple(static_in[resident:])
         # host inputs' staging buffers by index, made now (a later call that
         # passes host values where this one passed a tensor makes its own)
@@ -374,7 +434,7 @@ class Program:
                 self._graph.replay()
         except RuntimeError as e:
             raise RuntimeError(f"{self.name}: replay failed: {e}") from e
-        profiling._note_replay(self.launches)
+        profiling._note_replay(self.launches, self.collectives)
         if fetch:
             return self._result(tuple(None if h is None else h.read(t)
                                       for h, t in zip(self.fetched, self.out)))
@@ -414,13 +474,18 @@ class Programs:
         self._token = 0  # bumped whenever the factors are bound to other tensors
 
     def _run(self, owner, name, key, fn, inputs, persistent: bool, capture: bool,
-             resident: int, upload=None, fetch: bool = False):
+             resident: int, upload=None, fetch: bool = False, mesh=None, axis: str = "dp"):
         if upload is None and not all(isinstance(t, torch.Tensor) for t in inputs):
             raise TypeError(f"{name}: a host input needs upload=(device, dtype)")
         if not (capture and _capturable(inputs, _BACKEND, upload)):
             out = fn(owner, *_on_device(inputs, upload))
             return (_fetch(out) if fetch else out), None
+        if mesh is not None and resident:
+            raise ValueError(f"{name}: a mesh program reads no input at its address (the "
+                             "addresses differ between ranks, the capture decision must not)")
         slot = (name, key, _signature(inputs, upload))
+        if mesh is not None:
+            slot += (_mesh_key(mesh, axis),)
         addrs = tuple(t.data_ptr() for t in inputs[:resident])
         prog = self._cache.get(slot)
         last = self._last.pop(slot, (None,))[0]  # the slot's previous call, if it ran eagerly
@@ -442,15 +507,18 @@ class Programs:
         def bound(*xs):
             return fn(snap, *xs)
 
+        issued = profiling.collective_counts()
         with _on(stream), _inline():  # the warm-up, and this call's result
             first = bound(*static_in)
+        collective = profiling.collective_counts() != issued
         if _requires_grad(first):  # autograd recorded the warm-up: nothing is captured
             return first, None
         if self._pool is None and _BACKEND is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = Program(name, bound, static_in, _as_tuple(first), resident=resident,
                        persistent=persistent, pool=self._pool, stream=stream, fetch=fetch,
-                       hosts=[i for i, t in enumerate(inputs) if not isinstance(t, torch.Tensor)])
+                       hosts=[i for i, t in enumerate(inputs) if not isinstance(t, torch.Tensor)],
+                       collective=collective)
         self._cache.pop(slot, None)
         self._cache[slot] = prog
         if self._limit is not None and len(self._cache) > self._limit:
@@ -460,22 +528,26 @@ class Programs:
         return (prog._result(prog.out) if persistent else first), prog
 
     def factorize(self, owner, name: str, key, fn: Callable, *inputs, capture: bool = True,
-                  resident: int = 0, upload=None):
+                  resident: int = 0, upload=None, mesh=None, axis: str = "dp"):
         """``fn(owner, *inputs)`` → the factor tensors (a tuple), captured
         once per key; the factors are the program's static outputs.  The
         first ``resident`` inputs are read where they lie (keyed by their
         addresses, no copy in); a host array among the inputs is uploaded to
-        ``upload = (device, dtype)``."""
-        out, prog = self._run(owner, name, key, fn, inputs, True, capture, resident, upload)
+        ``upload = (device, dtype)``.  ``mesh``/``axis``: the function
+        issues collectives over that mesh axis (on every rank: the program
+        is keyed by the axis's group, and reads no resident input)."""
+        out, prog = self._run(owner, name, key, fn, inputs, True, capture, resident, upload,
+                              mesh=mesh, axis=axis)
         self._bind(prog)
         return out
 
     def solve(self, owner, name: str, key, fn: Callable, *inputs, capture: bool = True,
-              upload=None, fetch: bool = False):
+              upload=None, fetch: bool = False, mesh=None, axis: str = "dp"):
         """``fn(owner, *inputs)`` → fresh tensors, captured once per key and
-        factor state; with ``fetch``, the outputs on the host (NumPy)."""
+        factor state; with ``fetch``, the outputs on the host (NumPy);
+        ``mesh``/``axis`` as for :meth:`factorize`."""
         return self._run(owner, name, (key, self._token), fn, inputs, False, capture, 0,
-                         upload, fetch)[0]
+                         upload, fetch, mesh=mesh, axis=axis)[0]
 
     def drop(self, name: str) -> None:
         """Forget every program named ``name`` (its key's maps went)."""
@@ -538,7 +610,8 @@ class _CudaLoop:
         self.graphs = []
         for fn in (body, init, tail):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode=prog.capture_error_mode):
                 fn()
             self.graphs.append(graph)
         body_g, init_g, tail_g = (g.raw_cuda_graph() for g in self.graphs)
@@ -551,6 +624,71 @@ class _CudaLoop:
     def close(self) -> None:
         self.loop.close()  # the instantiated graph before the pool
         self.graphs = []
+
+
+class _ChunkedLoop:
+    """The loop design for an iteration that holds collectives.  NCCL's
+    captured collectives are refused inside a conditional WHILE body (on 4
+    cards the build of that graph fails with "invalid argument":
+    ``dryrun.probe_graph_collectives``), so such a loop is two plain
+    graphs captured with the program backend (:class:`_CudaGraph` on the
+    card, in the loop's capture mode): the first chunk (``init``, then
+    :data:`LOOP_CHUNK` gated iterations, then ``tail``) and the next chunk
+    (the same without ``init``).  A gated iteration evaluates L1's
+    condition, runs ``body`` and keeps the new state (``buffers`` and
+    ``k``) only where the condition holds, so once the loop is finished an
+    iteration changes nothing, bitwise.  :meth:`LoopProgram.run` launches
+    the first chunk, fetches ``out``, and launches the next chunk until one
+    ran fewer than :data:`LOOP_CHUNK` iterations or ``k`` reached
+    ``max_iters`` (:func:`loop_chunks`): one launch and one fetch a chunk."""
+
+    def __init__(self, init, body, tail, prog, pool, stream):
+        from .ops.graph_loop import loop_condition
+
+        state = tuple(prog.buffers) + (prog.k,)
+
+        def gated():
+            cond = loop_condition(prog.done, prog.k, prog.max_iters)
+            prog.count.add_(1)
+            old = [t.clone() for t in state]
+            body()
+            torch._foreach_copy_(list(state), [torch.where(cond, t, o) for t, o in zip(state, old)])
+
+        def chunk(first):
+            def run():
+                if first:
+                    init()
+                for _ in range(LOOP_CHUNK):
+                    gated()
+                tail()
+                return prog.out
+            return run
+
+        before, issued = profiling.launch_counts(), profiling.collective_counts()
+        try:
+            with _inline():
+                self.graphs = [
+                    _BACKEND(chunk(first), (), pool, stream) if _BACKEND is not None
+                    else _CudaGraph(chunk(first), (), pool, stream, prog.capture_error_mode)
+                    for first in (True, False)
+                ]
+        finally:  # L1's launches outside the parts' counts: a capture runs nothing
+            profiling._set_launch_counts(before)
+            profiling._set_collective_counts(issued)
+
+    def replay(self, first: bool) -> None:
+        with _inline():  # a test backend's replay runs the functions again
+            self.graphs[0 if first else 1].replay()
+
+    def close(self) -> None:
+        self.graphs = []
+
+
+def loop_chunks(iterations: int, max_iters: int) -> int:
+    """The chunks a chunked loop (:class:`_ChunkedLoop`) launches for a run
+    of ``iterations``: until a chunk runs fewer than :data:`LOOP_CHUNK`
+    iterations or the loop reaches ``max_iters``."""
+    return min(iterations // LOOP_CHUNK + 1, -(-max_iters // LOOP_CHUNK))
 
 
 def _held_tensors(fns) -> Tuple[torch.Tensor, ...]:
@@ -612,32 +750,42 @@ class LoopProgram:
 
     :meth:`run` is a whole loop from new inputs: one launch followed by one
     fetch of ``out``.  ``capture_seconds``: the three captures and the
-    build, the warm-up excluded."""
+    build, the warm-up excluded.  ``collective``: the warm-up issued
+    collectives (a ``reduce=`` fit over a mesh), which the graphs then hold:
+    captured in ``"thread_local"`` mode, counted per part as the launches
+    are, and run as chunks (:class:`_ChunkedLoop`: a launch and a fetch a
+    chunk); ``reads`` is the last run's fetches."""
 
     def __init__(self, name: str, init: Callable, body: Callable, tail: Callable, static_in,
                  done: torch.Tensor, k: torch.Tensor, count: torch.Tensor, out: torch.Tensor,
-                 max_iters: int, held, pool, stream, buffers=()):
+                 max_iters: int, held, pool, stream, buffers=(), collective: bool = False):
         self.name, self.static_in, self.max_iters = name, tuple(static_in), int(max_iters)
         self.buffers = tuple(buffers)
         self.done, self.k, self.count, self.out = done, k, count, out
         self.held, self.held_signature = tuple(held), _held_signature(held)
         self.log = torch.full((self.max_iters + 1,), -1, dtype=torch.int32, device=done.device)
+        self.capture_error_mode = _capture_mode(collective)
+        self.chunked, self.reads = collective, 0
         self.launches: Dict[str, Dict[str, int]] = {}
+        self.collectives: Dict[str, Dict[str, int]] = {}
 
         def counted(part, fn):
             def run():
-                before = profiling.launch_counts()
+                before, cbefore = profiling.launch_counts(), profiling.collective_counts()
                 try:
                     fn()
                 finally:
-                    after = profiling.launch_counts()
+                    after, cafter = profiling.launch_counts(), profiling.collective_counts()
                     profiling._set_launch_counts(before)  # a capture runs nothing
-                self.launches[part] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+                    profiling._set_collective_counts(cbefore)
+                self.launches[part] = _delta(after, before)
+                self.collectives[part] = _delta(cafter, cbefore)
             return run
 
         t0 = time.perf_counter()
+        design = _ChunkedLoop if collective else (_LOOP_BACKEND or _CudaLoop)
         try:
-            self._loop = (_LOOP_BACKEND or _CudaLoop)(
+            self._loop = design(
                 counted("init", init), counted("body", body), counted("tail", tail), self, pool, stream)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: capture failed: {e}") from e
@@ -645,24 +793,39 @@ class LoopProgram:
 
     def run(self, inputs):
         """The loop from ``inputs`` (copied into the static inputs) to its
-        end: one launch, one fetch; returns ``out`` on the host (NumPy).
-        Raises if L1's count of its evaluations is not one more than the
-        iterations (a loop whose condition did not run as built)."""
+        end: one launch, one fetch (a chunked loop: one of each a chunk);
+        returns ``out`` on the host (NumPy).  Raises if L1's count of its
+        evaluations is not one more than the iterations (chunked: one a
+        gated iteration), a loop whose condition did not run as built."""
         _copy_in(self.static_in, inputs)
+        chunks = 0
         try:
-            self._loop.launch()
+            while True:
+                if self.chunked:
+                    self._loop.replay(first=chunks == 0)
+                else:
+                    self._loop.launch()
+                chunks += 1
+                host = self.out.cpu().numpy()  # the fetch
+                iterations = int(host[-2])
+                if not self.chunked or loop_chunks(iterations, self.max_iters) <= chunks:
+                    break
         except RuntimeError as e:
             raise RuntimeError(f"{self.name}: launch failed: {e}") from e
-        host = self.out.cpu().numpy()  # the one fetch
-        iterations, evaluations = int(host[-2]), int(host[-1])
-        if evaluations != iterations + 1:
+        self.reads = chunks
+        evaluations = int(host[-1])
+        want = chunks * LOOP_CHUNK if self.chunked else iterations + 1
+        if evaluations != want:
             raise RuntimeError(f"{self.name}: L1 evaluated the loop condition {evaluations} times "
-                               f"in {iterations} iterations (want {iterations + 1})")
+                               f"in {iterations} iterations (want {want})")
+        body = evaluations if self.chunked else iterations
         launches: Dict[str, int] = {"graph_loop_cond": evaluations}
-        for part, times in (("init", 1), ("body", iterations), ("tail", 1)):
-            for name, n in self.launches.get(part, {}).items():
-                launches[name] = launches.get(name, 0) + n * times
-        profiling._note_replay(launches)
+        collectives: Dict[str, int] = {}
+        for part, times in (("init", 1), ("body", body), ("tail", chunks)):
+            for counts, held in ((launches, self.launches), (collectives, self.collectives)):
+                for name, n in held.get(part, {}).items():
+                    counts[name] = counts.get(name, 0) + n * times
+        profiling._note_replay(launches, collectives, replays=chunks)
         return host
 
     def close(self) -> None:
@@ -711,12 +874,14 @@ class Loops:
         functions whose held tensors the loop reads; ``buffers``: the state
         tensors the loop updates in place (both kept alive with it)."""
         stream = _side_stream(done.device) if _LOOP_BACKEND is None else None
+        issued = profiling.collective_counts()
         with _on(stream):
             body()
+        collective = profiling.collective_counts() != issued
         if self._pool is None and _LOOP_BACKEND is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = LoopProgram(name, init, body, tail, static_in, done, k, count, out, max_iters,
-                           _held_tensors(reads), self._pool, stream, buffers)
+                           _held_tensors(reads), self._pool, stream, buffers, collective)
         old = self._cache.pop(key, None)
         if old is not None:
             old.close()

@@ -17,9 +17,19 @@ result on the same inputs:
    points and 2 cameras (100,000 by default, the reference's documented
    one-chip ceiling); it must descend.
 
+Then every ``mesh=`` path that the reference runs as one SPMD program runs
+as a captured program (:func:`program_checks`, held by
+:func:`check_pins`): per rank, a warm call is one replay, bitwise the same
+call under ``_program.eager()``, with the same collectives, rank 0's result
+on every rank and ``mesh=None``'s within :func:`_check_close`; the
+``reduce=`` bundle fit is one loop launch.  On the card the run starts with
+:func:`probe_graph_collectives` (collectives inside a graph and inside a
+WHILE node's body), times every path captured against eager and each
+collective eager against captured (:func:`time_collectives`).
+
 Run::
 
-    python -m qrkit_tpu_torch.dryrun --ranks N --device cpu|cuda
+    python -m qrkit_tpu_torch.dryrun --ranks N --device cpu|cuda [--widths small|full]
 
 It spawns N processes that meet through a ``FileStore`` under ``build/``
 (gloo on the CPU, NCCL on the card, one card per rank) and opens no network
@@ -33,6 +43,7 @@ import collections
 import contextlib
 import datetime
 import functools
+import gc
 import json
 import os
 import sys
@@ -43,37 +54,29 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import _device
+from . import _device, _program, profiling
 from .parallel.mesh import all_reduce_sum, default_mesh, mesh_rank, shard_bounds, shard_leading_axis
 
-__all__ = ["count_collectives", "init_rank", "launch", "mesh_cases", "run_steps"]
+__all__ = ["count_collectives", "init_rank", "launch", "mesh_cases", "program_checks",
+           "release_programs", "run_steps"]
 
 RANK_TIMEOUT_S = 300  # a collective that waits longer raises (a deadlock surfaces as an error)
-_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter",
-                "reduce_scatter_tensor", "broadcast", "all_to_all", "all_to_all_single", "reduce",
-                "gather", "scatter", "barrier")
 
 
 @contextlib.contextmanager
 def count_collectives():
-    """The ``torch.distributed`` collectives the block calls, by name (a
-    ``Counter``)."""
+    """The collectives the block issues through
+    :mod:`~qrkit_tpu_torch.parallel.mesh`, by ``torch.distributed`` name (a
+    ``Counter``, filled when the block ends); a replay of a captured
+    program counts the collectives its graph holds, as the eager call
+    issues them."""
     calls = collections.Counter()
-    saved = {name: getattr(dist, name) for name in _COLLECTIVES}
-
-    def counting(name, fn):
-        def call(*args, **kwargs):
-            calls[name] += 1
-            return fn(*args, **kwargs)
-        return call
-
-    for name, fn in saved.items():
-        setattr(dist, name, counting(name, fn))
+    before = profiling.collective_counts()
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(dist, name, fn)
+        after = profiling.collective_counts()
+        calls.update({k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)})
 
 
 # --- ranks --------------------------------------------------------------------------
@@ -94,6 +97,23 @@ def init_rank(rank: int, world: int, device, store_path: str):
     return default_mesh(device=dev)
 
 
+def release_programs() -> None:
+    """Drop the captured programs this process holds in module caches (the
+    mesh paths' and the LM loops'; a solver's go with it) and collect them.
+    NCCL destroys a communicator only once no graph holding its collectives
+    is left: release before ``destroy_process_group``."""
+    from . import functional, lm
+    from .examples import bundle, ellipse
+
+    functional.clear_programs()
+    ellipse._MESH_STEP_PROGRAMS.clear()
+    bundle._make_damped_step.cache_clear()
+    bundle._mesh_fit_fns.cache_clear()
+    lm.clear_programs()
+    gc.collect()
+    profiling._sync()
+
+
 def _rank_main(rank, fn, world, device, store_path, args):
     if _device.resolve(device).type == "cpu":
         torch.set_num_threads(2)
@@ -101,6 +121,7 @@ def _rank_main(rank, fn, world, device, store_path, args):
     try:
         fn(mesh, *args)
     finally:
+        release_programs()
         dist.destroy_process_group()
 
 
@@ -267,12 +288,596 @@ def run_steps(mesh, bundle_points: int = 100_000, dtype=torch.float64, axis: str
     }
 
 
-def _steps_worker(mesh, bundle_points: int):
-    rank = mesh_rank(mesh)[0]
-    out = run_steps(mesh, bundle_points)
-    if rank == 0:
-        for name, res in out.items():
-            print(json.dumps({"step": name, **res}), flush=True)
+def _steps_worker(mesh, bundle_points: int, widths: str, reps: int):
+    """A rank of the command line: on the card the probe first (a failed
+    probe stops the run), then the four steps, then every mesh path as a
+    captured program (:func:`program_checks`, held by :func:`check_pins`,
+    the same on every rank) and the collectives' costs, eager against
+    captured.  Rank 0 prints one JSON line each."""
+    rank, world = mesh_rank(mesh)
+    cuda = mesh.device_type == "cuda"
+    say = (lambda obj: print(json.dumps(obj), flush=True)) if rank == 0 else (lambda obj: None)
+    if cuda:
+        probe = probe_graph_collectives(mesh)
+        say({"probe": probe})
+        if not probe["plain"]["ok"]:
+            raise RuntimeError(f"rank {rank}: collectives inside a graph: {probe}")
+    for name, res in run_steps(mesh, bundle_points).items():
+        say({"step": name, **res})
+    dtype = torch.float32 if cuda else torch.float64
+    res = program_checks(mesh, program_inputs(world, widths), dtype, timed_reps=reps if cuda else 0)
+    for label, r in check_pins(res, dtype, captured=cuda, fetch_reads=int(cuda)).items():
+        say({"path": label, "world": world, "dtype": str(dtype), **r})
+    _same_on_every_rank(mesh, res)
+    if cuda:
+        say({"collectives": time_collectives(mesh, reps=max(reps, 20))})
+
+
+def check_pins(res: dict, dtype, captured: bool = True, fetch_reads: int = 0) -> dict:
+    """Hold :func:`program_checks`' results to the contract (raises
+    AssertionError): each path's first call ran eagerly; a warm call is one
+    replay (two for the sparse-A2 recompute: the left's and its own), at
+    most 3 ATen ops outside it (6 for the recompute), no host read (a
+    sparse product's fetch: ``fetch_reads``) and no host-issued launch; it
+    equals the same call under ``_program.eager()`` bitwise, issues the
+    same collectives, and agrees with ``mesh=None`` (:func:`_check_close`);
+    the ``reduce=`` fit is one launch and one host read a chunk of its
+    chunked loop (``_program.loop_chunks``), bitwise the eager loop's, its
+    collectives the eager loop's and those of the gated iterations past the
+    end.
+    Without ``captured`` (the CPU, where every call runs
+    eagerly) only the results are held.  Returns the printable fields by
+    path."""
+    out = {}
+    for label, r in res.items():
+        if "error" in r:
+            raise AssertionError(f"{label}: {r['error']}")
+        printable = {k: v for k, v in r.items() if not isinstance(v, torch.Tensor)}
+        same = r["collectives_replay"] == r["collectives_eager"]
+        if label == "bundle.fit_reduce":
+            chunks = _program.loop_chunks(r["iterations"], FIT_CFG_ITERS)
+            same = r["collectives_replay"] == r["collectives_expected"]
+            ok = r["bitwise_equal_eager"] and (not captured or (
+                r["programs"] == chunks and r["lm_host_reads"] == chunks))
+        else:
+            recompute = label == "block_angular_sparse_a2.compute"
+            reads = fetch_reads if label.endswith("_sparse") else 0
+            ok = r["bitwise_equal_eager"] and (not captured or (
+                r["first_programs"] == 0 and r["programs"] == 1 + recompute
+                and r["ops"] <= (6 if recompute else 3) and r["host_reads"] == reads
+                and r["host_launches"] == 0))
+            printable["max_abs_diff_none"] = _check_close(label, r["value"], r["none"], dtype)
+        if not (ok and same):
+            raise AssertionError(f"{label}: outside the contract: {printable}")
+        out[label] = printable
+    return out
+
+
+def _same_on_every_rank(mesh, res: dict, axis: str = "dp") -> None:
+    """Raise unless every path's value is rank 0's, bitwise (one broadcast a
+    path)."""
+    group = mesh.get_group(axis)
+    for label, r in res.items():
+        for key in ("value", "x"):
+            if key in r:
+                v = r[key].to(mesh.device_type).contiguous()
+                first = v.clone()
+                dist.broadcast(first, src=dist.get_global_rank(group, 0), group=group)
+                if not torch.equal(first, v):
+                    raise AssertionError(f"{label}: rank {dist.get_rank(group)} differs from rank 0")
+
+
+def time_collectives(mesh, reps: int = 50, axis: str = "dp") -> dict:
+    """µs per collective on this rank, eager against captured: each between
+    CUDA events on the current stream, the median of ``reps`` (the captured
+    one a replay of a graph holding it alone, captured after a warm-up, in
+    ``"thread_local"`` mode).  The widths: ``all_gather_into_tensor`` of
+    the TSQR stack of the bundle step ([12, 13] float32 a rank) and of
+    config 3's CAQR R factors at 80 segments ([80/world, 8, 8]);
+    ``all_reduce`` of a scalar (an LM cost) and of the bundle fit's
+    gradient at 20,000 points × 8 cameras ([60,048])."""
+    group = mesh.get_group(axis)
+    world = dist.get_world_size(group)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def gather(n):
+        x, out = torch.ones(n, **f32), torch.empty(world * n, **f32)
+        return lambda: dist.all_gather_into_tensor(out, x, group=group)
+
+    def reduce(n):
+        x = torch.ones(n, **f32) if n else torch.ones((), **f32)
+        return lambda: dist.all_reduce(x, group=group)
+
+    cases = {"all_gather_into_tensor_tsqr_156": gather(12 * 13),
+             f"all_gather_into_tensor_caqr_{80 // world * 64}": gather(80 // world * 64),
+             "all_reduce_scalar": reduce(0), "all_reduce_60048": reduce(60_048)}
+    stream = torch.cuda.Stream(device=dev)
+    out = {}
+    for label, fn in cases.items():
+        fn()
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            fn()
+        times = {}
+        for kind, run in (("eager", fn), ("captured", graph.replay)):
+            run()
+            events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                      for _ in range(reps)]
+            for start, end in events:
+                start.record()
+                run()
+                end.record()
+            torch.cuda.synchronize(dev)
+            times[f"{kind}_us"] = float(np.median([s.elapsed_time(e) for s, e in events])) * 1e3
+        out[label] = times
+        del graph
+    return out
+
+
+# --- the probe: collectives inside captured graphs -------------------------------------
+def probe_graph_collectives(mesh, axis: str = "dp", n: int = 4096, max_iters: int = 10) -> dict:
+    """Whether NCCL collectives captured into CUDA graphs run as recorded,
+    on every rank of ``mesh`` (one card each; the loop part decided the
+    design of a loop that holds collectives: on 4 cards the WHILE graph's
+    build refuses NCCL's nodes, so such loops run as chunks of plain
+    graphs, ``_program._ChunkedLoop``):
+
+    * ``plain``: one graph holding an ``all_reduce`` of ``[n]`` and an
+      ``all_gather_into_tensor`` of ``[n]`` per rank, captured with
+      ``capture_error_mode="thread_local"`` and replayed on new data;
+    * ``loop``: an ``all_reduce`` of one value inside the body of a
+      conditional WHILE node (:class:`~qrkit_tpu_torch.ops.graph_loop.LoopGraph`):
+      the body adds the all-reduced 1 to an accumulator and sets ``done``
+      once it reaches 3·world, so the loop must stop after 3 iterations on
+      every rank, with 4 evaluations of its condition.
+
+    Returns ``{part: {"ok": bool, ...}}`` (an error as its message)."""
+    from .ops.graph_loop import LoopGraph
+
+    group = mesh.get_group(axis)
+    rank, world = mesh_rank(mesh, axis)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    stream = torch.cuda.Stream(device=dev)
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.full((n,), float(rank + 1), device=dev)
+    red, gathered = torch.empty(n, device=dev), torch.empty(world * n, device=dev)
+
+    def collectives():
+        red.copy_(x)
+        dist.all_reduce(red, group=group)
+        dist.all_gather_into_tensor(gathered, x, group=group)
+
+    try:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            collectives()  # the warm-up, on every rank
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            collectives()
+        x.fill_(rank + 2.0)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        want_red = float(sum(r + 2 for r in range(world)))
+        want_gather = torch.arange(world, device=dev, dtype=torch.float32).repeat_interleave(n) + 2.0
+        out["plain"] = dict(ok=bool((red == want_red).all()) and bool(torch.equal(gathered, want_gather)))
+    except Exception as e:  # reported, not raised: the probe decides a design
+        out["plain"] = dict(ok=False, error=f"{type(e).__name__}: {e}")
+
+    acc = torch.zeros(1, device=dev)
+    one = torch.ones(1, device=dev)
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    log = torch.full((max_iters + 1,), -1, dtype=torch.int32, device=dev)
+    res = torch.zeros(3, device=dev)
+
+    def init():
+        acc.zero_()
+        k.zero_()
+        count.zero_()
+        done.zero_()
+
+    def body():
+        t = one.clone()
+        dist.all_reduce(t, group=group)
+        acc.add_(t)
+        k.add_(1)
+        done.copy_(acc >= 3.0 * world)
+
+    def tail():
+        res.copy_(torch.cat([acc, k.float()[None], count.float()[None]]))
+
+    try:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            body()  # the warm-up
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graphs = []
+        for fn in (body, init, tail):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                fn()
+            graphs.append(g)
+        body_g, init_g, tail_g = (g.raw_cuda_graph() for g in graphs)
+        loop = LoopGraph(init_g, body_g, tail_g, done, k, max_iters, count, log)
+        runs = []
+        for _ in range(2):
+            loop.launch()
+            torch.cuda.synchronize(dev)
+            runs.append(res.tolist())
+        loop.close()
+        ok = all(r == [3.0 * world, 3.0, 4.0] for r in runs)
+        out["loop"] = dict(ok=ok, runs=runs)
+    except Exception as e:
+        out["loop"] = dict(ok=False, error=f"{type(e).__name__}: {e}")
+    return out
+
+
+def _probe_worker(mesh):
+    res = probe_graph_collectives(mesh)
+    print(json.dumps({"probe": res, "rank": mesh_rank(mesh)[0]}), flush=True)
+
+
+# --- the mesh paths as captured programs -----------------------------------------------
+# the sizes of program_checks: "small" for the CPU tests, "full" the card's
+# widths (chip_smoke.py's mesh phase: config 2 at 10,000 and 1,000,000 blocks
+# of 7×2, config 3's 40×8 blocks in segments of 32, config 4 at N = 100,000,
+# the lane-major ellipse step at 100,000 points, the bundle step at 100,000
+# points × 2 cameras and the bundle device fit at 20,000 points × 8 cameras)
+PROGRAM_SIZES = {
+    "small": dict(bd_nb=(16,), pivot=True, seg=(64, 10, 4, 2, 8, 4), ba_n=16, ba_m2=4,
+                  ellipse_n=32, step_p=16, fit=(8, 2, 0.0, 9)),
+    "full": dict(bd_nb=(10_000, 1_000_000), pivot=False, seg=(2499, 40, 8, 4, 32, 8),
+                 ba_n=100_000, ba_m2=5, ellipse_n=100_000, step_p=100_000,
+                 fit=(20_000, 8, 1e-3, 3)),
+}
+PROGRAM_WARM = 3  # calls before the counted one: eager, warm-up + capture, first replay
+FIT_CFG_ITERS = 40
+
+
+def _tiled_blocks(nb: int, segment_blocks: int, world: int) -> int:
+    """The least block count >= ``nb`` whose segments tile ``world`` ranks
+    (config 3's 2,499 blocks make 79 segments of 32, which tile one rank)."""
+    tile = segment_blocks * world
+    return nb if -(-nb // segment_blocks) % world == 0 else -(-nb // tile) * tile
+
+
+def _banded(rng, nb, br, bc, ov):
+    """A row-sorted banded matrix: ``nb`` blocks of ``br×bc`` overlapping
+    ``ov`` columns, uniform(0.5, 5) values."""
+    from .sparse import SparseCSR
+
+    step = bc - ov
+    ncols = step * nb + ov
+    i, r, c = np.meshgrid(np.arange(nb), np.arange(br), np.arange(bc), indexing="ij")
+    rows, cols = (i * br + r).ravel(), (i * step + c).ravel()
+    keep = cols < ncols
+    vals = rng.uniform(0.5, 5.0, size=rows.size)
+    return SparseCSR.from_triplets(rows[keep], cols[keep], vals[keep], (br * nb, ncols))
+
+
+def _sparse_cols(rng, nrows: int, ncols: int, keep: float = 0.4):
+    """A host CSR ``[nrows, ncols]``: normal values, ``keep`` of them kept,
+    the leading diagonal always (no empty column)."""
+    from .sparse import SparseCSR
+
+    dense = np.where(rng.random((nrows, ncols)) < keep, rng.normal(size=(nrows, ncols)), 0.0)
+    dense[np.arange(ncols), np.arange(ncols)] = 1.0
+    return SparseCSR.from_dense(dense)
+
+
+def program_inputs(world: int, size: str = "small", seed: int = 0) -> dict:
+    """The host inputs of :func:`program_checks` for ``world`` ranks, made
+    with NumPy from ``seed`` (the CPU tests rebuild them for the
+    reference)."""
+    from .examples.bundle import make_scene
+    from .examples.ellipse import Ellipse, ellipse_points
+
+    sz = PROGRAM_SIZES[size]
+    rng = np.random.default_rng(seed)
+    inp = {"bd_nb": sz["bd_nb"], "pivot": sz["pivot"]}
+    for nb in sz["bd_nb"]:
+        inp[f"bd{nb}"] = (rng.uniform(0.5, 5.0, size=(nb, 7, 2)), rng.normal(size=nb * 7))
+    nb, br, bc, ov, L, sbc = sz["seg"]
+    seg = _banded(rng, _tiled_blocks(nb, L, world), br, bc, ov)
+    inp["seg"] = (seg, rng.normal(size=seg.nrows), rng.normal(size=seg.ncols),
+                  _sparse_cols(rng, seg.nrows, 5), (br, bc, ov, L, sbc))
+    n, m2 = sz["ba_n"], sz["ba_m2"]
+    blocks = rng.uniform(0.5, 5.0, size=(n, 2, 1))
+    a2 = rng.uniform(0.5, 5.0, size=(2 * n, m2))
+    inp["ba"] = (blocks, a2, _sparse_cols(rng, 2 * n, m2), rng.normal(size=2 * n))
+    inp["tsqr"] = (rng.normal(size=(16 * world + 3, 7)), rng.normal(size=16 * world + 3))
+    n = sz["ellipse_n"] - sz["ellipse_n"] % world
+    inp["ellipse"] = ellipse_points(Ellipse(), n)
+    p = sz["step_p"] - sz["step_p"] % world
+    cams, pts3d, uv = make_scene(n_cams=2, n_pts=p, noise=0.0, seed=4)
+    prng = np.random.default_rng(5)
+    x0 = np.concatenate([(pts3d + 0.05 * prng.normal(size=pts3d.shape)).ravel(),
+                         (cams + 0.02 * prng.normal(size=cams.shape)).ravel()])
+    inp["step"] = (x0, uv)
+    p, c, noise, scene_seed = sz["fit"]
+    p -= p % world
+    cams, pts3d, uv = make_scene(n_cams=c, n_pts=p, noise=noise, seed=scene_seed)
+    prng = np.random.default_rng(7)
+    inp["fit"] = (cams + 0.02 * prng.normal(size=cams.shape),
+                  pts3d + 0.02 * prng.normal(size=pts3d.shape), uv)
+    return inp
+
+
+def _program_paths(mesh, inp: dict, dtype, axis: str = "dp"):
+    """The captured mesh paths: ``[(label, call, read, none)]`` where
+    ``call()`` is the counted call on the mesh, ``read(out)`` the tensor it
+    is held to (a factorize: what it left), ``none()`` the same on one
+    device (``mesh=None``, eager).  Setup calls (the computes a solve
+    reads) run here, on every rank."""
+    from . import functional
+    from .containers import BlockDiagonal, BlockMatrix1x2
+    from .examples import bundle, ellipse
+    from .parallel import TSQRDenseQR
+    from .solvers import BlockAngularQR, BlockDiagonalQR, QFormat, SegmentedBandedQR
+
+    world = mesh_rank(mesh, axis)[1]
+    dev = mesh.device_type
+    T = functools.partial(torch.as_tensor, dtype=dtype, device=dev)
+    same = lambda out: out  # noqa: E731
+    paths = []
+
+    def blockdiag(nb, pivot):
+        blocks, b = inp[f"bd{nb}"]
+        mat = BlockDiagonal.from_dense_batch(T(blocks))
+        bt = T(b)
+        make = functools.partial(BlockDiagonalQR, QFormat.FULL_Q, pivot,
+                                 use_kernel=False if pivot else True)
+        qm, qn = make(mesh=mesh, axis=axis), make()
+        qm.compute(mat)
+        qn.compute(mat)
+        if pivot:  # the batched tier: its solve is eager glue, with a mesh or without
+            return [(f"blockdiag{nb}_pivot.compute", lambda: qm.compute(mat),
+                     lambda _: qm.r_diagonal(), qn.r_diagonal)]
+        return [(f"blockdiag{nb}.compute", lambda: qm.compute(mat), lambda _: qm.r_diagonal(),
+                 qn.r_diagonal),
+                (f"blockdiag{nb}.solve", lambda: qm.solve(bt), same, lambda: qn.solve(bt))]
+
+    for nb in inp["bd_nb"]:
+        paths += blockdiag(nb, False)
+    if inp["pivot"]:
+        paths += blockdiag(inp["bd_nb"][0], True)
+
+    spj, b_np, v_np, sop, (br, bc, ov, L, sbc) = inp["seg"]
+    make = functools.partial(SegmentedBandedQR, suggested_block_cols=sbc, segment_blocks=L,
+                             use_kernel=True, device=dev, dtype=dtype)
+    sm, sn = make(mesh=mesh, axis=axis).compute(spj), make().compute(spj)
+    vals = T(spj.data * 1.5)
+    sn.factorize_values(vals)
+    b, y = T(b_np), T(v_np)
+    paths += [
+        ("segmented.factorize_values", lambda: sm.factorize_values(vals), lambda _: sm.r_diagonal(),
+         sn.r_diagonal),
+        ("segmented.solve", lambda: sm.solve(b), same, lambda: sn.solve(b)),
+        ("segmented.apply_qt", lambda: sm.apply_qt(b), same, lambda: sn.apply_qt(b)),
+        ("segmented.apply_q", lambda: sm.apply_q(b), same, lambda: sn.apply_q(b)),
+        ("segmented.solve_r", lambda: sm.solve_r(y), same, lambda: sn.solve_r(y)),
+        ("segmented.apply_qt_sparse", lambda: sm.apply_qt_sparse(sop), _csr_values,
+         lambda: sn.apply_qt_sparse(sop)),
+        ("segmented.apply_q_sparse", lambda: sm.apply_q_sparse(sop), _csr_values,
+         lambda: sn.apply_q_sparse(sop)),
+    ]
+
+    blocks, a2, a2_sparse, b_np = inp["ba"]
+    n = blocks.shape[0]
+    left = BlockDiagonal(T(blocks), 2 * n, n)
+    bt = T(b_np)
+
+    def angular(m, right):
+        return BlockAngularQR(BlockDiagonalQR(QFormat.FULL_Q, pivot=False, mesh=m, axis=axis,
+                                              use_kernel=True),
+                              right(m), mesh=m, axis=axis)
+
+    tsqr_right = lambda m: TSQRDenseQR(world, mesh=m, axis=axis)  # noqa: E731
+    sparse_mat = BlockMatrix1x2(left, a2_sparse)
+    am, an = angular(mesh, tsqr_right), angular(None, tsqr_right)
+    an.compute(sparse_mat)
+    am.compute(sparse_mat)
+    paths.append(("block_angular_sparse_a2.compute", lambda: am.compute(sparse_mat),
+                  lambda _: am.r_diagonal(), an.r_diagonal))
+    paths.append(("block_angular_sparse_a2.solve", lambda: am.solve(bt), same,
+                  lambda: an.solve(bt)))
+    dense_mat = BlockMatrix1x2(left, T(a2))
+    dm, dn = angular(mesh, tsqr_right), angular(None, tsqr_right)
+    for _ in range(PROGRAM_WARM):  # the children's factorize programs captured
+        dm.compute(dense_mat)
+    dn.compute(dense_mat)
+    paths.append(("block_angular_tsqr.solve", lambda: dm.solve(bt), same, lambda: dn.solve(bt)))
+
+    A_np, v_np = inp["tsqr"]
+    A, v = T(A_np), T(v_np)
+    tm, tn = TSQRDenseQR(world, mesh=mesh, axis=axis), TSQRDenseQR(world)
+    tm.compute(A)
+    tn.compute(A)
+    paths += [
+        ("tsqr.compute", lambda: tm.compute(A), lambda _: tm.matrix_r_dense(), tn.matrix_r_dense),
+        ("tsqr.apply_qt", lambda: tm.apply_qt(v), same, lambda: tn.apply_qt(v)),
+        ("tsqr.apply_q", lambda: tm.apply_q(v), same, lambda: tn.apply_q(v)),
+        ("tsqr.solve_r", lambda: tm.solve_r(v[:7]), same, lambda: tn.solve_r(v[:7])),
+    ]
+
+    pts_np = inp["ellipse"]
+    npts = pts_np.shape[1]
+    f = ellipse.EllipseFitting(pts_np, dtype=dtype, device=dev)
+    params, pts = f.initial_params(), f.pts
+    lam = torch.tensor(1e-3, dtype=dtype, device=dev)
+    res = ellipse._residuals(params, pts)
+    left_d, right_d, rhs = ellipse._damped_system(*ellipse._jacobian_blocks(params, pts), res, lam)
+    lo, hi = shard_bounds(npts, mesh, axis)
+    own = lambda t: torch.cat([t[3 * lo : 3 * hi], t[3 * npts :]])  # noqa: E731
+    lb, rr, rv = left_d[lo:hi].contiguous(), own(right_d), own(rhs)
+    paths.append(("functional.block_angular_lstsq",
+                  lambda: functional.block_angular_lstsq(lb, rr, rv, n_shards=world, tail=5,
+                                                         mesh=mesh, axis=axis), same,
+                  lambda: functional.block_angular_lstsq(left_d, right_d, rhs, n_shards=world,
+                                                         tail=5)))
+    paths.append(("ellipse._damped_step_aux",
+                  lambda: ellipse._damped_step_aux(params, res, lam, pts, mesh=mesh, axis=axis),
+                  same, lambda: ellipse._damped_step_aux(params, res, lam, pts)))
+
+    x0_np, uv_np = inp["step"]
+    x0, uv = T(x0_np), T(uv_np)
+    uv_own = shard_leading_axis(uv, mesh, axis)
+    r_own = bundle._residuals_own(x0, uv_own, mesh=mesh, axis=axis)
+    rb = bundle.residuals(x0, uv)
+    step_m, step_n = bundle._make_damped_step(world, mesh, axis), bundle._make_damped_step(1)
+    paths.append(("bundle._damped_step", lambda: step_m(x0, r_own, lam, uv_own), same,
+                  lambda: step_n(x0, rb, lam, uv)))
+    return paths
+
+
+def _csr_values(s) -> torch.Tensor:
+    """A sparse product's values and pattern as one float64 tensor."""
+    return torch.as_tensor(np.concatenate([s.indptr, s.indices, s.data]).astype(np.float64))
+
+
+def _wall_and_stream_ms(call, reps: int):
+    """(wall ms, stream ms) per call: the host clock over ``reps`` calls
+    back to back ending in a synchronize, and the median of CUDA events
+    recorded around each call of another ``reps`` (the stream's time from
+    the call's first enqueued work to its last)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    return wall, float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def _eager(call):
+    def run():
+        with _program.eager():
+            return call()
+    return run
+
+
+def _pin(call, read, none, timed_reps: int = 0) -> dict:
+    """One captured path on this rank: the first call (eager: no program,
+    the collectives' communicator already made), the warm-up + capture, the
+    first replay, then a counted warm call (replays, ATen ops, host reads,
+    host-issued launches, collectives) against the same call under
+    ``_program.eager()`` (bitwise, and the same collectives); the
+    ``mesh=None`` value beside it.  With ``timed_reps`` (the card), wall and
+    stream ms per call, captured against eager, in the rounds captured,
+    eager, eager, captured."""
+    with profiling.count_dispatches() as first:
+        call()
+    t0 = time.perf_counter()
+    call()
+    profiling._sync()
+    capture_s = time.perf_counter() - t0
+    call()
+    with count_collectives() as replayed, profiling.count_dispatches() as d:
+        out = call()
+    value = read(out).detach().clone()
+    with count_collectives() as issued:
+        eager_out = _eager(call)()
+    eager = read(eager_out).detach().clone()
+    call()  # a factorize's factors back on its program's outputs, which later solves read
+    res = dict(first_programs=first.programs, programs=d.programs, ops=d.ops,
+               host_reads=d.host_reads, host_launches=sum(d.host_launches.values()),
+               launches={k: v for k, v in d.launches.items() if v},
+               collectives_replay=dict(replayed), collectives_eager=dict(issued),
+               bitwise_equal_eager=bool(torch.equal(value, eager)), value=value,
+               none=read(none()).detach().clone(), capture_call_s=capture_s)
+    if timed_reps:
+        times = {"captured": [], "eager": []}
+        for kind in ("captured", "eager", "eager", "captured"):
+            times[kind].append(_wall_and_stream_ms(call if kind == "captured" else _eager(call),
+                                                   timed_reps))
+        for kind, ts in times.items():
+            res[f"{kind}_wall_ms"] = float(np.mean([t[0] for t in ts]))
+            res[f"{kind}_stream_ms"] = float(np.mean([t[1] for t in ts]))
+    return res
+
+
+def _fit_pin(mesh, inp: dict, dtype, axis: str = "dp", timed_reps: int = 0) -> dict:
+    """The ``reduce=`` LM loop (``fit_bundle_device(mesh=)``): two fits
+    (the first runs iteration 1 eagerly, captures and launches the loop),
+    then a counted warm fit (graph launches: the chunks of its chunked
+    loop; host reads: the LM driver's count) against the eager loop
+    (``_program.eager()``), bitwise in x, cost and iterations.  With
+    ``timed_reps``, wall ms per fit, captured against eager, in the rounds
+    captured, eager, eager, captured."""
+    from . import lm
+    from .examples.bundle import fit_bundle_device
+
+    cams0, pts0, uv = inp["fit"]
+    cfg = lm.LMConfig(max_iters=FIT_CFG_ITERS)
+    fit = lambda: fit_bundle_device(cams0, pts0, uv, cfg, mesh=mesh, axis=axis,  # noqa: E731
+                                    device=mesh.device_type, dtype=dtype)
+    fit()
+    fit()
+    reads = lm.levenberg_marquardt_device.host_reads
+    with count_collectives() as replayed, profiling.count_dispatches() as d:
+        r = fit()
+    reads = lm.levenberg_marquardt_device.host_reads - reads
+    with count_collectives() as issued:
+        e = _eager(fit)()
+    # a chunked loop's last chunk runs its gated iterations past the end
+    # too, collectives included (their results discarded)
+    loops = [p for p in lm._LOOPS.programs().values() if p.chunked]
+    padding = loops[-1].reads * _program.LOOP_CHUNK - r.iterations if loops else 0
+    body = loops[-1].collectives.get("body", {}) if loops else {}
+    expected = {k: n + padding * body.get(k, 0) for k, n in issued.items()}
+    times = {"captured": [], "eager": []}
+    for kind in ("captured", "eager", "eager", "captured") if timed_reps else ():
+        times[kind].append(_wall_and_stream_ms(fit if kind == "captured" else _eager(fit),
+                                               max(timed_reps // 2, 1)))
+    timing = {f"{kind}_{what}_ms": float(np.mean([t[i] for t in ts]))
+              for kind, ts in times.items() if ts for i, what in enumerate(("wall", "stream"))}
+    return dict(programs=d.programs, lm_host_reads=reads,
+                launches={k: v for k, v in d.launches.items() if v},
+                collectives_replay=dict(replayed), collectives_eager=dict(issued),
+                collectives_expected=expected, padding_iterations=padding,
+                x=torch.as_tensor(r.x), cost=r.cost, iterations=r.iterations,
+                eager_x=torch.as_tensor(e.x), eager_cost=e.cost, eager_iterations=e.iterations,
+                bitwise_equal_eager=bool(np.array_equal(r.x, e.x) and r.cost == e.cost
+                                         and r.iterations == e.iterations), **timing)
+
+
+def program_checks(mesh, inp: dict, dtype=torch.float64, axis: str = "dp",
+                   timed_reps: int = 0) -> dict:
+    """Every ``mesh=`` path that the reference runs as one SPMD program, as a
+    captured program on this rank (:func:`_pin` each; the ``reduce=`` fit
+    :func:`_fit_pin`), on :func:`program_inputs`' ``inp``.  Returns
+    ``{label: result}``; a path that raises records its traceback.  The
+    module-level program caches are released first
+    (:func:`release_programs`), so that each path's first call is its key's
+    first."""
+    release_programs()
+    out = {}
+    try:
+        paths = _program_paths(mesh, inp, dtype, axis)
+    except Exception:
+        return {"setup": {"error": traceback.format_exc()}}
+    for label, call, read, none in paths:
+        try:
+            out[label] = _pin(call, read, none, timed_reps)
+        except Exception:
+            out[label] = {"error": traceback.format_exc()}
+    try:
+        out["bundle.fit_reduce"] = _fit_pin(mesh, inp, dtype, axis, timed_reps)
+    except Exception:
+        out["bundle.fit_reduce"] = {"error": traceback.format_exc()}
+    return out
 
 
 # --- the cases of the CPU tests -------------------------------------------------------
@@ -406,6 +1011,13 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
     def dryrun_steps():
         return run_steps(mesh, bundle_points=inputs["dryrun_bundle_points"])
 
+    def programs():
+        """Every mesh path as a captured program, through the test's capture
+        backends (``inputs["backends"]``: the program's and the loop's)."""
+        backend, loop_backend = inputs["backends"]
+        with _program._use_backend(backend), _program._use_loop_backend(loop_backend):
+            return program_checks(mesh, program_inputs(world, "small"), dt)
+
     def shard():
         tree = {"a": torch.arange(4 * world, device=dev), "b": (torch.ones(2 * world, 3, device=dev),)}
         return dict(shards=shard_leading_axis(tree, mesh), rank=rank,
@@ -426,6 +1038,7 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
         bundle_step=bundle_step,
         bundle_fit=bundle_fit,
         dryrun=dryrun_steps,
+        programs=programs,
     )
     results = {}
     for name, fn in cases.items():
@@ -458,11 +1071,17 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=2)
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--bundle-points", type=int, default=100_000)
+    ap.add_argument("--widths", choices=tuple(PROGRAM_SIZES), default=None,
+                    help="the sizes of the captured-program checks (default: full on "
+                         "cuda, small on cpu)")
+    ap.add_argument("--reps", type=int, default=5, help="timed calls a round (cuda)")
     a = ap.parse_args(argv)
     if a.device == "cuda" and torch.cuda.device_count() < a.ranks:
         raise SystemExit(f"--ranks {a.ranks} needs {a.ranks} cards, found {torch.cuda.device_count()}")
+    widths = a.widths or ("full" if a.device == "cuda" else "small")
     workdir = os.path.join("build", "dryrun")
-    launch(_steps_worker, a.ranks, a.device, workdir, (a.bundle_points,), timeout=900.0)
+    launch(_steps_worker, a.ranks, a.device, workdir, (a.bundle_points, widths, a.reps),
+           timeout=1500.0)
     print(json.dumps({"ok": True, "ranks": a.ranks, "device": a.device}))
     return 0
 

@@ -28,7 +28,8 @@ state on the device with the fused ``block_angular_lstsq`` step; with
 ``DeviceMesh``: each rank holds its points' observations, Jacobian blocks
 and block QR, the camera-block TSQR's all-gather of ``[6C, 6C]`` R factors
 is the step's only collective, and the LM cost and gradient are
-all-reduced, so every rank returns the same result.
+all-reduced, so every rank returns the same result; on the card the step
+and the whole fit are captured programs with those collectives inside.
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..containers import BlockDiagonal, BlockMatrix1x2
-from ..functional import block_angular_lstsq
+from ..functional import _as_lam, block_angular_lstsq
 from ..lm import LMConfig, LMResult, levenberg_marquardt, levenberg_marquardt_device
 from ..parallel.mesh import all_reduce_sum, mesh_rank, shard_bounds, shard_leading_axis
 from ..solvers import BlockAngularQR, BlockDiagonalQR, DenseColPivQR
@@ -231,6 +233,27 @@ def _camera_scatter(n_cams: int, device: torch.device):
             torch.as_tensor((6 * c + j).ravel(), device=device))
 
 
+def _damped_step(x, r, lam, uv, n_shards: int, mesh=None, axis: str = "dp"):
+    """The work of :func:`_make_damped_step`'s step."""
+    n_pts, n_cams = uv.shape[0], uv.shape[1]
+    if mesh is not None:
+        x = _own_points(x, n_cams, mesh, axis)
+    brows = 2 * n_cams + 3
+    c6 = 6 * n_cams
+    jp, jc = _jacobian_blocks(x, uv)
+    left_d, rhs = _damped_left_rhs(jp, r, lam, n_cams)
+    dt, dev = left_d.dtype, left_d.device
+    # per-point camera block [2C, 6C] scattered from jc [P, C, 2, 6]
+    rows, cols = _camera_scatter(n_cams, dev)
+    a2p = torch.zeros((n_pts, 2 * n_cams, c6), dtype=dt, device=dev)
+    a2p[:, rows, cols] = jc.reshape(n_pts, -1)
+    a2_blocks = torch.cat([a2p, a2p.new_zeros((n_pts, 3, c6))], dim=1).reshape(n_pts * brows, c6)
+    sl = torch.sqrt(torch.as_tensor(lam, dtype=dt, device=dev))
+    a2 = torch.cat([a2_blocks, sl * torch.eye(c6, dtype=dt, device=dev)])
+    b = torch.cat([rhs, rhs.new_zeros(c6)])
+    return block_angular_lstsq(left_d, a2, b, n_shards=n_shards, tail=c6, mesh=mesh, axis=axis)
+
+
 @functools.lru_cache(maxsize=8)
 def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
     """The damped bundle step with no host read: the camera block assembled
@@ -238,28 +261,24 @@ def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
     the right layout at this width) and solved by the fused
     :func:`~qrkit_tpu_torch.functional.block_angular_lstsq`, ``n_shards``
     row shards of its TSQR (on one device; with ``mesh=``, over the ranks,
-    ``uv`` and ``r`` being the rank's points and the step global)."""
+    ``uv`` and ``r`` being the rank's points and the step global).  With
+    ``mesh=`` the step is one captured program on the card holding the
+    step's all-gathers (the reference jits the sharded step whole)."""
+    if mesh is None:
+        def step(x, r, lam, uv):
+            return _damped_step(x, r, lam, uv, n_shards)
 
-    def step(x, r, lam, uv):
-        n_pts, n_cams = uv.shape[0], uv.shape[1]
-        if mesh is not None:
-            x = _own_points(x, n_cams, mesh, axis)
-        brows = 2 * n_cams + 3
-        c6 = 6 * n_cams
-        jp, jc = _jacobian_blocks(x, uv)
-        left_d, rhs = _damped_left_rhs(jp, r, lam, n_cams)
-        dt, dev = left_d.dtype, left_d.device
-        # per-point camera block [2C, 6C] scattered from jc [P, C, 2, 6]
-        rows, cols = _camera_scatter(n_cams, dev)
-        a2p = torch.zeros((n_pts, 2 * n_cams, c6), dtype=dt, device=dev)
-        a2p[:, rows, cols] = jc.reshape(n_pts, -1)
-        a2_blocks = torch.cat([a2p, a2p.new_zeros((n_pts, 3, c6))], dim=1).reshape(n_pts * brows, c6)
-        sl = torch.sqrt(torch.as_tensor(lam, dtype=dt, device=dev))
-        a2 = torch.cat([a2_blocks, sl * torch.eye(c6, dtype=dt, device=dev)])
-        b = torch.cat([rhs, rhs.new_zeros(c6)])
-        return block_angular_lstsq(left_d, a2, b, n_shards=n_shards, tail=c6, mesh=mesh, axis=axis)
+        return step
+    programs = Programs(limit=4)
 
-    return step
+    def sharded_step(x, r, lam, uv):
+        return programs.solve(
+            None, "bundle._damped_step", (n_shards, axis),
+            lambda _, *a: _damped_step(*a, n_shards, mesh, axis),
+            x, r, _as_lam(lam, x), uv, mesh=mesh, axis=axis,
+        )
+
+    return sharded_step
 
 
 _damped_step_device = _make_damped_step(1)
@@ -297,16 +316,23 @@ def fit_bundle_device(
     divide over the ranks): each rank keeps its points' observations and
     block QR, the camera-block TSQR all-gather is the step's only
     collective, and the cost and gradient are all-reduced, so every rank
-    returns the same :class:`LMResult`; these fits run the eager loop, one
-    host read of the ``done`` flag an iteration."""
+    returns the same :class:`LMResult`.  On the card such a fit is a
+    captured loop as well, its collectives inside its graphs: when warm, one
+    launch and one fetch a chunk of 8 iterations on every rank."""
     uvd = _device.as_tensor(np.asarray(uv), device, dtype)
     x0 = _initial_x(cams0, pts0, uvd.device, dtype)
     cfg = config or LMConfig(max_iters=50)
     if mesh is None:
         return levenberg_marquardt_device(_residuals_aux, _damped_step_device, x0, cfg, aux=uvd)
-    return levenberg_marquardt_device(
-        functools.partial(_residuals_own, mesh=mesh, axis=axis),
-        _make_damped_step(mesh_rank(mesh, axis)[1], mesh, axis),
-        x0, cfg, aux=shard_leading_axis(uvd, mesh, axis),
-        reduce=functools.partial(all_reduce_sum, mesh=mesh, axis=axis),
-    )
+    residual_fn, step_fn, reduce = _mesh_fit_fns(mesh, axis)
+    return levenberg_marquardt_device(residual_fn, step_fn, x0, cfg,
+                                      aux=shard_leading_axis(uvd, mesh, axis), reduce=reduce)
+
+
+@functools.lru_cache(maxsize=8)
+def _mesh_fit_fns(mesh, axis: str):
+    """(residuals, damped step, reduce) of a point-sharded fit on ``mesh``:
+    the same objects from fit to fit, since they key the captured loop."""
+    return (functools.partial(_residuals_own, mesh=mesh, axis=axis),
+            _make_damped_step(mesh_rank(mesh, axis)[1], mesh, axis),
+            functools.partial(all_reduce_sum, mesh=mesh, axis=axis))

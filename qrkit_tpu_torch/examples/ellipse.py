@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..containers import BlockDiagonal, BlockMatrix1x2
-from ..functional import block_angular_lstsq, lm_damped_step_blockdiag1
+from ..functional import _as_lam, block_angular_lstsq, lm_damped_step_blockdiag1
 from ..lm import (
     LMConfig,
     LMResult,
@@ -129,6 +130,10 @@ def _residuals_aux(params, pts):
     return _residuals(params, pts)
 
 
+# the sharded damped step's captured programs, by axis and operand shapes
+_MESH_STEP_PROGRAMS = Programs(limit=4)
+
+
 def _damped_step_aux(params, res, lam, pts, *, mesh=None, axis: str = "dp"):
     """The device loop's damped step: the lane-major pipeline.  Residuals
     and Jacobian are recomputed in ``[·, N]`` form (``res`` is not used: a
@@ -138,7 +143,20 @@ def _damped_step_aux(params, res, lam, pts, *, mesh=None, axis: str = "dp"):
     reference places ``pts`` sharded along its point axis: every rank passes
     the global ``params`` and ``pts``, works on its own lanes, and returns
     the global step (the bottom panel reduces across ranks by TSQR, the
-    point part is gathered)."""
+    point part is gathered).  On the card that call is one captured program
+    holding its collectives, as the reference jits it with
+    ``in_shardings``."""
+    if mesh is None:
+        return _lane_major_step(params, lam, pts)
+    return _MESH_STEP_PROGRAMS.solve(
+        None, "ellipse._damped_step_aux", axis,
+        lambda _, p, s, x: _lane_major_step(p, s, x, mesh, axis), params, _as_lam(lam, params),
+        pts, mesh=mesh, axis=axis,
+    )
+
+
+def _lane_major_step(params, lam, pts, mesh=None, axis: str = "dp"):
+    """:func:`_damped_step_aux`'s work: over a mesh on this rank's lanes."""
     if mesh is not None:
         from ..parallel.mesh import shard_bounds
 

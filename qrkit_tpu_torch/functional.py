@@ -12,13 +12,13 @@ the coalesced layout, and every per-point scalar of the recurrence is one
 contiguous row.
 
 On card operands that do not require grad, :func:`block_diagonal_factorize`,
-:func:`block_diagonal_lstsq`, :func:`block_angular_lstsq` (``mesh=None``) and
-the LM steps :func:`lm_damped_step_blockdiag` / :func:`lm_damped_step_blockdiag1`
-are each one captured program, as the reference jits each
-(:mod:`~qrkit_tpu_torch._program`): captured on the second call in a row
-with one set of static arguments and operand shapes, four shapes kept per
-function until :func:`clear_programs`.  Operands that require grad and
-``mesh=`` calls run eagerly.
+:func:`block_diagonal_lstsq`, :func:`block_angular_lstsq` and the LM steps
+:func:`lm_damped_step_blockdiag` / :func:`lm_damped_step_blockdiag1` are
+each one captured program, as the reference jits each
+(:mod:`~qrkit_tpu_torch._program`; a ``mesh=`` call's collectives inside
+its graph): captured on the second call in a row with one set of static
+arguments and operand shapes, four shapes kept per function until
+:func:`clear_programs`.  Operands that require grad run eagerly.
 
 ``block_angular_lstsq`` and ``lm_damped_step_blockdiag`` take a keyword-only
 ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``), where the reference only
@@ -375,17 +375,15 @@ def block_angular_lstsq(
     Without a mesh, on card operands that do not require grad, the call is
     one captured program (the module docstring)."""
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (left_blocks, right, b))
-    if mesh is None and grad:
+    if grad and mesh is None:
         return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
-    if mesh is None:
-        return _ANGULAR_PROGRAMS.solve(
-            None, "functional.block_angular_lstsq", (n_shards, tail),
-            lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, n_shards)[0],
-            left_blocks, right, b,
-        )
     if grad:
         return _ShardedBlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail, mesh, axis)
-    return _block_angular_lstsq_primal(left_blocks, right, b, n_shards, mesh, axis)[0]
+    return _ANGULAR_PROGRAMS.solve(
+        None, "functional.block_angular_lstsq", (n_shards, tail, axis),
+        lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, n_shards, mesh, axis)[0],
+        left_blocks, right, b, mesh=mesh, axis=axis,
+    )
 
 
 def _reflector(x0: torch.Tensor, sigma: torch.Tensor):
@@ -489,11 +487,10 @@ def lm_damped_step_blockdiag(
 
     Returns ``(x1 [bc, nb], x2 [m2])``."""
     lam = _as_lam(lam, left)
-    if mesh is not None:
-        return _damped_step(left, right, res, lam, mesh, axis)
     return _STEP_PROGRAMS.solve(
-        None, "functional.lm_damped_step_blockdiag", (),
-        lambda _, l, r, v, s: _damped_step(l, r, v, s), left, right, res, lam,
+        None, "functional.lm_damped_step_blockdiag", axis,
+        lambda _, l, r, v, s: _damped_step(l, r, v, s, mesh, axis), left, right, res, lam,
+        mesh=mesh, axis=axis,
     )
 
 
@@ -578,11 +575,10 @@ def lm_damped_step_blockdiag1(
     the rank's points in, every point's step out).  One captured program
     without a mesh, as :func:`lm_damped_step_blockdiag`."""
     lam = _as_lam(lam, left)
-    if mesh is not None:
-        return _damped_step1(left, right, res, lam, mesh, axis)
     return _STEP1_PROGRAMS.solve(
-        None, "functional.lm_damped_step_blockdiag1", (),
-        lambda _, l, r, v, s: _damped_step1(l, r, v, s), left, right, res, lam,
+        None, "functional.lm_damped_step_blockdiag1", axis,
+        lambda _, l, r, v, s: _damped_step1(l, r, v, s, mesh, axis), left, right, res, lam,
+        mesh=mesh, axis=axis,
     )
 
 

@@ -23,7 +23,10 @@ function.
   ends there, uncaptured) and iteration 2 as the warm-up of the capture,
   then the whole fit from ``x0`` as one launch; a later fit is one launch
   and one fetch.  At most 4 keys are kept (:func:`clear_programs`).
-  Elsewhere (CPU operands, operands that require grad, ``reduce=``, under
+  A ``reduce=`` fit over a mesh is captured too, its collectives inside
+  plain graphs of 8 gated iterations each (NCCL's kernels cannot sit in a
+  WHILE body): one launch and one fetch a chunk.
+  Elsewhere (CPU operands, operands that require grad, under
   ``_program.eager()``) the loop runs eagerly with one host read of
   ``done`` an iteration.
   ``levenberg_marquardt_device.host_reads`` counts the reads that wait on
@@ -51,7 +54,9 @@ global) is read where it lay at capture: rebinding one is undefined.
 Residuals sharded over the ranks of a mesh (bundle adjustment's point axis)
 make the cost and ``g = Jᵀr`` per-rank partial sums: the solo driver takes
 a ``reduce`` hook (an all-reduce) that sums them, so that every rank holds
-the same cost, acceptance, λ and ``done`` flag and the ranks never diverge.
+the same cost, acceptance, λ and ``done`` flag and the ranks never diverge:
+every rank's captured loop (chunks of gated iterations holding the
+all-reduces) runs the same iterations.
 Collectives do not run under ``torch.func.vmap``: the batch driver has no
 such hook.
 """
@@ -319,33 +324,43 @@ def _minimize(kind: str, residual_fn, damped_step_fn, fns, x0: torch.Tensor, aux
     The first fit of a key runs iteration 1 eagerly (a fit it finishes ends
     there, uncaptured), iteration 2 as the warm-up of the capture, and then
     the whole fit from ``x0`` as one launch of the captured loop; a later
-    fit is one launch from new operands.  ``reduce=`` fits, fits under
-    :func:`~qrkit_tpu_torch._program.eager`, CPU operands and operands that
-    require grad run the eager loop."""
+    fit is one launch from new operands.  A ``reduce=`` fit is captured the
+    same way (``reduce`` keys the loop too); when its iteration issues
+    collectives the loop runs as chunks (``_program._ChunkedLoop``: one
+    launch and one fetch a chunk of 8 iterations): ``done`` is global after
+    the all-reduces, so every rank's loop runs the same iterations.  Fits under :func:`~qrkit_tpu_torch._program.eager`,
+    CPU operands and operands that require grad run the eager loop."""
     name = f"lm.levenberg_marquardt_device{'_batch' if kind == 'batch' else ''}"
-    if reduce is not None or not _LOOPS.capturable((x0,)):
+    total = reduce if reduce is not None else _identity
+    if not _LOOPS.capturable((x0,)):
         return _fetch(*_minimize_batch(residual_fn, damped_step_fn, x0, aux, cfg, reduce))
     tensors, rest, build = _loop_operands(name, x0, aux)
     inputs = (x0, *tensors)
     if not _LOOPS.capturable(inputs):  # an aux tensor that requires grad
-        return _fetch(*_minimize_batch(residual_fn, damped_step_fn, x0, aux, cfg))
+        return _fetch(*_minimize_batch(residual_fn, damped_step_fn, x0, aux, cfg, reduce))
+    fns = fns + ((reduce,) if reduce is not None else ())
     key = (kind, *fns, _cfg_key(cfg), rest, _program._signature(inputs))
     prog = _LOOPS.get(key, reads=fns)
     if prog is None:
         with _program.eager():  # the steps' own programs stay out of the loop's capture
-            state = _start(residual_fn, x0, aux, cfg, _identity)
+            state = _start(residual_fn, x0, aux, cfg, total)
             if cfg.max_iters >= 1:
-                state = _step(residual_fn, damped_step_fn, state, aux, cfg, _identity)
+                state = _step(residual_fn, damped_step_fn, state, aux, cfg, total)
                 if _read_done(state[6]) or cfg.max_iters == 1:
                     return _fetch(*state)
-            prog = _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state, cfg)
-    levenberg_marquardt_device.host_reads += 1  # the fetch
-    return _unpack(prog.run(inputs), *x0.shape)
+            prog = _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state,
+                            cfg, total)
+    host = prog.run(inputs)
+    levenberg_marquardt_device.host_reads += prog.reads  # the fetch (one a chunk)
+    return _unpack(host, *x0.shape)
 
 
-def _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state, cfg: LMConfig):
+def _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state, cfg: LMConfig,
+             total):
     """Capture the loop of ``key`` over static copies of ``inputs`` and of
-    the loop's ``state`` (iteration 2 of the caller's fit is the warm-up)."""
+    the loop's ``state`` (iteration 2 of the caller's fit is the warm-up);
+    ``total`` sums the cost and gradient over the ranks (the identity on
+    one device)."""
     static_in = tuple(t.clone() for t in inputs)
     x_in, aux_in = static_in[0], build(static_in[1:])
     S = tuple(t.clone() for t in state)  # the loop's state, updated in place
@@ -355,12 +370,12 @@ def _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state, 
     out = _pack(S[0], S[2], S[3], S[5], S[6], k, count)
 
     def init():
-        torch._foreach_copy_(list(S), list(_start(residual_fn, x_in, aux_in, cfg, _identity)))
+        torch._foreach_copy_(list(S), list(_start(residual_fn, x_in, aux_in, cfg, total)))
         k.zero_()
         count.zero_()
 
     def body():
-        new = _step(residual_fn, damped_step_fn, S, aux_in, cfg, _identity)
+        new = _step(residual_fn, damped_step_fn, S, aux_in, cfg, total)
         torch._foreach_copy_(list(S), list(new))
         k.add_(1)
 
@@ -395,8 +410,10 @@ def levenberg_marquardt_device(
     sum, e.g. ``functools.partial(parallel.mesh.all_reduce_sum, mesh=m)``)
     turns the cost and ``Jᵀr`` into global sums.  ``x`` and the step stay
     global, so every rank takes the same decisions and returns the same
-    result.  These fits run the eager loop (collectives under capture are
-    not ported).
+    result.  On the card such a fit is a captured loop too, its collectives
+    inside chunks of gated iterations (one launch and one fetch a chunk);
+    ``reduce`` keys the loop, so pass the same function object from fit to
+    fit.
 
     Returns an :class:`LMResult` of host values (x as NumPy)."""
     cfg = config or LMConfig()

@@ -14,6 +14,11 @@ axis, and calls the collectives below itself.  Every public result is the
 global value on every rank.  The default process group must already be
 initialized (``torch.distributed.init_process_group``); NCCL on the card,
 gloo on the CPU.
+
+Each helper issues one collective (an all-gather is one
+``all_gather_into_tensor`` into one flat buffer), so a captured program
+holds it as one graph node, and counts it
+(:func:`qrkit_tpu_torch.profiling.collective_counts`).
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from .. import _device
+from .. import _device, profiling
 
 __all__ = [
     "all_gather_leading",
@@ -94,12 +99,22 @@ def shard_leading_axis(x, mesh: DeviceMesh, axis: str = "dp"):
     return x[lo:hi]
 
 
+def _issue(name: str, fn, *args, **kwargs) -> None:
+    """Issue the ``torch.distributed`` collective ``fn`` and count it
+    (:func:`qrkit_tpu_torch.profiling.collective_counts`; a captured
+    program counts those its capture issued at each replay)."""
+    profiling._note_collective(name)
+    fn(*args, **kwargs)
+
+
 def all_gather_leading(
     x: torch.Tensor, mesh: DeviceMesh, axis: str = "dp", sizes: Optional[List[int]] = None
 ) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along the leading axis, in rank order.
-    ``sizes`` gives each rank's leading length where they differ; the shards
-    are then padded to the longest for the exchange and cut after it."""
+    """Concatenate every rank's ``x`` along the leading axis, in rank order:
+    one ``all_gather_into_tensor`` into one flat ``[world·top, ...]``
+    buffer (a capture holds it as one collective).  ``sizes`` gives each
+    rank's leading length where they differ; the shards are then padded to
+    the longest for the exchange and cut after it."""
     group = mesh.get_group(axis)
     world = dist.get_world_size(group)
     sizes = sizes if sizes is not None else [x.shape[0]] * world
@@ -107,13 +122,16 @@ def all_gather_leading(
     if x.shape[0] < top:
         x = torch.cat([x, x.new_zeros((top - x.shape[0],) + tuple(x.shape[1:]))])
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(world)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat([p[:s] for p, s in zip(parts, sizes)])
+    flat = x.new_empty((world * top,) + tuple(x.shape[1:]))
+    _issue("all_gather_into_tensor", dist.all_gather_into_tensor, flat, x, group=group)
+    if all(s == top for s in sizes):
+        return flat
+    return torch.cat([flat[r * top : r * top + s] for r, s in enumerate(sizes)])
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: DeviceMesh, axis: str = "dp") -> torch.Tensor:
-    """The sum of every rank's ``x`` (a new tensor, on every rank)."""
+    """The sum of every rank's ``x`` (a new tensor, on every rank): one
+    ``all_reduce``."""
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.get_group(axis))
+    _issue("all_reduce", dist.all_reduce, out, group=mesh.get_group(axis))
     return out

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _device
+from .._program import Programs
 from ..ops.householder import apply_wy, highest_precision, panel_qr_yt, upper_solve
 from ..solvers.base import ComputationInfo, QRSolver
 from ..sparse import SparseCSR
@@ -82,6 +83,35 @@ def tsqr_apply(
     return out[:, 0] if vec else out
 
 
+def _factorize_program(self, mat: torch.Tensor):
+    """:meth:`TSQRDenseQR.compute`'s device part: the rows zero-padded to
+    whole shards, then the two-stage factorization (one all-gather over a
+    mesh)."""
+    if self._mpad != self._m:
+        mat = torch.cat([mat, mat.new_zeros((self._mpad - self._m, self._n))], dim=0)
+    return tsqr_factorize(mat, self._s_eff, mesh=self.mesh, axis=self.axis)
+
+
+def _apply(self, m: torch.Tensor, transpose: bool) -> torch.Tensor:
+    return tsqr_apply(
+        self.Yl, self.Tl, self.Y2, self.T2, self._pad(m), self._s_eff, transpose,
+        mesh=self.mesh, axis=self.axis,
+    )[: self._m]
+
+
+def _apply_q_program(self, m: torch.Tensor) -> torch.Tensor:
+    return _apply(self, m, False)
+
+
+def _apply_qt_program(self, m: torch.Tensor) -> torch.Tensor:
+    return _apply(self, m, True)
+
+
+@highest_precision()
+def _solve_r_program(self, y: torch.Tensor) -> torch.Tensor:
+    return upper_solve(self._R, y[: self._n])
+
+
 class TSQRDenseQR(QRSolver):
     """Dense tall-skinny QR with the row panels factored as ``n_shards``
     independent shards, then combined: a drop-in right solver for
@@ -90,12 +120,20 @@ class TSQRDenseQR(QRSolver):
     Rows are zero-padded to a multiple of the shard count (padded rows pass
     through Q untouched).  With ``mesh=`` (a ``DeviceMesh``; every rank
     calls with the same global matrix) each rank factors its chunk of the
-    shards and keeps only their local factors; every result is global."""
+    shards and keeps only their local factors; every result is global.
+
+    On the card ``compute``'s factorization (the reference's jitted
+    ``tsqr_factorize``), ``apply_q``, ``apply_qt`` (``tsqr_apply``) and
+    ``solve_r`` are each one captured program
+    (:mod:`~qrkit_tpu_torch._program`), with a mesh or without one: the
+    factors are the factorize program's outputs, and over a mesh each graph
+    holds its all-gather."""
 
     def __init__(self, n_shards: int, mesh=None, axis: str = "dp"):
         self.s = n_shards
         self.mesh = mesh
         self.axis = axis
+        self._programs = Programs()
 
     @property
     def rows(self) -> int:
@@ -123,36 +161,37 @@ class TSQRDenseQR(QRSolver):
         self._s_eff = s
         mloc = max(-(-self._m // s), self._n)
         self._mpad = mloc * s
-        if self._mpad != self._m:
-            mat = torch.cat([mat, mat.new_zeros((self._mpad - self._m, self._n))], dim=0)
-        self.Yl, self.Tl, self.Y2, self.T2, self._R = tsqr_factorize(
-            mat, s, mesh=self.mesh, axis=self.axis
+        self.Yl, self.Tl, self.Y2, self.T2, self._R = self._programs.factorize(
+            self, "TSQRDenseQR.factorize", s, _factorize_program, mat,
+            mesh=self.mesh, axis=self.axis,
         )
         self._info = ComputationInfo.SUCCESS
         return self
+
+    def _adopt_factors(self, Yl, Tl, Y2, T2, R) -> None:
+        """Take the factors of an enclosing program whose function ran
+        :meth:`compute` inline (``BlockAngularQR``'s sparse-A2 recompute):
+        its outputs, which its replays overwrite."""
+        self.Yl, self.Tl, self.Y2, self.T2, self._R = Yl, Tl, Y2, T2, R
+        self._programs.bind_eager()
 
     def _pad(self, v: torch.Tensor) -> torch.Tensor:
         if self._mpad == self._m:
             return v
         return torch.cat([v, v.new_zeros((self._mpad - self._m,) + tuple(v.shape[1:]))], dim=0)
 
-    def _apply(self, m: torch.Tensor, transpose: bool) -> torch.Tensor:
-        return tsqr_apply(
-            self.Yl, self.Tl, self.Y2, self.T2, self._pad(m), self._s_eff, transpose,
-            mesh=self.mesh, axis=self.axis,
-        )[: self._m]
-
     def apply_q(self, m: torch.Tensor) -> torch.Tensor:
-        return self._apply(m, False)
+        return self._programs.solve(self, "TSQRDenseQR.apply_q", (), _apply_q_program, m,
+                                    mesh=self.mesh, axis=self.axis)
 
     def apply_qt(self, m: torch.Tensor) -> torch.Tensor:
-        return self._apply(m, True)
+        return self._programs.solve(self, "TSQRDenseQR.apply_qt", (), _apply_qt_program, m,
+                                    mesh=self.mesh, axis=self.axis)
 
     def matrix_r_dense(self) -> torch.Tensor:
         R = self._R.new_zeros((self._m, self._n))
         R[: self._n] = self._R
         return R
 
-    @highest_precision()
     def solve_r(self, y: torch.Tensor) -> torch.Tensor:
-        return upper_solve(self._R, y[: self._n])
+        return self._programs.solve(self, "TSQRDenseQR.solve_r", (), _solve_r_program, y)

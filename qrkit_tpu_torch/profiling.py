@@ -9,7 +9,8 @@ clear the per-kernel launch counters that the kernel wrappers in
 :mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded` and
 :mod:`qrkit_tpu_torch.ops.graph_loop` keep; a replay of a captured program
 (:mod:`qrkit_tpu_torch._program`) adds the launches its graph holds (a
-captured loop: per iteration, from its fetched loop counter).  :func:`count_dispatches` counts the
+captured loop: per iteration, from its fetched loop counter), and the
+collectives it holds to :func:`collective_counts`.  :func:`count_dispatches` counts the
 ATen ops a block dispatches (the port's eager paths run many, one host
 round of launch work each), the program replays, the kernel launches, and
 the reads that make the host wait for the device; :func:`trace` writes a
@@ -30,6 +31,7 @@ from .ops import banded, blockdiag, graph_loop
 __all__ = [
     "DispatchCount",
     "Timer",
+    "collective_counts",
     "count_dispatches",
     "cuda_time_ms",
     "launch_counts",
@@ -71,12 +73,37 @@ class _Replays:
     launches: Dict[str, int] = defaultdict(int)
 
 
-def _note_replay(launches: Dict[str, int]) -> None:
-    """One replay of a captured program holding ``launches``."""
-    _Replays.count += 1
+# collectives issued through qrkit_tpu_torch.parallel.mesh since import, by
+# torch.distributed name (a replay adds those its graph holds)
+_COLLECTIVES: Dict[str, int] = defaultdict(int)
+
+
+def collective_counts() -> Dict[str, int]:
+    """The collectives the port issued since import, by
+    ``torch.distributed`` name (those inside a replayed graph included)."""
+    return {k: v for k, v in _COLLECTIVES.items() if v}
+
+
+def _set_collective_counts(counts: Dict[str, int]) -> None:
+    _COLLECTIVES.clear()
+    _COLLECTIVES.update(counts)
+
+
+def _note_collective(name: str) -> None:
+    """One collective issued by the host (:mod:`qrkit_tpu_torch.parallel.mesh`)."""
+    _COLLECTIVES[name] += 1
+
+
+def _note_replay(launches: Dict[str, int], collectives: Dict[str, int] = None,
+                 replays: int = 1) -> None:
+    """``replays`` graph launches (one replay of a captured program, the
+    chunks of a chunked loop) holding ``launches`` and ``collectives``."""
+    _Replays.count += replays
     for name, n in launches.items():
         _KERNEL_WRAPPERS[name].launches += n
         _Replays.launches[name] += n
+    for name, n in (collectives or {}).items():
+        _COLLECTIVES[name] += n
 
 
 def _sync() -> None:

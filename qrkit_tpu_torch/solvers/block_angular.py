@@ -39,7 +39,9 @@ its rank's rows of a dense A2 (the reference places A2 sharded by rows for
 the same product), the TSQR all-gather is the factorization's only other
 collective, and every result is global.  The fused programs stay off under
 a mesh, as in the reference; a sparse A2 keeps its single-device form on
-every rank, over the left's gathered factors.
+every rank, over the left's factors gathered inside its program.  The
+sparse-A2 recompute and the generic solve are programs over a mesh too,
+their collectives inside the graphs.
 """
 from __future__ import annotations
 
@@ -164,31 +166,49 @@ def _right_outputs(self, bot: torch.Tensor, plan: dict):
     else:
         inv_s2 = inner.cols_permutation().inverse().indices
         cols12 = torch.as_tensor(inv_s2[plan["top_cols"]], device=bot.device)
+    health = rs._health
     if isinstance(inner, DenseColPivQR):
         factors = (inner._Y, inner._T, inner._R, pd)
     elif isinstance(inner, DenseHouseholderQR):
         factors = (inner._Y, inner._T, inner._R)
+    elif _is_tsqr(inner):  # no flag of its own: the composite's from its diagonal
+        factors = (inner.Yl, inner.Tl, inner.Y2, inner.T2, inner._R)
+        health = _diag_health(rs.r_diagonal()[: rs.cols], check_zero=rs._health_check_zero_pivot)
     else:
         factors = ()
-    return (cols12, rs._health) + factors
+    return (cols12, health) + factors
+
+
+def _is_tsqr(solver) -> bool:
+    from ..parallel.tsqr import TSQRDenseQR  # tsqr imports the solvers
+
+    return isinstance(solver, TSQRDenseQR)
+
+
+def _captured_right(inner) -> bool:
+    """Whether a program of this module may hold the right solver's
+    factors: a dense solver or TSQR (whose factors it adopts)."""
+    return isinstance(inner, (DenseColPivQR, DenseHouseholderQR)) or _is_tsqr(inner)
 
 
 def _blockdiag_a2_program(self, q_in, vals, plan, kernel: bool):
     """The sparse-A2 recompute over a block-diagonal left: ``q_in`` is the
     left's explicit Q1 ``[nb, br, br]``, or with ``kernel`` its resident
-    SoA operand (Q1 and R1 then formed here and returned last); ``vals``
+    SoA operand (Q1 and R1 then formed here and returned last); over a mesh
+    the rank's blocks, Q1 then gathered here (one all-gather); ``vals``
     A2's values.  Returns (R12 values, R12 columns, health, the right
-    solver's factors[, Q1, R1])."""
+    solver's factors[, Q1, R1] (the rank's))."""
     left = self.left
     br, bc = left._br, left._bc
     if kernel:
         Q1, R1, _ = block_diagonal_factorize(to_aos(q_in, br, bc), pivot=False)
     else:
         Q1 = q_in
+    Qg = left._gather(Q1)
     # one batched per-pair Qᵀ·w on the device, in full precision
     with highest_precision():
         W = torch.cat([vals, vals.new_zeros(1)])[plan["w_gather"]].view(plan["K"], br)
-        QtW = (Q1[plan["pair_b"]].mT @ W[:, :, None])[..., 0]  # [K, br]
+        QtW = (Qg[plan["pair_b"]].mT @ W[:, :, None])[..., 0]  # [K, br]
     top = QtW[:, :bc].reshape(-1)  # economy rows: J2 top, FULL_Q rows b*bc + i
     # complement rows, then A1's zero tail rows (Q1ᵀ leaves them), in CSR order
     bot = torch.cat([QtW[:, bc:].reshape(-1), vals[plan["tail_pos"]]])[plan["bot_order"]]
@@ -582,15 +602,12 @@ class BlockAngularQR(QRSolver):
         rs = self.right = _RowSubsetQR(inner, plan_cache=self._plan_cache, device=device,
                                        dtype=dtype)
         left = self.left
-        capture = isinstance(inner, (DenseColPivQR, DenseHouseholderQR))
+        capture = _captured_right(inner)
         if self._left_supports_sparse_a2():
             plan = self._blockdiag_a2_plan(mat.right, device)
             name = "BlockAngularQR.sparse_a2_blockdiag"
-            kernel = left.mesh is None and left._kernel_mode
-            if left.mesh is not None:  # the left's factors, gathered: collective
-                q_in, capture = left._global_factors()[0], False
-            else:
-                q_in = left._a_soa if kernel else left.Q
+            kernel = left._kernel_mode
+            q_in = left._a_soa if kernel else left.Q  # the rank's blocks over a mesh
             key, inputs = kernel, (q_in,)
             fn = functools.partial(_blockdiag_a2_program, plan=plan, kernel=kernel)
         else:
@@ -600,7 +617,7 @@ class BlockAngularQR(QRSolver):
             # captured against the left's factorize program, whose outputs
             # stay where they are; eager factors move at every compute
             state = _factor_state(left)
-            capture = capture and state is not None and getattr(left, "_segs", None) is None
+            capture = capture and state is not None
             if capture and plan.get("factor_state") != state:  # the left's program changed
                 self._programs.drop(name)
                 plan["factor_state"] = state
@@ -608,7 +625,7 @@ class BlockAngularQR(QRSolver):
         rs._prepare(plan["bottom"])
         out = self._programs.factorize(
             self, name, key, fn, *inputs, np.asarray(mat.right.data), capture=capture,
-            upload=(device, dtype),
+            upload=(device, dtype), mesh=self._program_mesh(), axis=self.axis,
         )
         top_vals, cols12, health = out[:3]
         if kernel:  # the left's explicit factors, for its dense surfaces
@@ -617,6 +634,9 @@ class BlockAngularQR(QRSolver):
             factors = out[3:-2] if kernel else out[3:]
             if isinstance(inner, DenseColPivQR):
                 inner._adopt_factors(rs._k, rs._n, *factors[:3], health, perm_dev=factors[3])
+            elif _is_tsqr(inner):
+                inner._adopt_factors(*factors)
+                inner._health = health
             else:
                 inner._adopt_factors(rs._k, rs._n, *factors, health)
             rs._take_health()
@@ -889,27 +909,45 @@ class BlockAngularQR(QRSolver):
         x2 = z[m1:] if pd is None else z[m1:][_inverse_perm(pd)]
         return torch.cat([x1, x2])
 
+    def _program_mesh(self):
+        """The mesh this solver's programs issue collectives over: its
+        own, else a sharded child's (None when nothing is sharded)."""
+        if self.mesh is not None:
+            return self.mesh
+        inner = self.right.inner if isinstance(self.right, _RowSubsetQR) else self.right
+        for child in (self.left, inner):
+            own = getattr(child, "_program_mesh", None)  # a segmented solver's: when sharded
+            mesh = own() if own is not None else getattr(child, "mesh", None)
+            if mesh is not None:
+                return mesh
+        return None
+
     def _solve_capture(self):
         """(capture, key) of the generic solve's program.  It reads this
         solver's program outputs and plan maps (a compute that makes them
         anew binds eager factors, which drops the program), the children's
         factors and their maps.  Captured when the left's factors are a
         program's outputs: this solver's sparse-A2 program's (the kernel
-        tier's Q1, R1) or the left's own, whose serial number keys it; a
-        dense right; no mesh.  Otherwise the solve is eager glue over the
-        children's programs."""
+        tier's Q1, R1) or the left's own, whose serial number keys it; and
+        a dense or TSQR right (a TSQR right computed by its own program,
+        whose serial number keys it too).  Over a mesh (a sharded left, a
+        ``TSQRDenseQR(mesh=)`` right) the program holds their collectives.
+        Otherwise the solve is eager glue over the children's programs."""
         left = self.left
         inner = self.right.inner if isinstance(self.right, _RowSubsetQR) else self.right
-        if (self.mesh is not None or getattr(left, "mesh", None) is not None
-                or getattr(left, "_segs", None) is not None
-                or not isinstance(inner, (DenseColPivQR, DenseHouseholderQR))
+        if (not _captured_right(inner)
                 or not isinstance(left, (BandedBlockedQR, SegmentedBandedQR, BlockDiagonalQR))
                 or getattr(left, "pivot", False)):
             return False, None
+        right = None
+        if _is_tsqr(inner) and inner is self.right:  # factors of its own program
+            right = _factor_state(inner)
+            if right is None:
+                return False, None
         if self._left_from_program:
-            return self._programs.state() is not None, None
+            return self._programs.state() is not None, right
         state = _factor_state(left)
-        return state is not None, state
+        return state is not None, (state, right)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve of ``b [rows]`` or ``[rows, k]``; the caller
@@ -931,4 +969,5 @@ class BlockAngularQR(QRSolver):
             self._programs.drop("BlockAngularQR.generic_solve")
             self._solve_key = key
         return self._programs.solve(self, "BlockAngularQR.generic_solve", key,
-                                    _generic_solve_program, b, capture=capture)
+                                    _generic_solve_program, b, capture=capture,
+                                    mesh=self._program_mesh(), axis=self.axis)

@@ -29,15 +29,17 @@ method of a sharded solver is therefore collective (call it on every rank).
 Sparse R follows the Q format's row layout, as dense R does; the reference
 places it by the FULL_Q layout under both formats.
 
-Without a mesh, ``compute`` on a card operand (either tier) and the kernel
-tier's vector ``solve`` are each one captured program
-(:mod:`~qrkit_tpu_torch._program`; the reference's jitted
-``_pallas_compute``, ``_pallas_solve_vec`` and ``_factorize_blocks``):
-B2 launches inside the compute's graph, B1 inside the solve's.  The
-factors are the compute program's outputs; the compute reads the
-container's blocks in place (the kernel tier its SoA, cached by the
-container for AoS storage), so a compute is captured for one container
-and a new container runs eagerly until it is computed twice in a row.
+``compute`` on a card operand (either tier) and the kernel tier's vector
+``solve`` are each one captured program (:mod:`~qrkit_tpu_torch._program`;
+the reference's jitted ``_pallas_compute``, ``_pallas_solve_vec`` and
+``_factorize_blocks``): B2 launches inside the compute's graph, B1 inside
+the solve's, and over a mesh the health all-reduce, the pivot gather and
+the x gather are inside them too.  The factors are the compute program's
+outputs.  Without a mesh the compute reads the container's blocks in
+place (the kernel tier its SoA, cached by the container for AoS storage),
+so a compute is captured for one container and a new container runs
+eagerly until it is computed twice in a row; over a mesh the rank's slice
+is copied into the program (its address would differ between ranks).
 """
 from __future__ import annotations
 
@@ -108,18 +110,24 @@ def _kernel_compute(a_soa: torch.Tensor, *, br: int, ncols: int):
 def _compute_program(self, a_in):
     """The factorize of :meth:`BlockDiagonalQR.compute` on this rank's
     blocks (``a_in`` SoA ``[br*bc, nb]`` in the kernel tier, else AoS
-    ``[nb, br, bc]``).  Kernel tier: ``(r_soa, health)``; batched tier:
-    ``(Q, R, local_perm, health)`` (``local_perm`` None without
-    pivoting)."""
+    ``[nb, br, bc]``; over a mesh the rank's slice of the operand).  Kernel
+    tier: ``(a_soa, r_soa, health)``, ``a_soa`` the resident operand the
+    solves read (``a_in`` made contiguous: over a mesh, the program's
+    static input); batched tier: ``(Q, R, perm, health)`` (``perm`` None
+    without pivoting, the pivots of every block over a mesh).  The health
+    flag is every rank's (one all-reduce over a mesh)."""
     if self._kernel_mode:
-        return _kernel_compute(a_in, br=self._br, ncols=self._ncols_own)
+        a_soa = a_in.contiguous()
+        r_soa, health = _kernel_compute(a_soa, br=self._br, ncols=self._ncols_own)
+        return a_soa, r_soa, self._all_healthy(health)
     Q, R, local_perm = block_diagonal_factorize(a_in, pivot=self.pivot)
     d = torch.diagonal(R, dim1=1, dim2=2).reshape(-1)
     health = _diag_health(
         d if self._landscape else _pad_to(d, self._ncols_own),
         check_zero=self._health_check_zero_pivot,
     )
-    return Q, R, (local_perm if self.pivot else None), health
+    perm = self._gather(local_perm) if self.pivot else None
+    return Q, R, perm, self._all_healthy(health)
 
 
 def _solve_program(self, b):
@@ -231,31 +239,30 @@ class BlockDiagonalQR(QRSolver):
         self._row_perm = row_perm
         b0, b1 = self._b0, self._b1
         self._kernel_mode = self._kernel_active(mat)
-        # the container's SoA (its storage, or the layout it caches) is the
-        # kernels' operand as it is, read in place by the program (no copy in)
-        if self._kernel_mode:
-            soa = mat.soa()
-            a_in = soa if (b0, b1) == (0, self._nb) else soa[:, b0:b1].contiguous()
-        else:
-            a_in = mat.blocks[b0:b1]
+        # without a mesh the container's SoA (its storage, or the layout it
+        # caches) is the kernels' operand as it is, read in place by the
+        # program (no copy in); over a mesh the rank's slice is copied into
+        # the program's static input (its address differs between ranks,
+        # which must all capture at the same call)
+        a_in = mat.soa() if self._kernel_mode else mat.blocks
+        if self.mesh is not None:
+            a_in = a_in[:, b0:b1] if self._kernel_mode else a_in[b0:b1]
         key = (self._kernel_mode, self.pivot, self._landscape, self._ncols_own)
         out = self._programs.factorize(
             self, "BlockDiagonalQR.compute", key, _compute_program, a_in,
-            capture=self.mesh is None, resident=1,
+            resident=int(self.mesh is None), mesh=self.mesh, axis=self.axis,
         )
         self._computed = True
         if self._kernel_mode:
-            self._a_soa = a_in
-            self._r_soa, health = out
+            self._a_soa, self._r_soa, health = out
             self.Q = self.R = None
             self._local_perm = None
         else:
-            self.Q, self.R, local_perm, health = out
             # the pivot order stays on the device (gathered over the mesh);
             # cols_permutation() fetches it on first use, and solve() scatters
             # with it on the device
-            self._local_perm = self._gather(local_perm) if self.pivot else None
-        self._set_success(self._all_healthy(health))
+            self.Q, self.R, self._local_perm, health = out
+        self._set_success(health)
         return self
 
     # --- the block shard of a mesh ------------------------------------------------
@@ -460,7 +467,8 @@ class BlockDiagonalQR(QRSolver):
         past nb*br is ignored; x is zero past nb*bc (zero tail columns)."""
         if self._kernel_mode and b.dim() == 1:
             return self._programs.solve(
-                self, "BlockDiagonalQR.solve", (), _solve_program, b, capture=self.mesh is None
+                self, "BlockDiagonalQR.solve", (), _solve_program, b, mesh=self.mesh,
+                axis=self.axis,
             )
         return super().solve(b)
 

@@ -26,12 +26,13 @@ gathered for the call.  When S does not tile the mesh nothing is sharded
 (the reference's rule).  The reference itself factors unsharded and only
 places the factors on the mesh afterwards.
 
-Unsharded on the card, a refactorize (``compute``'s device part,
+On the card a refactorize (``compute``'s device part,
 ``factorize_values``), a solve, ``apply_qt``, ``apply_q`` and ``solve_r``
 (vector or matrix rhs) are each one captured program
 (:mod:`~qrkit_tpu_torch._program`; the reference's per-plan factorize and
 solve programs, ``_seg_qt_program`` and ``_seg_q_program``), B3, B4 and B5
-launched inside the factorize's graph.
+launched inside the factorize's graph; sharded, each graph holds its
+collectives (the CAQR R gather, the factors gathered for a Q product).
 """
 from __future__ import annotations
 
@@ -250,6 +251,11 @@ class SegmentedBandedQR(QRSolver):
         self._layout_version += 1
 
     # --- the segment shard of a mesh ------------------------------------------------
+    def _program_mesh(self):
+        """The mesh this solver's programs issue collectives over: the
+        solver's when its segments are sharded, else None."""
+        return None if self._segs is None else self.mesh
+
     def _gather_segments(self, t: torch.Tensor) -> torch.Tensor:
         """Per-segment values of this rank's segments → all S (the identity
         when nothing is sharded)."""
@@ -293,7 +299,7 @@ class SegmentedBandedQR(QRSolver):
         self._fac_kernel = self._kernel_active()
         out = self._programs.factorize(
             self, "SegmentedBandedQR.factorize", (self._layout_version, self._fac_kernel),
-            segmented_factorize.factorize, vals, capture=self._segs is None,
+            segmented_factorize.factorize, vals, mesh=self._program_mesh(), axis=self.axis,
             upload=(self.device, self.dtype),
         )
         segmented_factorize.adopt(self, out)
@@ -328,14 +334,14 @@ class SegmentedBandedQR(QRSolver):
         if self._delegate is not None:
             return self._delegate.apply_qt(m)
         return self._programs.solve(self, "SegmentedBandedQR.apply_qt", (), _apply_qt_program,
-                                    m, capture=self._segs is None)
+                                    m, mesh=self._program_mesh(), axis=self.axis)
 
     def apply_q(self, m: torch.Tensor) -> torch.Tensor:
         """Q · m, the inverse of :meth:`apply_qt`."""
         if self._delegate is not None:
             return self._delegate.apply_q(m)
         return self._programs.solve(self, "SegmentedBandedQR.apply_q", (), _apply_q_program,
-                                    m, capture=self._segs is None)
+                                    m, mesh=self._program_mesh(), axis=self.axis)
 
     # --- sparse-operand Q products ---------------------------------------------------
     def _sparse_apply_parts(self, transpose: bool):
@@ -380,7 +386,7 @@ class SegmentedBandedQR(QRSolver):
         if self._delegate is not None:
             return self._delegate.solve_r(y)
         return self._programs.solve(self, "SegmentedBandedQR.solve_r", (), _solve_r_program, y,
-                                    capture=self._segs is None)
+                                    mesh=self._program_mesh(), axis=self.axis)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for ``b [rows]`` or ``[rows, k]``; the caller
@@ -389,7 +395,7 @@ class SegmentedBandedQR(QRSolver):
             return self._delegate.solve(b)
         return self._programs.solve(
             self, "SegmentedBandedQR.solve", (), segmented_solve.solve, b,
-            capture=self._segs is None,
+            mesh=self._program_mesh(), axis=self.axis,
         )
 
     def matrix_r_dense(self) -> torch.Tensor:

@@ -368,7 +368,7 @@ def solver_sparse_apply(solver, op, transpose: bool):
     v = solver._programs.solve(
         solver, name, key, functools.partial(_value_program, ent=ent),
         np.asarray(op.data), upload=(solver.device, solver.dtype), fetch=True,
-        capture=getattr(solver, "_segs", None) is None,
+        mesh=getattr(solver, "_program_mesh", lambda: None)(), axis=getattr(solver, "axis", "dp"),
     )
     nz = v != 0.0
     # the planned entries are distinct and in CSR order already: the CSR

@@ -71,12 +71,13 @@ class Recording:
             self.out = fn(*static_in)
 
     def replay(self):
-        saved = profiling.launch_counts()
+        saved, issued = profiling.launch_counts(), profiling.collective_counts()
         with _disable_current_modes():
             for s, n in zip(_tuple(self.out), _tuple(self.fn(*self.static_in))):
                 if s is not None and s is not n:
                     s.copy_(n)
-        profiling._set_launch_counts(saved)
+        profiling._set_launch_counts(saved)  # the program adds what its capture issued
+        profiling._set_collective_counts(issued)
 
 
 @pytest.fixture
@@ -370,6 +371,36 @@ def _angular_banded_reference(st):
             "solve_k3": jq.solve(jnp.asarray(_np(st["B"])))}
 
 
+def _tsqr_setup(rng, device):
+    """``TSQRDenseQR`` with 4 shards, no mesh: its factorize, Q products and
+    back-substitution are programs (the reference's jitted
+    ``tsqr_factorize`` / ``tsqr_apply``)."""
+    a = torch.as_tensor(rng.normal(size=(67, 6)), device=device)
+    v = torch.as_tensor(rng.normal(size=67), device=device)
+    return dict(a=a, v=v, qr=qt.parallel.TSQRDenseQR(4))
+
+
+def _tsqr_calls(st):
+    qr, v = st["qr"], st["v"]
+    return [
+        ("compute", lambda: qr.compute(st["a"]), lambda _: qr.matrix_r_dense()),
+        ("apply_qt", lambda: qr.apply_qt(v), _same),
+        ("apply_q", lambda: qr.apply_q(v), _same),
+        ("solve_r", lambda: qr.solve_r(v[:6]), _same),
+    ]
+
+
+def _tsqr_reference(st):
+    import jax.numpy as jnp
+
+    from qrkit_tpu.parallel import TSQRDenseQR as JTSQR
+
+    jq = JTSQR(n_shards=4).compute(jnp.asarray(_np(st["a"])))
+    v = jnp.asarray(_np(st["v"]))
+    return {"compute": jq.matrix_r_dense(), "apply_qt": jq.apply_qt(v), "apply_q": jq.apply_q(v),
+            "solve_r": jq.solve_r(v[:6])}
+
+
 PATHS = {
     "banded_uniform": (_banded_setup("banded", "uniform"), _banded_calls, _banded_reference),
     "banded_tallblock_p2w": (_banded_setup("banded", "tallblock_p2w"), _banded_calls,
@@ -382,6 +413,7 @@ PATHS = {
     "block_angular_fused_dense": (_angular_setup, _angular_calls, _angular_reference),
     "block_angular_banded_left": (_angular_banded_setup, _angular_banded_calls,
                                   _angular_banded_reference),
+    "tsqr_67x6_4_shards": (_tsqr_setup, _tsqr_calls, _tsqr_reference),
 }
 
 

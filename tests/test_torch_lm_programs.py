@@ -60,7 +60,7 @@ class RecordingLoop:
     def launch(self) -> None:
         init, body, tail = self.parts
         p = self.prog
-        saved = profiling.launch_counts()
+        saved, issued = profiling.launch_counts(), profiling.collective_counts()
         self._run(init)
         while True:
             with _disable_current_modes():
@@ -71,7 +71,8 @@ class RecordingLoop:
                 break
             self._run(body)
         self._run(tail)
-        profiling._set_launch_counts(saved)
+        profiling._set_launch_counts(saved)  # the loop program adds what its capture issued
+        profiling._set_collective_counts(issued)
 
     def close(self) -> None:
         self.parts = None
@@ -458,27 +459,34 @@ def test_loop_keys_are_bounded_and_cleared(recording):
 
 
 def test_eager_loop_paths(recording):
-    """``reduce=`` fits, fits under ``_program.eager()`` and operands that
-    require grad run the eager loop: no loop program, one host read an
-    iteration."""
+    """Fits under ``_program.eager()`` and operands that require grad run
+    the eager loop: no loop program, one host read an iteration.  A
+    ``reduce=`` fit is captured as a solo fit is (the mesh fits' loop):
+    ``reduce`` keys the loop, the first fit reads the host after its eager
+    iteration 1 and once for the launch, a warm fit once; x and the
+    iterations bitwise the eager loop's."""
     lm.clear_programs()
     A, b = _linear(np.random.default_rng(7))
     residual, damped_step = _torch_linear(A, b, DEV)
     x0 = torch.zeros(A.shape[1], dtype=torch.float64)
     cfg = lm.LMConfig(max_iters=20)
-    runs = [
-        lambda: lm.levenberg_marquardt_device(residual, damped_step, x0, cfg, reduce=lambda t: t),
-        lambda: lm.levenberg_marquardt_device(residual, damped_step, x0.clone().requires_grad_(),
-                                              cfg),
-    ]
-    for run in runs:
-        for _ in range(2):
-            reads = _reads()
-            got = run()
-            assert _reads() - reads == got.iterations
+    for _ in range(2):
+        reads = _reads()
+        got = lm.levenberg_marquardt_device(residual, damped_step, x0.clone().requires_grad_(), cfg)
+        assert _reads() - reads == got.iterations
     with _program.eager():
-        lm.levenberg_marquardt_device(residual, damped_step, x0, cfg)
+        reads = _reads()
+        want = lm.levenberg_marquardt_device(residual, damped_step, x0, cfg)
+        assert _reads() - reads == want.iterations
     assert not lm._LOOPS.programs()
+    total = lambda t: t  # noqa: E731  (one device: the identity)
+    counts = []
+    for _ in range(3):
+        reads = _reads()
+        got = lm.levenberg_marquardt_device(residual, damped_step, x0, cfg, reduce=total)
+        counts.append(_reads() - reads)
+    assert counts == [2, 1, 1] and len(lm._LOOPS.programs()) == 1
+    assert np.array_equal(got.x, want.x) and got.iterations == want.iterations > 1
 
 
 def test_tree_aux_is_captured(recording):

@@ -15,6 +15,19 @@ One module-scoped fixture spawns the ranks once
 no network port), runs every case (``qrkit_tpu_torch.dryrun.mesh_cases``)
 and loads each rank's saved results; each test asserts one case.  The
 ranks run while this process builds the reference's solvers.
+
+The ``programs`` case runs every mesh path as a captured program on each
+rank (``dryrun.program_checks``) through the test-only capture backends of
+tests/test_torch_dispatch_count.py (``Recording``) and
+tests/test_torch_lm_programs.py (``RecordingLoop``), handed to the ranks
+by reference: a warm call is one replay with at most 3 ATen ops outside
+it, no host read and no host-issued launch, nothing its capture ran reads
+the host (``_NoHostSync``), its result equals the same call under
+``_program.eager()`` bitwise and issues the same collectives
+(``dryrun.count_collectives``), and agrees with ``mesh=None`` at fp64 rtol
+1e-10 (and with qrkit_tpu where the tests above compare with it); the
+``reduce=`` bundle fit is one launch and one host read a chunk of its
+chunked loop, bitwise the eager loop's.
 """
 import inspect
 import threading
@@ -45,6 +58,8 @@ from qrkit_tpu_torch.examples import bundle as tb
 from qrkit_tpu_torch.parallel import TSQRDenseQR
 
 from generators import overlapping_block_diagonal_matrix, tall_banded_matrix
+from test_torch_dispatch_count import Recording
+from test_torch_lm_programs import RecordingLoop
 
 WORLD = 2
 
@@ -116,6 +131,7 @@ def _make_inputs():
                                    (cams + 0.02 * prng.normal(size=cams.shape)).ravel()])
     inp["bs_uv"] = uv
     inp["dryrun_bundle_points"] = 64
+    inp["backends"] = (Recording, RecordingLoop)  # the programs case's capture backends
     return inp
 
 
@@ -353,3 +369,141 @@ def test_bundle_step_sharded_matches(ranks, inputs):
 def test_dryrun_steps(ranks, step):
     res = _case(ranks, "dryrun")[step]
     assert res["max_abs_diff"] < 1e-9, res
+
+
+# --- every mesh path as a captured program (the ``programs`` case) -------------
+PROGRAM_PATHS = (
+    "blockdiag16.compute", "blockdiag16.solve", "blockdiag16_pivot.compute",
+    "segmented.factorize_values", "segmented.solve", "segmented.apply_qt", "segmented.apply_q",
+    "segmented.solve_r", "segmented.apply_qt_sparse", "segmented.apply_q_sparse",
+    "block_angular_sparse_a2.compute", "block_angular_sparse_a2.solve",
+    "block_angular_tsqr.solve", "tsqr.compute", "tsqr.apply_qt", "tsqr.apply_q", "tsqr.solve_r",
+    "functional.block_angular_lstsq", "ellipse._damped_step_aux", "bundle._damped_step",
+)
+
+
+def _programs(ranks):
+    """Each rank's ``programs`` results, after checking that they ran."""
+    out = [r["programs"] for r in ranks]
+    for res in out:
+        assert "setup" not in res, res["setup"]
+    return out
+
+
+def test_mesh_program_paths(ranks):
+    """The programs case ran every path of ``PROGRAM_PATHS`` and the
+    ``reduce=`` fit, on every rank, in that order."""
+    for res in _programs(ranks):
+        assert tuple(res) == PROGRAM_PATHS + ("bundle.fit_reduce",)
+
+
+@pytest.mark.parametrize("path", PROGRAM_PATHS)
+def test_mesh_program_warm_call(ranks, path):
+    """A warm call of a mesh path on each rank: one replay (two for the
+    sparse-A2 recompute: the left's compute and its own), at most 3 ATen
+    ops outside it (6 for the recompute, as the one-device pin), no host
+    read, no host-issued launch, the first call eager (the collectives'
+    communicator made before any capture); bitwise the eager call's, with
+    the same collectives (one or more where the path is sharded); within
+    fp64 rtol 1e-10 of ``mesh=None``; the same on every rank."""
+    recompute = path == "block_angular_sparse_a2.compute"
+    values = []
+    for res in _programs(ranks):
+        r = res[path]
+        assert "error" not in r, r["error"]
+        assert r["first_programs"] == 0, r
+        assert r["programs"] == 1 + recompute and r["ops"] <= (6 if recompute else 3), r
+        assert r["host_reads"] == 0 and r["host_launches"] == 0, r
+        assert r["bitwise_equal_eager"], path
+        assert r["collectives_replay"] == r["collectives_eager"], r
+        assert bool(r["collectives_replay"]) == (path != "tsqr.solve_r"), r
+        _close_ref(r["value"], _np(r["none"]))
+        values.append(r["value"])
+    for v in values[1:]:
+        assert torch.equal(v, values[0]), f"{path} differs between ranks"
+
+
+def _program_input(key):
+    return dryrun.program_inputs(WORLD, "small")[key]
+
+
+def _ref_programs(path):
+    """qrkit_tpu's value of a mesh path, on its 8-device CPU mesh where the
+    tests above use one."""
+    from qrkit_tpu import functional as jfunctional
+
+    mesh = j_default_mesh()
+    if path == "blockdiag16.solve":
+        blocks, b = _program_input("bd16")
+        jq = JBlockDiagonalQR(JQFormat.FULL_Q, pivot=False, mesh=mesh)
+        jq.compute(JBlocks.from_dense_batch(jnp.asarray(blocks)))
+        return jq.solve(jnp.asarray(b))
+    if path == "tsqr.compute":
+        A, _ = _program_input("tsqr")
+        # rows the reference's mesh does not divide (35): its unsharded TSQR
+        return JTSQR(n_shards=WORLD).compute(jnp.asarray(A)).matrix_r_dense()
+    if path == "block_angular_tsqr.solve":
+        blocks, a2, _, b = _program_input("ba")
+        jq = JBlockAngular(JBlockDiagonalQR(JQFormat.FULL_Q, pivot=False, mesh=mesh),
+                           JTSQR(n_shards=WORLD, mesh=mesh), mesh=mesh)
+        jq.compute(JMatrix1x2(JBlocks.from_dense_batch(jnp.asarray(blocks)), jnp.asarray(a2)))
+        return jq.solve(jnp.asarray(b))
+    if path == "segmented.solve":
+        spj, b, *_, (br, bc, ov, L, sbc) = _program_input("seg")
+        jq = JSegmented(suggested_block_cols=sbc, segment_blocks=L, mesh=mesh)
+        jq.compute(JSparseCSR(*_csr(spj)))
+        jq.factorize_values(jnp.asarray(spj.data * 1.5))
+        return jq.solve(jnp.asarray(b))
+    pts = jnp.asarray(_program_input("ellipse"))
+    if path in ("functional.block_angular_lstsq", "ellipse._damped_step_aux"):
+        from qrkit_tpu.examples import ellipse as jell
+
+        params = jnp.asarray(qt.examples.ellipse.EllipseFitting(
+            np.asarray(pts), device="cpu").initial_params().numpy())
+        r = j_residuals(params, pts)
+        if path == "ellipse._damped_step_aux":
+            return j_damped_step_aux(params, r, jnp.asarray(1e-3), pts)
+        left_d, right_d, rhs = jell._damped_system(*jell._jacobian_blocks(params, pts), r,
+                                                   jnp.asarray(1e-3))
+        return jfunctional.block_angular_lstsq(left_d, right_d, rhs, n_shards=WORLD, tail=5)
+    x0, uv = (jnp.asarray(a) for a in _program_input("step"))
+    return jax.jit(jb._make_damped_step(1))(x0, jb.residuals(x0, uv), jnp.asarray(1e-3), uv)
+
+
+@pytest.mark.parametrize("path", ["blockdiag16.solve", "tsqr.compute", "block_angular_tsqr.solve",
+                                  "segmented.solve", "functional.block_angular_lstsq",
+                                  "ellipse._damped_step_aux", "bundle._damped_step"])
+def test_mesh_program_matches_reference(ranks, path):
+    """The captured mesh path against qrkit_tpu on the same global inputs,
+    fp64 rtol 1e-10."""
+    _close_ref(_programs(ranks)[0][path]["value"], _ref_programs(path))
+
+
+def test_mesh_reduce_fit_chunked_launches(ranks):
+    """A warm ``fit_bundle_device(mesh=)`` (a ``reduce=`` LM fit) on each
+    rank is one graph launch and one host read (the fetch) a chunk of its
+    chunked loop (NCCL's collectives cannot sit inside a WHILE node's body:
+    ``_program._ChunkedLoop``), its all-reduces and all-gathers counted
+    through the loop's iterations (two of each an iteration: the eager
+    loop's, and the gated iterations' past the end of its last chunk), and x,
+    cost and the iteration count bitwise the eager loop's
+    (``_program.eager()``), the same on every rank."""
+    from qrkit_tpu_torch import _program
+
+    fits = [res["bundle.fit_reduce"] for res in _programs(ranks)]
+    for r in fits:
+        assert "error" not in r, r["error"]
+        chunks = _program.loop_chunks(r["iterations"], dryrun.FIT_CFG_ITERS)
+        assert r["programs"] == chunks and r["lm_host_reads"] == chunks, r
+        assert r["bitwise_equal_eager"], r
+        assert torch.equal(r["x"], r["eager_x"]) and r["cost"] == r["eager_cost"]
+        assert r["iterations"] == r["eager_iterations"] > _program.LOOP_CHUNK
+        # the last chunk's gated iterations past the end run their
+        # collectives too: the eager loop's counts and theirs
+        calls = r["collectives_replay"]
+        padding = chunks * _program.LOOP_CHUNK - r["iterations"]
+        assert r["padding_iterations"] == padding and calls == r["collectives_expected"], r
+        assert all(calls[k] == r["collectives_eager"][k] + 2 * padding for k in calls), r
+        assert r["cost"] < 1e-14
+    for r in fits[1:]:
+        assert torch.equal(r["x"], fits[0]["x"]) and r["iterations"] == fits[0]["iterations"]
