@@ -181,7 +181,8 @@ def banded_qr_from_numpy(
     Y, T = _wy_blocks(state["Yf"], state["Tf"], nb, qr._max_active, qr._max_cols, like)
     g = qr._geom_dev
     qr.q_seq = TwoSegmentWYSeq(
-        Y, T, g["cols"], g["rows"], g["carry_rows"], h1=qr._max_carry, m=qr.rows
+        Y, T, g["cols"], g["rows"], g["carry_rows"], h1=qr._max_carry, m=qr.rows,
+        kernel=qr._scan_kernel,
     )
     qr._r_panels = torch.as_tensor(
         np.array(state["r_panels_f"]), device=qr.device, dtype=qr.dtype
@@ -232,7 +233,8 @@ def segmented_banded_qr_from_numpy(
         state["chain_Yf"], state["chain_Tf"], nbc, ckw["max_active"], ckw["max_cols"], qr._Yb
     )
     qr._chain_seq = TwoSegmentWYSeq(
-        Yc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=ckw["max_carry"], m=qr._nbot2
+        Yc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=ckw["max_carry"], m=qr._nbot2,
+        kernel=qr._scan_kernel,
     )
     qr._chain_r = tensor(state["chain_r"])
     qr._set_success(_diag_health(qr.r_diagonal()))

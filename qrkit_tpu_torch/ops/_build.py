@@ -13,6 +13,9 @@ flags, so an edited source never loads a stale library.  Libraries go under
   into registers (:func:`build`, :func:`load`).
 * ``banded_chain.cu``: one library for every shape; the banded kernels take
   their geometry as arguments (:func:`load_banded`).
+* ``chain_apply.cu``: the banded family's two serial scans, the
+  two-segment compact-WY apply (K1) and the blocked banded
+  back-substitution (K2), one library for every shape (:func:`load_chain`).
 * ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
   functions that build a conditional WHILE graph around captured graphs,
   linked against the driver (``-lcuda``; :func:`load_graph_loop`).
@@ -20,7 +23,8 @@ flags, so an edited source never loads a stale library.  Libraries go under
 Each launcher takes its operands' CUDA ordinal first, makes that device
 current for the launch and the caller's device current again after it, so
 the kernels run on any ``cuda:N`` and leave PyTorch's current device as it
-was.  :func:`blockdiag_launcher` / :func:`banded_launcher` bind a launcher
+was.  :func:`blockdiag_launcher` / :func:`banded_launcher` /
+:func:`chain_launcher` bind a launcher
 once (:class:`Launcher`); a call then costs one ctypes call and one read of
 the device's current stream.
 
@@ -43,8 +47,8 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
-    "build_source", "current_stream", "find_nvcc", "load", "load_banded", "load_graph_loop",
-    "load_source",
+    "build_source", "chain_launcher", "current_stream", "find_nvcc", "load", "load_banded",
+    "load_chain", "load_graph_loop", "load_source",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -61,6 +65,7 @@ NVCC_FLAGS = (
 _DEV, _PTR, _I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
 BLOCKDIAG_SOURCE = "blockdiag_qr.cu"
 BANDED_SOURCE = "banded_chain.cu"
+CHAIN_SOURCE = "chain_apply.cu"
 GRAPH_LOOP_SOURCE = "graph_loop.cu"
 # libraries a source links besides the static CUDA runtime (after the source)
 _LINK = {GRAPH_LOOP_SOURCE: ("-lcuda",)}
@@ -84,6 +89,14 @@ _BANDED_SIGNATURES = tuple(
         ("segment_chains", (_PTR,) * 5 + (_I64,) * 8),
         ("chain_qr", (_PTR,) * 5 + (_I64,) * 7),
         ("apply_w", (_PTR,) * 5 + (_I64,) * 8),
+    )
+)
+_CHAIN_SIGNATURES = tuple(
+    (f"qrk_chain_{kind}_{dt}", (_DEV, *args, _PTR))
+    for dt in ("f32", "f64")
+    for kind, args in (
+        ("two_seg", (_PTR,) * 6 + (_I64,) * 10),
+        ("solve", (_PTR,) * 7 + (_I64,) * 9),
     )
 )
 _INT = ctypes.c_int
@@ -192,6 +205,12 @@ def load_banded() -> ctypes.CDLL:
     return load_source(BANDED_SOURCE, (), _BANDED_SIGNATURES)
 
 
+def load_chain() -> ctypes.CDLL:
+    """Build (if needed) and load the chain-scan kernels K1 and K2 (one
+    library for every shape)."""
+    return load_source(CHAIN_SOURCE, (), _CHAIN_SIGNATURES)
+
+
 def load_graph_loop() -> ctypes.CDLL:
     """Build (if needed) and load the graph-loop library (L1 and the
     conditional WHILE graphs)."""
@@ -239,3 +258,10 @@ def blockdiag_launcher(kind: str, br: int, bc: int, dtype=None) -> Launcher:
 def banded_launcher(kind: str, dtype) -> Launcher:
     """``qrk_banded_<kind>_<f32|f64>``, built and bound at first use."""
     return Launcher(load_banded(), f"qrk_banded_{kind}_{_SUFFIX[dtype]}")
+
+
+@functools.lru_cache(maxsize=None)
+def chain_launcher(kind: str, dtype) -> Launcher:
+    """``qrk_chain_<kind>_<f32|f64>`` (``two_seg``: K1, ``solve``: K2),
+    built and bound at first use."""
+    return Launcher(load_chain(), f"qrk_chain_{kind}_{_SUFFIX[dtype]}")

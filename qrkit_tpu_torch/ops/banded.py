@@ -20,6 +20,12 @@ Counterpart of ``qrkit_tpu/ops/pallas_banded.py`` and of the XLA chain body
   operand columns through a position-indexed work buffer.
 * :func:`chain_qr` ← ``pallas_chain_qr`` (kernel ``_seq_chain_kernel``,
   B5): one chain with a distinct first-step increment ``ci0``.
+* :func:`banded_solve_chunk` ← the reference's ``lax.scan``
+  ``_banded_solve_chunk`` (``qrkit_tpu/solvers/banded_blocked.py:238``;
+  kernel K2 of ``csrc/chain_apply.cu``, no Pallas counterpart): B blocked
+  back-substitutions, last block first.  Its plain version is
+  :func:`_banded_solve_chunk_plain`; :func:`scan_launch` sizes K1's and
+  K2's launches.
 
 Layouts, chain index first and nothing padded (the TPU's ``[8, 128]`` lane
 tiles, ``SEG_STEP`` padding, X-layout, ``nsub`` grouping and ``kg`` column
@@ -46,8 +52,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .householder import highest_precision
 
 __all__ = [
+    "banded_solve_chunk",
     "chain_factorize",
     "chain_qr",
     "chain_smem_bytes",
@@ -55,12 +63,14 @@ __all__ = [
     "register_shape",
     "segment_apply_w",
     "segment_chains",
+    "solve_chunk_fits",
 ]
 
 _SUFFIX = _build._SUFFIX  # the dtypes the kernels take
 # dynamic shared memory a CTA can use on the H100 (the launchers opt in above
 # the default 48 KB)
 SMEM_LIMIT = 227 * 1024
+_MAX_WARPS = 7  # operand-column warps of a K2 CTA (K1 takes fewer), beside its staging warp
 
 
 def register_shape(ma: int, mc: int, itemsize: int):
@@ -177,11 +187,13 @@ def _check(t: torch.Tensor, name: str, dim: int) -> None:
         raise ValueError(f"unsupported device {t.device}")
 
 
-def _check_like(ref: torch.Tensor, t: torch.Tensor, name: str, shape) -> None:
-    if tuple(t.shape) != tuple(shape) or t.dtype != ref.dtype or t.device != ref.device:
+def _check_like(ref: torch.Tensor, t: torch.Tensor, name: str, shape, dtype=None) -> None:
+    """``t`` has ``shape``, ``dtype`` (ref's when None) and ref's device."""
+    dtype = ref.dtype if dtype is None else dtype
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != ref.device:
         raise ValueError(
             f"{name} {tuple(t.shape)} {t.dtype} {t.device} does not match "
-            f"{tuple(shape)} {ref.dtype} {ref.device}"
+            f"{tuple(shape)} {dtype} {ref.device}"
         )
 
 
@@ -371,3 +383,143 @@ def segment_apply_w(
 
 
 segment_apply_w.launches = 0
+
+
+# --- the chain scans' shared helpers and the back-substitution (K2) ---
+
+def _rows(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``M[b, idx[b, i], :]`` for ``M [B, m, k]`` and ``idx [B, n]``."""
+    return M.gather(1, idx[..., None].expand(-1, -1, M.shape[2]))
+
+
+def scan_launch(k: int, per_stage: int, per_warp: int, itemsize: int, max_warps: int = _MAX_WARPS):
+    """``(warps, stages)`` of a K1 / K2 launch, or None when one warp with
+    one stage already exceeds ``SMEM_LIMIT``: a CTA holds ``stages`` copies
+    of a step's panel (``per_stage`` elements) and the scratch of ``warps``
+    operand columns (``per_warp`` elements each).  Two stages first, with
+    the most warps (at most ``max_warps``, at most k) that fit."""
+    for stages in (2, 1):
+        warps = max(min(k, max_warps), 1)
+        while warps >= 1:
+            if (stages * per_stage + warps * per_warp) * itemsize <= SMEM_LIMIT:
+                return warps, stages
+            warps //= 2
+    return None
+
+
+def solve_chunk_launch(max_emit: int, max_cols: int, k: int, itemsize: int):
+    """K2's ``(warps, stages)`` for ``max_emit × max_cols`` R panels on k
+    columns: a stage holds a panel at the odd row stride ``max_cols | 1``, a
+    warp two sets of the window of x and of y's rows, the right-hand side
+    and the rows solved (``launch_solve`` in ``csrc/chain_apply.cu`` counts
+    the same bytes)."""
+    return scan_launch(k, max_emit * (max_cols | 1), 2 * max_cols + 4 * max_emit, itemsize)
+
+
+def solve_chunk_fits(max_emit: int, max_cols: int, itemsize: int) -> bool:
+    """Whether K2 takes ``max_emit × max_cols`` R panels."""
+    return (0 <= max_emit <= max_cols and max_cols >= 1
+            and solve_chunk_launch(max_emit, max_cols, 1, itemsize) is not None)
+
+
+def banded_solve_chunk(
+    ypad: torch.Tensor,
+    r_panels: torch.Tensor,
+    cols: torch.Tensor,
+    emit_rows: torch.Tensor,
+    ncols: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    max_emit: int,
+    max_cols: int,
+) -> torch.Tensor:
+    """Blocked back-substitution of B independent banded chains, last block
+    first (kernel K2).  ``ypad [B, n + max_cols, k]``; ``r_panels [B, L, E,
+    max_cols]`` with ``E ≥ max_emit`` (rows past ``max_emit`` unread);
+    ``cols``, ``emit_rows``, ``ncols`` ``[B, L]`` (int64) and ``active
+    [B, L]`` (bool).  Per step: subtract the already-solved overlap columns
+    ``[er, nc)``, then one triangular solve of the live ``er`` rows (padded
+    rows become identity); only live rows of active steps are written.
+    Returns ``xpad``, same shape as ``ypad``.  A CUDA tensor runs the CUDA
+    kernel (built at first use) or raises; a CPU tensor runs the plain
+    version :func:`_banded_solve_chunk_plain`.  On the card every operand
+    must be contiguous."""
+    _check(ypad, "ypad", 3)
+    B, rows, k = ypad.shape
+    if cols.dim() != 2 or cols.shape[0] != B:
+        raise ValueError(f"cols must be [{B}, L], got {tuple(cols.shape)}")
+    L = cols.shape[1]
+    for name, t in (("cols", cols), ("emit_rows", emit_rows), ("ncols", ncols)):
+        _check_like(ypad, t, name, (B, L), torch.int64)
+    _check_like(ypad, active, "active", (B, L), torch.bool)
+    if r_panels.dim() != 4 or r_panels.shape[2] < max_emit:
+        raise ValueError(f"r_panels must be [{B}, {L}, >= {max_emit}, {max_cols}], "
+                         f"got {tuple(r_panels.shape)}")
+    E = r_panels.shape[2]
+    _check_like(ypad, r_panels, "r_panels", (B, L, E, max_cols))
+    if not (0 <= max_emit <= max_cols and rows >= max_cols):
+        raise ValueError(f"unsupported solve geometry max_emit={max_emit} max_cols={max_cols} "
+                         f"rows={rows}")
+    if ypad.device.type == "cpu":
+        return _banded_solve_chunk_plain(
+            ypad, r_panels, cols, emit_rows, ncols, active, max_emit=max_emit, max_cols=max_cols
+        )
+    if not all(t.is_contiguous() for t in (ypad, r_panels, cols, emit_rows, ncols, active)):
+        raise ValueError("ypad, r_panels, cols, emit_rows, ncols and active must be contiguous")
+    launch = solve_chunk_launch(max_emit, max_cols, k, ypad.element_size())
+    if launch is None:
+        raise ValueError(
+            f"R panels max_emit={max_emit} max_cols={max_cols} ({ypad.dtype}) exceed the "
+            "kernel's shared memory"
+        )
+    xpad = torch.zeros_like(ypad)
+    if B and L and k:
+        _build.chain_launcher("solve", ypad.dtype)(
+            ypad.device.index,
+            *(t.data_ptr() for t in (ypad, r_panels, cols, emit_rows, ncols, active, xpad)),
+            B, L, E, max_emit, max_cols, rows, k, *launch,
+        )
+        banded_solve_chunk.launches += 1
+    return xpad
+
+
+banded_solve_chunk.launches = 0
+
+
+@highest_precision()
+def _banded_solve_chunk_plain(
+    ypad: torch.Tensor,
+    r_panels: torch.Tensor,
+    cols: torch.Tensor,
+    emit_rows: torch.Tensor,
+    ncols: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    max_emit: int,
+    max_cols: int,
+) -> torch.Tensor:
+    """Plain version of :func:`banded_solve_chunk`: the scan as a Python
+    loop of a gather, a product, a masked triangular solve and a scatter a
+    step."""
+    B, L = cols.shape
+    dev, dt = ypad.device, ypad.dtype
+    xpad = torch.zeros_like(ypad)
+    r_iota = torch.arange(max_emit, device=dev)
+    c_iota = torch.arange(max_cols, device=dev)
+    eye = torch.eye(max_emit, dtype=dt, device=dev)
+    zero = ypad.new_zeros(())
+    for l in range(L - 1, -1, -1):
+        V = r_panels[:, l, :max_emit]  # [B, me, mc]
+        c0, er, nc = cols[:, l, None], emit_rows[:, l, None], ncols[:, l, None]
+        xwin = _rows(xpad, c0 + c_iota)
+        overlap = ((c_iota >= er) & (c_iota < nc))[..., None]
+        rhs_sub = V @ torch.where(overlap, xwin, zero)
+        er_rows = c0 + r_iota
+        live = r_iota < er  # [B, me]
+        rhs = torch.where(live[..., None], _rows(ypad, er_rows) - rhs_sub, zero)
+        U = torch.where(live[:, :, None] & live[:, None, :], V[:, :, :max_emit], eye)
+        xblk = torch.linalg.solve_triangular(U, rhs, upper=True)
+        keep = (live & active[:, l, None])[..., None]
+        new = torch.where(keep, xblk, _rows(xpad, er_rows))
+        xpad.scatter_(1, er_rows[..., None].expand(-1, -1, ypad.shape[2]), new)
+    return xpad

@@ -15,15 +15,34 @@ are :func:`two_segment_apply`, batched over independent sequences so that
 the segmented solver's per-segment applies (``_segment_apply``,
 ``_segment_apply_cols``) are the same function.  Y and T are stored 3-D
 (``[nb, A, C]``); the reference flattens them only against TPU lane padding.
+
+:func:`two_segment_apply` is the wrapper of kernel K1
+(``csrc/chain_apply.cu``): on a CUDA tensor it runs the whole scan in one
+launch or raises; on a CPU tensor it runs the plain version
+:func:`_two_segment_apply_plain`, the scan as a Python loop of batched torch
+ops.  Its ``launches`` counter counts the kernel's launches.  A solver sends
+a geometry whose shared memory the kernel cannot hold
+(:func:`two_segment_fits`) to the plain version, decided once at analysis.
+:class:`CompactWYSeq` (blocked thin QR's few large windows) stays plain.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import _build
+from .banded import _check, _check_like, _rows, scan_launch
 from .householder import highest_precision
 
-__all__ = ["CompactWYSeq", "TwoSegmentWYSeq", "two_segment_apply"]
+# operand columns of a K1 CTA: its staging warp brings in and writes back
+# every column's rows each step, and past two columns it, not the columns'
+# arithmetic, would set the step's time
+_K1_COLUMNS = 2
+
+__all__ = [
+    "CompactWYSeq", "TwoSegmentWYSeq", "two_segment_apply", "two_segment_fits",
+    "two_segment_launch",
+]
 
 
 def _to_sparse_q(seq, chunk: int = 512, drop_tol: float = 0.0):
@@ -47,12 +66,21 @@ def _to_sparse_q(seq, chunk: int = 512, drop_tol: float = 0.0):
     )
 
 
-def _rows(M: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``M[b, idx[b, i], :]`` for ``M [B, m, k]`` and ``idx [B, n]``."""
-    return M.gather(1, idx[..., None].expand(-1, -1, M.shape[2]))
+def two_segment_launch(A: int, C: int, k: int, itemsize: int):
+    """K1's ``(warps, stages)`` for ``A × C`` panels on k operand columns: a
+    stage holds Y and T at the odd row stride ``C | 1``, a warp three sets
+    of the A gathered rows and the A tail rows' start-of-step values, and
+    two C-vectors (``launch_two_seg`` in ``csrc/chain_apply.cu`` counts the
+    same bytes)."""
+    return scan_launch(k, (A + C) * (C | 1), 6 * A + 2 * C, itemsize, _K1_COLUMNS)
 
 
-@highest_precision()
+def two_segment_fits(A: int, C: int, itemsize: int) -> bool:
+    """Whether K1 takes ``A × C`` panels (one warp and one stage within a
+    CTA's shared memory)."""
+    return A >= 1 and C >= 1 and two_segment_launch(A, C, 1, itemsize) is not None
+
+
 def two_segment_apply(
     Y: torch.Tensor,
     T: torch.Tensor,
@@ -63,16 +91,68 @@ def two_segment_apply(
     h1: int,
     transpose: bool,
 ) -> torch.Tensor:
-    """Q (or Qᵀ) of B independent two-segment sequences on ``M [B, m, k]``.
+    """Q (or Qᵀ) of B independent two-segment sequences on ``M [B, m, k]``
+    (kernel K1).
 
     ``Y [B, n, A, C]`` and ``T [B, n, C, C]`` are in panel coordinates;
     ``s1``, ``s2``, ``split`` ``[B, n]`` (int64, on M's device) give each
     step's carry segment start, block segment start and the number of panel
-    rows taken from the carry segment.  Rows ``[0, split)`` of the panel
-    gather from ``s1 + r``, the rest from ``s2 + r - split``; after the
-    update the head is written back, then the tail, so a row shared by the
-    padded segments keeps the owning side's value.  A step with ``Y = T =
-    0`` (a padded, inactive step) is an exact no-op."""
+    rows taken from the carry segment (``0 ≤ split ≤ min(h1, A)``).  Rows
+    ``[0, split)`` of the panel gather from ``s1 + r``, the rest from
+    ``s2 + r - split``; after the update the head is written back, then the
+    tail, so a row shared by the padded segments keeps the owning side's
+    value.  A step with ``Y = T = 0`` (a padded, inactive step) is an exact
+    no-op.  A CUDA tensor runs the CUDA kernel (built at first use) or
+    raises; a CPU tensor runs the plain version.  Y, T and the index arrays
+    must be contiguous on the card; M may have any layout (the result is a
+    new tensor)."""
+    _check(Y, "Y", 4)
+    B, n, A, C = Y.shape
+    _check_like(Y, T, "T", (B, n, C, C))
+    for name, t in (("s1", s1), ("s2", s2), ("split", split)):
+        _check_like(Y, t, name, (B, n), torch.int64)
+    if M.dim() != 3 or M.shape[0] != B:
+        raise ValueError(f"M must be [{B}, m, k], got {tuple(M.shape)}")
+    _check_like(Y, M, "M", M.shape)
+    h1 = int(h1)
+    if h1 < 1:
+        raise ValueError(f"h1 must be >= 1, got {h1}")
+    if M.device.type == "cpu":
+        return _two_segment_apply_plain(Y, T, s1, s2, split, M, h1, transpose)
+    if not all(t.is_contiguous() for t in (Y, T, s1, s2, split)):
+        raise ValueError("Y, T, s1, s2 and split must be contiguous")
+    m, k = M.shape[1], M.shape[2]
+    launch = two_segment_launch(A, C, k, Y.element_size())
+    if launch is None:
+        raise ValueError(
+            f"two-segment panels A={A} C={C} ({Y.dtype}) exceed the kernel's shared memory"
+        )
+    Mp = torch.cat([M, M.new_zeros((B, h1 + A, k))], dim=1)
+    if B and n and k:
+        _build.chain_launcher("two_seg", Y.dtype)(
+            Y.device.index, *(t.data_ptr() for t in (Y, T, s1, s2, split, Mp)),
+            B, n, A, C, h1, m + h1 + A, k, int(bool(transpose)), *launch,
+        )
+        two_segment_apply.launches += 1
+    return Mp[:, :m]
+
+
+two_segment_apply.launches = 0
+
+
+@highest_precision()
+def _two_segment_apply_plain(
+    Y: torch.Tensor,
+    T: torch.Tensor,
+    s1: torch.Tensor,
+    s2: torch.Tensor,
+    split: torch.Tensor,
+    M: torch.Tensor,
+    h1: int,
+    transpose: bool,
+) -> torch.Tensor:
+    """Plain version of :func:`two_segment_apply`: the scan as a Python loop
+    of batched gathers, three small products and two scatters a step."""
     B, n, A, _ = Y.shape
     m, k = M.shape[1], M.shape[2]
     dev = M.device
@@ -110,10 +190,13 @@ class TwoSegmentWYSeq:
 
     Block k's panel ``Y[k]`` (``[A, C]``, A = carry pad + block rows) acts on
     the carry segment at ``s1[k]`` (``split[k]`` rows live) and the block
-    segment at ``s2[k]``; the store is O(nb·A·C) however long the chain."""
+    segment at ``s2[k]``; the store is O(nb·A·C) however long the chain.
+    ``kernel``: apply through K1's wrapper (:func:`two_segment_apply`), else
+    its plain version (the solver's route)."""
 
-    def __init__(self, Y, T, s1, s2, split, *, h1: int, m: int):
+    def __init__(self, Y, T, s1, s2, split, *, h1: int, m: int, kernel: bool = True):
         self.Y, self.T = Y, T
+        self.kernel = kernel
         dev = Y.device
         self.s1, self.s2, self.split = (
             torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (s1, s2, split)
@@ -127,7 +210,7 @@ class TwoSegmentWYSeq:
     def _apply(self, M: torch.Tensor, transpose: bool) -> torch.Tensor:
         vec = M.dim() == 1
         M2 = M[:, None] if vec else M
-        out = two_segment_apply(
+        out = (two_segment_apply if self.kernel else _two_segment_apply_plain)(
             self.Y[None], self.T[None], self.s1[None], self.s2[None], self.split[None],
             M2[None], self.h1, transpose,
         )[0]

@@ -6,8 +6,9 @@ asynchronously, so every timer here ends in a real
 ``torch.cuda.synchronize()``; :func:`cuda_time_ms` times device work with
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
-:mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded` and
-:mod:`qrkit_tpu_torch.ops.graph_loop` keep; a replay of a captured program
+:mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded`,
+:mod:`qrkit_tpu_torch.ops.compact_wy` and :mod:`qrkit_tpu_torch.ops.graph_loop`
+keep; a replay of a captured program
 (:mod:`qrkit_tpu_torch._program`) adds the launches its graph holds (a
 captured loop: per iteration, from its fetched loop counter), and the
 collectives it holds to :func:`collective_counts`.  :func:`count_dispatches` counts the
@@ -26,7 +27,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from .ops import banded, blockdiag, graph_loop
+from .ops import banded, blockdiag, compact_wy, graph_loop
 
 __all__ = [
     "DispatchCount",
@@ -48,6 +49,8 @@ _KERNEL_WRAPPERS = {
     "banded_apply_w": banded.segment_apply_w,
     "banded_chain_qr": banded.chain_qr,
     "graph_loop_cond": graph_loop.loop_condition,
+    "chain_two_seg": compact_wy.two_segment_apply,
+    "chain_solve": banded.banded_solve_chunk,
 }
 
 

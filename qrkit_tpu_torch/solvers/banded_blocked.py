@@ -24,6 +24,10 @@ program (:mod:`~qrkit_tpu_torch._program`, the reference's jitted ``_fac`` /
 the factorize keyed by the layout maps and the route, the others by the rhs
 shape and the factors they read; the factors are the factorize program's
 outputs.  Inside the solve program, ``apply_qt`` and ``solve_r`` run inline.
+The Q products run the chain's two-segment apply in one launch of kernel K1
+and ``solve_r`` its back-substitution in one launch of K2
+(``csrc/chain_apply.cu``), unless the route keeps their plain versions
+(:func:`scan_route`).
 """
 from __future__ import annotations
 
@@ -35,9 +39,13 @@ import torch
 from .._device import resolve
 from .._program import Programs, _upload
 from ..analysis import as_banded_as_possible, block_banded_info, from_block_banded_pattern
-from ..ops.banded import SMEM_LIMIT, chain_factorize, chain_qr, chain_smem_bytes
-from ..ops.compact_wy import TwoSegmentWYSeq, _rows
-from ..ops.householder import build_t_factor, highest_precision
+from ..ops.banded import (
+    SMEM_LIMIT, _banded_solve_chunk_plain, chain_factorize, chain_qr, chain_smem_bytes,
+    solve_chunk_fits,
+)
+from ..ops.banded import banded_solve_chunk as _banded_solve_chunk  # the reference's name
+from ..ops.compact_wy import TwoSegmentWYSeq, two_segment_fits
+from ..ops.householder import build_t_factor
 from ..plan import StructurePlan
 from ..sparse import Permutation, SparseCSR
 from .base import ComputationInfo, QRSolver, _diag_health
@@ -155,51 +163,24 @@ def _solve_r_program(self, y: torch.Tensor) -> torch.Tensor:
     g = self._geom_dev
     return banded_solve_r(
         self._r_panels, g["cols"], g["emit_rows"], g["ncols"], y[: self._ncols],
-        max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols,
+        max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols, kernel=self._scan_kernel,
     )
 
 
-@highest_precision()
-def _banded_solve_chunk(
-    ypad: torch.Tensor,
-    r_panels: torch.Tensor,
-    cols: torch.Tensor,
-    emit_rows: torch.Tensor,
-    ncols: torch.Tensor,
-    active: torch.Tensor,
-    *,
-    max_emit: int,
-    max_cols: int,
-) -> torch.Tensor:
-    """Blocked back-substitution of B independent banded chains, last block
-    first.  ``ypad [B, n + max_cols, k]``; ``r_panels [B, L, max_emit,
-    max_cols]``; ``cols``, ``emit_rows``, ``ncols`` ``[B, L]`` (int64) and
-    ``active [B, L]`` (bool).  Per step: subtract the already-solved
-    overlap columns ``[er, nc)``, then one triangular solve of the live
-    ``er`` rows (padded rows become identity).  Returns ``xpad``, same
-    shape as ``ypad``."""
-    B, L = cols.shape
-    dev, dt = ypad.device, ypad.dtype
-    xpad = torch.zeros_like(ypad)
-    r_iota = torch.arange(max_emit, device=dev)
-    c_iota = torch.arange(max_cols, device=dev)
-    eye = torch.eye(max_emit, dtype=dt, device=dev)
-    zero = ypad.new_zeros(())
-    for l in range(L - 1, -1, -1):
-        V = r_panels[:, l, :max_emit]  # [B, me, mc]
-        c0, er, nc = cols[:, l, None], emit_rows[:, l, None], ncols[:, l, None]
-        xwin = _rows(xpad, c0 + c_iota)
-        overlap = ((c_iota >= er) & (c_iota < nc))[..., None]
-        rhs_sub = V @ torch.where(overlap, xwin, zero)
-        er_rows = c0 + r_iota
-        live = r_iota < er  # [B, me]
-        rhs = torch.where(live[..., None], _rows(ypad, er_rows) - rhs_sub, zero)
-        U = torch.where(live[:, :, None] & live[:, None, :], V[:, :, :max_emit], eye)
-        xblk = torch.linalg.solve_triangular(U, rhs, upper=True)
-        keep = (live & active[:, l, None])[..., None]
-        new = torch.where(keep, xblk, _rows(xpad, er_rows))
-        xpad.scatter_(1, er_rows[..., None].expand(-1, -1, ypad.shape[2]), new)
-    return xpad
+def scan_route(use_kernel, fits: bool, geometry: str) -> bool:
+    """Whether a solver's chain scans run through the wrappers of K1 and K2
+    (the kernels on the card, their plain versions on the CPU), from its
+    ``use_kernel`` and whether its geometry ``fits`` (decided at analysis):
+    ``use_kernel=False`` keeps the plain versions, a geometry the kernels
+    cannot hold takes them too under ``"auto"`` and raises under ``True``."""
+    if use_kernel is False:
+        return False
+    if not fits and use_kernel is True:
+        raise ValueError(
+            f"use_kernel=True but the chain-scan kernels cannot hold {geometry} "
+            "in a CTA's shared memory; use use_kernel='auto'"
+        )
+    return fits
 
 
 def banded_solve_r(
@@ -212,16 +193,18 @@ def banded_solve_r(
     max_emit: int,
     max_cols: int,
     n: int,
+    kernel: bool = True,
 ) -> torch.Tensor:
     """Solve R x = y for the banded R stored as per-block panels
     ``[nb, max_emit, max_cols]`` without forming R; ``y`` is ``[n]`` or
-    ``[n, k]``."""
+    ``[n, k]``.  ``kernel``: through K2's wrapper (the solver's route),
+    else its plain version."""
     vec = y.dim() == 1
     y2 = y[:, None] if vec else y
     ypad = torch.cat([y2, y2.new_zeros((max_cols, y2.shape[1]))])
     nb = r_panels.shape[0]
     active = torch.ones((1, nb), dtype=torch.bool, device=y.device)
-    xpad = _banded_solve_chunk(
+    xpad = (_banded_solve_chunk if kernel else _banded_solve_chunk_plain)(
         ypad[None], r_panels[None], cols[None], emit_rows[None], ncols_arr[None], active,
         max_emit=max_emit, max_cols=max_cols,
     )[0]
@@ -278,7 +261,11 @@ class BandedBlockedQR(QRSolver):
     the plan admits it (at least 32 blocks, one column increment on steps
     1..nb-2, the panel within the kernel's shared memory); ``True`` demands
     it (raising on a plan it cannot take; on the CPU it runs the kernel's
-    plain version); ``False`` keeps the general recurrence.
+    plain version); ``False`` keeps the general recurrence.  The Q products
+    and the back-substitution take the kernels K1 and K2 under ``"auto"``
+    and ``True`` (on a CUDA device; a panel beyond their shared memory runs
+    their plain versions under ``"auto"`` and raises under ``True``) and
+    their plain versions under ``False``.
     """
 
     def __init__(
@@ -362,6 +349,10 @@ class BandedBlockedQR(QRSolver):
         self._chain_kernel = None
         nb, cis = self.plan.num_blocks, g["col_inc"]
         itemsize = torch.empty((), dtype=self.dtype).element_size()
+        # the Q products' and the back-substitution's kernels (K1, K2)
+        self._scan_fits = two_segment_fits(
+            self._max_active, self._max_cols, itemsize
+        ) and solve_chunk_fits(self._max_emit, self._max_cols, itemsize)
         smem = chain_smem_bytes(self._max_active, self._max_cols, self._max_carry, itemsize)
         if nb >= 32 and smem <= SMEM_LIMIT:
             ciu = int(cis[1]) if nb >= 3 else int(cis[0])
@@ -370,6 +361,7 @@ class BandedBlockedQR(QRSolver):
                     mca=self._max_carry, me=self._max_emit, ci=ciu, ci0=int(cis[0])
                 )
                 self._chain_act = torch.ones(nb, dtype=self.dtype, device=self.device)
+        self._scan_kernel = self._scan_route()  # again at each factorize
         self._analysis_ok = True
         return self
 
@@ -385,6 +377,15 @@ class BandedBlockedQR(QRSolver):
                 )
             return True
         return self._chain_kernel is not None and self.device.type == "cuda"
+
+    def _scan_route(self) -> bool:
+        """Whether the Q products and the back-substitution run through the
+        wrappers of K1 and K2 (:func:`scan_route`)."""
+        return scan_route(
+            self.use_kernel, self._scan_fits,
+            f"panels {self._max_active}×{self._max_cols} and R panels "
+            f"{self._max_emit}×{self._max_cols}",
+        )
 
     # --- factorization ------------------------------------------------------------
     def _layout_maps(self, mat: SparseCSR, pmat: SparseCSR) -> None:
@@ -418,13 +419,16 @@ class BandedBlockedQR(QRSolver):
         card (:func:`_factorize_program`); leaves the health flag on the
         device."""
         self._fac_kernel = self._kernel_active()
+        self._scan_kernel = self._scan_route()
         Y, T, self._r_panels, health = self._programs.factorize(
-            self, "BandedBlockedQR.factorize", (self._layout_version, self._fac_kernel),
+            self, "BandedBlockedQR.factorize",
+            (self._layout_version, self._fac_kernel, self._scan_kernel),
             _factorize_program, vals, upload=(self.device, self.dtype),
         )
         g = self._geom_dev
         self.q_seq = TwoSegmentWYSeq(
-            Y, T, g["cols"], g["rows"], g["carry_rows"], h1=max(self._max_carry, 1), m=self._nrows
+            Y, T, g["cols"], g["rows"], g["carry_rows"], h1=max(self._max_carry, 1), m=self._nrows,
+            kernel=self._scan_kernel,
         )
         self._set_success(health)
 
@@ -521,8 +525,8 @@ class BandedBlockedQR(QRSolver):
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for a vector ``[rows]`` or a matrix ``[rows,
-        k]`` rhs: Qᵀb, then one batched back-substitution (no kernel), one
-        captured program on the card.  The caller pre-applies
+        k]`` rhs: Qᵀb (kernel K1), then one batched back-substitution (K2),
+        one captured program on the card.  The caller pre-applies
         ``rows_permutation()``."""
         return self._programs.solve(self, "BandedBlockedQR.solve", (), _solve_program, b)
 

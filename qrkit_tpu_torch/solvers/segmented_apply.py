@@ -4,8 +4,8 @@ Counterpart of ``qrkit_tpu/solvers/segmented_apply.py``: ``_batched_wy_soa``
 (and ``_batched_wy_cols``, the same apply in another TPU layout),
 ``_seg_qt_program`` and ``_seg_q_program``.  The per-segment two-segment
 applies (the reference's ``_segment_apply`` / ``_segment_apply_cols``) are
-:func:`~qrkit_tpu_torch.ops.compact_wy.two_segment_apply`, batched over
-segments.  The reference's shared-scalar, statically unrolled and
+:func:`~qrkit_tpu_torch.ops.compact_wy.two_segment_apply` (kernel K1),
+batched over segments.  The reference's shared-scalar, statically unrolled and
 streaming forms of the phase-2 apply (``_segment_apply_cols_shared``,
 ``_shared_static``, ``_stream``, ``_stream_gap``, ``_apply_cols_split``)
 exist to dodge TPU dispatch latency and lane padding; the port has the
@@ -19,8 +19,14 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.compact_wy import two_segment_apply
+from ..ops.compact_wy import _two_segment_apply_plain, two_segment_apply
 from ..ops.householder import highest_precision
+
+
+def two_seg(self):
+    """The solver's two-segment apply: K1's wrapper on its kernel route
+    (``self._scan_kernel``), else the plain version."""
+    return two_segment_apply if self._scan_kernel else _two_segment_apply_plain
 
 
 @highest_precision()
@@ -52,7 +58,7 @@ def segments_qt(self, v: torch.Tensor) -> torch.Tensor:
     """Phase-1 Qᵀ of every segment on ``v [nrows, k]`` → ``[S, R, k]``
     (segment rows, padded)."""
     vs = _with_zero_row(v)[self._seg_gather]
-    return two_segment_apply(
+    return two_seg(self)(
         self._Yws, self._Ts, self._starts, self._rows2d, self._carry2d, vs,
         self._kw["max_carry"], True,
     )
@@ -93,7 +99,7 @@ def seg_q(self, v2: torch.Tensor) -> torch.Tensor:
     bout = _scatter_rows(self._rbot_gather.reshape(-1), w.permute(2, 0, 1).reshape(-1, k), nbot)
     nat = torch.cat([v2[:m1], bout])[self._row_order_inv]
     vs = _with_zero_row(nat)[self._seg_gather]
-    out = two_segment_apply(
+    out = two_seg(self)(
         self._Yws, self._Ts, self._starts, self._rows2d, self._carry2d, vs,
         self._kw["max_carry"], False,
     )

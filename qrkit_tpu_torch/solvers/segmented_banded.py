@@ -52,6 +52,7 @@ from . import segmented_factorize, segmented_plan, segmented_solve
 from .banded_blocked import (
     BandedBlockedQR,
     device_values,
+    scan_route,
     shifted_gather_map,
     value_perm,
 )
@@ -95,7 +96,10 @@ class SegmentedBandedQR(QRSolver):
     plan admits the segment-chain kernel (B3), with the W-apply kernel (B4)
     and the boundary-chain kernel (B5) where their own gates admit the plan;
     ``True`` demands B3 (raising on a plan it cannot take; on the CPU the
-    kernels' plain versions run); ``False`` keeps the general forms.
+    kernels' plain versions run); ``False`` keeps the general forms.  The Q
+    products, the phase-2 slab apply of the segments B4 does not take and
+    the back-substitutions take the chain-scan kernels K1 and K2 as
+    :class:`BandedBlockedQR` does.
 
     ``mesh``/``axis`` shard the segment axis over the ranks of a
     ``DeviceMesh`` axis (module docstring); every rank calls with the same
@@ -217,6 +221,18 @@ class SegmentedBandedQR(QRSolver):
             return True
         return self._kernel_gate and self.device.type == "cuda"
 
+    def _scan_route(self) -> bool:
+        """Whether the Q products, the phase-2 slab apply and the
+        back-substitutions run through the wrappers of K1 and K2
+        (:func:`~qrkit_tpu_torch.solvers.banded_blocked.scan_route`)."""
+        kw, ckw = self._kw, self._chain_kw
+        return scan_route(
+            self.use_kernel, self._scan_fits,
+            f"segment panels {kw['max_active']}×{kw['max_cols']} (R {kw['max_emit']} rows) "
+            f"and boundary panels {ckw['max_active']}×{ckw['max_cols']} (R "
+            f"{ckw['max_emit']} rows)",
+        )
+
     # --- factorization ----------------------------------------------------------------
     def _layout_maps(self, mat: SparseCSR, pmat: SparseCSR) -> None:
         """Gather maps keyed on the stored-nonzero layout: interior panels
@@ -297,8 +313,10 @@ class SegmentedBandedQR(QRSolver):
         or host values the program uploads): one captured program on the
         card without a mesh."""
         self._fac_kernel = self._kernel_active()
+        self._scan_kernel = self._scan_route()
         out = self._programs.factorize(
-            self, "SegmentedBandedQR.factorize", (self._layout_version, self._fac_kernel),
+            self, "SegmentedBandedQR.factorize",
+            (self._layout_version, self._fac_kernel, self._scan_kernel),
             segmented_factorize.factorize, vals, mesh=self._program_mesh(), axis=self.axis,
             upload=(self.device, self.dtype),
         )
@@ -390,7 +408,8 @@ class SegmentedBandedQR(QRSolver):
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Least-squares solve for ``b [rows]`` or ``[rows, k]``; the caller
-        pre-applies ``rows_permutation()``.  No kernel runs here."""
+        pre-applies ``rows_permutation()``.  K1 runs the segments' and the
+        boundary chain's Qᵀ, K2 their back-substitutions."""
         if self._delegate is not None:
             return self._delegate.solve(b)
         return self._programs.solve(

@@ -11,7 +11,9 @@ launch of B3 (``ops.banded.segment_chains``), phase 2 for the uniform run of
 segments in one launch of B4 (``segment_apply_w``, fed and composed through
 the ``prepare_p2w`` maps; the generic segments take the general apply) and
 the boundary chain in one launch of B5 (``chain_qr``) when its gate admits
-it.  Otherwise every stage runs its general form.  The reference's
+it.  Otherwise every stage runs its general form.  The phase-2 slab apply
+of the segments B4 does not take (or of all of them) is one launch of K1
+(``two_segment_apply``) on the solver's chain-scan route.  The reference's
 gather-free and merged extractions, the ``upto`` probes and the streaming
 phase-2 applies are TPU-tier variants with no counterpart here.
 
@@ -26,10 +28,11 @@ from __future__ import annotations
 import torch
 
 from ..ops.banded import chain_factorize, chain_qr, segment_apply_w, segment_chains
-from ..ops.compact_wy import TwoSegmentWYSeq, two_segment_apply
+from ..ops.compact_wy import TwoSegmentWYSeq
 from ..ops.householder import build_t_factor, highest_precision, panel_qr_yt_soa
 from ..parallel.mesh import all_reduce_sum
 from .base import _diag_health
+from .segmented_apply import two_seg
 
 
 def p2w_window_rows(self, slab: torch.Tensor) -> torch.Tensor:
@@ -60,7 +63,7 @@ def _fused_slab(self, slab, Yws, taus, Ts):
     qt = torch.where((src == LA)[None, :, None], slab, emitted[:, src])
     ex = p2w["excl"]
     if ex.numel():  # a rank of a mesh may hold no generic segment
-        qt[ex] = two_segment_apply(
+        qt[ex] = two_seg(self)(
             Yws[ex], Ts[ex], self._starts[ex], self._rows2d[ex], self._carry2d[ex], slab[ex],
             self._kw["max_carry"], True,
         )
@@ -120,7 +123,7 @@ def factorize(self, vals: torch.Tensor):
     if kernel and self._p2w is not None:
         qt_slab = _fused_slab(self, slab, Yws, taus, Ts)
     else:
-        qt_slab = two_segment_apply(
+        qt_slab = two_seg(self)(
             Yws, Ts, self._starts, self._rows2d, self._carry2d, slab, kw["max_carry"], True
         )
     zero = qt_slab.new_zeros(())
@@ -161,7 +164,7 @@ def adopt(self, out) -> None:
     cg, ckw = self._chain_geom_dev, self._chain_kw
     self._chain_seq = TwoSegmentWYSeq(
         Ywc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=max(ckw["max_carry"], 1),
-        m=self._nbot2,
+        m=self._nbot2, kernel=self._scan_kernel,
     )
     self._Yws, self._Ts, self._r_panels, self._j2_top = Yws, Ts, Vs, j2_top
     self._Yb, self._Tb, self._chain_r = Yb, Tb, chain_r

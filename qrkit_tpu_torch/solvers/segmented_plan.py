@@ -34,7 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.banded import SMEM_LIMIT, apply_w_smem_bytes, chain_smem_bytes
+from ..ops.banded import SMEM_LIMIT, apply_w_smem_bytes, chain_smem_bytes, solve_chunk_fits
+from ..ops.compact_wy import two_segment_fits
 from ..parallel.mesh import mesh_rank, shard_bounds
 from ..plan import BlockInfo, StructurePlan
 from ..sparse import Permutation
@@ -332,6 +333,14 @@ def prepare_segmentation(self):
         cgat[s, : self._seg_ncols[s]] = self._seg_col0[s] + np.arange(self._seg_ncols[s])
     self._col_gather = _dev(self, cgat)
 
+    # the chain scans' kernels (K1, K2) take both chains' geometries
+    isz = _itemsize(self)
+    self._scan_fits = all(
+        two_segment_fits(g["max_active"], g["max_cols"], isz)
+        and solve_chunk_fits(g["max_emit"], g["max_cols"], isz)
+        for g in (self._kw, self._chain_kw)
+    )
+    self._scan_kernel = self._scan_route()  # again at each factorize
     prepare_kernel_gate(self)
     prepare_p2_gate(self)
     prepare_p2w(self)

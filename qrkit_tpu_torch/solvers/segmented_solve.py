@@ -2,8 +2,10 @@
 
 Counterpart of ``qrkit_tpu/solvers/segmented_solve.py`` in its general form
 (``build_solve_fn`` and ``build_solve_mat_fn``, one function here for a
-vector or a ``[rows, k]`` rhs) and of ``SegmentedBandedQR.solve_r``.  No
-kernel runs in a solve.  The reference's shared-scalar and unrolled
+vector or a ``[rows, k]`` rhs) and of ``SegmentedBandedQR.solve_r``.  On
+the solver's chain-scan route a solve runs K1 twice (the segments' Qᵀ and
+the boundary chain's) and K2 twice (the boundary chain's back-substitution
+and the interior chains').  The reference's shared-scalar and unrolled
 back-substitutions (``_banded_solve_chunk_shared(_static)``,
 ``_interior_backsub_split``) and its segment-space fast paths are TPU-tier
 variants with no counterpart here.
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.householder import highest_precision
-from .banded_blocked import _banded_solve_chunk, banded_solve_r
+from .banded_blocked import _banded_solve_chunk, _banded_solve_chunk_plain, banded_solve_r
 from .segmented_apply import _batched_wy_soa, _scatter_rows, _with_zero_row, segments_qt
 
 
@@ -32,7 +34,7 @@ def backsub(self, y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
     ckw, cg = self._chain_kw, self._chain_geom_dev
     x2 = banded_solve_r(
         self._chain_r, cg["cols"], cg["emit_rows"], cg["ncols"], y2,
-        max_emit=ckw["max_emit"], max_cols=ckw["max_cols"], n=self._m2,
+        max_emit=ckw["max_emit"], max_cols=ckw["max_cols"], n=self._m2, kernel=self._scan_kernel,
     )
     zeros = x2.new_zeros((o, k))
     x2seg = torch.cat([zeros, x2, zeros])[self._x2_idx]  # [S, 2o, k]
@@ -42,7 +44,7 @@ def backsub(self, y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
         0, self._col_gather[:, :nloc].reshape(-1), contrib.reshape(-1, k)
     )[:m1]
     ypad = _with_zero_row(y1 - sub)[self._col_gather]  # [S, nloc + mc, k]
-    xs = _banded_solve_chunk(
+    xs = (_banded_solve_chunk if self._scan_kernel else _banded_solve_chunk_plain)(
         ypad, self._r_panels, self._starts, self._emit_d, self._ncols_d, self._active_d,
         max_emit=self._max_emit, max_cols=self._max_cols,
     )

@@ -813,13 +813,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _scan_kernels(path, label, st):
+    """The chain-scan kernels (K1 ``chain_two_seg``, K2 ``chain_solve``)
+    one call of a banded path launches: a Q product one K1 a chain, a
+    back-substitution one K2 a chain (the segmented solver runs its
+    segments' and its boundary chain's), a segmented factorize one K1 for
+    the phase-2 slabs that B4 does not take."""
+    if path.startswith("block_angular_banded"):
+        return {"chain_two_seg": 1, "chain_solve": 1}  # the left's Qᵀ and solve_r
+    if not path.startswith(("banded", "segmented")):
+        return {}
+    qr = st["qr"]
+    seg = isinstance(qr, qt.SegmentedBandedQR)
+    op = label.replace("_k3", "")
+    if op == "factorize_values":
+        fused = seg and qr._fac_kernel and qr._p2w is not None
+        return {"chain_two_seg": 1} if seg and (not fused or qr._p2w["excl"].numel()) else {}
+    n = 2 if seg else 1
+    return {"solve": {"chain_two_seg": n, "chain_solve": n}, "apply_qt": {"chain_two_seg": n},
+            "apply_q": {"chain_two_seg": n}, "solve_r": {"chain_solve": n}}[op]
+
+
 def _cuda_kernels(path, label, st):
     """The kernels launched inside one replay of a path's call."""
     if label == "factorize_values":
-        return _kernels(st["qr"])
+        return {**_kernels(st["qr"]), **_scan_kernels(path, label, st)}
     if path.startswith("block_diagonal"):
         return {"compute": {"blockdiag_qr_r": 1}, "solve": {"blockdiag_lstsq": 1}}.get(label, {})
-    return {}
+    return _scan_kernels(path, label, st)
 
 
 @pytest.mark.cuda

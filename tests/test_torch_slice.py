@@ -179,6 +179,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(_build, "load_banded", no_build)
+    monkeypatch.setattr(_build, "load_chain", no_build)
     monkeypatch.setattr(_build, "load_graph_loop", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
@@ -192,9 +193,12 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     plain = qt.BandedBlockedQR(suggested_block_cols=4, use_kernel=True, device=DEV).compute(banded)
     assert seg._fac_kernel and seg._p2w is not None and seg._chain_kernel and plain._fac_kernel
     graph_loop.loop_condition(torch.zeros(3, dtype=torch.bool), torch.tensor(0, dtype=torch.int32), 5)
+    seg.solve(torch.as_tensor(rng.normal(size=banded.nrows)))
+    plain.solve(torch.as_tensor(rng.normal(size=banded.nrows)))
+    assert seg._scan_kernel and plain._scan_kernel
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
-        "banded_chain_qr", "graph_loop_cond",
+        "banded_chain_qr", "graph_loop_cond", "chain_two_seg", "chain_solve",
     }
     assert not any(profiling.launch_counts().values())
 

@@ -145,7 +145,11 @@ class SparseProduct:
         return [k[0] for k in self.qr._programs.programs() if k[0].endswith("_sparse")]
 
     def kernels(self):
-        return {}
+        """K1 once a chain: the plain chain's Q product, or the segments'
+        and the boundary chain's."""
+        if not self.qr._scan_kernel:
+            return {}
+        return {"chain_two_seg": 1 if self.kind == "banded" else 2}
 
     def check_reference(self, got, k):
         from qrkit_tpu.solvers import BandedBlockedQR as JBanded
@@ -279,8 +283,10 @@ class AngularRecompute:
         return [k[0] for k in self.qr._programs.programs()]
 
     def kernels(self):
-        if self.left_kind == "banded":
-            return {"banded_chain_qr": 1} if self.qr.left._fac_kernel else {}
+        if self.left_kind == "banded":  # its refactorize, then Q1ᵀ A2 (K1)
+            left = self.qr.left
+            return {**({"banded_chain_qr": 1} if left._fac_kernel else {}),
+                    **({"chain_two_seg": 1} if left._scan_kernel else {})}
         return {"blockdiag_qr_r": 1} if self.qr.left._kernel_mode else {}
 
     def check_reference(self, got, k):
