@@ -29,16 +29,23 @@ conditional WHILE node needs 12.3 in both), and then:
   operations and bound; the solves launch K1 and K2;
 * the banded family's chain scans (phase ``chain_kernels``, kernels K1 and
   K2 of ``qrkit_tpu_torch/ops/csrc/chain_apply.cu``): the two-segment
-  compact-WY apply (Qᵀ and Q) and the blocked back-substitution against
-  their plain versions on the chains the solvers build (config 3's plain
-  chain of 2,499 steps of 48×8, its 79 segments of 32 steps and its
-  12-step 88×32 boundary chain, the banded ellipse stack's 2,000-step 4×1
-  chain; 1, 16 and 48 columns, 1 and 5 on the ellipse), fp32 and fp64,
-  each timed against its plain version in turns with its device time, time
-  per step, bytes, operations and bound; K2's yardstick, one PyTorch
-  call on config 3's R (``torch.linalg.solve_triangular`` on the dense
-  10,000 × 10,000 R, ``torch.triangular_solve`` on R in sparse CSR where
-  the installed PyTorch takes it; timed, never called by the port);
+  compact-WY apply (Qᵀ and Q) and the blocked back-substitution, each in
+  its one-launch form and, where the solver built a chunk plan, in its
+  chunked form (the main path's: chunks side by side, level by level),
+  against their serial plain versions on the chains the solvers build
+  (config 3's plain chain of 2,499 steps of 48×8, its 79 segments of 32
+  steps and its 12-step 88×32 boundary chain, the banded ellipse stack's
+  2,000-step 4×1 chain; 1, 16 and 48 columns, 1 and 5 on the ellipse),
+  fp32 and fp64; in fp32 each chain's forms timed in turns (events per
+  call, a replayed graph, the profiler's time by kernel; the segments and
+  the boundary chain, one form, on one column) with the plan's shape, time
+  per step, bytes, operations and bound, the headline cases against the
+  plain version; the chunk lengths swept on config 3's plain
+  chain (``chain_chunk_sweep``); K2's yardstick,
+  one PyTorch call on config 3's R (``torch.linalg.solve_triangular`` on
+  the dense 10,000 × 10,000 R, ``torch.triangular_solve`` on R in sparse
+  CSR where the installed PyTorch takes it; timed, never called by the
+  port);
 * B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
   every option combination against the plain version, every block shape,
   fp32 and fp64, and their time at the 1M-block point;
@@ -200,6 +207,7 @@ from qrkit_tpu_torch.examples import bundle, ellipse
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
+from qrkit_tpu_torch.ops import chain_plan
 from qrkit_tpu_torch.ops import compact_wy as cw
 from qrkit_tpu_torch.ops import graph_loop
 from qrkit_tpu_torch.solvers import segmented_factorize
@@ -952,28 +960,38 @@ def phase_banded_timing(ops, smi):
 # --- the chain scans K1 and K2 against their plain versions ---------------------------
 CHAIN_COLS = (1, 16, 48)  # config 3's vector, matrix rhs and sparse-product slab
 ELLIPSE_CHAIN_COLS = (1, 5)  # the banded ellipse stack's vector and 5-column A2
+CHAIN_FORM_ROUNDS = ("one_chunk", "chunked", "chunked", "one_chunk")
 CHAIN_TIMING_METHOD = (
-    "ms: CUDA events around each wrapper call (its padded-operand copy or zeroed output and the "
-    "launch), kernel 3 warm-up + median of 20, plain version 1 warm-up + median of 3, in turns "
-    "kernel, plain, plain, kernel, means of the round medians; device_ms: torch.profiler's mean "
-    "duration of the kernel's own records over 10 calls"
+    "ms: CUDA events around each eager wrapper call (its padded-operand copy or zeroed output, "
+    "its scratch and its launches), 3 warm-up + median of 20; graph_ms: one CUDA graph of 10 "
+    "calls replayed, events over the replay / 10 (the kernels back to back, no host); device_ms: "
+    "torch.profiler's kernel time over 10 eager calls / 10, by kernel name in device_kernels_ms; "
+    "rounds one-chunk, chunked, chunked, one-chunk, means of the round values; plain version "
+    "(the headline cases) 1 warm-up + median of 3, in turns with the chunked form"
 )
+CHAIN_SWEEP = (8, 12, 16, 24, 32, 48)  # chunk lengths timed on config 3's plain chain
 
 
 def chain_operands(c3, left_sp, dtype):
     """K1's and K2's operands on the chains the main paths build, in the
-    solvers' own factors: config 3 through ``BandedBlockedQR`` (one chain
-    of 2,499 steps, 48×8 panels) and ``SegmentedBandedQR`` (79 segments of
-    32 steps, 48×8; its boundary chain, 12 steps of 88×32) and the banded
-    ellipse stack's left at N = 2,000 (2,000 steps of 4×1).  Returns [(label,
-    K1 (Y, T, s1, s2, split, h1, m), K2 (R panels, cols, emit_rows, ncols,
-    active, max_emit, max_cols, n), operand columns)]."""
+    solvers' own factors and with their chunk plans: config 3 through
+    ``BandedBlockedQR`` (one chain of 2,499 steps, 48×8 panels) and
+    ``SegmentedBandedQR`` (79 segments of 32 steps, 48×8; its boundary
+    chain, 12 steps of 88×32; both one chunk) and the banded ellipse stack's
+    left at N = 2,000 (2,000 steps of 4×1).  Returns [(label, K1 (Y, T, s1,
+    s2, split, h1, m), K2 (R panels, cols, emit_rows, ncols, active,
+    max_emit, max_cols, n), plans (Qᵀ, Q, solve; None: one chunk), operand
+    columns)]."""
     def one(seq):
         return seq.Y[None], seq.T[None], seq.s1[None], seq.s2[None], seq.split[None], seq.h1, seq.m
 
     def chain_solve(r, g, me, mc, n):
         act = torch.ones((1, r.shape[0]), dtype=torch.bool, device=DEVICE)
         return r[None], g["cols"][None], g["emit_rows"][None], g["ncols"][None], act, me, mc, n
+
+    def plans(solver):
+        p = solver._chain_plans
+        return p["qt"], p["q"], p["solve"]
 
     plain = qt.BandedBlockedQR(suggested_block_cols=C3_BC, device=DEVICE, dtype=dtype).compute(c3)
     seg = qt.SegmentedBandedQR(suggested_block_cols=C3_BC, segment_blocks=C3_SEGMENT_BLOCKS,
@@ -983,18 +1001,18 @@ def chain_operands(c3, left_sp, dtype):
     return [
         ("config3_plain_chain", one(plain.q_seq),
          chain_solve(plain._r_panels, plain._geom_dev, plain._max_emit, plain._max_cols, plain.cols),
-         CHAIN_COLS),
+         plans(plain), CHAIN_COLS),
         ("config3_segments",
          (seg._Yws, seg._Ts, seg._starts, seg._rows2d, seg._carry2d, kw["max_carry"],
           seg._max_seg_rows),
          (seg._r_panels, seg._starts, seg._emit_d, seg._ncols_d, seg._active_d, seg._max_emit,
-          seg._max_cols, seg._nloc_max), CHAIN_COLS),
+          seg._max_cols, seg._nloc_max), (None, None, None), CHAIN_COLS),
         ("config3_boundary_chain", one(seg._chain_seq),
          chain_solve(seg._chain_r, seg._chain_geom_dev, ckw["max_emit"], ckw["max_cols"], seg._m2),
-         CHAIN_COLS),
+         plans(seg), CHAIN_COLS),
         (f"ellipse_banded_left_{BANDED_LEFT_N}", one(ell.q_seq),
          chain_solve(ell._r_panels, ell._geom_dev, ell._max_emit, ell._max_cols, ell.cols),
-         ELLIPSE_CHAIN_COLS),
+         plans(ell), ELLIPSE_CHAIN_COLS),
     ]
 
 
@@ -1026,9 +1044,11 @@ def solve_chunk_cost(ypad, r, cols, emit, ncols, active, me, mc):
 
 
 def kernel_device_ms(fn, part, reps=10):
-    """torch.profiler's mean duration of the records of the kernels whose
-    name holds ``part`` over ``reps`` calls of ``fn`` (None if it kept
-    none after ``PROFILER_ATTEMPTS`` profiles)."""
+    """torch.profiler's kernel time of ``reps`` calls of ``fn`` over
+    ``reps``, summed over the kernels whose name holds one of ``part``'s
+    strings, and by kernel name: ``(ms, {name: ms}, records)`` (ms None if
+    it kept no record after ``PROFILER_ATTEMPTS`` profiles)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1038,15 +1058,21 @@ def kernel_device_ms(fn, part, reps=10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ms, records = device_kernels(prof, part)
+        by_name, records = {}, 0
+        for e in prof.key_averages():
+            name = next((p for p in part if p in e.key), None)
+            if e.device_type == DeviceType.CUDA and name is not None:
+                by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+                records += e.count
         if records:
-            return ms / records
-    return None
+            return sum(by_name.values()), by_name, records
+    return None, {}, 0
 
 
 def time_kernel_plain(run_k, run_p):
     """(kernel ms, plain ms, rounds): CUDA events per call in turns kernel,
-    plain, plain, kernel (:data:`CHAIN_TIMING_METHOD`)."""
+    plain, plain, kernel (kernel 3 warm-up + median of 20, plain 1 warm-up
+    + median of 3)."""
     rounds = {"kernel": [], "plain": []}
     for kind in ("kernel", "plain", "plain", "kernel"):
         if kind == "kernel":
@@ -1054,6 +1080,53 @@ def time_kernel_plain(run_k, run_p):
         else:
             rounds[kind].append(profiling.cuda_time_ms(run_p, warmup=1, reps=3))
     return statistics.mean(rounds["kernel"]), statistics.mean(rounds["plain"]), rounds
+
+
+def graph_ms(fn, calls=10, reps=5):
+    """Device time of one ``fn()`` as a captured program: a CUDA graph of
+    ``calls`` calls, replayed ``reps`` times between CUDA events; the median
+    replay over ``calls`` (the kernels back to back, no host time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def time_forms(forms, parts):
+    """``forms``: {"one_chunk": fn, "chunked": fn} (the second may be
+    absent); each timed in turns :data:`CHAIN_FORM_ROUNDS` by CUDA events
+    per eager call and by a replayed graph, then its profiler device time
+    (``parts``: {form: kernel name parts})."""
+    rounds = {f: {"ms": [], "graph_ms": []} for f in forms}
+    for f in CHAIN_FORM_ROUNDS:
+        if f in forms:
+            rounds[f]["ms"].append(profiling.cuda_time_ms(forms[f], warmup=3, reps=20))
+            rounds[f]["graph_ms"].append(graph_ms(forms[f]))
+    out = {}
+    for f, fn in forms.items():
+        dev, by_name, records = kernel_device_ms(fn, parts[f])
+        out[f] = {"ms": statistics.mean(rounds[f]["ms"]),
+                  "graph_ms": statistics.mean(rounds[f]["graph_ms"]), "device_ms": dev,
+                  "device_kernels_ms": by_name, "device_records_per_call": records / 10,
+                  "rounds": rounds[f]}
+    return out
 
 
 def r_dense_square(qr):
@@ -1111,69 +1184,159 @@ def chain_library(c3, smi):
     return results[name]["ms"], name
 
 
+CHAIN_PARTS = {  # kernel name parts of each form, for the profiler
+    K1: {"one_chunk": ("two_seg_kernel",), "chunked": ("two_seg_chunk_kernel", "chunk_join_kernel")},
+    K2: {"one_chunk": ("banded_solve_kernel",),
+         "chunked": ("solve_chunk_kernel", "chunk_join_kernel")},
+}
+
+
 def phase_chain_kernels(smi):
-    """K1 (Qᵀ and Q) and K2 against their plain versions on the chains of
-    :func:`chain_operands`, at 1, 16 and 48 operand columns (the ellipse
-    left: 1 and 5), fp32 (rtol 1e-4, atol 1e-5·max|·|) and fp64 (rtol
-    1e-10, atol 1e-12·max|·|: the kernels sum in another order); then, in
-    fp32, each timed against its plain version in turns, with its device
-    time, its time per step, bytes, operations and bound, and K2's library
-    yardstick.  Launches here are comparisons, not a main path.  Returns
-    ({kernel: worst fp32 error}, {kernel: the plain chain's vector
-    timing})."""
+    """K1 (Qᵀ and Q) and K2, each in its one-chunk form (one launch) and,
+    where the solver built a chunk plan, in its chunked form (the main
+    path's: per level P1, P2, P3), against their serial plain versions on
+    the chains of :func:`chain_operands`, at 1, 16 and 48 operand columns
+    (the ellipse left: 1 and 5), fp32 (rtol 1e-4, atol 1e-5·max|·|) and fp64
+    (rtol 1e-10, atol 1e-12·max|·|: the kernels sum in another order, and a
+    chunk's interface reaches it through the boundary pass); then, in fp32,
+    the forms timed in turns with their device time, time per step, bytes,
+    operations, bound and the plan's shape (the chains without a plan, one
+    form, on one column only); the headline cases against the plain
+    version; and K2's library yardstick.  Launches here are comparisons, not a main
+    path.  Returns ({kernel: worst fp32 error}, {kernel: the plain chain's
+    vector timing, chunked})."""
     rng = np.random.default_rng(SEED + 13)
     c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
     left_sp, _, _ = banded_left_problem()
     worst, headline = {K1: 0.0, K2: 0.0}, {}
     for dtype in (torch.float32, torch.float64):
         tol = banded_tolerance(dtype)
-        for label, (Y, T, s1, s2, sp, h1, m), (r, cols, emit_, ncols, act, me, mc, n), ks in (
-                chain_operands(c3, left_sp, dtype)):
+        for label, (Y, T, s1, s2, sp, h1, m), (r, cols, emit_, ncols, act, me, mc, n), \
+                (pqt, pq, psolve), ks in chain_operands(c3, left_sp, dtype):
             B = Y.shape[0]
             for k in ks:
                 M = torch.as_tensor(rng.normal(size=(B, m, k)), dtype=dtype, device=DEVICE)
                 ypad = torch.as_tensor(rng.normal(size=(B, n + mc, k)), dtype=dtype, device=DEVICE)
+
+                def k1(transpose, plan):
+                    return lambda: cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, transpose,
+                                                        plan=plan)
+
+                def k2(plan):
+                    return lambda: bk.banded_solve_chunk(ypad, r, cols, emit_, ncols, act,
+                                                         max_emit=me, max_cols=mc, plan=plan)
+
                 runs = {
-                    "apply_qt": (lambda: cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, True),
+                    "apply_qt": (K1, pqt, k1(True, None), k1(True, pqt),
                                  lambda: cw._two_segment_apply_plain(Y, T, s1, s2, sp, M, h1, True)),
-                    "apply_q": (lambda: cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, False),
+                    "apply_q": (K1, pq, k1(False, None), k1(False, pq),
                                 lambda: cw._two_segment_apply_plain(Y, T, s1, s2, sp, M, h1, False)),
-                    "solve": (lambda: bk.banded_solve_chunk(ypad, r, cols, emit_, ncols, act,
-                                                            max_emit=me, max_cols=mc),
+                    "solve": (K2, psolve, k2(None), k2(psolve),
                               lambda: bk._banded_solve_chunk_plain(ypad, r, cols, emit_, ncols, act,
                                                                    max_emit=me, max_cols=mc)),
                 }
-                for call, (run_k, run_p) in runs.items():
-                    kernel = K2 if call == "solve" else K1
-                    out = run_k()
-                    torch.cuda.synchronize()
-                    err, bitwise = compare(out, run_p(), dtype, tol)
+                for call, (kernel, plan, run_one, run_chunked, run_p) in runs.items():
+                    forms = {"one_chunk": run_one}
+                    if plan is not None:
+                        forms["chunked"] = run_chunked
+                    ref = run_p()
                     line = {"phase": "chain_kernels", "kernel": kernel, "chain": label, "call": call,
                             "k": k, "dtype": str(dtype).split(".")[1], "shape": list(Y.shape),
-                            "max_abs_err": err, "bitwise_equal": bitwise, "rtol": tol[0],
-                            "atol_x_max_abs": tol[1]}
-                    if dtype == torch.float32:
-                        worst[kernel] = max(worst[kernel], err)
-                        if call != "apply_q":
-                            steps, nbytes, flops = (
-                                two_seg_cost(Y, T, M) if kernel == K1 else
-                                solve_chunk_cost(ypad, r, cols, emit_, ncols, act, me, mc))
-                            ms, plain_ms, rounds = time_kernel_plain(run_k, run_p)
-                            dev = kernel_device_ms(run_k, "two_seg_kernel" if kernel == K1
-                                                   else "banded_solve_kernel")
-                            bound_ms, bound_by = bound(nbytes, flops)
-                            line.update({
-                                "ms": ms, "plain_ms": plain_ms, "rounds": rounds, "device_ms": dev,
-                                "steps": steps, "per_step_us": ms * 1e3 / steps,
-                                "device_per_step_us": None if dev is None else dev * 1e3 / steps,
-                                "plain_per_step_us": plain_ms * 1e3 / steps, "bytes": nbytes,
-                                "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
-                                "method": CHAIN_TIMING_METHOD, "gpu": smi})
-                            headline.setdefault(kernel, {**line, "case": f"{label} {call} k={k}"})
+                            "rtol": tol[0], "atol_x_max_abs": tol[1],
+                            "plan": None if plan is None else plan.summary()}
+                    for f, fn in forms.items():
+                        out = fn()
+                        torch.cuda.synchronize()
+                        err, bitwise = compare(out, ref, dtype, tol)
+                        line[f] = {"max_abs_err": err, "bitwise_equal_plain": bitwise}
+                        if f == "chunked":
+                            line[f]["bitwise_repeat"] = bool(torch.equal(out, fn()))
+                        if dtype == torch.float32:
+                            worst[kernel] = max(worst[kernel], err)
+                    del ref
+                    if dtype == torch.float32 and (plan is not None or k == 1):
+                        steps, nbytes, flops = (
+                            two_seg_cost(Y, T, M) if kernel == K1 else
+                            solve_chunk_cost(ypad, r, cols, emit_, ncols, act, me, mc))
+                        bound_ms, bound_by = bound(nbytes, flops)
+                        timed = time_forms(forms, CHAIN_PARTS[kernel])
+                        for f, t in timed.items():
+                            line[f].update(t, per_step_us=t["ms"] * 1e3 / steps,
+                                           graph_per_step_us=t["graph_ms"] * 1e3 / steps)
+                        if "chunked" in timed:
+                            one, ch = timed["one_chunk"], timed["chunked"]
+                            line["speedup"] = {"ms": one["ms"] / ch["ms"],
+                                               "graph_ms": one["graph_ms"] / ch["graph_ms"]}
+                        line.update({"steps": steps, "bytes": nbytes, "flops": flops,
+                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                     "method": CHAIN_TIMING_METHOD, "gpu": smi})
+                        if k == 1 and call != "apply_q" and label == "config3_plain_chain":
+                            best = timed.get("chunked", timed["one_chunk"])
+                            _, plain_ms, _ = time_kernel_plain(forms.get("chunked", run_one), run_p)
+                            line["plain_ms"] = plain_ms
+                            headline[kernel] = {
+                                "ms": best["ms"], "device_ms": best["graph_ms"],
+                                "profiler_device_ms": best["device_ms"], "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "per_step_us": best["ms"] * 1e3 / steps,
+                                "device_per_step_us": best["graph_ms"] * 1e3 / steps,
+                                "plain_per_step_us": plain_ms * 1e3 / steps,
+                                "one_chunk_ms": timed["one_chunk"]["ms"],
+                                "one_chunk_device_ms": timed["one_chunk"]["graph_ms"],
+                                "case": f"{label} {call} k={k}, chunked"}
                     emit(line)
+    chain_chunk_sweep(c3, smi)
     lib_ms, lib_call = chain_library(c3, smi)
     headline[K2].update(library_ms=lib_ms, library_call=lib_call)
     return worst, headline
+
+
+def chain_chunk_sweep(c3, smi):
+    """The chunked forms on config 3's plain chain, fp32, at 1 and 16
+    columns, with plans of :data:`CHAIN_SWEEP` steps a chunk (the solvers
+    use ``chain_plan.CHUNK_STEPS``): each call's replayed device time
+    (:func:`graph_ms`) and the plan's shape, the lengths in turns up and
+    down."""
+    qr = qt.BandedBlockedQR(suggested_block_cols=C3_BC, device=DEVICE, dtype=torch.float32).compute(c3)
+    s, g, gd = qr.q_seq, qr.geom, qr._geom_dev
+    nb = s.Y.shape[0]
+    rng = np.random.default_rng(SEED + 15)
+    k1 = dict(h1=s.h1, A=s.Y.shape[1], m=s.m, device=DEVICE)
+    plans = {c: (chain_plan.two_segment_plan(g["cols"], g["rows"], g["carry_rows"], transpose=True,
+                                             chunk_steps=c, **k1),
+                 chain_plan.two_segment_plan(g["cols"], g["rows"], g["carry_rows"], transpose=False,
+                                             chunk_steps=c, **k1),
+                 chain_plan.solve_plan(g["cols"], g["emit_rows"], g["ncols"], np.ones(nb, bool),
+                                       max_emit=qr._max_emit, max_cols=qr._max_cols,
+                                       rows=qr.cols + qr._max_cols, device=DEVICE, chunk_steps=c))
+             for c in CHAIN_SWEEP}
+    act = torch.ones((1, nb), dtype=torch.bool, device=DEVICE)
+    for k in (1, 16):
+        M = torch.as_tensor(rng.normal(size=(1, s.m, k)), dtype=torch.float32, device=DEVICE)
+        ypad = torch.as_tensor(rng.normal(size=(1, qr.cols + qr._max_cols, k)),
+                               dtype=torch.float32, device=DEVICE)
+        args = (s.Y[None], s.T[None], s.s1[None], s.s2[None], s.split[None], M, s.h1)
+        sargs = (ypad, qr._r_panels[None], gd["cols"][None], gd["emit_rows"][None],
+                 gd["ncols"][None], act)
+        times = {c: {"apply_qt": [], "apply_q": [], "solve": []} for c in CHAIN_SWEEP}
+        for order in (CHAIN_SWEEP, CHAIN_SWEEP[::-1]):
+            for c in order:
+                pqt, pq, ps = plans[c]
+                for call, fn in (
+                        ("apply_qt", lambda: cw.two_segment_apply(*args, True, plan=pqt)),
+                        ("apply_q", lambda: cw.two_segment_apply(*args, False, plan=pq)),
+                        ("solve", lambda: bk.banded_solve_chunk(*sargs, max_emit=qr._max_emit,
+                                                                max_cols=qr._max_cols, plan=ps))):
+                    times[c][call].append(graph_ms(fn))
+        emit({"phase": "chain_chunk_sweep", "chain": "config3_plain_chain", "k": k,
+              "chunk_steps_used": chain_plan.CHUNK_STEPS,
+              "graph_ms": {c: {call: statistics.mean(v) for call, v in t.items()}
+                           for c, t in times.items()},
+              "plans": {c: {name: p.summary() for name, p in zip(("qt", "q", "solve"), plans[c])}
+                        for c in CHAIN_SWEEP},
+              "method": "graph_ms: a CUDA graph of 10 calls replayed 5 times between events, the "
+                        "median over 10; the mean of two rounds, lengths ascending then descending",
+              "gpu": smi})
 
 
 OPTION_COMBOS = [(False, False), (True, False), (False, True), (True, True)]

@@ -180,9 +180,10 @@ def banded_qr_from_numpy(
     like = torch.empty(0, device=qr.device, dtype=qr.dtype)
     Y, T = _wy_blocks(state["Yf"], state["Tf"], nb, qr._max_active, qr._max_cols, like)
     g = qr._geom_dev
+    plans = qr._chain_plans
     qr.q_seq = TwoSegmentWYSeq(
         Y, T, g["cols"], g["rows"], g["carry_rows"], h1=qr._max_carry, m=qr.rows,
-        kernel=qr._scan_kernel,
+        kernel=qr._scan_kernel, plan=(plans["qt"], plans["q"]),
     )
     qr._r_panels = torch.as_tensor(
         np.array(state["r_panels_f"]), device=qr.device, dtype=qr.dtype
@@ -232,9 +233,10 @@ def segmented_banded_qr_from_numpy(
     Yc, Tc = _wy_blocks(
         state["chain_Yf"], state["chain_Tf"], nbc, ckw["max_active"], ckw["max_cols"], qr._Yb
     )
+    plans = qr._chain_plans
     qr._chain_seq = TwoSegmentWYSeq(
         Yc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=ckw["max_carry"], m=qr._nbot2,
-        kernel=qr._scan_kernel,
+        kernel=qr._scan_kernel, plan=(plans["qt"], plans["q"]),
     )
     qr._chain_r = tensor(state["chain_r"])
     qr._set_success(_diag_health(qr.r_diagonal()))

@@ -15,7 +15,8 @@ flags, so an edited source never loads a stale library.  Libraries go under
   their geometry as arguments (:func:`load_banded`).
 * ``chain_apply.cu``: the banded family's two serial scans, the
   two-segment compact-WY apply (K1) and the blocked banded
-  back-substitution (K2), one library for every shape (:func:`load_chain`).
+  back-substitution (K2), in one launch or as the phases of their chunked
+  forms, one library for every shape (:func:`load_chain`).
 * ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
   functions that build a conditional WHILE graph around captured graphs,
   linked against the driver (``-lcuda``; :func:`load_graph_loop`).
@@ -97,6 +98,9 @@ _CHAIN_SIGNATURES = tuple(
     for kind, args in (
         ("two_seg", (_PTR,) * 6 + (_I64,) * 10),
         ("solve", (_PTR,) * 7 + (_I64,) * 9),
+        ("two_seg_chunk", (_PTR,) * 12 + (_I64,) * 14),
+        ("solve_chunk", (_PTR,) * 14 + (_I64,) * 13),
+        ("join", (_PTR,) * 3 + (_I64,) * 4),
     )
 )
 _INT = ctypes.c_int
@@ -262,6 +266,8 @@ def banded_launcher(kind: str, dtype) -> Launcher:
 
 @functools.lru_cache(maxsize=None)
 def chain_launcher(kind: str, dtype) -> Launcher:
-    """``qrk_chain_<kind>_<f32|f64>`` (``two_seg``: K1, ``solve``: K2),
-    built and bound at first use."""
+    """``qrk_chain_<kind>_<f32|f64>`` (``two_seg``: K1, ``solve``: K2;
+    ``two_seg_chunk`` / ``solve_chunk``: one phase of a level of their
+    chunked forms, ``join``: a level's boundary pass), built and bound at
+    first use."""
     return Launcher(load_chain(), f"qrk_chain_{kind}_{_SUFFIX[dtype]}")

@@ -49,9 +49,15 @@ counter, incremented once per kernel launch and nowhere else.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
+from .chain_plan import (
+    FIRST_PASS, LEN, SEQ, START, ChainPlan, check_plan, chunk_buffers, chunked_plain,
+    launch_levels,
+)
 from .householder import highest_precision
 
 __all__ = [
@@ -432,6 +438,7 @@ def banded_solve_chunk(
     *,
     max_emit: int,
     max_cols: int,
+    plan: Optional[ChainPlan] = None,
 ) -> torch.Tensor:
     """Blocked back-substitution of B independent banded chains, last block
     first (kernel K2).  ``ypad [B, n + max_cols, k]``; ``r_panels [B, L, E,
@@ -443,7 +450,10 @@ def banded_solve_chunk(
     Returns ``xpad``, same shape as ``ypad``.  A CUDA tensor runs the CUDA
     kernel (built at first use) or raises; a CPU tensor runs the plain
     version :func:`_banded_solve_chunk_plain`.  On the card every operand
-    must be contiguous."""
+    must be contiguous.  ``plan``: the chunk plan
+    (:func:`~qrkit_tpu_torch.ops.chain_plan.solve_plan`, on ypad's
+    device): the kernel runs its chunks side by side; None runs the whole
+    back-substitution in one launch."""
     _check(ypad, "ypad", 3)
     B, rows, k = ypad.shape
     if cols.dim() != 2 or cols.shape[0] != B:
@@ -472,18 +482,49 @@ def banded_solve_chunk(
             f"R panels max_emit={max_emit} max_cols={max_cols} ({ypad.dtype}) exceed the "
             "kernel's shared memory"
         )
+    if plan is not None:
+        check_plan(plan, "solve", (B, L), ypad.device)
     xpad = torch.zeros_like(ypad)
     if B and L and k:
-        _build.chain_launcher("solve", ypad.dtype)(
-            ypad.device.index,
-            *(t.data_ptr() for t in (ypad, r_panels, cols, emit_rows, ncols, active, xpad)),
-            B, L, E, max_emit, max_cols, rows, k, *launch,
-        )
+        if plan is None:
+            _build.chain_launcher("solve", ypad.dtype)(
+                ypad.device.index,
+                *(t.data_ptr() for t in (ypad, r_panels, cols, emit_rows, ncols, active, xpad)),
+                B, L, E, max_emit, max_cols, rows, k, *launch,
+            )
+        else:
+            _solve_chunked(ypad, r_panels, cols, emit_rows, ncols, active, xpad, max_emit,
+                           max_cols, plan)
         banded_solve_chunk.launches += 1
     return xpad
 
 
 banded_solve_chunk.launches = 0
+
+
+def _solve_chunked(ypad, r_panels, cols, emit_rows, ncols, active, xpad, me: int, mc: int,
+                   plan: ChainPlan) -> None:
+    """K2's chunked form into the zeroed ``xpad``: per level P1, P2 and P3
+    (:func:`~qrkit_tpu_torch.ops.chain_plan.launch_levels`)."""
+    B, rows, k = ypad.shape
+    L, E = r_panels.shape[1], r_panels.shape[2]
+    t = plan.tensors
+    scr, inb, outb = chunk_buffers(plan, xpad)
+    dev, isz = ypad.device.index, ypad.element_size()
+    chunk = _build.chain_launcher("solve_chunk", ypad.dtype)
+    join = _build.chain_launcher("join", ypad.dtype)
+    ptrs = [x.data_ptr() for x in (ypad, r_panels, cols, t["steps"], emit_rows, ncols, active,
+                                   t["chunks"], t["rows"], t["iface_out"], xpad, scr, inb, outb)]
+
+    def phase(lv, mode):
+        wl = lv.width if mode == FIRST_PASS else 0
+        launch = solve_chunk_launch(me, mc, k + wl, isz)
+        chunk(dev, *ptrs, L, E, me, mc, rows, k, *launch, lv.begin, lv.end - lv.begin, plan.wmax,
+              wl, mode)
+
+    launch_levels(plan, phase, lambda lv: join(
+        dev, t["chunks"].data_ptr(), outb.data_ptr(), inb.data_ptr(), lv.begin, lv.end, k,
+        plan.wmax))
 
 
 @highest_precision()
@@ -501,25 +542,59 @@ def _banded_solve_chunk_plain(
     """Plain version of :func:`banded_solve_chunk`: the scan as a Python
     loop of a gather, a product, a masked triangular solve and a scatter a
     step."""
-    B, L = cols.shape
-    dev, dt = ypad.device, ypad.dtype
     xpad = torch.zeros_like(ypad)
+    _banded_solve_steps(ypad, r_panels, cols, cols, emit_rows, ncols, active, xpad,
+                        range(cols.shape[1] - 1, -1, -1), max_emit, max_cols)
+    return xpad
+
+
+def _banded_solve_steps(ypad, r_panels, ycols, xcols, emit_rows, ncols, active, xpad, order,
+                        max_emit: int, max_cols: int) -> None:
+    """Steps ``order`` of the plain back-substitution on ``xpad [B, rows,
+    k]``, in place; step l reads y at ``ycols[:, l]`` and x at ``xcols[:,
+    l]`` (the same rows but in a chunk's layout)."""
+    dev, dt = ypad.device, ypad.dtype
     r_iota = torch.arange(max_emit, device=dev)
     c_iota = torch.arange(max_cols, device=dev)
     eye = torch.eye(max_emit, dtype=dt, device=dev)
     zero = ypad.new_zeros(())
-    for l in range(L - 1, -1, -1):
+    for l in order:
         V = r_panels[:, l, :max_emit]  # [B, me, mc]
-        c0, er, nc = cols[:, l, None], emit_rows[:, l, None], ncols[:, l, None]
+        c0, er, nc = xcols[:, l, None], emit_rows[:, l, None], ncols[:, l, None]
         xwin = _rows(xpad, c0 + c_iota)
         overlap = ((c_iota >= er) & (c_iota < nc))[..., None]
         rhs_sub = V @ torch.where(overlap, xwin, zero)
         er_rows = c0 + r_iota
         live = r_iota < er  # [B, me]
-        rhs = torch.where(live[..., None], _rows(ypad, er_rows) - rhs_sub, zero)
+        rhs = torch.where(live[..., None], _rows(ypad, ycols[:, l, None] + r_iota) - rhs_sub, zero)
         U = torch.where(live[:, :, None] & live[:, None, :], V[:, :, :max_emit], eye)
         xblk = torch.linalg.solve_triangular(U, rhs, upper=True)
         keep = (live & active[:, l, None])[..., None]
         new = torch.where(keep, xblk, _rows(xpad, er_rows))
-        xpad.scatter_(1, er_rows[..., None].expand(-1, -1, ypad.shape[2]), new)
+        xpad.scatter_(1, er_rows[..., None].expand(-1, -1, xpad.shape[2]), new)
+
+
+@highest_precision()
+def _banded_solve_chunked_plain(ypad, r_panels, cols, emit_rows, ncols, active, *,
+                                max_emit: int, max_cols: int, plan: ChainPlan) -> torch.Tensor:
+    """A torch model of K2's chunked form (P1–P3 on ``plan``, from
+    :func:`~qrkit_tpu_torch.ops.chain_plan.solve_plan`): each chunk runs the
+    plain back-substitution's steps on its own layout of x's rows; P1's unit
+    columns see y = 0.  For tests and ``chip_smoke.py``; no path calls it."""
+    L = cols.shape[1]
+    k = ypad.shape[2]
+    xpad = torch.zeros_like(ypad)
+    lc = torch.as_tensor(plan.steps, device=ypad.device)
+
+    def steps(c, local, ky):
+        b, i0, ln = (int(v) for v in plan.chunks[c, [SEQ, START, LEN]])
+        sl = slice(b, b + 1)
+        y = ypad[sl]
+        if local.shape[2] > ky:
+            y = torch.cat([y, y.new_zeros((1, y.shape[1], local.shape[2] - ky))], dim=2)
+        _banded_solve_steps(y, r_panels[sl], cols[sl], lc[sl], emit_rows[sl], ncols[sl],
+                            active[sl], local, [L - 1 - i for i in range(i0, i0 + ln)],
+                            max_emit, max_cols)
+
+    chunked_plain(plan, xpad, steps, max_cols)
     return xpad

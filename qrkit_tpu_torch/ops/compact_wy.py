@@ -27,11 +27,17 @@ a geometry whose shared memory the kernel cannot hold
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from . import _build
 from .banded import _check, _check_like, _rows, scan_launch
+from .chain_plan import (
+    FIRST_PASS, LEN, SEQ, START, ChainPlan, check_plan, chunk_buffers, chunked_plain,
+    launch_levels,
+)
 from .householder import highest_precision
 
 # operand columns of a K1 CTA: its staging warp brings in and writes back
@@ -90,6 +96,7 @@ def two_segment_apply(
     M: torch.Tensor,
     h1: int,
     transpose: bool,
+    plan: Optional[ChainPlan] = None,
 ) -> torch.Tensor:
     """Q (or Qᵀ) of B independent two-segment sequences on ``M [B, m, k]``
     (kernel K1).
@@ -105,7 +112,10 @@ def two_segment_apply(
     no-op.  A CUDA tensor runs the CUDA kernel (built at first use) or
     raises; a CPU tensor runs the plain version.  Y, T and the index arrays
     must be contiguous on the card; M may have any layout (the result is a
-    new tensor)."""
+    new tensor).  ``plan``: the direction's chunk plan
+    (:func:`~qrkit_tpu_torch.ops.chain_plan.two_segment_plan`, on M's
+    device): the kernel runs its chunks side by side, level by level; None
+    runs the whole scan in one launch."""
     _check(Y, "Y", 4)
     B, n, A, C = Y.shape
     _check_like(Y, T, "T", (B, n, C, C))
@@ -127,17 +137,46 @@ def two_segment_apply(
         raise ValueError(
             f"two-segment panels A={A} C={C} ({Y.dtype}) exceed the kernel's shared memory"
         )
+    if plan is not None:
+        check_plan(plan, "two_seg", (2, B, n), Y.device, bool(transpose))
     Mp = torch.cat([M, M.new_zeros((B, h1 + A, k))], dim=1)
     if B and n and k:
-        _build.chain_launcher("two_seg", Y.dtype)(
-            Y.device.index, *(t.data_ptr() for t in (Y, T, s1, s2, split, Mp)),
-            B, n, A, C, h1, m + h1 + A, k, int(bool(transpose)), *launch,
-        )
+        if plan is None:
+            _build.chain_launcher("two_seg", Y.dtype)(
+                Y.device.index, *(t.data_ptr() for t in (Y, T, s1, s2, split, Mp)),
+                B, n, A, C, h1, m + h1 + A, k, int(bool(transpose)), *launch,
+            )
+        else:
+            _two_segment_chunked(Y, T, split, Mp, h1, transpose, plan)
         two_segment_apply.launches += 1
     return Mp[:, :m]
 
 
 two_segment_apply.launches = 0
+
+
+def _two_segment_chunked(Y, T, split, Mp, h1: int, transpose: bool, plan: ChainPlan) -> None:
+    """K1's chunked form on ``Mp`` in place: per level P1, P2 and P3
+    (:func:`~qrkit_tpu_torch.ops.chain_plan.launch_levels`)."""
+    B, n, A, C = Y.shape
+    mp, k = Mp.shape[1], Mp.shape[2]
+    t = plan.tensors
+    scr, inb, outb = chunk_buffers(plan, Mp)
+    dev, isz = Y.device.index, Y.element_size()
+    chunk = _build.chain_launcher("two_seg_chunk", Y.dtype)
+    join = _build.chain_launcher("join", Y.dtype)
+    ptrs = [x.data_ptr() for x in (Y, T, t["steps"][0], t["steps"][1], split, t["chunks"],
+                                   t["rows"], t["iface_out"], Mp, scr, inb, outb)]
+
+    def phase(lv, mode):
+        wl = lv.width if mode == FIRST_PASS else 0
+        launch = two_segment_launch(A, C, k + wl, isz)
+        chunk(dev, *ptrs, n, A, C, h1, mp, k, int(bool(transpose)), *launch, lv.begin,
+              lv.end - lv.begin, plan.wmax, wl, mode)
+
+    launch_levels(plan, phase, lambda lv: join(
+        dev, t["chunks"].data_ptr(), outb.data_ptr(), inb.data_ptr(), lv.begin, lv.end, k,
+        plan.wmax))
 
 
 @highest_precision()
@@ -155,13 +194,22 @@ def _two_segment_apply_plain(
     of batched gathers, three small products and two scatters a step."""
     B, n, A, _ = Y.shape
     m, k = M.shape[1], M.shape[2]
-    dev = M.device
     Mp = torch.cat([M, M.new_zeros((B, h1 + A, k))], dim=1)
+    order = range(n) if transpose else range(n - 1, -1, -1)
+    _two_seg_steps(Y, T, s1, s2, split, Mp, h1, transpose, order)
+    return Mp[:, :m]
+
+
+def _two_seg_steps(Y, T, s1, s2, split, Mp, h1: int, transpose: bool, order) -> None:
+    """Steps ``order`` of the plain scan on ``Mp [B, rows, k]``, in place
+    (rows ``s1 + [0, h1)`` and ``s2 + [0, A)`` of every step inside it)."""
+    A = Y.shape[2]
+    k = Mp.shape[2]
+    dev = Mp.device
     jA = torch.arange(A, device=dev)
     j1 = torch.arange(h1, device=dev)
     head_rows = jA.clamp(max=h1 - 1)
     back_rows = j1.clamp(max=A - 1)
-    order = range(n) if transpose else range(n - 1, -1, -1)
     for l in order:
         sp = split[:, l, None]  # [B, 1]
         i1 = s1[:, l, None] + j1
@@ -180,6 +228,28 @@ def _two_segment_apply_plain(
         )
         Mp.scatter_(1, i1[..., None].expand(-1, -1, k), w1o)
         Mp.scatter_(1, i2[..., None].expand(-1, -1, k), w2o)
+
+
+@highest_precision()
+def _two_segment_apply_chunked_plain(Y, T, s1, s2, split, M, h1: int, transpose: bool,
+                                     plan: ChainPlan) -> torch.Tensor:
+    """A torch model of K1's chunked form (P1–P3 on ``plan``, the
+    direction's :func:`~qrkit_tpu_torch.ops.chain_plan.two_segment_plan`):
+    each chunk runs the plain scan's steps on its own layout of rows.  For
+    tests and ``chip_smoke.py``; no path calls it."""
+    B, n, A, _ = Y.shape
+    m, k = M.shape[1], M.shape[2]
+    Mp = torch.cat([M, M.new_zeros((B, h1 + A, k))], dim=1)
+    ls = torch.as_tensor(plan.steps, device=M.device)
+
+    def steps(c, local, ky):
+        b, i0, ln = (int(v) for v in plan.chunks[c, [SEQ, START, LEN]])
+        pos = range(i0, i0 + ln)
+        order = pos if transpose else [n - 1 - i for i in pos]
+        sl = slice(b, b + 1)
+        _two_seg_steps(Y[sl], T[sl], ls[0, sl], ls[1, sl], split[sl], local, h1, transpose, order)
+
+    chunked_plain(plan, Mp, steps, h1 + A)
     return Mp[:, :m]
 
 
@@ -192,11 +262,14 @@ class TwoSegmentWYSeq:
     the carry segment at ``s1[k]`` (``split[k]`` rows live) and the block
     segment at ``s2[k]``; the store is O(nb·A·C) however long the chain.
     ``kernel``: apply through K1's wrapper (:func:`two_segment_apply`), else
-    its plain version (the solver's route)."""
+    its plain version (the solver's route); ``plan``: the wrapper's chunk
+    plans ``(Qᵀ, Q)`` (:func:`~qrkit_tpu_torch.ops.chain_plan.two_segment_plan`),
+    None for one launch a product."""
 
-    def __init__(self, Y, T, s1, s2, split, *, h1: int, m: int, kernel: bool = True):
+    def __init__(self, Y, T, s1, s2, split, *, h1: int, m: int, kernel: bool = True, plan=None):
         self.Y, self.T = Y, T
         self.kernel = kernel
+        self.plan = (None, None) if plan is None else tuple(plan)
         dev = Y.device
         self.s1, self.s2, self.split = (
             torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (s1, s2, split)
@@ -210,10 +283,12 @@ class TwoSegmentWYSeq:
     def _apply(self, M: torch.Tensor, transpose: bool) -> torch.Tensor:
         vec = M.dim() == 1
         M2 = M[:, None] if vec else M
-        out = (two_segment_apply if self.kernel else _two_segment_apply_plain)(
-            self.Y[None], self.T[None], self.s1[None], self.s2[None], self.split[None],
-            M2[None], self.h1, transpose,
-        )[0]
+        args = (self.Y[None], self.T[None], self.s1[None], self.s2[None], self.split[None],
+                M2[None], self.h1, transpose)
+        if self.kernel:
+            out = two_segment_apply(*args, plan=self.plan[0 if transpose else 1])[0]
+        else:
+            out = _two_segment_apply_plain(*args)[0]
         return out[:, 0] if vec else out
 
     def apply_q(self, M: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,7 @@ from ..ops.banded import (
     solve_chunk_fits,
 )
 from ..ops.banded import banded_solve_chunk as _banded_solve_chunk  # the reference's name
+from ..ops.chain_plan import solve_plan, two_segment_plan
 from ..ops.compact_wy import TwoSegmentWYSeq, two_segment_fits
 from ..ops.householder import build_t_factor
 from ..plan import StructurePlan
@@ -164,7 +165,28 @@ def _solve_r_program(self, y: torch.Tensor) -> torch.Tensor:
     return banded_solve_r(
         self._r_panels, g["cols"], g["emit_rows"], g["ncols"], y[: self._ncols],
         max_emit=self._max_emit, max_cols=self._max_cols, n=self._ncols, kernel=self._scan_kernel,
+        plan=self._chain_plans["solve"],
     )
+
+
+def scan_plans(geom: dict, *, h1: int, A: int, m: int, max_emit: int, max_cols: int, n: int,
+               device, kernel: bool) -> dict:
+    """The chunk plans of a chain's scans from its host geometry
+    (:func:`banded_geometry`), uploaded to ``device``: ``"qt"`` / ``"q"``
+    for K1's two directions (``TwoSegmentWYSeq(..., plan=)``) and
+    ``"solve"`` for K2 (:func:`banded_solve_r`); each None for a chain of
+    one chunk, and all None off the kernels' route (``kernel`` False)."""
+    if not kernel:
+        return {"qt": None, "q": None, "solve": None}
+    k1 = dict(h1=h1, A=A, m=m, device=device)
+    g = geom
+    return {
+        "qt": two_segment_plan(g["cols"], g["rows"], g["carry_rows"], transpose=True, **k1),
+        "q": two_segment_plan(g["cols"], g["rows"], g["carry_rows"], transpose=False, **k1),
+        "solve": solve_plan(g["cols"], g["emit_rows"], g["ncols"], np.ones(len(g["cols"]), bool),
+                            max_emit=max_emit, max_cols=max_cols, rows=n + max_cols,
+                            device=device),
+    }
 
 
 def scan_route(use_kernel, fits: bool, geometry: str) -> bool:
@@ -194,20 +216,22 @@ def banded_solve_r(
     max_cols: int,
     n: int,
     kernel: bool = True,
+    plan=None,
 ) -> torch.Tensor:
     """Solve R x = y for the banded R stored as per-block panels
     ``[nb, max_emit, max_cols]`` without forming R; ``y`` is ``[n]`` or
-    ``[n, k]``.  ``kernel``: through K2's wrapper (the solver's route),
-    else its plain version."""
+    ``[n, k]``.  ``kernel``: through K2's wrapper (the solver's route,
+    with its chunk ``plan``), else its plain version."""
     vec = y.dim() == 1
     y2 = y[:, None] if vec else y
     ypad = torch.cat([y2, y2.new_zeros((max_cols, y2.shape[1]))])
     nb = r_panels.shape[0]
     active = torch.ones((1, nb), dtype=torch.bool, device=y.device)
-    xpad = (_banded_solve_chunk if kernel else _banded_solve_chunk_plain)(
-        ypad[None], r_panels[None], cols[None], emit_rows[None], ncols_arr[None], active,
-        max_emit=max_emit, max_cols=max_cols,
-    )[0]
+    args = (ypad[None], r_panels[None], cols[None], emit_rows[None], ncols_arr[None], active)
+    if kernel:
+        xpad = _banded_solve_chunk(*args, max_emit=max_emit, max_cols=max_cols, plan=plan)[0]
+    else:
+        xpad = _banded_solve_chunk_plain(*args, max_emit=max_emit, max_cols=max_cols)[0]
     return xpad[:n, 0] if vec else xpad[:n]
 
 
@@ -362,6 +386,11 @@ class BandedBlockedQR(QRSolver):
                 )
                 self._chain_act = torch.ones(nb, dtype=self.dtype, device=self.device)
         self._scan_kernel = self._scan_route()  # again at each factorize
+        # the chunk plans of the Q products and the back-substitution
+        self._chain_plans = scan_plans(
+            g, h1=self._max_carry, A=self._max_active, m=self._nrows, max_emit=self._max_emit,
+            max_cols=self._max_cols, n=self._ncols, device=self.device, kernel=self._scan_kernel,
+        )
         self._analysis_ok = True
         return self
 
@@ -426,9 +455,10 @@ class BandedBlockedQR(QRSolver):
             _factorize_program, vals, upload=(self.device, self.dtype),
         )
         g = self._geom_dev
+        plans = self._chain_plans
         self.q_seq = TwoSegmentWYSeq(
             Y, T, g["cols"], g["rows"], g["carry_rows"], h1=max(self._max_carry, 1), m=self._nrows,
-            kernel=self._scan_kernel,
+            kernel=self._scan_kernel, plan=(plans["qt"], plans["q"]),
         )
         self._set_success(health)
 

@@ -161,10 +161,10 @@ def adopt(self, out) -> None:
     """Store :func:`factorize`'s outputs as the solver's factors and leave
     the health flag on the device."""
     Yws, Ts, Vs, j2_top, Yb, Tb, Ywc, Tc, chain_r, health = out
-    cg, ckw = self._chain_geom_dev, self._chain_kw
+    cg, ckw, plans = self._chain_geom_dev, self._chain_kw, self._chain_plans
     self._chain_seq = TwoSegmentWYSeq(
         Ywc, Tc, cg["cols"], cg["rows"], cg["carry_rows"], h1=max(ckw["max_carry"], 1),
-        m=self._nbot2, kernel=self._scan_kernel,
+        m=self._nbot2, kernel=self._scan_kernel, plan=(plans["qt"], plans["q"]),
     )
     self._Yws, self._Ts, self._r_panels, self._j2_top = Yws, Ts, Vs, j2_top
     self._Yb, self._Tb, self._chain_r = Yb, Tb, chain_r

@@ -39,7 +39,7 @@ from ..ops.compact_wy import two_segment_fits
 from ..parallel.mesh import mesh_rank, shard_bounds
 from ..plan import BlockInfo, StructurePlan
 from ..sparse import Permutation
-from .banded_blocked import banded_geometry
+from .banded_blocked import banded_geometry, scan_plans
 
 
 def _dev(self, a, dtype=torch.int64) -> torch.Tensor:
@@ -341,6 +341,13 @@ def prepare_segmentation(self):
         for g in (self._kw, self._chain_kw)
     )
     self._scan_kernel = self._scan_route()  # again at each factorize
+    # the boundary chain's chunk plans (one chunk, None, unless it is long;
+    # every segment is one chunk)
+    ckw = self._chain_kw
+    self._chain_plans = scan_plans(
+        cg, h1=ckw["max_carry"], A=ckw["max_active"], m=self._nbot2, max_emit=ckw["max_emit"],
+        max_cols=ckw["max_cols"], n=self._m2, device=self.device, kernel=self._scan_kernel,
+    )
     prepare_kernel_gate(self)
     prepare_p2_gate(self)
     prepare_p2w(self)

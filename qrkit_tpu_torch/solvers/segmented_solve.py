@@ -35,6 +35,7 @@ def backsub(self, y1: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
     x2 = banded_solve_r(
         self._chain_r, cg["cols"], cg["emit_rows"], cg["ncols"], y2,
         max_emit=ckw["max_emit"], max_cols=ckw["max_cols"], n=self._m2, kernel=self._scan_kernel,
+        plan=self._chain_plans["solve"],
     )
     zeros = x2.new_zeros((o, k))
     x2seg = torch.cat([zeros, x2, zeros])[self._x2_idx]  # [S, 2o, k]

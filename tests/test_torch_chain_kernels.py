@@ -22,7 +22,10 @@ blocks, the segmented solver's segments and boundary chain, the banded
 ellipse stack's 4×1 chain; 1, 5, 16 and 48 columns), fp32 (rtol 1e-4, atol
 1e-5·max|·|) and fp64 (rtol 1e-10, atol 1e-12·max|·|: the kernels sum in
 another order than the plain versions' products); Q·(Qᵀb) = b; a captured
-replay bitwise equal to its eager call; bad operands refused.
+replay bitwise equal to its eager call; bad operands refused.  The same
+for the chunked forms (a chunk plan, ``ops.chain_plan``): on the solvers'
+chains and on the edge geometries at 1- and 3-step chunks, two calls and a
+replay bitwise equal.
 """
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ import qrkit_tpu_torch as qt
 from qrkit_tpu_torch import profiling
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
+from qrkit_tpu_torch.ops import chain_plan as cp
 from qrkit_tpu_torch.ops import compact_wy as cw
 from qrkit_tpu_torch.ops.householder import build_t_factor
 from qrkit_tpu_torch.solvers import banded_blocked
@@ -507,3 +511,114 @@ def test_cuda_wrappers_refuse_bad_operands(cuda_device):
         with pytest.raises(ValueError):
             call()
     assert not any(profiling.launch_counts().values())
+
+
+# --- the chunked forms on the card --------------------------------------------------
+
+def _plans(Y, s1, s2, sp, h1, m, V, c, e, nc, act, me, mc, n, chunk):
+    """(K1 Qᵀ plan, K1 Q plan, K2 plan) of a chain on its device (``chunk``
+    None: the solvers' rule)."""
+    dev = Y.device
+    host = [t.cpu().numpy() for t in (s1, s2, sp, c, e, nc, act)]
+    k1 = dict(h1=h1, A=Y.shape[2], m=m, device=dev, chunk_steps=chunk)
+    return (cp.two_segment_plan(*host[:3], transpose=True, **k1),
+            cp.two_segment_plan(*host[:3], transpose=False, **k1),
+            cp.solve_plan(*host[3:], max_emit=me, max_cols=mc, rows=n + mc, device=dev,
+                          chunk_steps=chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind,chunk", [("plain_config3", 8), ("plain_config3", 32),
+                                        ("ellipse_4x1", None)])
+def test_cuda_chunked_kernels_match_plain_on_solver_chains(cuda_device, kind, chunk, dtype):
+    """K1 (Qᵀ and Q) and K2 in their chunked forms against the serial plain
+    versions on the chains a solver builds, at 1, 5, 16 and 48 columns;
+    each wrapper call counts one launch."""
+    rng = np.random.default_rng(14)
+    for label, (Y, T, s1, s2, sp, h1, m), (V, c, e, nc, act, me, mc, n) in _solver_scans(
+            kind, cuda_device, dtype, rng):
+        pqt, pq, ps = _plans(Y, s1, s2, sp, h1, m, V, c, e, nc, act, me, mc, n, chunk)
+        assert pqt is not None and pq is not None and ps is not None
+        for k in (1, 5, 16, 48):
+            M = torch.as_tensor(rng.normal(size=(Y.shape[0], m, k)), dtype=dtype,
+                                device=cuda_device)
+            ypad = torch.as_tensor(rng.normal(size=(Y.shape[0], n + mc, k)), dtype=dtype,
+                                   device=cuda_device)
+            profiling.reset_launch_counts()
+            qtm = cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, True, plan=pqt)
+            qm = cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, False, plan=pq)
+            x = bk.banded_solve_chunk(ypad, V, c, e, nc, act, max_emit=me, max_cols=mc, plan=ps)
+            torch.cuda.synchronize()
+            counts = profiling.launch_counts()
+            assert (counts["chain_two_seg"], counts["chain_solve"]) == (2, 1), (label, k)
+            _assert_kernel_close(qtm, cw._two_segment_apply_plain(Y, T, s1, s2, sp, M, h1, True),
+                                 dtype)
+            _assert_kernel_close(qm, cw._two_segment_apply_plain(Y, T, s1, s2, sp, M, h1, False),
+                                 dtype)
+            _assert_kernel_close(
+                x, bk._banded_solve_chunk_plain(ypad, V, c, e, nc, act, max_emit=me, max_cols=mc),
+                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_cuda_chunked_edges(cuda_device, chunk, dtype):
+    """The chunked forms on the CPU tests' edge geometries (rows written by
+    no step or long before, rows both scatters write, padded and inactive
+    steps, several sequences) at 1- and 3-step chunks; padded steps stay
+    exact no-ops."""
+    for case, (B, n, A, C, h1, m, k, opts) in TWO_SEG_CASES.items():
+        arrs = two_seg_case(np.random.default_rng(15), B, n, A, C, h1, m, k, **opts)
+        ops = [_t(a, dtype, cuda_device) for a in arrs]
+        plans = {}
+        for transpose in (True, False):
+            plans[transpose] = cp.two_segment_plan(*arrs[2:5], h1=h1, A=A, m=m,
+                                                   transpose=transpose, device=cuda_device,
+                                                   chunk_steps=chunk)
+            got = cw.two_segment_apply(*ops, h1, transpose, plan=plans[transpose])
+            _assert_kernel_close(got, cw._two_segment_apply_plain(*ops, h1, transpose), dtype)
+        zero = [torch.zeros_like(ops[0]), torch.zeros_like(ops[1]), *ops[2:]]
+        assert torch.equal(cw.two_segment_apply(*zero, h1, True, plan=plans[True]), ops[5]), case
+    for case, (B, L, E, me, mc, n, k, inactive) in SOLVE_CASES.items():
+        arrs = solve_case(np.random.default_rng(16), B, L, E, me, mc, n, k, inactive=inactive)
+        ops = [_t(a, dtype, cuda_device) for a in arrs]
+        plan = cp.solve_plan(*arrs[2:], max_emit=me, max_cols=mc, rows=n + mc,
+                             device=cuda_device, chunk_steps=chunk)
+        got = bk.banded_solve_chunk(*ops, max_emit=me, max_cols=mc, plan=plan)
+        _assert_kernel_close(got, bk._banded_solve_chunk_plain(*ops, max_emit=me, max_cols=mc),
+                             dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_calls_are_deterministic(cuda_device):
+    """The chunked forms on config 3's blocks: two calls give the same bits,
+    and a captured replay gives the eager call's (no atomics, a fixed order
+    of every sum and of the boundary pass)."""
+    rng = np.random.default_rng(17)
+    ((_, (Y, T, s1, s2, sp, h1, m), (V, c, e, nc, act, me, mc, n)),) = _solver_scans(
+        "plain_config3", cuda_device, torch.float32, rng)
+    pqt, pq, ps = _plans(Y, s1, s2, sp, h1, m, V, c, e, nc, act, me, mc, n, 8)
+    M = torch.as_tensor(rng.normal(size=(1, m, 3)), dtype=torch.float32, device=cuda_device)
+    ypad = torch.as_tensor(rng.normal(size=(1, n + mc, 3)), dtype=torch.float32,
+                           device=cuda_device)
+
+    def calls():
+        return (cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, True, plan=pqt),
+                cw.two_segment_apply(Y, T, s1, s2, sp, M, h1, False, plan=pq),
+                bk.banded_solve_chunk(ypad, V, c, e, nc, act, max_emit=me, max_cols=mc, plan=ps))
+
+    first, second = calls(), calls()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, e) for o, e in zip(out, first))
