@@ -46,6 +46,21 @@ conditional WHILE node needs 12.3 in both), and then:
   the dense 10,000 × 10,000 R, ``torch.triangular_solve`` on R in sparse
   CSR where the installed PyTorch takes it; timed, never called by the
   port);
+* the lane-major damped LM step (phase ``lm_step_kernels``, kernel K3 of
+  ``qrkit_tpu_torch/ops/csrc/lm_step.cu``: the point pass with its tiles'
+  panel QR, the reduction of the tiles' partials with the damping tail,
+  the per-point back-substitution): against its plain version (the same
+  tiled algorithm in PyTorch) at the ellipse's shape, 2×1 blocks and 5
+  right columns, over 100,000 points (its Jacobian at the fit's start) and
+  500,000, and at 2×2 and 7×2 blocks over 100,000, fp32 and fp64; two
+  calls bitwise equal; a vmapped batch of 16 × 10,000 as one launch against
+  16 solo calls; a step that requires grad (K3 forward, its gradient
+  against the CPU's in fp64); in fp32 its time as a replayed graph of 10 calls beside
+  the plain version's, the yardstick ``torch.linalg.qr(mode="r")`` on the
+  step's bottom panel (timed, never called by the port), host µs a call
+  and a launch, bytes, operations and bound.  Every ellipse fit, the step
+  programs and the mesh step below launch K3: once an iteration, once a
+  replay, once a rank's step;
 * B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
   every option combination against the plain version, every block shape,
   fp32 and fp64, and their time at the 1M-block point;
@@ -180,7 +195,7 @@ the scan, and to none elsewhere; the other kernels are held to their exact
 counts.  Bounds are the larger of the bytes a call
 must move over 3.35 TB/s and its fp32 operations over 67 TFLOP/s (H100 SXM
 at 700 W).  The last lines are the card's name and power limit, the kernel
-summary ``{"kernels": [...]}`` (B1–B5, L1, K1, K2) and ``{"ok": true,
+summary ``{"kernels": [...]}`` (B1–B5, L1, K1, K2, K3) and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -371,19 +386,22 @@ def phase_build():
     """One nvcc per library, all started together: the block-diagonal
     library of each block shape, the single banded library, which takes
     every banded shape (config 3's and the tests') as kernel arguments, the
-    chain-scan library (K1, K2, every shape too) and the graph-loop
-    library."""
+    chain-scan library (K1, K2, every shape too), the graph-loop library
+    and the damped-step library (K3) of each step shape."""
     t0 = time.perf_counter()
     jobs = [lambda s=s: _build.build(*s) for s in KERNEL_SHAPES]
     jobs.append(lambda: _build.build_source(_build.BANDED_SOURCE))
     jobs.append(lambda: _build.build_source(_build.CHAIN_SOURCE))
     jobs.append(lambda: _build.build_source(_build.GRAPH_LOOP_SOURCE))
+    jobs += [lambda s=s: _build.build_lm_step(*s) for s in LM_STEP_SHAPES]
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = [f.result() for f in [pool.submit(job) for job in jobs]]
     for br, bc in KERNEL_SHAPES:
         _build.load(br, bc)
     _build.load_banded()
     _build.load_chain()
+    for shape in LM_STEP_SHAPES:
+        _build.load_lm_step(*shape)
     driver, runtime = graph_loop.versions()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
@@ -1539,14 +1557,18 @@ def fit(pts, dtype=torch.float32):
     return result, params, time.perf_counter() - t0, lm.levenberg_marquardt_device.host_reads - reads0
 
 
-def first_fit_contract(label, iterations, reads, counts):
+def first_fit_contract(label, iterations, reads, counts, k3=False):
     """A key's first fit: iteration 1 eager (one host read; a fit that it
     finishes ends there), iteration 2 the capture's warm-up, then the whole
     fit as one launch of the captured loop (one fetch; L1 once before the
-    loop and once an iteration, by its own count), no other kernel."""
+    loop and once an iteration, by its own count), with ``k3`` (the
+    ellipse fits' step) K3 once an iteration and once each for iteration 1
+    and the capture's warm-up body, no other kernel."""
     k = int(iterations)
     want_reads = 2 if k > 1 else 1
     want = {name: (k + 1 if name == "graph_loop_cond" and k > 1 else 0) for name in counts}
+    if k3:  # iteration 1's step, the warm-up's, one an iteration
+        want[K3] = k + 2 if k > 1 else 1
     if reads != want_reads or counts != want:
         raise AssertionError(f"{label}: first fit of {k} iterations: {reads} host reads, launches "
                              f"{counts}; want {want_reads} and {want}")
@@ -1558,16 +1580,20 @@ def phase_ellipse_lm(smi):
     fit as one launch: host reads and launches checked), the canonical
     parameters against the truth, the wall time of warm fits (a median of 3)
     and, at N = 100,000, the device busy share of a warm fit under
-    torch.profiler.  Then fit_ellipse_batch on 16 problems of 10,000 points
-    against the solo fits."""
+    torch.profiler, with K3's kernel records and device time.  Then
+    fit_ellipse_batch on 16 problems of 10,000 points against the solo
+    fits, K3 once an iteration for the whole batch (vmap).  Returns K3's
+    launches in the counted fits."""
     el = ellipse.Ellipse(*ELLIPSE_TRUTH)
     lm.clear_programs()
+    k3_launches_total = 0
     for n in ELLIPSE_NS:
         pts = ellipse.ellipse_points(el, n)
         profiling.reset_launch_counts()
         result, params, first_s, reads = fit(pts)
         counts = profiling.launch_counts()
-        first_fit_contract(f"ellipse LM N={n}", result.iterations, reads, counts)
+        first_fit_contract(f"ellipse LM N={n}", result.iterations, reads, counts, k3=True)
+        k3_launches_total += counts[K3]
         err = float(np.abs(params[n:] - np.array(ELLIPSE_TRUTH)).max())
         if not (np.isfinite(result.cost) and err < ELLIPSE_GATE and np.isfinite(params).all()):
             raise AssertionError(f"ellipse LM N={n}: cost {result.cost}, parameter error {err}")
@@ -1582,8 +1608,12 @@ def phase_ellipse_lm(smi):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 _, _, wall_s, _ = fit(pts)
             kernel_ms, launches = device_kernels(prof)
+            k3 = [device_kernels(prof, part) for part in K3_PARTS]
+            k3_ms, k3_records = sum(m for m, _ in k3), sum(r for _, r in k3)
             busy = {"device_ms": kernel_ms, "device_launches": launches,
                     "launches_per_iteration": launches / result.iterations,
+                    "k3_kernel_records": k3_records, "k3_device_ms": k3_ms,
+                    "k3_kernels_per_iteration": k3_records / result.iterations,
                     "wall_ms_under_profiler": wall_s * 1e3,
                     "busy_share": kernel_ms / (wall_s * 1e3) if kernel_ms > 0 else None}
         emit({
@@ -1600,9 +1630,14 @@ def phase_ellipse_lm(smi):
     nb, n = 16, 10_000
     pts_b = ellipse_batch_points(nb, n)
     ellipse.fit_ellipse_batch(pts_b[:2], LM_CFG, dtype=torch.float32, device=DEVICE)  # warm-up
+    profiling.reset_launch_counts()
     t0 = time.perf_counter()
     batch = ellipse.fit_ellipse_batch(pts_b, LM_CFG, dtype=torch.float32, device=DEVICE)
     batch_s = time.perf_counter() - t0
+    batch_k3, kb = profiling.launch_counts()[K3], int(np.max(batch.iterations))
+    if batch_k3 != (kb + 2 if kb > 1 else 1):  # one vmapped launch an iteration, as the solo fits
+        raise AssertionError(f"ellipse batch: K3 launched {batch_k3} times in {kb} iterations")
+    k3_launches_total += batch_k3
     worst, solo_s = 0.0, 0.0
     for i in range(nb):
         solo, _, s, _ = fit(pts_b[i])
@@ -1613,10 +1648,11 @@ def phase_ellipse_lm(smi):
         "phase": "ellipse_lm_batch", "problems": nb, "n": n, "dtype": "float32",
         "iterations": [int(v) for v in batch.iterations], "max_abs_err_vs_solo": worst,
         "rtol": tolerance(torch.float32)[0], "atol_x_max_abs": tolerance(torch.float32)[1],
-        "batch_s_first_fit_of_key": batch_s, "sum_of_solo_s": solo_s,
+        "batch_s_first_fit_of_key": batch_s, "sum_of_solo_s": solo_s, "k3_launches": batch_k3,
         "note": "the batch is its key's first fit (capture included); of the solo fits the first "
                 "captures, the others are warm", "gpu": smi,
     })
+    return k3_launches_total
 
 
 def ellipse_batch_points(nb=16, n=10_000):
@@ -2810,7 +2846,7 @@ def mesh_collective_costs(mesh, smi, reps=50):
 
 
 MESH_PROGRAM_REPS = 3  # timed calls a round (captured, eager, eager, captured)
-MESH_PROGRAM_KERNELS = KERNEL_NAMES + ("graph_loop_cond",) + tuple(SCAN_KERNELS)
+MESH_PROGRAM_KERNELS = KERNEL_NAMES + ("graph_loop_cond",) + tuple(SCAN_KERNELS) + ("lm_step",)
 
 
 def mesh_programs(mesh, smi):
@@ -2936,7 +2972,7 @@ def phase_mesh(rng, smi):
         res = ellipse._residuals(params, pts)
         add(mesh_check("ellipse_lane_major_step", lambda: ellipse._damped_step_aux(params, res, lam, pts),
                        lambda: ellipse._damped_step_aux(params, res, lam, pts, mesh=mesh), False, 10, smi,
-                       extra={"n": MESH_ELLIPSE_N}))
+                       {K3: 1}, extra={"n": MESH_ELLIPSE_N}))
 
         # the point-sharded bundle device fit
         cams0, pts0, uv = bundle_start(MESH_BUNDLE_P)
@@ -3208,7 +3244,7 @@ def phase_programs(rng, smi):
 
     functional_and_soa_programs(rng, drive, dev)
 
-    missing = [name for name in (*KERNEL_NAMES, *SCAN_KERNELS) if not total[name]]
+    missing = [name for name in (*KERNEL_NAMES, *SCAN_KERNELS, K3) if not total[name]]
     if missing:
         raise AssertionError(f"programs: kernels never launched inside a replay: {missing}")
     return total
@@ -3241,7 +3277,7 @@ def functional_and_soa_programs(rng, drive, dev):
     ):
         drive(path, label, programs, f"functional.{label}", call,
               lambda out: concat(*(t.float() for t in (out if isinstance(out, tuple) else (out,)))),
-              {}, 20, 20)
+              {K3: 1} if label.startswith("lm_") else {}, 20, 20)
     blocks_np, a2_np, b_np = block_angular_problem(rng, n)
     soa = qt.BlockMatrix1x2(
         qt.BlockDiagonal.from_soa(dev(blocks_np.transpose(1, 2, 0).reshape(2, n)), 2, 1, nrows=2 * n),
@@ -3258,6 +3294,169 @@ def functional_and_soa_programs(rng, drive, dev):
           lambda x: x, {}, 20, 20)
     drive(path, "compute_solve", ba._programs, "BlockAngularQR.soa_compute_solve",
           lambda: ba.compute_solve(soa, b), lambda x: x, {}, 20, 20)
+
+
+# --- K3: the lane-major damped LM step ---------------------------------------------
+LM_STEP_SOURCE = "qrkit_tpu_torch/ops/csrc/lm_step.cu"
+K3 = "lm_step"
+K3_REPLACES = ("none: the jitted lm_damped_step_blockdiag(1), qrkit_tpu/functional.py:278-433 "
+               "(_soa_tall_qr_solve :278, lm_damped_step_blockdiag :319, ...1 :419)")
+LM_STEP_SHAPES = ((2, 1, 5), (2, 2, 5), (7, 2, 5))  # the ellipse's, and two more step shapes
+# (bl, bc, m2, nb): the ellipse at 100,000 and 500,000 points, the other shapes at 100,000
+LM_STEP_CASES = ((2, 1, 5, 100_000), (2, 1, 5, 500_000), (2, 2, 5, 100_000), (7, 2, 5, 100_000))
+LM_STEP_TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-10, 1e-12)}
+LM_STEP_GRAD_N = 3000  # points of the step differentiated on the card and on the CPU
+K3_PARTS = ("lm_local", "lm_reduce", "lm_backsub")  # its kernels' names, for the profiler
+
+
+def lm_step_operands(rng, bl, bc, m2, nb, dtype, lead=()):
+    """Normal operands of a step, ``lead`` problems; the ellipse's shape at
+    its fit's start (its Jacobian and residuals at the initial parameters
+    of ``ellipse_points``) where there are no leading axes."""
+    f32 = dict(dtype=dtype, device=DEVICE)
+    if (bl, bc, m2) == (2, 1, 5) and not lead:
+        f = ellipse.EllipseFitting(ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), nb), **f32)
+        params = f.initial_params()
+        left, right = ellipse._jacobian_soa(params, f.pts)
+        return left[:, None, :].contiguous(), right, ellipse._residuals_soa(params, f.pts)
+    return tuple(torch.as_tensor(rng.normal(size=(*lead, *shape)), **f32)
+                 for shape in ((bl, bc, nb), (bl, m2, nb), (bl, nb)))
+
+
+def lm_step_cost(bl, bc, m2, nb, itemsize):
+    """(bytes, operations) of one step: each input read once and the output
+    written once; the point pass's bc Householder steps on its (bl + bc)-row
+    block and m2 + 1 columns, the panel QR's m2 steps over bl·nb lanes (a
+    sum and an update of the rows j..m2 a lane), the back-substitution."""
+    nbytes = ((bl * bc + bl * m2 + bl) * nb + bc * nb + m2 + 1) * itemsize
+    br = bl + bc
+    point = sum(2 * (br - j) + sum(4 * (br - j) + 1 for _ in range(bc - j - 1 + m2 + 1))
+                for j in range(bc))
+    panel = sum(4 * (m2 + 1 - j) for j in range(m2)) * bl
+    back = bc * 2 * m2 + bc * bc
+    return nbytes, (point + panel + back) * nb
+
+
+def k3_launches(nb, m2, tile=None):
+    """Kernel launches of one step: K3a, K3b's levels, its finish, K3c."""
+    from qrkit_tpu_torch.ops import lm_step as ls
+
+    parts = -(-nb // (tile or ls.TILE))
+    return 3 + len(ls.reduce_levels(parts, ls.default_group(m2)))
+
+
+def phase_lm_step_kernels(smi):
+    """K3 against its plain version (``ops.lm_step._damped_step_plain``, the
+    same tiled algorithm in PyTorch on the same card) at the ellipse's
+    shape (100,000 and 500,000 points at its fit's start) and
+    at (2, 2, 5) and (7, 2, 5) over 100,000, fp32 (rtol 1e-4, atol
+    1e-5·max|·|) and fp64 (rtol 1e-10, atol 1e-12·max|·|: the panel's sums
+    run in another order); two calls bitwise equal; a vmapped batch of 16 ×
+    10,000 (one launch) against 16 solo calls; a step that requires grad
+    (K3 forward) with its gradient against the CPU's, fp64.  fp32 times: the kernels as
+    a replayed CUDA graph of 10 wrapper calls between events (``graph_ms``),
+    the plain version the same way, the yardstick ``torch.linalg.qr(M,
+    mode="r")`` on the step's bottom panel M ``[bl·nb + m2, m2 + 1]``
+    (CUDA events per call; the port never calls it), the host µs a call,
+    the bound.  Launches here are not the main path's.  Returns (worst error,
+    {case: timing})."""
+    from qrkit_tpu_torch.ops import lm_step as ls
+
+    rng = np.random.default_rng(SEED + 15)
+    worst, timings = 0.0, {}
+    for bl, bc, m2, nb in LM_STEP_CASES:
+        for dtype in (torch.float32, torch.float64):
+            left, right, res = lm_step_operands(rng, bl, bc, m2, nb, dtype)
+            lam = torch.tensor(1e-3, dtype=dtype, device=DEVICE)
+            before = ls.damped_step_lane_major.launches
+            out = ls.damped_step_lane_major(left, right, res, lam)
+            again = ls.damped_step_lane_major(left, right, res, lam)
+            torch.cuda.synchronize()
+            if ls.damped_step_lane_major.launches != before + 2:
+                raise AssertionError(f"K3 {bl}x{bc}x{m2} n={nb}: the wrapper did not count its launches")
+            plain = ls._damped_step_plain(left[None], right[None], res[None], lam.reshape(1))[0]
+            err, equal = compare(out, plain, dtype, LM_STEP_TOL[dtype])
+            if not torch.equal(out, again):
+                raise AssertionError(f"K3 {bl}x{bc}x{m2} n={nb} {dtype}: two calls differ")
+            worst = max(worst, err)
+            line = {"phase": "lm_step_kernels", "shape": [bl, bc, m2], "n": nb,
+                    "dtype": str(dtype).split(".")[1], "max_abs_err": err,
+                    "bitwise_equal_plain": equal, "repeat_bitwise_equal": True,
+                    "rtol": LM_STEP_TOL[dtype][0], "atol_x_max_abs": LM_STEP_TOL[dtype][1],
+                    "operands": "the ellipse's Jacobian and residuals at its fit's start"
+                    if (bl, bc, m2) == (2, 1, 5) else "normal",
+                    "kernel_launches_per_call": k3_launches(nb, m2)}
+            if dtype == torch.float32:
+                step = lambda: ls.damped_step_lane_major(left, right, res, lam)  # noqa: E731
+                plain_fn = lambda: ls._damped_step_plain(  # noqa: E731
+                    left[None], right[None], res[None], lam.reshape(1))
+                rounds = {"kernel": [], "plain": []}
+                for kind in ("kernel", "plain", "plain", "kernel"):
+                    rounds[kind].append(graph_ms(step if kind == "kernel" else plain_fn))
+                M = torch.cat([right.permute(0, 2, 1).reshape(-1, m2), -res.reshape(-1, 1)], dim=1)
+                M = torch.cat([M, M.new_zeros((m2, m2 + 1))])
+                library_ms = profiling.cuda_time_ms(lambda: torch.linalg.qr(M, mode="r"),
+                                                    warmup=3, reps=20)
+                host_us, wall_us = host_and_wall_us(step, 50)
+                dev_ms, by_name, records = kernel_device_ms(step, K3_PARTS)
+                nbytes, flops = lm_step_cost(bl, bc, m2, nb, 4)
+                bound_ms, bound_by = bound(nbytes, flops)
+                t = {"ms": statistics.mean(rounds["kernel"]), "plain_ms": statistics.mean(rounds["plain"]),
+                     "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "flops": flops, "device_ms": dev_ms,
+                     "device_kernels_ms": by_name, "device_records_per_call": records / 10,
+                     "host_us_per_call": host_us, "wall_us_per_call": wall_us,
+                     "host_us_per_launch": host_us / k3_launches(nb, m2), "rounds": rounds}
+                timings[(bl, bc, m2, nb)] = t
+                line.update(t, method="ms / plain_ms: a CUDA graph of 10 calls replayed between "
+                            "CUDA events over 10, median of 5 replays, rounds kernel, plain, plain, "
+                            "kernel; library_ms: torch.linalg.qr(M, mode='r') on the bottom panel "
+                            "[bl*nb + m2, m2 + 1], CUDA events per call, median of 20; host_us: "
+                            "host clock over 50 eager calls before the synchronize; device_ms: "
+                            "torch.profiler's kernel time per call; bound: bytes (inputs read once, "
+                            "output written once) over 3.35 TB/s against the fp32 operations over "
+                            "67 TFLOP/s", gpu=smi)
+            emit(line)
+    # the batch fit's step: 16 problems of 10,000 points under vmap, one launch
+    nbatch, nb = LM_BATCH
+    for dtype in (torch.float32, torch.float64):
+        left, right, res = lm_step_operands(rng, 2, 1, 5, nb, dtype, lead=(nbatch,))
+        lam = torch.as_tensor(rng.uniform(1e-4, 1.0, size=nbatch), dtype=dtype, device=DEVICE)
+        before = ls.damped_step_lane_major.launches
+        batch = torch.func.vmap(ls.damped_step_lane_major)(left, right, res, lam)
+        torch.cuda.synchronize()
+        if ls.damped_step_lane_major.launches != before + 1:
+            raise AssertionError("K3 under vmap: not one launch for the batch")
+        errs = [compare(batch[i], ls.damped_step_lane_major(left[i], right[i], res[i], lam[i]),
+                        dtype, LM_STEP_TOL[dtype])[0] for i in range(nbatch)]
+        worst = max(worst, max(errs))
+        line = {"phase": "lm_step_kernels", "case": f"vmap_{nbatch}x{nb}", "dtype": str(dtype).split(".")[1],
+                "max_abs_err_vs_solo": max(errs), "launches_for_the_batch": 1, "gpu": smi}
+        if dtype == torch.float32:
+            vstep = lambda: torch.func.vmap(ls.damped_step_lane_major)(left, right, res, lam)  # noqa: E731
+            line["ms"] = graph_ms(vstep)
+            line["solo_ms_sum"] = sum(graph_ms(lambda i=i: ls.damped_step_lane_major(
+                left[i], right[i], res[i], lam[i]), calls=10, reps=3) for i in range(nbatch))
+        emit(line)
+    # a step whose operands require grad: K3 runs the forward, the backward is
+    # the plain version's vector-Jacobian product; the gradient against the CPU's
+    nb = LM_STEP_GRAD_N
+    ops = [t.detach().clone().requires_grad_() for t in lm_step_operands(rng, 2, 1, 5, nb, torch.float64)]
+    ops.append(torch.tensor(1e-3, dtype=torch.float64, device=DEVICE, requires_grad=True))
+    g = torch.as_tensor(rng.normal(size=nb + 5), dtype=torch.float64, device=DEVICE)
+    before = ls.damped_step_lane_major.launches
+    got = torch.autograd.grad(ls.damped_step_lane_major(*ops), ops, g)
+    torch.cuda.synchronize()
+    if ls.damped_step_lane_major.launches != before + 1:
+        raise AssertionError("K3 with grad: the forward did not launch the kernels")
+    cpu = [t.detach().cpu().requires_grad_() for t in ops]
+    want = torch.autograd.grad(ls.damped_step_lane_major(*cpu), cpu, g.cpu())
+    err = max(compare(a.cpu(), b, torch.float64, LM_STEP_TOL[torch.float64])[0]
+              for a, b in zip(got, want))
+    worst = max(worst, err)
+    emit({"phase": "lm_step_kernels", "case": f"grad_{nb}", "dtype": "float64",
+          "max_abs_err_grad_vs_cpu": err, "forward_launches": 1, "gpu": smi})
+    return worst, timings
 
 
 # --- one LM fit as one program (the captured loop, L1) ---
@@ -3318,7 +3517,8 @@ def drive_lm_program(label, fit, gate, smi):
     """One fit at full width: the eager loop (``_program.eager()``), the
     key's first fit (capture), a warm fit counted (one program, one host
     read, no host-issued launch, L1 once before the loop and once an
-    iteration), each bitwise equal to the eager fit, L1's log against the
+    iteration, K3 once an iteration in the ellipse fits), each bitwise
+    equal to the eager fit, L1's log against the
     plain condition on every iteration, the gate; then eager and captured
     fits in turns (wall ms), device ms per fit under torch.profiler and
     L1's device time in a captured fit.  Returns (L1 launches of the warm
@@ -3351,8 +3551,9 @@ def drive_lm_program(label, fit, gate, smi):
     if d.programs != 1 or d.host_reads != 1 or warm_reads != 1 or any(d.host_launches.values()):
         problems.append(f"warm fit: {d.programs} programs, {d.host_reads} host reads (driver "
                         f"{warm_reads}), host launches {d.host_launches}; want 1, 1, none")
-    if launches != {"graph_loop_cond": k + 1}:
-        problems.append(f"warm fit launches {launches}, want L1 {k + 1} times")
+    want = {"graph_loop_cond": k + 1, **({K3: k} if label.startswith("fit_ellipse") else {})}
+    if launches != want:  # the ellipse fits' step: K3 once an iteration
+        problems.append(f"warm fit launches {launches}, want {want}")
     if first_reads != (2 if k > 1 else 1):
         problems.append(f"first fit: {first_reads} host reads")
     if log != [1] * k + [0]:
@@ -3484,12 +3685,13 @@ def main():
     banded_counts, _ = phase_banded_main_path(rng, smi)
     banded_timings = phase_banded_timing(c3_ops, smi)
     scan_worst, scan_timings = phase_chain_kernels(smi)
+    k3_worst, k3_timings = phase_lm_step_kernels(smi)
     profiling.reset_launch_counts()
     replayed = phase_programs(rng, smi)
     program_counts = profiling.launch_counts()
     options_worst = phase_blockdiag_options(rng, smi)
     ba_b2 = phase_block_angular(rng, smi)
-    phase_ellipse_lm(smi)
+    ellipse_k3 = phase_ellipse_lm(smi)
     ell_counts, ell_b5_worst, _ = phase_ellipse_banded(smi)
     bundle_b2, bundle_iters = phase_bundle(smi)
     bundle_step_breakdown(smi)
@@ -3583,6 +3785,21 @@ def main():
             "ellipse_banded_launches": ell_counts[name], "cli_launches": cli_counts[name],
             "sparse_apply_launches": sp_counts[name],
         })
+    t = k3_timings[LM_STEP_CASES[0]]  # the ellipse at 100,000 points, fp32
+    kernels.append({
+        "name": K3, "route": "cuda", "source": LM_STEP_SOURCE, "replaces": K3_REPLACES,
+        "launches": ellipse_k3 + lm_counts[K3] + program_counts[K3] + mesh_counts[K3],
+        "max_abs_err": k3_worst,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                             "host_us_per_call", "host_us_per_launch")},
+        "library_call": "torch.linalg.qr(M, mode='r') on the step's bottom panel [2N + 5, 6]",
+        "case": "ellipse step, 100,000 points (2x1 blocks, 5 right columns), fp32",
+        "at_500k": {k: k3_timings[LM_STEP_CASES[1]][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                 "library_ms", "device_ms")},
+        "ellipse_lm_launches": ellipse_k3, "lm_program_launches": lm_counts[K3],
+        "program_launches": program_counts[K3], "replayed_warm_launches": replayed[K3],
+        "mesh_launches": mesh_counts[K3],
+    })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
         "replaces": L1_REPLACES,

@@ -3,13 +3,17 @@ with implicit-diff gradients, and the lane-major damped LM steps.
 
 Counterpart of ``qrkit_tpu/functional.py`` (``block_diagonal_factorize``,
 ``block_diagonal_lstsq``, ``block_angular_lstsq`` and their custom VJPs,
-``_soa_tall_qr_solve``, ``lm_damped_step_blockdiag(1)``).  As in the
-reference these paths run no device kernel of their own: they are batched
-plain torch (compact-WY QR, Qᵀ through the implicit Y/T factors, batched
-triangular solves) on either device.  The LM steps keep the reference's
-lane-major layout (the point axis last and contiguous): on the GPU that is
-the coalesced layout, and every per-point scalar of the recurrence is one
-contiguous row.
+``_soa_tall_qr_solve``, here in :mod:`~qrkit_tpu_torch.ops.lm_step`,
+``lm_damped_step_blockdiag(1)``).  As in the
+reference the factorize and least-squares paths run no device kernel of
+their own: they are batched plain torch (compact-WY QR, Qᵀ through the
+implicit Y/T factors, batched triangular solves) on either device.  The LM
+steps keep the reference's lane-major layout (the point axis last and
+contiguous) and run kernel K3 on the card
+(:func:`~qrkit_tpu_torch.ops.lm_step.damped_step_lane_major`: the point
+pass with its tiles' panel QR, the reduction of the tiles' partials with
+the damping tail, the per-point back-substitution); on CPU tensors its
+plain version, the same tiled algorithm.
 
 On card operands that do not require grad, :func:`block_diagonal_factorize`,
 :func:`block_diagonal_lstsq`, :func:`block_angular_lstsq` and the LM steps
@@ -42,6 +46,7 @@ from .ops.householder import (
     highest_precision,
     panel_qr_yt,
 )
+from .ops.lm_step import damped_step_lane_major
 
 __all__ = [
     "block_angular_lstsq",
@@ -386,69 +391,6 @@ def block_angular_lstsq(
     )
 
 
-def _reflector(x0: torch.Tensor, sigma: torch.Tensor):
-    """Unnormalized Householder reflector of a column with pivot x0 and
-    squared tail norm sigma: ``H = I − u uᵀ · c`` with ``u = (x0 − β,
-    tail)`` and ``c = 1/(β(β − x0))`` (0 when the tail is zero, H = I).
-    Returns (β, c, degenerate); one reciprocal per column (the derivation of
-    ``ops.blockdiag._householder_inplace``; β(β − x0) = ‖x‖² + ‖x‖·|x0| > 0
-    away from the degenerate branch)."""
-    one = torch.ones_like(x0)
-    norm = torch.sqrt(x0 * x0 + sigma)
-    beta = torch.where(x0 >= 0, -norm, norm)
-    degen = sigma <= 0
-    t = beta * (beta - x0)
-    c = torch.where(degen, torch.zeros_like(x0), one / torch.where(degen, one, t))
-    return beta, c, degen
-
-
-def _soa_tall_qr(X: torch.Tensor, y: torch.Tensor, m2: int):
-    """QR of a tall-skinny system stored lane-major.
-
-    ``X [m2, L]`` holds the tall matrix M [L, m2] transposed (the long axis
-    contiguous) and ``y [L]`` the rhs.  Householder QR with the pivot lane
-    masked per step (the reflector lives along the long axis; ``w = Xy·u``
-    is one matrix-vector product over L).  Returns R [m2, m2] and
-    ``(Qᵀy)[:m2]``."""
-    L = X.shape[1]
-    lane = torch.arange(L, device=X.device)
-    zero = X.new_zeros(())
-    Xy = torch.cat([X, y[None, :]], dim=0)  # [m2+1, L]
-    for j in range(m2):
-        col = Xy[j]
-        x0 = col[j]
-        tail = torch.where(lane > j, col, zero)
-        beta, c, _ = _reflector(x0, (tail * tail).sum())
-        u = torch.where(lane == j, x0 - beta, tail)  # lanes < j are already zero
-        w = (Xy @ u) * c  # [m2+1]
-        Xy = Xy - torch.outer(w, u)
-    return torch.triu(Xy[:m2, :m2].T), Xy[m2, :m2]  # R[row, col] = Xy[col, lane=row]
-
-
-def _soa_tall_qr_solve(X: torch.Tensor, y: torch.Tensor, m2: int) -> torch.Tensor:
-    """Least-squares solve of a lane-major tall-skinny system (see
-    :func:`_soa_tall_qr`): the m2×m2 triangular solve on its R.  Returns
-    x2 [m2]."""
-    return _solve_upper(*_soa_tall_qr(X, y, m2))
-
-
-def _soa_tall_qr_solve_sharded(X, y, tail, m2: int, mesh, axis: str) -> torch.Tensor:
-    """:func:`_soa_tall_qr_solve` of a system whose lanes ``X [m2, L]``, ``y
-    [L]`` are this rank's, with the replicated lanes ``tail [m2 + 1, t]``
-    (X rows and y) under the reduction: TSQR, a local lane-major QR, one
-    all-gather of the ``[m2, m2 + 1]`` ``[R | Qᵀy]`` factors, and the
-    second stage over the stack and the tail."""
-    from .parallel.mesh import all_gather_leading
-
-    if X.shape[1] < m2:  # the local QR needs m2 lanes; zero lanes change nothing
-        pad = X.new_zeros((m2 + 1, m2 - X.shape[1]))
-        X, y = torch.cat([X, pad[:m2]], dim=1), torch.cat([y, pad[m2]])
-    R, qty = _soa_tall_qr(X, y, m2)
-    stack = all_gather_leading(torch.cat([R, qty[:, None]], dim=1), mesh, axis)
-    Xs = torch.cat([stack.T, tail], dim=1)  # [m2 + 1, world·m2 + t], lane-major
-    return _soa_tall_qr_solve(Xs[:m2], Xs[m2], m2)
-
-
 def _as_lam(lam, like: torch.Tensor) -> torch.Tensor:
     """λ as a 0-d tensor in ``like``'s dtype on its device (a host float is
     copied here, outside any program: a capture refuses the copy)."""
@@ -476,11 +418,14 @@ def lm_damped_step_blockdiag(
     updates on the block columns, right rows and rhs; the lane-pivoted
     Householder QR of the skinny bottom panel; per-point bc×bc
     back-substitution.  The damping rows are analytic: √λ·I_bc under each
-    block and √λ·I_m2 at the tail.
+    block and √λ·I_m2 at the tail.  The bottom panel reduces as a tree: a
+    partial ``[R | Qᵀy]`` per tile of points, then the partials with the
+    tail (kernel K3 on the card, its plain version on the CPU:
+    :mod:`~qrkit_tpu_torch.ops.lm_step`).
 
-    With ``mesh=`` the points (lanes) are this rank's: the bottom panel
-    reduces across ranks by TSQR (the damping tail once, in the second
-    stage) and x1 is gathered over the lanes of every rank.
+    With ``mesh=`` the points (lanes) are this rank's: the rank reduces its
+    tiles to one partial, one all-gather stacks every rank's, the tail joins
+    them in the finish, and x1 is gathered over the lanes of every rank.
 
     Without a mesh the step is one captured program on the card (the module
     docstring); a host ``lam`` is copied to the device before it.
@@ -494,65 +439,30 @@ def lm_damped_step_blockdiag(
     )
 
 
-@highest_precision()
+def _gather_partials(mesh, axis: str):
+    """The mesh form's gather: this rank's one partial ``[1, m2 + 1, m2]``
+    of the bottom panel (lane-major) to every rank's ``[1, m2 + 1, world ·
+    m2]``, by one all-gather."""
+    from .parallel.mesh import all_gather_leading
+
+    def gather(part):
+        stack = all_gather_leading(part, mesh, axis)  # [world, m2 + 1, m2]
+        return stack.transpose(0, 1).reshape(1, stack.shape[1], -1)
+
+    return gather
+
+
+def _damped_step_flat(left, right, res, lam, mesh=None, axis: str = "dp") -> torch.Tensor:
+    """The step as K3's wrapper returns it: ``[bc·nb + m2]``, x1 ``[bc, nb]``
+    flattened, then x2 (with ``mesh=``, x1 over this rank's points)."""
+    gather = None if mesh is None else _gather_partials(mesh, axis)
+    return damped_step_lane_major(left, right, res, lam, gather=gather)
+
+
 def _damped_step(left, right, res, lam, mesh=None, axis: str = "dp"):
-    bl, bc, nb = left.shape
-    m2 = right.shape[1]
-    dt, dev = left.dtype, left.device
-    sl = torch.sqrt(lam)
-
-    # damped block per point: a [br, bc, nb], br = bl + bc, damping rows √λ·I_bc
-    eye_damp = (sl * torch.eye(bc, dtype=dt, device=dev))[:, :, None].expand(bc, bc, nb)
-    a = torch.cat([left, eye_damp], dim=0)
-    B = torch.cat(
-        [
-            torch.cat([right, -res[:, None, :]], dim=1),
-            left.new_zeros((bc, m2 + 1, nb)),
-        ],
-        dim=0,
-    )  # [br, m2+1, nb]
-    br = bl + bc
-
-    r1_rows = []  # per-point rows of the bc×bc R1 (diagonal from beta)
-    for j in range(bc):
-        colj = a[:, j]  # [br, nb]
-        x0 = colj[j]
-        beta, c, degen = _reflector(x0, (colj[j + 1 :] * colj[j + 1 :]).sum(0))
-        u = torch.cat([left.new_zeros((j, nb)), (x0 - beta)[None], colj[j + 1 :]], dim=0)
-        # trailing update on block columns j+1.. and on [right | rhs]
-        if j + 1 < bc:
-            wA = c[None] * (u[:, None, :] * a[:, j + 1 :]).sum(0)
-            a = torch.cat([a[:, : j + 1], a[:, j + 1 :] - u[:, None, :] * wA[None]], dim=1)
-        wB = c[None] * (u[:, None, :] * B).sum(0)
-        B = B - u[:, None, :] * wB[None]
-        diag_j = torch.where(degen, x0, beta)
-        row = [left.new_zeros(nb)] * j + [diag_j] + [a[j, jj] for jj in range(j + 1, bc)]
-        r1_rows.append(torch.stack(row, dim=0))  # [bc, nb]
-    R1 = torch.stack(r1_rows, dim=0)  # [bc, bc, nb]
-
-    y1 = B[:bc, m2]  # [bc, nb]
-    r12 = B[:bc, :m2]  # [bc, m2, nb]
-
-    # bottom panel: complement rows + √λ·I_m2 tail, lane-major
-    comp = B[bc:].permute(1, 0, 2).reshape(m2 + 1, (br - bc) * nb)
-    tail = torch.cat(
-        [sl * torch.eye(m2, dtype=dt, device=dev), left.new_zeros((1, m2))], dim=0
-    )
-    if mesh is None:
-        Xy = torch.cat([comp, tail], dim=1)
-        x2 = _soa_tall_qr_solve(Xy[:m2], Xy[m2], m2)
-    else:
-        x2 = _soa_tall_qr_solve_sharded(comp[:m2], comp[m2], tail, m2, mesh, axis)
-
-    # per-point bc×bc back-substitution through R1
-    rhs1 = y1 - (r12 * x2[None, :, None]).sum(1)  # [bc, nb]
-    x1_rows = [None] * bc
-    for j in range(bc - 1, -1, -1):
-        acc = rhs1[j]
-        for jj in range(j + 1, bc):
-            acc = acc - R1[j, jj] * x1_rows[jj]
-        x1_rows[j] = acc / R1[j, j]
-    x1 = torch.stack(x1_rows, dim=0)
+    bc, nb = left.shape[1], left.shape[2]
+    out = _damped_step_flat(left, right, res, lam, mesh, axis)
+    x1, x2 = out[: bc * nb].reshape(bc, nb), out[bc * nb :]
     if mesh is not None:
         from .parallel.mesh import all_gather_leading
 
@@ -583,5 +493,7 @@ def lm_damped_step_blockdiag1(
 
 
 def _damped_step1(left, right, res, lam, mesh=None, axis: str = "dp"):
+    if mesh is None:  # K3 writes the flat step itself
+        return _damped_step_flat(left[:, None, :], right, res, lam)
     x1, x2 = _damped_step(left[:, None, :], right, res, lam, mesh, axis)
     return torch.cat([x1[0], x2])

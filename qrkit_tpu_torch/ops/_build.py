@@ -20,12 +20,17 @@ flags, so an edited source never loads a stale library.  Libraries go under
 * ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
   functions that build a conditional WHILE graph around captured graphs,
   linked against the driver (``-lcuda``; :func:`load_graph_loop`).
+* ``lm_step.cu``: the lane-major damped LM step (K3: the point pass with
+  its tiles' panel QR, the reduction levels and finish, the per-point
+  back-substitution), one library per step shape (bl, bc, m2), compiled
+  with ``-DQRK_BL -DQRK_BC -DQRK_M2`` so a point's work unrolls into
+  registers (:func:`build_lm_step`, :func:`load_lm_step`).
 
 Each launcher takes its operands' CUDA ordinal first, makes that device
 current for the launch and the caller's device current again after it, so
 the kernels run on any ``cuda:N`` and leave PyTorch's current device as it
 was.  :func:`blockdiag_launcher` / :func:`banded_launcher` /
-:func:`chain_launcher` bind a launcher
+:func:`chain_launcher` / :func:`lm_step_launcher` bind a launcher
 once (:class:`Launcher`); a call then costs one ctypes call and one read of
 the device's current stream.
 
@@ -48,8 +53,9 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
-    "build_source", "chain_launcher", "current_stream", "find_nvcc", "load", "load_banded",
-    "load_chain", "load_graph_loop", "load_source",
+    "build_lm_step", "build_source", "chain_launcher", "current_stream", "find_nvcc", "load",
+    "load_banded", "load_chain", "load_graph_loop", "load_lm_step", "load_source",
+    "lm_step_launcher",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -68,6 +74,7 @@ BLOCKDIAG_SOURCE = "blockdiag_qr.cu"
 BANDED_SOURCE = "banded_chain.cu"
 CHAIN_SOURCE = "chain_apply.cu"
 GRAPH_LOOP_SOURCE = "graph_loop.cu"
+LM_STEP_SOURCE = "lm_step.cu"
 # libraries a source links besides the static CUDA runtime (after the source)
 _LINK = {GRAPH_LOOP_SOURCE: ("-lcuda",)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -104,6 +111,15 @@ _CHAIN_SIGNATURES = tuple(
     )
 )
 _INT = ctypes.c_int
+_LM_STEP_SIGNATURES = tuple(
+    (f"qrk_lm_{kind}_{dt}", (_DEV, *args, _PTR))
+    for dt in ("f32", "f64")
+    for kind, args in (
+        ("local", (_PTR,) * 6 + (_I64,) * 3),
+        ("reduce", (_PTR, _I64, _PTR, _PTR) + (_I64,) * 3 + (_INT,)),
+        ("backsub", (_PTR,) * 3 + (_I64,) * 3),
+    )
+)
 _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
     ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _INT, _PTR)),
@@ -203,6 +219,23 @@ def load(br: int, bc: int) -> ctypes.CDLL:
     return load_source(BLOCKDIAG_SOURCE, defines, _BLOCKDIAG_SIGNATURES, tag)
 
 
+def _lm_step_defines(bl: int, bc: int, m2: int):
+    return (("QRK_BL", int(bl)), ("QRK_BC", int(bc)), ("QRK_M2", int(m2))), f"_{bl}x{bc}x{m2}"
+
+
+def build_lm_step(bl: int, bc: int, m2: int) -> Path:
+    """Compile the damped-step kernels for one step shape (cached on
+    disk); returns the library's path."""
+    return build_source(LM_STEP_SOURCE, *_lm_step_defines(bl, bc, m2))
+
+
+def load_lm_step(bl: int, bc: int, m2: int) -> ctypes.CDLL:
+    """Build (if needed) and load the damped-step kernels for one step
+    shape."""
+    defines, tag = _lm_step_defines(bl, bc, m2)
+    return load_source(LM_STEP_SOURCE, defines, _LM_STEP_SIGNATURES, tag)
+
+
 def load_banded() -> ctypes.CDLL:
     """Build (if needed) and load the banded-chain kernels (one library for
     every shape)."""
@@ -271,3 +304,11 @@ def chain_launcher(kind: str, dtype) -> Launcher:
     chunked forms, ``join``: a level's boundary pass), built and bound at
     first use."""
     return Launcher(load_chain(), f"qrk_chain_{kind}_{_SUFFIX[dtype]}")
+
+
+@functools.lru_cache(maxsize=None)
+def lm_step_launcher(kind: str, bl: int, bc: int, m2: int, dtype) -> Launcher:
+    """``qrk_lm_<kind>_<f32|f64>`` of the (bl, bc, m2) library (``local``:
+    K3a, ``reduce``: a level or the finish of K3b, ``backsub``: K3c), built
+    and bound at first use."""
+    return Launcher(load_lm_step(bl, bc, m2), f"qrk_lm_{kind}_{_SUFFIX[dtype]}")

@@ -29,6 +29,7 @@ __all__ = [
     "householder_qr_unblocked",
     "build_t_factor",
     "panel_qr_yt",
+    "batched_panel_qr_yt",
     "panel_qr_yt_lapack",
     "panel_qr_yt_soa",
     "colpiv_householder_qr",
@@ -162,6 +163,16 @@ def panel_qr_yt(
     Y2, T2, A2r = panel_qr_yt(A2, offset + n1, panel_width)
     Y = torch.cat([Y1, Y2], dim=-1)
     return Y, _combine_t(T1, T2, Y1, Y2), torch.cat([A1, A2r], dim=-1)
+
+
+def batched_panel_qr_yt(
+    blocks: torch.Tensor, panel_width: int = 16
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`panel_qr_yt` of each block of a ``[nb, m, n]`` batch (the
+    reference's ``vmap``; the port's functions take leading axes)."""
+    if blocks.dim() != 3:
+        raise ValueError(f"blocks must be [nb, m, n], got {tuple(blocks.shape)}")
+    return panel_qr_yt(blocks, 0, panel_width)
 
 
 @highest_precision()

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..functional import _reflector, _solve_upper
+from ..functional import _solve_upper
 from ..ops.householder import (
     apply_wy,
     build_t_factor,
@@ -39,6 +39,7 @@ from ..ops.householder import (
     rank_from_diag,
     rank_masked_triangular_solve,
 )
+from ..ops.lm_step import _reflector
 from .base import _diag_health
 
 __all__ = [

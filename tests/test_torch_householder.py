@@ -120,3 +120,70 @@ def test_highest_precision_restores_flags():
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize(
+    "shape,panel_width", [((7, 2), 16), ((20, 17), 16), ((20, 17), 4), ((40, 36), 16)],
+    ids=["7x2", "recursive", "narrow_panels", "library_qr"],
+)
+def test_batched_panel_qr_yt_matches(rng, shape, panel_width):
+    """``batched_panel_qr_yt`` against the reference's vmap of ``panel_qr_yt``."""
+    batch = rng.uniform(0.5, 5.0, size=(3,) + shape)
+    got = th.batched_panel_qr_yt(torch.as_tensor(batch), panel_width)
+    want = jax.jit(jh.batched_panel_qr_yt, static_argnames="panel_width")(
+        jnp.asarray(batch), panel_width=panel_width)
+    for g, w in zip(got, want):
+        _close(g, w)
+    with pytest.raises(ValueError):
+        th.batched_panel_qr_yt(torch.as_tensor(batch[0]))
+
+
+def _ops_case(name, rng):
+    """(port call, reference call) of one name of ``ops``, on one input."""
+    import qrkit_tpu.ops as jops
+    import qrkit_tpu_torch.ops as tops
+
+    A = rng.uniform(0.5, 5.0, size=(9, 4))
+    M = rng.normal(size=(9, 3))
+    Y, T, _ = th.panel_qr_yt(torch.as_tensor(A))
+    jY, jT, _ = jh.panel_qr_yt(jnp.asarray(A))
+    Y2, T2, _ = th.panel_qr_yt(torch.as_tensor(rng.uniform(0.5, 5.0, size=(2, 6, 2))))
+    t, j = getattr(tops, name), getattr(jops, name)
+    return {
+        "apply_wy": (lambda: t(Y, T, torch.as_tensor(M), transpose=True),
+                     lambda: j(jY, jT, jnp.asarray(M), transpose=True)),
+        "batched_panel_qr_yt": (lambda: t(torch.as_tensor(A[None])), lambda: j(jnp.asarray(A[None]))),
+        "build_t_factor": (lambda: t(*th.householder_qr_unblocked(torch.as_tensor(A))[:2]),
+                           lambda: j(*jh.householder_qr_unblocked(jnp.asarray(A))[:2])),
+        "colpiv_householder_qr": (lambda: t(torch.as_tensor(A)), lambda: j(jnp.asarray(A))),
+        "form_q": (lambda: t(Y, T), lambda: j(jY, jT)),
+        "householder_qr_unblocked": (lambda: t(torch.as_tensor(A), 1),
+                                     lambda: j(jnp.asarray(A), 1)),
+        "panel_qr_yt": (lambda: t(torch.as_tensor(A), 0, 2), lambda: j(jnp.asarray(A), 0, 2)),
+        "CompactWYSeq": (  # two 6×2 blocks at rows 0 and 3 of a 9-row operand, Qᵀ then Q
+            lambda: [(s := t(Y2, T2, [0, 3], 9)).apply_qt(torch.as_tensor(M)),
+                     s.apply_q(torch.as_tensor(M))],
+            lambda: [(s := j(jnp.asarray(Y2.numpy()), jnp.asarray(T2.numpy()), jnp.asarray([0, 3]),
+                             9)).apply_qt(jnp.asarray(M)), s.apply_q(jnp.asarray(M))]),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["apply_wy", "batched_panel_qr_yt", "build_t_factor",
+                                  "colpiv_householder_qr", "form_q", "householder_qr_unblocked",
+                                  "panel_qr_yt", "CompactWYSeq"])
+def test_ops_exports_match_reference(rng, name):
+    """``qrkit_tpu_torch.ops`` exports the reference's names, each agreeing
+    with ``qrkit_tpu.ops``'s in fp64."""
+    import qrkit_tpu.ops as jops
+    import qrkit_tpu_torch.ops as tops
+
+    assert name in tops.__all__ and set(tops.__all__) == set(jops.__all__)
+    got, want = (f() for f in _ops_case(name, rng))
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if g.dtype == torch.int64:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            _close(g, w)

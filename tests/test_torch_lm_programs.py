@@ -375,10 +375,12 @@ def _reads():
     return lm.levenberg_marquardt_device.host_reads
 
 
-def _drive_fit(fit, device=DEV):
+def _drive_fit(fit, device=DEV, steps=False):
     """The first fit of the key (iteration 1 eager, the capture, the fit as
     one launch), then a warm fit counted; checks the loop's bookkeeping
-    against the eager fit and returns (eager result, warm result)."""
+    against the eager fit and returns (eager result, warm result).
+    ``steps``: the fit's damped step is K3, which launches once an
+    iteration on the card (on the CPU its plain version launches none)."""
     lm.clear_programs()
     with _program.eager():
         eager = fit()
@@ -388,7 +390,10 @@ def _drive_fit(fit, device=DEV):
     with qt.count_dispatches() as d:
         first = fit()
     assert _reads() - reads == 2, (k, _reads() - reads)  # iteration 1, the fetch
-    assert {n: v for n, v in d.launches.items() if v} == {"graph_loop_cond": k + 1}
+    k3 = steps and device.type == "cuda"
+    # K3: iteration 1's step, the capture's warm-up body, then one an iteration
+    want = {"graph_loop_cond": k + 1, **({"lm_step": k + 2} if k3 else {})}
+    assert {n: v for n, v in d.launches.items() if v} == want
     (prog,) = lm._LOOPS.programs().values()
     assert _bitwise(first, eager)
     prog.log.fill_(-1)
@@ -400,7 +405,8 @@ def _drive_fit(fit, device=DEV):
     assert _reads() - reads == 1  # the fetch (on the CPU not a device-to-host copy)
     assert d.programs == 1 and d.host_reads == (device.type == "cuda"), d
     assert not any(d.host_launches.values()), d.host_launches
-    assert {n: v for n, v in d.launches.items() if v} == {"graph_loop_cond": k + 1}
+    want = {"graph_loop_cond": k + 1, **({"lm_step": k} if k3 else {})}
+    assert {n: v for n, v in d.launches.items() if v} == want
     assert _bitwise(warm, eager)
     # L1 against its plain condition on every iteration: true until the
     # eager loop's last iteration, then false
@@ -674,9 +680,10 @@ def test_cuda_soa_route_programs(cuda_device):
 def test_cuda_fit_is_one_loop_program(name, cuda_device):
     """On the card: a warm fit is one graph launch, one host read, no
     host-issued launch, L1 once an iteration and once before the loop,
-    bitwise the eager loop's."""
+    the ellipse fits' step (K3) once an iteration, bitwise the eager
+    loop's."""
     fit, _ = _fit_cases(cuda_device)[name]
-    _drive_fit(fit, cuda_device)
+    _drive_fit(fit, cuda_device, steps=name.startswith("fit_ellipse"))
 
 
 def test_replay_clones_are_exact_copies():

@@ -181,6 +181,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     monkeypatch.setattr(_build, "load_banded", no_build)
     monkeypatch.setattr(_build, "load_chain", no_build)
     monkeypatch.setattr(_build, "load_graph_loop", no_build)
+    monkeypatch.setattr(_build, "load_lm_step", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
     mat = qt.BlockDiagonal.from_dense_batch(blocks, device=DEV)
@@ -196,9 +197,11 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     seg.solve(torch.as_tensor(rng.normal(size=banded.nrows)))
     plain.solve(torch.as_tensor(rng.normal(size=banded.nrows)))
     assert seg._scan_kernel and plain._scan_kernel
+    step = [torch.as_tensor(rng.normal(size=shape)) for shape in ((2, 1, 9), (2, 5, 9), (2, 9))]
+    qt.functional.lm_damped_step_blockdiag(*step, 0.5)
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
-        "banded_chain_qr", "graph_loop_cond", "chain_two_seg", "chain_solve",
+        "banded_chain_qr", "graph_loop_cond", "chain_two_seg", "chain_solve", "lm_step",
     }
     assert not any(profiling.launch_counts().values())
 
