@@ -47,20 +47,29 @@ conditional WHILE node needs 12.3 in both), and then:
   CSR where the installed PyTorch takes it; timed, never called by the
   port);
 * the lane-major damped LM step (phase ``lm_step_kernels``, kernel K3 of
-  ``qrkit_tpu_torch/ops/csrc/lm_step.cu``: the point pass with its tiles'
-  panel QR, the reduction of the tiles' partials with the damping tail,
-  the per-point back-substitution): against its plain version (the same
-  tiled algorithm in PyTorch) at the ellipse's shape, 2×1 blocks and 5
-  right columns, over 100,000 points (its Jacobian at the fit's start) and
+  ``qrkit_tpu_torch/ops/csrc/lm_step.cu``: one memset and one cooperative
+  launch a step on a persistent grid of at most C CTAs, each thread's
+  carry over its points, the warp and CTA merges, the last CTA's finish,
+  x1 after a grid-wide flag): against its plain version (the same
+  schedule in PyTorch) at the ellipse's shape, 2×1 blocks and 5 right
+  columns, over 100,000 points (its Jacobian at the fit's start) and
   500,000, and at 2×2 and 7×2 blocks over 100,000, fp32 and fp64; two
   calls bitwise equal; a vmapped batch of 16 × 10,000 as one launch against
-  16 solo calls; a step that requires grad (K3 forward, its gradient
-  against the CPU's in fp64); in fp32 its time as a replayed graph of 10 calls beside
-  the plain version's, the yardstick ``torch.linalg.qr(mode="r")`` on the
-  step's bottom panel (timed, never called by the port), host µs a call
-  and a launch, bytes, operations and bound.  Every ellipse fit, the step
-  programs and the mesh step below launch K3: once an iteration, once a
-  replay, once a rank's step;
+  16 solo calls; a step that requires grad (one launch forward, its
+  gradient against the CPU's in fp64); its launches read off the card
+  (one call captured into a CUDA graph and read node by node,
+  ``profiling.graph_nodes``: one cooperative K3 node and one memset node a
+  step, two of each in the mesh form; the calls into its C launcher
+  counted by mode); in fp32 its time as a replayed
+  graph of 10 calls beside the plain version's, its first mode alone (the
+  point pass through the last CTA's reduction), an empty cooperative
+  kernel on its grid (the launch floor), the profiler's memset and kernel,
+  the chosen C and the geometry, the yardstick ``torch.linalg.qr(mode="r")``
+  on the step's bottom panel (timed, never called by the port), host µs a
+  call, bytes, operations and bound.  Every ellipse fit, the step programs
+  and the mesh step below launch K3: once an iteration, once a replay,
+  once a rank's step (its two mode launches); the mesh phase also holds
+  the mesh step's gradient against ``mesh=None``'s;
 * B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
   every option combination against the plain version, every block shape,
   fp32 and fp64, and their time at the 1M-block point;
@@ -2882,6 +2891,36 @@ def mesh_programs(mesh, smi):
     return counts
 
 
+MESH_GRAD_TOL = 1e-10  # fp64 rtol, and atol relative to max|mesh=None|
+
+
+def mesh_step_grad(mesh, smi):
+    """The ``mesh=`` lane-major damped step under autograd on the one NCCL
+    rank, at ``MESH_ELLIPSE_N`` points, fp64: the gradients of a loss of
+    the step with respect to left, right, res and λ, for the bc = 2 form
+    and the bc = 1 form (``dryrun.step_grad_case``), against ``mesh=None``'s
+    within rtol 1e-10; one collective in the backward (the all-reduce of
+    2·m2 + 1 values); K3 once a step.  Returns the kernel launches."""
+    before, calls0 = profiling.launch_counts(), dict(K3_C_CALLS)
+    t0 = time.perf_counter()
+    cases = dryrun.step_grad_case(mesh, dryrun.step_grad_inputs(1, nb=MESH_ELLIPSE_N))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v - before.get(k, 0) for k, v in profiling.launch_counts().items()}
+    calls = k3_calls_since(calls0)
+    errs = dryrun.check_step_grad(cases, MESH_GRAD_TOL)
+    # each form: the mesh step (its partial and its finish) and the mesh=None step (one launch)
+    n = len(cases)
+    if counts.get(K3) != 2 * n or calls != {0: n, 1: n, 2: n}:
+        raise AssertionError(f"mesh step grad: K3 counted {counts.get(K3)} steps, C launcher calls {calls}; "
+                             f"want {2 * n} steps, {n} of each mode")
+    emit({"phase": "mesh", "path": "lm_damped_step_grad", "n": MESH_ELLIPSE_N, "dtype": "float64",
+          "forms": list(cases), "max_abs_err": errs, "rtol": MESH_GRAD_TOL,
+          "atol_x_max_abs": MESH_GRAD_TOL, "backward_collectives": {"all_reduce": 1},
+          "k3_steps": counts.get(K3), "k3_launcher_calls_by_mode": calls, "seconds": seconds, "gpu": smi})
+    return counts
+
+
 def phase_mesh(rng, smi):
     """The mesh paths on a one-rank NCCL mesh in this process (see the
     module docstring).  Returns the mesh runs' kernel launches by name."""
@@ -2973,6 +3012,9 @@ def phase_mesh(rng, smi):
         add(mesh_check("ellipse_lane_major_step", lambda: ellipse._damped_step_aux(params, res, lam, pts),
                        lambda: ellipse._damped_step_aux(params, res, lam, pts, mesh=mesh), False, 10, smi,
                        {K3: 1}, extra={"n": MESH_ELLIPSE_N}))
+
+        # the mesh step's gradient (both forms, fp64) against mesh=None's
+        add(mesh_step_grad(mesh, smi))
 
         # the point-sharded bundle device fit
         cams0, pts0, uv = bundle_start(MESH_BUNDLE_P)
@@ -3306,7 +3348,58 @@ LM_STEP_SHAPES = ((2, 1, 5), (2, 2, 5), (7, 2, 5))  # the ellipse's, and two mor
 LM_STEP_CASES = ((2, 1, 5, 100_000), (2, 1, 5, 500_000), (2, 2, 5, 100_000), (7, 2, 5, 100_000))
 LM_STEP_TOL = {torch.float32: (1e-4, 1e-5), torch.float64: (1e-10, 1e-12)}
 LM_STEP_GRAD_N = 3000  # points of the step differentiated on the card and on the CPU
-K3_PARTS = ("lm_local", "lm_reduce", "lm_backsub")  # its kernels' names, for the profiler
+K3_PARTS = ("lm_step_kernel",)  # its kernel's name, for the profiler and the graph census
+# calls into K3's C launcher (qrk_lm_step_*) that returned, by mode (0: a
+# step's one launch; 1, 2: the mesh form's two), each one memset and one
+# kernel launch (count_k3_launcher_calls)
+K3_C_CALLS = {0: 0, 1: 0, 2: 0}
+
+
+def count_k3_launcher_calls():
+    """Wraps ``_build.lm_step_launcher`` so that every call into K3's C
+    launcher that returns adds one to ``K3_C_CALLS`` under its mode."""
+    bind = _build.lm_step_launcher
+
+    def launcher(kind, *args, **kw):
+        inner = bind(kind, *args, **kw)
+        if kind != "step":
+            return inner
+
+        def call(device, *a):
+            inner(device, *a)
+            K3_C_CALLS[a[-1]] += 1
+
+        return call
+
+    _build.lm_step_launcher = launcher
+
+
+def k3_calls_since(before):
+    """K3's C launcher calls by mode since the snapshot ``before``."""
+    return {mode: n - before[mode] for mode, n in K3_C_CALLS.items()}
+
+
+def k3_graph_census(fn):
+    """One call of ``fn`` captured into a CUDA graph, read node by node
+    (``profiling.graph_nodes``): K3's kernel nodes, its grid, block and
+    cooperative attribute, the memset nodes and any other node."""
+    nodes = profiling.graph_nodes(fn)
+    k3 = [n for n in nodes if n["type"] == "kernel" and K3_PARTS[0] in n["name"]]
+    memsets = sum(n["type"] == "memset" for n in nodes)
+    return {"k3_kernel_nodes": len(k3), "memset_nodes": memsets, "other_nodes": len(nodes) - len(k3) - memsets,
+            "cooperative": all(n["cooperative"] for n in k3), "grids": [n["grid"][0] for n in k3],
+            "blocks": [n["block"][0] for n in k3]}
+
+
+def check_k3_census(label, census, launches, grid):
+    """K3's census (``k3_graph_census``) holds ``launches`` cooperative
+    kernel nodes of ``grid`` CTAs of ``TILE`` threads and as many memsets."""
+    from qrkit_tpu_torch.ops import lm_step as ls
+
+    want = {"k3_kernel_nodes": launches, "memset_nodes": launches, "cooperative": True,
+            "grids": [grid] * launches, "blocks": [ls.TILE] * launches}
+    if {k: census[k] for k in want} != want:
+        raise AssertionError(f"K3 {label}: a captured call holds {census}, want {want}")
 
 
 def lm_step_operands(rng, bl, bc, m2, nb, dtype, lead=()):
@@ -3326,23 +3419,18 @@ def lm_step_operands(rng, bl, bc, m2, nb, dtype, lead=()):
 def lm_step_cost(bl, bc, m2, nb, itemsize):
     """(bytes, operations) of one step: each input read once and the output
     written once; the point pass's bc Householder steps on its (bl + bc)-row
-    block and m2 + 1 columns, the panel QR's m2 steps over bl·nb lanes (a
-    sum and an update of the rows j..m2 a lane), the back-substitution."""
+    block and m2 + 1 columns, the absorb of its bl rows into its thread's
+    carry (per column j: σ, the reflector, and for each later column r the
+    sum, w_r and the updates of the carry row and the bl rows), the
+    back-substitution (the merges of the carries, some 20 per 256 points,
+    not counted)."""
     nbytes = ((bl * bc + bl * m2 + bl) * nb + bc * nb + m2 + 1) * itemsize
     br = bl + bc
     point = sum(2 * (br - j) + sum(4 * (br - j) + 1 for _ in range(bc - j - 1 + m2 + 1))
                 for j in range(bc))
-    panel = sum(4 * (m2 + 1 - j) for j in range(m2)) * bl
+    panel = sum(2 * bl + 3 + (m2 - j) * (4 + 4 * bl) for j in range(m2))
     back = bc * 2 * m2 + bc * bc
     return nbytes, (point + panel + back) * nb
-
-
-def k3_launches(nb, m2, tile=None):
-    """Kernel launches of one step: K3a, K3b's levels, its finish, K3c."""
-    from qrkit_tpu_torch.ops import lm_step as ls
-
-    parts = -(-nb // (tile or ls.TILE))
-    return 3 + len(ls.reduce_levels(parts, ls.default_group(m2)))
 
 
 def phase_lm_step_kernels(smi):
@@ -3368,12 +3456,14 @@ def phase_lm_step_kernels(smi):
         for dtype in (torch.float32, torch.float64):
             left, right, res = lm_step_operands(rng, bl, bc, m2, nb, dtype)
             lam = torch.tensor(1e-3, dtype=dtype, device=DEVICE)
-            before = ls.damped_step_lane_major.launches
+            before, calls0 = ls.damped_step_lane_major.launches, dict(K3_C_CALLS)
             out = ls.damped_step_lane_major(left, right, res, lam)
             again = ls.damped_step_lane_major(left, right, res, lam)
             torch.cuda.synchronize()
-            if ls.damped_step_lane_major.launches != before + 2:
-                raise AssertionError(f"K3 {bl}x{bc}x{m2} n={nb}: the wrapper did not count its launches")
+            calls = k3_calls_since(calls0)
+            if ls.damped_step_lane_major.launches != before + 2 or calls != {0: 2, 1: 0, 2: 0}:
+                raise AssertionError(f"K3 {bl}x{bc}x{m2} n={nb}: two steps counted "
+                                     f"{ls.damped_step_lane_major.launches - before}, C launcher calls {calls}")
             plain = ls._damped_step_plain(left[None], right[None], res[None], lam.reshape(1))[0]
             err, equal = compare(out, plain, dtype, LM_STEP_TOL[dtype])
             if not torch.equal(out, again):
@@ -3385,7 +3475,7 @@ def phase_lm_step_kernels(smi):
                     "rtol": LM_STEP_TOL[dtype][0], "atol_x_max_abs": LM_STEP_TOL[dtype][1],
                     "operands": "the ellipse's Jacobian and residuals at its fit's start"
                     if (bl, bc, m2) == (2, 1, 5) else "normal",
-                    "kernel_launches_per_call": k3_launches(nb, m2)}
+                    "launcher_calls_per_call": calls[0] / 2}
             if dtype == torch.float32:
                 step = lambda: ls.damped_step_lane_major(left, right, res, lam)  # noqa: E731
                 plain_fn = lambda: ls._damped_step_plain(  # noqa: E731
@@ -3398,19 +3488,48 @@ def phase_lm_step_kernels(smi):
                 library_ms = profiling.cuda_time_ms(lambda: torch.linalg.qr(M, mode="r"),
                                                     warmup=3, reps=20)
                 host_us, wall_us = host_and_wall_us(step, 50)
-                dev_ms, by_name, records = kernel_device_ms(step, K3_PARTS)
+                dev_ms, by_name, _ = kernel_device_ms(step, K3_PARTS + ("Memset",))
                 nbytes, flops = lm_step_cost(bl, bc, m2, nb, 4)
                 bound_ms, bound_by = bound(nbytes, flops)
+                tiles, segs, grid, reg = _build.lm_step_geometry(bl, bc, m2, dtype, nb, 1, ls.TILE)
+                if (tiles, segs, grid) != ls.schedule(nb, 1):
+                    raise AssertionError(f"K3 geometry {(tiles, segs, grid)} against the mirror "
+                                         f"{ls.schedule(nb, 1)}")
+                census = k3_graph_census(step)
+                check_k3_census(f"{bl}x{bc}x{m2} n={nb}", census, 1, grid)
+                mesh_census = k3_graph_census(lambda: ls.damped_step_lane_major(
+                    left, right, res, lam, gather=lambda part: part))  # a one-rank gather
+                check_k3_census(f"{bl}x{bc}x{m2} n={nb} mesh form", mesh_census, 2, grid)
+                empty = _build.lm_step_launcher("empty", bl, bc, m2)
+                dev = torch.cuda.current_device()
                 t = {"ms": statistics.mean(rounds["kernel"]), "plain_ms": statistics.mean(rounds["plain"]),
                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "flops": flops, "device_ms": dev_ms,
-                     "device_kernels_ms": by_name, "device_records_per_call": records / 10,
+                     "bytes": nbytes, "flops": flops, "device_ms": by_name.get(K3_PARTS[0]),
+                     "device_kernels_ms": by_name,
                      "host_us_per_call": host_us, "wall_us_per_call": wall_us,
-                     "host_us_per_launch": host_us / k3_launches(nb, m2), "rounds": rounds}
+                     "host_us_per_launch": host_us / census["k3_kernel_nodes"], "rounds": rounds,
+                     "k3_launches": census["k3_kernel_nodes"], "memset_nodes": census["memset_nodes"],
+                     "other_nodes": census["other_nodes"], "cooperative": census["cooperative"],
+                     "mesh_form_k3_launches": mesh_census["k3_kernel_nodes"],
+                     "mesh_form_memset_nodes": mesh_census["memset_nodes"],
+                     "ctas": ls.CTAS, "geometry": {"tiles": tiles, "segs": segs, "grid": grid,
+                                                   "factor_rows_in_registers": reg},
+                     "partial_mode_ms": graph_ms(lambda: ls.partial_step(
+                         left[None], right[None], res[None], lam.reshape(1))),
+                     "floor_ms": graph_ms(lambda: empty(dev, grid, ls.TILE, 1)),
+                     "floor_device_ms": device_time_ms(lambda: empty(dev, grid, ls.TILE, 1),
+                                                       one_kernel=True)}
                 timings[(bl, bc, m2, nb)] = t
-                line.update(t, method="ms / plain_ms: a CUDA graph of 10 calls replayed between "
+                line.update(t, method="k3_launches, memset_nodes, cooperative: the kernel and memset "
+                            "nodes of one call captured into a CUDA graph and read through the driver "
+                            "(profiling.graph_nodes), mesh_form_*: the same of the mesh form with a "
+                            "one-rank gather; launcher_calls_per_call: calls into qrk_lm_step_* a call; "
+                            "ms / plain_ms: a CUDA graph of 10 calls replayed between "
                             "CUDA events over 10, median of 5 replays, rounds kernel, plain, plain, "
-                            "kernel; library_ms: torch.linalg.qr(M, mode='r') on the bottom panel "
+                            "kernel; partial_mode_ms: K3's first mode alone (the point pass through the last "
+                            "CTA's reduction), floor_ms: an empty cooperative kernel on K3's grid, each a "
+                            "graph of 10 launches the same way; floor_device_ms: the profiler's time "
+                            "of that kernel; library_ms: torch.linalg.qr(M, mode='r') on the bottom panel "
                             "[bl*nb + m2, m2 + 1], CUDA events per call, median of 20; host_us: "
                             "host clock over 50 eager calls before the synchronize; device_ms: "
                             "torch.profiler's kernel time per call; bound: bytes (inputs read once, "
@@ -3422,40 +3541,52 @@ def phase_lm_step_kernels(smi):
     for dtype in (torch.float32, torch.float64):
         left, right, res = lm_step_operands(rng, 2, 1, 5, nb, dtype, lead=(nbatch,))
         lam = torch.as_tensor(rng.uniform(1e-4, 1.0, size=nbatch), dtype=dtype, device=DEVICE)
-        before = ls.damped_step_lane_major.launches
+        before, calls0 = ls.damped_step_lane_major.launches, dict(K3_C_CALLS)
         batch = torch.func.vmap(ls.damped_step_lane_major)(left, right, res, lam)
         torch.cuda.synchronize()
-        if ls.damped_step_lane_major.launches != before + 1:
-            raise AssertionError("K3 under vmap: not one launch for the batch")
+        calls = k3_calls_since(calls0)
+        if ls.damped_step_lane_major.launches != before + 1 or calls != {0: 1, 1: 0, 2: 0}:
+            raise AssertionError(f"K3 under vmap: {ls.damped_step_lane_major.launches - before} steps "
+                                 f"counted, C launcher calls {calls}; want one for the batch")
         errs = [compare(batch[i], ls.damped_step_lane_major(left[i], right[i], res[i], lam[i]),
                         dtype, LM_STEP_TOL[dtype])[0] for i in range(nbatch)]
         worst = max(worst, max(errs))
+        vstep = lambda: torch.func.vmap(ls.damped_step_lane_major)(left, right, res, lam)  # noqa: E731
+        census = k3_graph_census(vstep)
+        check_k3_census(f"vmap {nbatch}x{nb}", census, 1, ls.schedule(nb, nbatch)[2])
         line = {"phase": "lm_step_kernels", "case": f"vmap_{nbatch}x{nb}", "dtype": str(dtype).split(".")[1],
-                "max_abs_err_vs_solo": max(errs), "launches_for_the_batch": 1, "gpu": smi}
+                "max_abs_err_vs_solo": max(errs), "launcher_calls_for_the_batch": calls[0],
+                "k3_launches_for_the_batch": census["k3_kernel_nodes"], "memset_nodes": census["memset_nodes"],
+                "gpu": smi}
         if dtype == torch.float32:
-            vstep = lambda: torch.func.vmap(ls.damped_step_lane_major)(left, right, res, lam)  # noqa: E731
             line["ms"] = graph_ms(vstep)
             line["solo_ms_sum"] = sum(graph_ms(lambda i=i: ls.damped_step_lane_major(
                 left[i], right[i], res[i], lam[i]), calls=10, reps=3) for i in range(nbatch))
+            tiles, segs, grid, reg = _build.lm_step_geometry(2, 1, 5, dtype, nb, nbatch, ls.TILE)
+            line["geometry"] = {"tiles": tiles, "segs": segs, "grid": grid, "factor_rows_in_registers": reg}
+            timings["vmap"] = {k: line[k] for k in ("ms", "solo_ms_sum", "geometry")}
         emit(line)
     # a step whose operands require grad: K3 runs the forward, the backward is
-    # the plain version's vector-Jacobian product; the gradient against the CPU's
+    # ops.lm_step._damped_step_dense's vector-Jacobian product; the gradient
+    # against the CPU's
     nb = LM_STEP_GRAD_N
     ops = [t.detach().clone().requires_grad_() for t in lm_step_operands(rng, 2, 1, 5, nb, torch.float64)]
     ops.append(torch.tensor(1e-3, dtype=torch.float64, device=DEVICE, requires_grad=True))
     g = torch.as_tensor(rng.normal(size=nb + 5), dtype=torch.float64, device=DEVICE)
-    before = ls.damped_step_lane_major.launches
+    before, calls0 = ls.damped_step_lane_major.launches, dict(K3_C_CALLS)
     got = torch.autograd.grad(ls.damped_step_lane_major(*ops), ops, g)
     torch.cuda.synchronize()
-    if ls.damped_step_lane_major.launches != before + 1:
-        raise AssertionError("K3 with grad: the forward did not launch the kernels")
+    calls = k3_calls_since(calls0)
+    if ls.damped_step_lane_major.launches != before + 1 or calls != {0: 1, 1: 0, 2: 0}:
+        raise AssertionError(f"K3 with grad: {ls.damped_step_lane_major.launches - before} steps counted, "
+                             f"C launcher calls {calls}; want the forward's one")
     cpu = [t.detach().cpu().requires_grad_() for t in ops]
     want = torch.autograd.grad(ls.damped_step_lane_major(*cpu), cpu, g.cpu())
     err = max(compare(a.cpu(), b, torch.float64, LM_STEP_TOL[torch.float64])[0]
               for a, b in zip(got, want))
     worst = max(worst, err)
     emit({"phase": "lm_step_kernels", "case": f"grad_{nb}", "dtype": "float64",
-          "max_abs_err_grad_vs_cpu": err, "forward_launches": 1, "gpu": smi})
+          "max_abs_err_grad_vs_cpu": err, "launcher_calls": calls[0], "gpu": smi})
     return worst, timings
 
 
@@ -3673,6 +3804,7 @@ def phase_loop_cond(smi, l1_in_loop):
 
 def main():
     rng = np.random.default_rng(SEED)
+    count_k3_launcher_calls()
     smi = phase_device()
     phase_build()
     worst = phase_kernel_vs_plain(rng)
@@ -3794,11 +3926,20 @@ def main():
                              "host_us_per_call", "host_us_per_launch")},
         "library_call": "torch.linalg.qr(M, mode='r') on the step's bottom panel [2N + 5, 6]",
         "case": "ellipse step, 100,000 points (2x1 blocks, 5 right columns), fp32",
-        "at_500k": {k: k3_timings[LM_STEP_CASES[1]][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                 "library_ms", "device_ms")},
+        **{k: t[k] for k in ("k3_launches", "memset_nodes", "cooperative", "mesh_form_k3_launches",
+                             "mesh_form_memset_nodes", "ctas", "geometry", "partial_mode_ms", "floor_ms",
+                             "floor_device_ms")},
+        "launches_are": "steps: the step counter, one a step; a mesh step's two kernel launches count once",
+        "at_500k": {k: k3_timings[LM_STEP_CASES[1]][k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "partial_mode_ms", "floor_ms",
+            "geometry")},
+        f"vmap_{LM_BATCH[0]}x{LM_BATCH[1]}": k3_timings["vmap"],
+        "other_shapes_100k": {f"{bl}x{bc}x{m2}": {k: k3_timings[(bl, bc, m2, nb)][k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "floor_ms")}
+            for bl, bc, m2, nb in LM_STEP_CASES[2:]},
         "ellipse_lm_launches": ellipse_k3, "lm_program_launches": lm_counts[K3],
         "program_launches": program_counts[K3], "replayed_warm_launches": replayed[K3],
-        "mesh_launches": mesh_counts[K3],
+        "mesh_steps": mesh_counts[K3],
     })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,

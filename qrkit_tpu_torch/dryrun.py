@@ -17,7 +17,9 @@ result on the same inputs:
    points and 2 cameras (100,000 by default, the reference's documented
    one-chip ceiling); it must descend.
 
-Then every ``mesh=`` path that the reference runs as one SPMD program runs
+The lane-major damped step's gradient over the mesh (both forms,
+:func:`step_grad_case`) is then held against ``mesh=None``'s
+(:func:`check_step_grad`).  Then every ``mesh=`` path that the reference runs as one SPMD program runs
 as a captured program (:func:`program_checks`, held by
 :func:`check_pins`): per rank, a warm call is one replay, bitwise the same
 call under ``_program.eager()``, with the same collectives, rank 0's result
@@ -57,8 +59,8 @@ import torch.distributed as dist
 from . import _device, _program, profiling
 from .parallel.mesh import all_reduce_sum, default_mesh, mesh_rank, shard_bounds, shard_leading_axis
 
-__all__ = ["count_collectives", "init_rank", "launch", "mesh_cases", "program_checks",
-           "release_programs", "run_steps"]
+__all__ = ["check_step_grad", "count_collectives", "init_rank", "launch", "mesh_cases",
+           "program_checks", "release_programs", "run_steps", "step_grad_case", "step_grad_inputs"]
 
 RANK_TIMEOUT_S = 300  # a collective that waits longer raises (a deadlock surfaces as an error)
 
@@ -304,6 +306,8 @@ def _steps_worker(mesh, bundle_points: int, widths: str, reps: int):
             raise RuntimeError(f"rank {rank}: collectives inside a graph: {probe}")
     for name, res in run_steps(mesh, bundle_points).items():
         say({"step": name, **res})
+    errs = check_step_grad(step_grad_case(mesh, step_grad_inputs(world, nb=2000)))
+    say({"step": "lm_damped_step_grad", "world": world, "max_abs_err": errs})
     dtype = torch.float32 if cuda else torch.float64
     res = program_checks(mesh, program_inputs(world, widths), dtype, timed_reps=reps if cuda else 0)
     for label, r in check_pins(res, dtype, captured=cuda, fetch_reads=int(cuda)).items():
@@ -881,11 +885,88 @@ def program_checks(mesh, inp: dict, dtype=torch.float64, axis: str = "dp",
 
 
 # --- the cases of the CPU tests -------------------------------------------------------
-def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
+def step_grad_inputs(world: int, nb: int = 24, seed: int = 7) -> dict:
+    """Global operands of :func:`step_grad_case` (numpy, ``world·nb``
+    points): the (2, 2, 5) step of ``lm_damped_step_blockdiag``, the
+    (2, 1, 5) step of ``…1`` and a loss weight each."""
+    rng = np.random.default_rng(seed)
+    n = world * nb
+    out = {}
+    for bc in (2, 1):
+        out[f"bc{bc}"] = dict(left=rng.normal(size=(2, bc, n)), right=rng.normal(size=(2, 5, n)),
+                              res=rng.normal(size=(2, n)), w=rng.normal(size=bc * n + 5), lam=0.3)
+    return out
+
+
+def step_grad_case(mesh, inputs: dict, dtype=torch.float64, axis: str = "dp") -> dict:
+    """Gradients of a loss of the replicated step (the same on every rank)
+    through the ``mesh=`` lane-major damped steps, for the bc = 2 form
+    (``lm_damped_step_blockdiag``) and the bc = 1 form (``…1``): each rank
+    passes its own points; the backward pass's collectives counted.  Beside
+    them the same loss without a mesh on every point (``none_*``).  Returns
+    {form: results} (:func:`step_grad_inputs`' operands)."""
+    from .functional import lm_damped_step_blockdiag, lm_damped_step_blockdiag1
+
+    dev = mesh.device_type
+    T = functools.partial(torch.as_tensor, dtype=dtype, device=dev)
+    out = {}
+    for form, op in inputs.items():
+        n = op["left"].shape[-1]
+        lo, hi = shard_bounds(n, mesh, axis)
+        bc1 = op["left"].shape[1] == 1
+
+        def loss_of(sl, m):
+            left = op["left"][:, 0, sl] if bc1 else op["left"][..., sl]
+            ts = [T(a).requires_grad_() for a in (left, op["right"][..., sl], op["res"][..., sl])]
+            lam = T(op["lam"]).requires_grad_()
+            if bc1:
+                x = lm_damped_step_blockdiag1(*ts, lam, mesh=m, axis=axis)
+            else:
+                x1, x2 = lm_damped_step_blockdiag(*ts, lam, mesh=m, axis=axis)
+                x = torch.cat([x1.reshape(-1), x2])
+            loss = (T(op["w"]) * x).sum() + 0.5 * (x * x).sum()
+            with count_collectives() as calls:
+                loss.backward()
+            return x.detach(), [t.grad for t in ts] + [lam.grad], dict(calls)
+
+        x, grads, calls = loss_of(slice(lo, hi), mesh)
+        x_none, grads_none, _ = loss_of(slice(None), None)
+        out[form] = dict(x=x, x_none=x_none, collectives=calls, lo=lo, hi=hi,
+                         **{f"local_{k}": g for k, g in zip(("left", "right", "res"), grads[:3])},
+                         lam=grads[3], **{f"none_{k}": g for k, g in
+                                         zip(("left", "right", "res", "lam"), grads_none)})
+    return out
+
+
+def check_step_grad(cases: dict, rtol: float = 1e-10) -> dict:
+    """Hold :func:`step_grad_case`'s results (raises AssertionError): each
+    form's step and its gradients (the rank's points' and λ's) within
+    ``rtol`` (atol ``rtol``·max|·|) of ``mesh=None``'s, the gradients not
+    zero, one collective in the backward (the all-reduce).  Returns the
+    largest absolute differences by form and operand."""
+    errs = {}
+    for form, c in cases.items():
+        lo, hi = c["lo"], c["hi"]
+        pairs = {"x": (c["x"], c["x_none"]), "lam": (c["lam"], c["none_lam"])}
+        pairs.update({k: (c[f"local_{k}"], c[f"none_{k}"][..., lo:hi]) for k in ("left", "right", "res")})
+        for name, (got, want) in pairs.items():
+            got, want = (torch.as_tensor(t).detach().cpu().double() for t in (got, want))
+            diff = (got - want).abs()
+            ok = bool((diff <= rtol * want.abs() + rtol * float(want.abs().max())).all())
+            if not (ok and bool(torch.isfinite(got).all()) and (name == "x" or float(got.abs().max()) > 0)):
+                raise AssertionError(f"mesh step grad {form} {name}: {float(diff.max())} off mesh=None's")
+            errs[f"{form}_{name}"] = float(diff.max())
+        if c["collectives"] != {"all_reduce": 1}:
+            raise AssertionError(f"mesh step grad {form}: backward collectives {c['collectives']}")
+    return errs
+
+
+def mesh_cases(mesh, inputs: dict, out_dir: str, only=None) -> None:
     """Run every ``mesh=`` path and its ``mesh=None`` form on the numpy
     ``inputs`` (float64, on the mesh's device) and write this rank's results,
-    host tensors by case, to ``out_dir/rank{r}.pt``.  A case that raises
-    records its error.  ``tests/test_torch_parallel.py`` asserts them."""
+    host tensors by case, to ``out_dir/rank{r}.pt``; ``only``: the names of
+    the cases to run (default: all).  A case that raises records its error.
+    ``tests/test_torch_parallel.py`` asserts them."""
     from .containers import BlockDiagonal, BlockMatrix1x2
     from .examples.bundle import fit_bundle_device
     from .examples.ellipse import _damped_step_aux
@@ -1031,6 +1112,7 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
         uneven=uneven,
         block_angular=block_angular,
         lstsq_grad=lstsq_grad,
+        step_grad=lambda: step_grad_case(mesh, inputs["step_grad"]),
         soa_step=soa_step,
         segmented=functools.partial(segmented, "seg"),
         segmented_kernel=functools.partial(segmented, "seg_kernel"),
@@ -1042,6 +1124,8 @@ def mesh_cases(mesh, inputs: dict, out_dir: str) -> None:
     )
     results = {}
     for name, fn in cases.items():
+        if only is not None and name not in only:
+            continue
         try:
             results[name] = _map(host, fn())
         except Exception:  # recorded for the test that asserts this case

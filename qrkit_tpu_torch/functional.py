@@ -10,10 +10,11 @@ their own: they are batched plain torch (compact-WY QR, Qᵀ through the
 implicit Y/T factors, batched triangular solves) on either device.  The LM
 steps keep the reference's lane-major layout (the point axis last and
 contiguous) and run kernel K3 on the card
-(:func:`~qrkit_tpu_torch.ops.lm_step.damped_step_lane_major`: the point
-pass with its tiles' panel QR, the reduction of the tiles' partials with
-the damping tail, the per-point back-substitution); on CPU tensors its
-plain version, the same tiled algorithm.
+(:func:`~qrkit_tpu_torch.ops.lm_step.damped_step_lane_major`: one
+cooperative launch, the point pass with each thread's carry of the bottom
+panel, the merges, the last CTA's finish with the damping tail, the
+per-point back-substitution); on CPU tensors its plain version, the same
+schedule.
 
 On card operands that do not require grad, :func:`block_diagonal_factorize`,
 :func:`block_diagonal_lstsq`, :func:`block_angular_lstsq` and the LM steps
@@ -31,7 +32,8 @@ their rows, the skinny bottom panel reduces across ranks by TSQR (a local QR,
 one all-gather of the R factors, a replicated second stage), and the block
 part of x is gathered, so every rank returns the global x.  The sharded
 ``block_angular_lstsq`` has its backward too (the reference's ``custom_vjp``
-runs under SPMD): one all-reduce of an m2-vector.
+runs under SPMD): one all-reduce of an m2-vector; so has the sharded damped
+step (:class:`_ShardedDampedStep`): one all-reduce of 2·m2 + 1 values.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from .ops.householder import (
     highest_precision,
     panel_qr_yt,
 )
-from .ops.lm_step import damped_step_lane_major
+from .ops.lm_step import _mesh_step_vjp, damped_step_lane_major
 
 __all__ = [
     "block_angular_lstsq",
@@ -419,13 +421,17 @@ def lm_damped_step_blockdiag(
     Householder QR of the skinny bottom panel; per-point bc×bc
     back-substitution.  The damping rows are analytic: √λ·I_bc under each
     block and √λ·I_m2 at the tail.  The bottom panel reduces as a tree: a
-    partial ``[R | Qᵀy]`` per tile of points, then the partials with the
-    tail (kernel K3 on the card, its plain version on the CPU:
-    :mod:`~qrkit_tpu_torch.ops.lm_step`).
+    carry ``[R | Qᵀy]`` per thread over its points, merged per CTA, then the
+    CTAs' partials with the tail (kernel K3 on the card, its plain version
+    on the CPU: :mod:`~qrkit_tpu_torch.ops.lm_step`).
 
     With ``mesh=`` the points (lanes) are this rank's: the rank reduces its
-    tiles to one partial, one all-gather stacks every rank's, the tail joins
-    them in the finish, and x1 is gathered over the lanes of every rank.
+    points to one partial, one all-gather stacks every rank's, the tail joins
+    them in the finish, and x1 is gathered over the lanes of every rank.  It
+    is differentiable (:class:`_ShardedDampedStep`): the output is
+    replicated, so its cotangent must be the same on every rank; each rank
+    gets the gradients of its own points' operands, λ's the same on every
+    rank, and the backward runs one all-reduce.
 
     Without a mesh the step is one captured program on the card (the module
     docstring); a host ``lam`` is copied to the device before it.
@@ -452,22 +458,59 @@ def _gather_partials(mesh, axis: str):
     return gather
 
 
-def _damped_step_flat(left, right, res, lam, mesh=None, axis: str = "dp") -> torch.Tensor:
-    """The step as K3's wrapper returns it: ``[bc·nb + m2]``, x1 ``[bc, nb]``
-    flattened, then x2 (with ``mesh=``, x1 over this rank's points)."""
-    gather = None if mesh is None else _gather_partials(mesh, axis)
-    return damped_step_lane_major(left, right, res, lam, gather=gather)
-
-
 def _damped_step(left, right, res, lam, mesh=None, axis: str = "dp"):
+    if mesh is not None:  # under no_grad only its forward runs
+        return _ShardedDampedStep.apply(left, right, res, lam, mesh, axis)
     bc, nb = left.shape[1], left.shape[2]
-    out = _damped_step_flat(left, right, res, lam, mesh, axis)
-    x1, x2 = out[: bc * nb].reshape(bc, nb), out[bc * nb :]
-    if mesh is not None:
+    out = damped_step_lane_major(left, right, res, lam)
+    return out[: bc * nb].reshape(bc, nb), out[bc * nb :]
+
+
+class _ShardedDampedStep(torch.autograd.Function):
+    """The ``mesh=`` form of the lane-major damped step, every call of it
+    (without grad only the forward runs).
+
+    The output (x1 over every rank's points, then x2) is replicated, so its
+    cotangent is the same on every rank and the x1 all-gather's adjoint is
+    a slice: each rank runs the step's vector-Jacobian product on its own
+    points (:func:`~qrkit_tpu_torch.ops.lm_step._mesh_step_vjp`: the point
+    pass, then one QR of its rows and the other ranks' gathered partials,
+    saved by the forward); the one collective is the all-reduce of
+    2·m2 + 1 values (x2's cotangent from the rank's x1 and λ's from its
+    points).  The forward runs K3 (the kernel on the card)."""
+
+    @staticmethod
+    def forward(ctx, left, right, res, lam, mesh, axis):
         from .parallel.mesh import all_gather_leading
 
-        x1 = all_gather_leading(x1.T, mesh, axis).T
-    return x1, x2
+        gather = _gather_partials(mesh, axis)
+        kept = []
+
+        def gather_and_keep(part):
+            kept.append(gather(part))
+            return kept[-1]
+
+        bc, nb = left.shape[1], left.shape[2]
+        out = damped_step_lane_major(left, right, res, lam, gather=gather_and_keep)
+        x1, x2 = out[: bc * nb].reshape(bc, nb), out[bc * nb :]
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.save_for_backward(left, right, res, lam, kept[0])
+        return all_gather_leading(x1.T, mesh, axis).T, x2
+
+    @staticmethod
+    @highest_precision()
+    def backward(ctx, g1, g2):
+        from .parallel.mesh import all_reduce_sum, mesh_rank
+
+        left, right, res, lam, stack = ctx.saved_tensors
+        bc, nb = left.shape[1], left.shape[2]
+        rank, _ = mesh_rank(ctx.mesh, ctx.axis)
+        g1 = left.new_zeros((bc, nb)) if g1 is None else g1[:, rank * nb : (rank + 1) * nb]
+        g2 = left.new_zeros(right.shape[1]) if g2 is None else g2
+        grads = _mesh_step_vjp(left[None], right[None], res[None], lam.reshape(1), stack, rank,
+                               g1[None], g2[None], lambda v: all_reduce_sum(v, ctx.mesh, ctx.axis))
+        g_left, g_right, g_res, g_lam = (g[0] for g in grads)
+        return g_left, g_right, g_res, g_lam.reshape(lam.shape), None, None
 
 
 def lm_damped_step_blockdiag1(
@@ -494,6 +537,6 @@ def lm_damped_step_blockdiag1(
 
 def _damped_step1(left, right, res, lam, mesh=None, axis: str = "dp"):
     if mesh is None:  # K3 writes the flat step itself
-        return _damped_step_flat(left[:, None, :], right, res, lam)
+        return damped_step_lane_major(left[:, None, :], right, res, lam)
     x1, x2 = _damped_step(left[:, None, :], right, res, lam, mesh, axis)
     return torch.cat([x1[0], x2])

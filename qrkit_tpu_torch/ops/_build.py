@@ -20,8 +20,8 @@ flags, so an edited source never loads a stale library.  Libraries go under
 * ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
   functions that build a conditional WHILE graph around captured graphs,
   linked against the driver (``-lcuda``; :func:`load_graph_loop`).
-* ``lm_step.cu``: the lane-major damped LM step (K3: the point pass with
-  its tiles' panel QR, the reduction levels and finish, the per-point
+* ``lm_step.cu``: the lane-major damped LM step (K3: one cooperative
+  launch a step, its point pass, carries, last-CTA finish and per-point
   back-substitution), one library per step shape (bl, bc, m2), compiled
   with ``-DQRK_BL -DQRK_BC -DQRK_M2`` so a point's work unrolls into
   registers (:func:`build_lm_step`, :func:`load_lm_step`).
@@ -55,7 +55,7 @@ __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
     "build_lm_step", "build_source", "chain_launcher", "current_stream", "find_nvcc", "load",
     "load_banded", "load_chain", "load_graph_loop", "load_lm_step", "load_source",
-    "lm_step_launcher",
+    "lm_step_geometry", "lm_step_launcher",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -112,13 +112,10 @@ _CHAIN_SIGNATURES = tuple(
 )
 _INT = ctypes.c_int
 _LM_STEP_SIGNATURES = tuple(
-    (f"qrk_lm_{kind}_{dt}", (_DEV, *args, _PTR))
+    (f"qrk_lm_step_{dt}", (_DEV,) + (_PTR,) * 7 + (_I64, _PTR, _I64, _PTR) + (_I64,) * 3 + (_INT, _PTR))
     for dt in ("f32", "f64")
-    for kind, args in (
-        ("local", (_PTR,) * 6 + (_I64,) * 3),
-        ("reduce", (_PTR, _I64, _PTR, _PTR) + (_I64,) * 3 + (_INT,)),
-        ("backsub", (_PTR,) * 3 + (_I64,) * 3),
-    )
+) + tuple((f"qrk_lm_geometry_{dt}", (_I64,) * 3 + (_PTR,)) for dt in ("f32", "f64")) + (
+    ("qrk_lm_empty", (_DEV, _I64, _I64, _INT, _PTR)),
 )
 _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
@@ -219,20 +216,23 @@ def load(br: int, bc: int) -> ctypes.CDLL:
     return load_source(BLOCKDIAG_SOURCE, defines, _BLOCKDIAG_SIGNATURES, tag)
 
 
-def _lm_step_defines(bl: int, bc: int, m2: int):
-    return (("QRK_BL", int(bl)), ("QRK_BC", int(bc)), ("QRK_M2", int(m2))), f"_{bl}x{bc}x{m2}"
+def _lm_step_defines(bl: int, bc: int, m2: int, extra=()):
+    tag = f"_{bl}x{bc}x{m2}" + "".join(f"_{k.lower()}{v}" for k, v in extra)
+    return (("QRK_BL", int(bl)), ("QRK_BC", int(bc)), ("QRK_M2", int(m2)), *extra), tag
 
 
-def build_lm_step(bl: int, bc: int, m2: int) -> Path:
+def build_lm_step(bl: int, bc: int, m2: int, extra=()) -> Path:
     """Compile the damped-step kernels for one step shape (cached on
-    disk); returns the library's path."""
-    return build_source(LM_STEP_SOURCE, *_lm_step_defines(bl, bc, m2))
+    disk); returns the library's path.  ``extra``: more ``(name, value)``
+    defines, a measurement build's (``QRK_CTAS``, ``QRK_TRACE``,
+    ``QRK_STAGE=0``: ``lm_step.cu``'s header)."""
+    return build_source(LM_STEP_SOURCE, *_lm_step_defines(bl, bc, m2, extra))
 
 
-def load_lm_step(bl: int, bc: int, m2: int) -> ctypes.CDLL:
+def load_lm_step(bl: int, bc: int, m2: int, extra=()) -> ctypes.CDLL:
     """Build (if needed) and load the damped-step kernels for one step
-    shape."""
-    defines, tag = _lm_step_defines(bl, bc, m2)
+    shape (``extra``: :func:`build_lm_step`)."""
+    defines, tag = _lm_step_defines(bl, bc, m2, extra)
     return load_source(LM_STEP_SOURCE, defines, _LM_STEP_SIGNATURES, tag)
 
 
@@ -307,8 +307,19 @@ def chain_launcher(kind: str, dtype) -> Launcher:
 
 
 @functools.lru_cache(maxsize=None)
-def lm_step_launcher(kind: str, bl: int, bc: int, m2: int, dtype) -> Launcher:
-    """``qrk_lm_<kind>_<f32|f64>`` of the (bl, bc, m2) library (``local``:
-    K3a, ``reduce``: a level or the finish of K3b, ``backsub``: K3c), built
+def lm_step_launcher(kind: str, bl: int, bc: int, m2: int, dtype=None, extra=()) -> Launcher:
+    """``qrk_lm_<kind>_<f32|f64>`` of the (bl, bc, m2) library (``step``:
+    K3's memset and cooperative launch; no suffix without a dtype:
+    ``empty``, the launch floor; ``extra``: :func:`build_lm_step`), built
     and bound at first use."""
-    return Launcher(load_lm_step(bl, bc, m2), f"qrk_lm_{kind}_{_SUFFIX[dtype]}")
+    name = f"qrk_lm_{kind}" + ("" if dtype is None else f"_{_SUFFIX[dtype]}")
+    return Launcher(load_lm_step(bl, bc, m2, extra), name)
+
+
+def lm_step_geometry(bl: int, bc: int, m2: int, dtype, nb: int, nprob: int, tile: int,
+                     extra=()) -> Tuple[int, int, int, bool]:
+    """K3's launch geometry as the library computes it: (tiles, segs, grid,
+    whether the factor rows stay in registers)."""
+    out = (ctypes.c_int64 * 4)()
+    getattr(load_lm_step(bl, bc, m2, extra), f"qrk_lm_geometry_{_SUFFIX[dtype]}")(nb, nprob, tile, out)
+    return out[0], out[1], out[2], bool(out[3])

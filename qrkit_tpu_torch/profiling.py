@@ -15,12 +15,16 @@ collectives it holds to :func:`collective_counts`.  :func:`count_dispatches` cou
 ATen ops a block dispatches (the port's eager paths run many, one host
 round of launch work each), the program replays, the kernel launches, and
 the reads that make the host wait for the device; :func:`trace` writes a
-``torch.profiler`` trace.
+``torch.profiler`` trace.  :func:`graph_nodes` lists the nodes of one call
+captured into a CUDA graph: its kernel launches, with their grid and
+cooperative attribute, and its memsets.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import statistics
+import struct
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, Tuple
@@ -35,6 +39,7 @@ __all__ = [
     "collective_counts",
     "count_dispatches",
     "cuda_time_ms",
+    "graph_nodes",
     "launch_counts",
     "reset_launch_counts",
     "timed",
@@ -263,6 +268,63 @@ def count_dispatches():
             yield counter
     finally:
         counter._end = launch_counts(), _replay_state()
+
+
+# CUgraphNodeType, in the driver's order
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event", "event_record",
+               "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op", "conditional")
+_COOPERATIVE = 2  # CU_LAUNCH_ATTRIBUTE_COOPERATIVE
+
+
+def graph_nodes(fn: Callable) -> list:
+    """The nodes of one call of ``fn`` captured into a CUDA graph, which is
+    never launched: a dict a node with its ``type`` (``"kernel"``,
+    ``"memset"``, …) and, for a kernel node, its ``name`` (the kernel's
+    mangled name), ``grid``, ``block`` and ``cooperative`` (its launch
+    attribute).  ``fn`` runs once first on a side stream (its kernels built,
+    its allocations warm).  Reads the graph through the CUDA driver API
+    (``libcuda``, by ctypes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    out = []
+    for node in map(ctypes.c_void_p, nodes):
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        rec = {"type": _NODE_TYPES[kind.value] if 0 <= kind.value < len(_NODE_TYPES) else kind.value}
+        if kind.value == 0:
+            params = (ctypes.c_uint8 * 72)()  # CUDA_KERNEL_NODE_PARAMS_v2
+            check(cu.cuGraphKernelNodeGetParams_v2(node, params), "cuGraphKernelNodeGetParams_v2")
+            func, kern = (ctypes.c_void_p.from_buffer(params, off).value for off in (0, 56))
+            name = ctypes.c_char_p()
+            if func:
+                check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)), "cuFuncGetName")
+            else:
+                check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)), "cuKernelGetName")
+            attr = (ctypes.c_uint8 * 64)()  # CUlaunchAttributeValue
+            check(cu.cuGraphKernelNodeGetAttribute(node, _COOPERATIVE, attr), "cuGraphKernelNodeGetAttribute")
+            dims = struct.unpack_from("6I", params, 8)
+            rec.update(name=name.value.decode(), grid=list(dims[:3]), block=list(dims[3:]),
+                       cooperative=bool(ctypes.c_int.from_buffer(attr, 0).value))
+        out.append(rec)
+    del graph
+    return out
 
 
 @contextlib.contextmanager

@@ -130,6 +130,7 @@ def _make_inputs():
     inp["bs_x0"] = np.concatenate([(pts + 0.05 * prng.normal(size=pts.shape)).ravel(),
                                    (cams + 0.02 * prng.normal(size=cams.shape)).ravel()])
     inp["bs_uv"] = uv
+    inp["step_grad"] = dryrun.step_grad_inputs(WORLD)
     inp["dryrun_bundle_points"] = 64
     inp["backends"] = (Recording, RecordingLoop)  # the programs case's capture backends
     return inp
@@ -161,6 +162,16 @@ def inputs(tmp_path_factory):
     if failure:
         raise failure[0]
     return inp, refs, [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """The ``step_grad`` case on one gloo rank, 2,000 points (eight tiles,
+    a thread's carry of two rows): (its inputs, its results)."""
+    inp = {"step_grad": dryrun.step_grad_inputs(1, nb=2000)}
+    d = tmp_path_factory.mktemp("mesh1")
+    dryrun.launch(dryrun.mesh_cases, 1, "cpu", str(d), (inp, str(d), ("step_grad",)), timeout=300)
+    return inp, [torch.load(d / "rank0.pt", weights_only=False)]
 
 
 @pytest.fixture(scope="module")
@@ -294,6 +305,65 @@ def test_sharded_block_angular_lstsq_backward_one_collective(ranks):
     for r in ranks:
         for tail in ("tail0", "tail3"):
             assert r["lstsq_grad"][tail]["collectives"] == {"all_reduce": 1}, r["lstsq_grad"][tail]
+
+
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("form", ["bc2", "bc1"])
+def test_mesh_step_gradients(inputs, one_rank, world, form):
+    """C6: ∂left, ∂right, ∂res and ∂λ of a loss of the replicated step
+    through ``lm_damped_step_blockdiag(mesh=)`` (bc = 2) and ``…1`` (bc = 1)
+    on 1 and 2 gloo ranks: each rank's own points' gradients and λ's (the
+    same on every rank) against ``mesh=None``'s on every point, fp64 rtol
+    1e-10; nonzero (the fault returned zeros); one collective in the
+    backward, the all-reduce of 2·m2 + 1 values."""
+    rs = inputs[2] if world == 2 else one_rank[1]
+    for r in rs:
+        c = r["step_grad"]
+        assert "error" not in c, c
+        c = c[form]
+        _close_step(c["x"], c["x_none"])
+        lo, hi = c["lo"], c["hi"]
+        assert hi - lo == c["none_res"].shape[-1] // world
+        for k in ("left", "right", "res"):
+            assert c[f"local_{k}"].abs().max() > 0, k
+            _close_step(c[f"local_{k}"], c[f"none_{k}"][..., lo:hi])
+        _close_step(c["lam"], c["none_lam"])
+        assert c["collectives"] == {"all_reduce": 1}, c["collectives"]
+    assert torch.equal(rs[0]["step_grad"][form]["lam"], rs[-1]["step_grad"][form]["lam"])
+
+
+@pytest.mark.parametrize("form", ["bc2", "bc1"])
+def test_mesh_step_gradients_match_reference(inputs, form):
+    """The 2-rank mesh step's gradients, put together from the ranks,
+    against ``jax.grad`` of qrkit_tpu's ``lm_damped_step_blockdiag`` (bc =
+    2) and ``lm_damped_step_blockdiag1`` (bc = 1) on the global operands,
+    fp64 rtol 1e-9 (as the sharded lstsq's)."""
+    from qrkit_tpu import functional as jfunctional
+
+    op = inputs[0]["step_grad"][form]
+
+    def loss(left, right, res, lam):
+        if form == "bc1":
+            x = jfunctional.lm_damped_step_blockdiag1(left, right, res, lam)
+        else:
+            x1, x2 = jfunctional.lm_damped_step_blockdiag(left, right, res, lam)
+            x = jnp.concatenate([x1.reshape(-1), x2])
+        return jnp.sum(jnp.asarray(op["w"]) * x) + 0.5 * jnp.sum(x * x)
+
+    left = op["left"][:, 0] if form == "bc1" else op["left"]
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (left, op["right"], op["res"])),
+                                                jnp.asarray(op["lam"]))
+    cases = [r["step_grad"][form] for r in inputs[2]]
+    got = [np.concatenate([_np(c[f"local_{k}"]) for c in cases], axis=-1) for k in ("left", "right", "res")]
+    for g, w, name in zip(got + [_np(cases[0]["lam"])], want, ("left", "right", "res", "lam")):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * np.abs(w).max(), err_msg=name)
+
+
+def _close_step(got, want):
+    """Mesh against ``mesh=None``: fp64 rtol 1e-10 (atol 1e-10·max|want|)."""
+    want = _np(want)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
 
 
 def test_sharded_block_angular_end_to_end(ranks, inputs):
