@@ -20,24 +20,28 @@ Hopper here (:mod:`qrkit_tpu_torch.ops.blockdiag`,
 works on its shard and calls the collectives of
 :mod:`qrkit_tpu_torch.parallel.mesh` itself.
 
-The package imports torch and NumPy and never jax.
+The package imports torch and NumPy and never jax.  Its own import is
+set-up part ``import`` (``profiling.setup_seconds()``).
 """
+import time as _time
 
-from . import functional
-from .analysis import (
+_IMPORT_START = _time.perf_counter()
+
+from . import functional  # noqa: E402
+from .analysis import (  # noqa: E402
     as_banded_as_possible,
     block_banded_info,
     column_density,
     from_block_banded_pattern,
     from_block_diagonal_pattern,
 )
-from .auto import auto_qr
-from .containers import BlockDiagonal, BlockMatrix1x2
-from .lm import LMConfig, LMResult, levenberg_marquardt
-from .persist import load_analysis, plan_from_json, plan_to_json, save_analysis
-from .plan import BlockInfo, StructurePlan
-from .profiling import Timer, count_dispatches, timed, trace
-from .solvers import (
+from .auto import auto_qr  # noqa: E402
+from .containers import BlockDiagonal, BlockMatrix1x2  # noqa: E402
+from .lm import LMConfig, LMResult, levenberg_marquardt  # noqa: E402
+from .persist import load_analysis, plan_from_json, plan_to_json, save_analysis  # noqa: E402
+from .plan import BlockInfo, StructurePlan  # noqa: E402
+from .profiling import Timer, count_dispatches, timed, trace  # noqa: E402
+from .solvers import (  # noqa: E402
     BandedBlockedQR,
     BlockAngularQR,
     BlockDiagonalQR,
@@ -50,7 +54,7 @@ from .solvers import (
     QRSolver,
     SegmentedBandedQR,
 )
-from .sparse import Permutation, SparseCSR
+from .sparse import Permutation, SparseCSR  # noqa: E402
 
 __all__ = [
     "BlockInfo",
@@ -89,3 +93,5 @@ __all__ = [
     "trace",
     "functional",
 ]
+
+profiling._note_setup("import", _time.perf_counter() - _IMPORT_START)

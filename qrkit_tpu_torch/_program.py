@@ -107,7 +107,6 @@ import contextlib
 import copy
 import functools
 import itertools
-import time
 import types
 from typing import Callable, Dict, Optional, Tuple
 
@@ -384,7 +383,8 @@ class Program:
     their addresses (``addrs``), no static copy.  ``persistent`` (a
     factorize): the outputs are returned as they are and stay the caller's
     state.  Otherwise (a solve) each call returns clones.
-    ``capture_seconds`` is the warm-up excluded: capture and instantiate.
+    ``capture_seconds``: its set-up's ``capture`` part (the warm-up, the
+    capture and the instantiate; :func:`qrkit_tpu_torch.profiling.setup_seconds`).
     ``collective``: the warm-up issued collectives (a mesh program), which
     the graph then holds; it is captured in ``"thread_local"`` mode."""
 
@@ -395,8 +395,8 @@ class Program:
         self.serial = next(_SERIAL)
         self.addrs = tuple(t.data_ptr() for t in static_in[:resident])
         self.capture_error_mode = _capture_mode(collective)
+        self.capture_seconds = 0.0  # set by the cache, which times the set-up
         before, cbefore = profiling.launch_counts(), profiling.collective_counts()
-        t0 = time.perf_counter()
         try:
             with _inline():
                 if _BACKEND is not None:
@@ -409,7 +409,6 @@ class Program:
             after, cafter = profiling.launch_counts(), profiling.collective_counts()
             profiling._set_launch_counts(before)  # a capture runs nothing
             profiling._set_collective_counts(cbefore)
-        self.capture_seconds = time.perf_counter() - t0
         self.launches = _delta(after, before)
         self.collectives = _delta(cafter, cbefore)
         self.static_in = (None,) * resident + tuple(static_in[resident:])
@@ -490,9 +489,10 @@ class Programs:
         prog = self._cache.get(slot)
         last = self._last.pop(slot, (None,))[0]  # the slot's previous call, if it ran eagerly
         if prog is not None and prog.addrs == addrs:
-            return prog.replay(inputs, fetch), prog
+            with profiling.span("qrk.program.replay"):
+                return prog.replay(inputs, fetch), prog
         if last != addrs:  # the first call in a row with these addresses: eager
-            with _inline():
+            with profiling.span("qrk.setup.first_call", setup=True), _inline():
                 out = fn(owner, *_on_device(inputs, upload))
             if not _requires_grad(out):
                 self._last[slot] = (addrs, persistent)
@@ -507,18 +507,21 @@ class Programs:
         def bound(*xs):
             return fn(snap, *xs)
 
-        issued = profiling.collective_counts()
-        with _on(stream), _inline():  # the warm-up, and this call's result
-            first = bound(*static_in)
-        collective = profiling.collective_counts() != issued
-        if _requires_grad(first):  # autograd recorded the warm-up: nothing is captured
-            return first, None
-        if self._pool is None and _BACKEND is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        prog = Program(name, bound, static_in, _as_tuple(first), resident=resident,
-                       persistent=persistent, pool=self._pool, stream=stream, fetch=fetch,
-                       hosts=[i for i, t in enumerate(inputs) if not isinstance(t, torch.Tensor)],
-                       collective=collective)
+        with profiling.span("qrk.setup.capture", setup=True) as setup:
+            issued = profiling.collective_counts()
+            with _on(stream), _inline():  # the warm-up, and this call's result
+                first = bound(*static_in)
+            collective = profiling.collective_counts() != issued
+            if _requires_grad(first):  # autograd recorded the warm-up: nothing is captured
+                return first, None
+            if self._pool is None and _BACKEND is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = Program(name, bound, static_in, _as_tuple(first), resident=resident,
+                           persistent=persistent, pool=self._pool, stream=stream, fetch=fetch,
+                           hosts=[i for i, t in enumerate(inputs)
+                                  if not isinstance(t, torch.Tensor)],
+                           collective=collective)
+        prog.capture_seconds = setup.seconds
         self._cache.pop(slot, None)
         self._cache[slot] = prog
         if self._limit is not None and len(self._cache) > self._limit:
@@ -616,7 +619,7 @@ class _CudaLoop:
             self.graphs.append(graph)
         body_g, init_g, tail_g = (g.raw_cuda_graph() for g in self.graphs)
         self.loop = LoopGraph(init_g, body_g, tail_g, prog.done, prog.k, prog.max_iters,
-                              prog.count, prog.log)
+                              prog.count, prog.log, prog.stamps)
 
     def launch(self) -> None:
         self.loop.launch()
@@ -741,16 +744,20 @@ class LoopProgram:
     ``out``, whose last two entries are ``k`` and ``count``; all three
     update static buffers in place.  ``done`` (bool ``[B]``) and ``k``
     (int32) are the state the condition reads; each evaluation adds one to
-    ``count`` (int32) and writes the condition into ``log`` at index k
-    (int32, ``max_iters + 1``, -1 where none ran).  ``held``: the tensors
+    ``count`` (int32), writes the condition into ``log`` at index k
+    (int32, ``max_iters + 1``, -1 where none ran) and its time into
+    ``stamps`` at index k (int64 ns, as long as ``log``: on the card the
+    device's ``%globaltimer``; a chunked loop writes none).  ``held``: the tensors
     the captured functions read besides the inputs, kept alive for as long
     as the graph reads their addresses; ``buffers``: the loop's state
     tensors that the graphs read and write (allocated before the capture,
     outside its pool), kept alive likewise.
 
     :meth:`run` is a whole loop from new inputs: one launch followed by one
-    fetch of ``out``.  ``capture_seconds``: the three captures and the
-    build, the warm-up excluded.  ``collective``: the warm-up issued
+    fetch of ``out``; while a ``torch.profiler`` runs it adds the launch's
+    stamps to :func:`qrkit_tpu_torch.profiling.loop_records`.
+    ``capture_seconds``: its set-up's ``capture`` part (the warm-up, the
+    three captures and the build).  ``collective``: the warm-up issued
     collectives (a ``reduce=`` fit over a mesh), which the graphs then hold:
     captured in ``"thread_local"`` mode, counted per part as the launches
     are, and run as chunks (:class:`_ChunkedLoop`: a launch and a fetch a
@@ -764,6 +771,8 @@ class LoopProgram:
         self.done, self.k, self.count, self.out = done, k, count, out
         self.held, self.held_signature = tuple(held), _held_signature(held)
         self.log = torch.full((self.max_iters + 1,), -1, dtype=torch.int32, device=done.device)
+        self.stamps = torch.zeros(self.max_iters + 1, dtype=torch.int64, device=done.device)
+        self.capture_seconds = 0.0  # set by the cache, which times the set-up
         self.capture_error_mode = _capture_mode(collective)
         self.chunked, self.reads = collective, 0
         self.launches: Dict[str, Dict[str, int]] = {}
@@ -782,14 +791,12 @@ class LoopProgram:
                 self.collectives[part] = _delta(cafter, cbefore)
             return run
 
-        t0 = time.perf_counter()
         design = _ChunkedLoop if collective else (_LOOP_BACKEND or _CudaLoop)
         try:
             self._loop = design(
                 counted("init", init), counted("body", body), counted("tail", tail), self, pool, stream)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: capture failed: {e}") from e
-        self.capture_seconds = time.perf_counter() - t0
 
     def run(self, inputs):
         """The loop from ``inputs`` (copied into the static inputs) to its
@@ -797,16 +804,19 @@ class LoopProgram:
         returns ``out`` on the host (NumPy).  Raises if L1's count of its
         evaluations is not one more than the iterations (chunked: one a
         gated iteration), a loop whose condition did not run as built."""
-        _copy_in(self.static_in, inputs)
+        with profiling.span("qrk.loop.copy_in"):
+            _copy_in(self.static_in, inputs)
         chunks = 0
         try:
             while True:
-                if self.chunked:
-                    self._loop.replay(first=chunks == 0)
-                else:
-                    self._loop.launch()
+                with profiling.span("qrk.loop.launch"):
+                    if self.chunked:
+                        self._loop.replay(first=chunks == 0)
+                    else:
+                        self._loop.launch()
                 chunks += 1
-                host = self.out.cpu().numpy()  # the fetch
+                with profiling.span("qrk.loop.fetch"):
+                    host = self.out.cpu().numpy()  # waits on the loop
                 iterations = int(host[-2])
                 if not self.chunked or loop_chunks(iterations, self.max_iters) <= chunks:
                     break
@@ -826,6 +836,8 @@ class LoopProgram:
                 for name, n in held.get(part, {}).items():
                     counts[name] = counts.get(name, 0) + n * times
         profiling._note_replay(launches, collectives, replays=chunks)
+        if not self.chunked and profiling._profiler_enabled():
+            profiling._note_loop(self.name, iterations, self.stamps[: iterations + 1].tolist())
         return host
 
     def close(self) -> None:
@@ -874,14 +886,16 @@ class Loops:
         functions whose held tensors the loop reads; ``buffers``: the state
         tensors the loop updates in place (both kept alive with it)."""
         stream = _side_stream(done.device) if _LOOP_BACKEND is None else None
-        issued = profiling.collective_counts()
-        with _on(stream):
-            body()
-        collective = profiling.collective_counts() != issued
-        if self._pool is None and _LOOP_BACKEND is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        prog = LoopProgram(name, init, body, tail, static_in, done, k, count, out, max_iters,
-                           _held_tensors(reads), self._pool, stream, buffers, collective)
+        with profiling.span("qrk.setup.capture", setup=True) as setup:
+            issued = profiling.collective_counts()
+            with _on(stream):
+                body()
+            collective = profiling.collective_counts() != issued
+            if self._pool is None and _LOOP_BACKEND is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            prog = LoopProgram(name, init, body, tail, static_in, done, k, count, out, max_iters,
+                               _held_tensors(reads), self._pool, stream, buffers, collective)
+        prog.capture_seconds = setup.seconds
         old = self._cache.pop(key, None)
         if old is not None:
             old.close()

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import _device
+from . import _device, profiling
 from .analysis import as_banded_as_possible, block_banded_info
 from .containers import BlockDiagonal, BlockMatrix1x2
 from .solvers import (
@@ -164,43 +164,44 @@ def _csr_solver(mat: SparseCSR, suggested_block_cols: int, prefer_segmented: boo
     """An uncomputed solver for a plain sparse matrix and its selection tag;
     the analysis run here (row ordering and block detection) is installed
     on the solver, so ``compute()`` does not repeat it."""
-    place = dict(device=device, dtype=dtype)
-    perm, has_perm = as_banded_as_possible(mat)
-    sorted_mat = mat.permute_rows(perm) if has_perm else mat
-    try:
-        plan = block_banded_info(sorted_mat, suggested_block_cols)
-    except (ValueError, IndexError):
-        plan = None
-    if plan is not None and not _plan_covers(sorted_mat, plan):
-        plan = None
-    if plan is not None and plan.num_blocks >= 2:
-        rows_, cols_, nrows_, ncols_ = plan.as_arrays()
-        overlaps = (cols_ + ncols_)[:-1] - cols_[1:]
-        br, bc = int(nrows_[0]), int(ncols_[0])
-        uniform_diag = (
-            np.all(overlaps == 0)
-            and np.all(nrows_ == br) and np.all(ncols_ == bc)
-            and np.all(rows_ == np.arange(plan.num_blocks) * br)
-            and np.all(cols_ == np.arange(plan.num_blocks) * bc)
-        )
-        if uniform_diag:
-            solver = BlockDiagonalCSRQR(suggested_block_cols, pivot=False, **place)
+    with profiling.span("qrk.setup.analysis", setup=True):
+        place = dict(device=device, dtype=dtype)
+        perm, has_perm = as_banded_as_possible(mat)
+        sorted_mat = mat.permute_rows(perm) if has_perm else mat
+        try:
+            plan = block_banded_info(sorted_mat, suggested_block_cols)
+        except (ValueError, IndexError):
+            plan = None
+        if plan is not None and not _plan_covers(sorted_mat, plan):
+            plan = None
+        if plan is not None and plan.num_blocks >= 2:
+            rows_, cols_, nrows_, ncols_ = plan.as_arrays()
+            overlaps = (cols_ + ncols_)[:-1] - cols_[1:]
+            br, bc = int(nrows_[0]), int(ncols_[0])
+            uniform_diag = (
+                np.all(overlaps == 0)
+                and np.all(nrows_ == br) and np.all(ncols_ == bc)
+                and np.all(rows_ == np.arange(plan.num_blocks) * br)
+                and np.all(cols_ == np.arange(plan.num_blocks) * bc)
+            )
+            if uniform_diag:
+                solver = BlockDiagonalCSRQR(suggested_block_cols, pivot=False, **place)
+                solver.set_analysis(plan, perm)
+                return solver, "block_diagonal"
+            if prefer_segmented is False and plan.num_blocks < 2 * SegmentedBandedQR.DEFAULT_SEGMENT_BLOCKS:
+                # short chains keep the plain chain; longer ones take the
+                # segmented composition
+                solver = BandedBlockedQR(suggested_block_cols=suggested_block_cols, **place)
+                solver.set_analysis(plan, perm)
+                return solver, "banded_blocked"
+            # the segmented composition delegates to the plain chain itself on
+            # short or non-uniform plans
+            solver = SegmentedBandedQR(suggested_block_cols=suggested_block_cols, **place)
             solver.set_analysis(plan, perm)
-            return solver, "block_diagonal"
-        if prefer_segmented is False and plan.num_blocks < 2 * SegmentedBandedQR.DEFAULT_SEGMENT_BLOCKS:
-            # short chains keep the plain chain; longer ones take the
-            # segmented composition
-            solver = BandedBlockedQR(suggested_block_cols=suggested_block_cols, **place)
-            solver.set_analysis(plan, perm)
-            return solver, "banded_blocked"
-        # the segmented composition delegates to the plain chain itself on
-        # short or non-uniform plans
-        solver = SegmentedBandedQR(suggested_block_cols=suggested_block_cols, **place)
-        solver.set_analysis(plan, perm)
-        return solver, "segmented_banded"
-    if mat.nrows >= 2 * mat.ncols:
-        return BlockedThinSparseQR(**place), "blocked_thin_sparse"
-    return DenseColPivQR(**place), "dense_colpiv"
+            return solver, "segmented_banded"
+        if mat.nrows >= 2 * mat.ncols:
+            return BlockedThinSparseQR(**place), "blocked_thin_sparse"
+        return DenseColPivQR(**place), "dense_colpiv"
 
 
 def auto_qr(
@@ -251,7 +252,8 @@ def auto_qr(
         return qr
 
     m, n = mat.shape
-    dense_cols = np.nonzero(mat.col_nnz() >= max(dense_col_frac * m, 2))[0]
+    with profiling.span("qrk.setup.analysis", setup=True):
+        dense_cols = np.nonzero(mat.col_nnz() >= max(dense_col_frac * m, 2))[0]
     cap = max_angular_cols if max_angular_cols is not None else max(1, n // 8)
     if 0 < dense_cols.size <= cap and dense_cols.size < n - dense_cols.size:
         # block-angular split: structured body | dense trailing columns

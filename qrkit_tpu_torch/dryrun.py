@@ -477,6 +477,7 @@ def probe_graph_collectives(mesh, axis: str = "dp", n: int = 4096, max_iters: in
     count = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros(1, dtype=torch.bool, device=dev)
     log = torch.full((max_iters + 1,), -1, dtype=torch.int32, device=dev)
+    stamps = torch.zeros(max_iters + 1, dtype=torch.int64, device=dev)
     res = torch.zeros(3, device=dev)
 
     def init():
@@ -507,7 +508,7 @@ def probe_graph_collectives(mesh, axis: str = "dp", n: int = 4096, max_iters: in
                 fn()
             graphs.append(g)
         body_g, init_g, tail_g = (g.raw_cuda_graph() for g in graphs)
-        loop = LoopGraph(init_g, body_g, tail_g, done, k, max_iters, count, log)
+        loop = LoopGraph(init_g, body_g, tail_g, done, k, max_iters, count, log, stamps)
         runs = []
         for _ in range(2):
             loop.launch()

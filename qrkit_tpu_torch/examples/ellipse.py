@@ -16,7 +16,9 @@ contiguous, for the device loop's step
 
 Input points are host NumPy ``[2, N]``; :class:`EllipseFitting`,
 :func:`fit_ellipse` and :func:`fit_ellipse_batch` take the ``device`` and
-``dtype`` to fit on.
+``dtype`` to fit on.  Under a ``torch.profiler`` the fits name their host
+parts: ``qrk.fit.initial_guess``, ``qrk.fit.upload`` (points and x0 to the
+device) and ``qrk.fit.canonical`` (:func:`fit_ellipse`'s canonical form).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from ..lm import (
     levenberg_marquardt_device,
     levenberg_marquardt_device_batch,
 )
+from ..profiling import span
 from ..solvers import BandedBlockedQR, BlockAngularQR, BlockDiagonalQR, DenseColPivQR, QFormat
 from ..sparse import SparseCSR
 
@@ -286,20 +289,23 @@ def fit_ellipse(
     launch and one fetch of the result when warm (``lm.clear_programs()``
     drops it; on the CPU, one host read an iteration); ``loop="host"`` runs
     the host loop with :meth:`EllipseFitting.damped_step`."""
-    functor = EllipseFitting(pts, dtype=dtype, fused=fused, device=device)
+    if loop not in ("device", "host"):
+        raise ValueError(f"loop must be 'device' or 'host', got {loop!r}")
+    pts = np.asarray(pts)
+    with span("qrk.fit.initial_guess"):
+        x0 = initial_params_np(pts)
+    with span("qrk.fit.upload"):
+        functor = EllipseFitting(pts, dtype=dtype, fused=fused, device=device)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=functor.device)
     cfg = config or LMConfig(max_iters=60)
     if loop == "device":
-        result = levenberg_marquardt_device(
-            _residuals_aux, _damped_step_aux, functor.initial_params(), cfg, aux=functor.pts
-        )
-    elif loop == "host":
-        result = levenberg_marquardt(
-            functor.residuals, functor.damped_step, functor.initial_params(), cfg
-        )
+        result = levenberg_marquardt_device(_residuals_aux, _damped_step_aux, x0, cfg,
+                                            aux=functor.pts)
     else:
-        raise ValueError(f"loop must be 'device' or 'host', got {loop!r}")
+        result = levenberg_marquardt(functor.residuals, functor.damped_step, x0, cfg)
     x = result.x.detach().cpu().numpy() if isinstance(result.x, torch.Tensor) else result.x
-    return result, canonicalize_ellipse(x, functor.n)
+    with span("qrk.fit.canonical"):
+        return result, canonicalize_ellipse(x, functor.n)
 
 
 def fit_ellipse_batch(
@@ -314,11 +320,10 @@ def fit_ellipse_batch(
     N]``; returns an :class:`LMResult` of NumPy arrays (``[B, N+5]``
     solutions, ``[B]`` costs, iterations and convergence flags)."""
     pts_batch = np.asarray(pts_batch)
-    x0 = np.stack([initial_params_np(p) for p in pts_batch])
+    with span("qrk.fit.initial_guess"):
+        x0 = np.stack([initial_params_np(p) for p in pts_batch])
+    with span("qrk.fit.upload"):
+        x0, pts = _device.as_tensor(x0, device, dtype), _device.as_tensor(pts_batch, device, dtype)
     return levenberg_marquardt_device_batch(
-        _residuals_aux,
-        _damped_step_aux,
-        _device.as_tensor(x0, device, dtype),
-        config or LMConfig(max_iters=60),
-        aux_batch=_device.as_tensor(pts_batch, device, dtype),
+        _residuals_aux, _damped_step_aux, x0, config or LMConfig(max_iters=60), aux_batch=pts
     )

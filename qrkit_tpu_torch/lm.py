@@ -69,7 +69,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from . import _device, _program
+from . import _device, _program, profiling
 from ._program import Loops
 
 __all__ = [
@@ -343,11 +343,12 @@ def _minimize(kind: str, residual_fn, damped_step_fn, fns, x0: torch.Tensor, aux
     prog = _LOOPS.get(key, reads=fns)
     if prog is None:
         with _program.eager():  # the steps' own programs stay out of the loop's capture
-            state = _start(residual_fn, x0, aux, cfg, total)
-            if cfg.max_iters >= 1:
-                state = _step(residual_fn, damped_step_fn, state, aux, cfg, total)
-                if _read_done(state[6]) or cfg.max_iters == 1:
-                    return _fetch(*state)
+            with profiling.span("qrk.setup.first_call", setup=True):
+                state = _start(residual_fn, x0, aux, cfg, total)
+                if cfg.max_iters >= 1:
+                    state = _step(residual_fn, damped_step_fn, state, aux, cfg, total)
+                    if _read_done(state[6]) or cfg.max_iters == 1:
+                        return _fetch(*state)
             prog = _capture(name, key, residual_fn, damped_step_fn, fns, inputs, build, state,
                             cfg, total)
     host = prog.run(inputs)

@@ -119,7 +119,8 @@ _LM_STEP_SIGNATURES = tuple(
 )
 _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
-    ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _INT, _PTR)),
+    ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _INT,
+                        _PTR)),
     ("qrk_loop_launch", (_PTR, _PTR)),
     ("qrk_loop_destroy", (_PTR,)),
     ("qrk_versions", (_PTR, _PTR)),
@@ -156,7 +157,10 @@ def _library_path(source: str, defines: Tuple[Tuple[str, int], ...], tag: str) -
 def build_source(source: str, defines: Tuple[Tuple[str, int], ...] = (), tag: str = "") -> Path:
     """Compile ``csrc/<source>`` with ``-D<name>=<value>`` for each of
     ``defines`` (cached on disk); returns the library's path.  ``tag`` goes
-    into the library's file name."""
+    into the library's file name.  An nvcc run is set-up part ``build``
+    (:func:`qrkit_tpu_torch.profiling.setup_seconds`)."""
+    from .. import profiling  # here: profiling imports the kernels, which import this
+
     out = _library_path(source, defines, tag)
     if out.exists():
         return out
@@ -169,7 +173,8 @@ def build_source(source: str, defines: Tuple[Tuple[str, int], ...] = (), tag: st
     cmd = [nvcc, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in defines), "-o", tmp, str(_CSRC / source),
            *_LINK.get(source, ())]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with profiling.span("qrk.setup.build", setup=True):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed (exit {proc.returncode}) building {source}{tag}:\n"
@@ -188,8 +193,13 @@ def load_source(
 ) -> ctypes.CDLL:
     """Build (if needed) and load one library, with the ctypes argument
     types of each launcher in ``signatures`` (``(name, argtypes)`` pairs)
-    set and ``qrk_error_string`` bound."""
-    lib = ctypes.CDLL(str(build_source(source, defines, tag)))
+    set and ``qrk_error_string`` bound; the ``ctypes.CDLL`` is set-up part
+    ``load``."""
+    from .. import profiling  # here: profiling imports the kernels, which import this
+
+    path = str(build_source(source, defines, tag))
+    with profiling.span("qrk.setup.load", setup=True):
+        lib = ctypes.CDLL(path)
     for name, argtypes in signatures:
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -15,9 +15,12 @@
 // given: the evaluations of a launch, which the loop's tail fetches with
 // its result, so the kernel itself counts its launches), writes cond into
 // log[k] (when given: one entry per evaluation, so a run can hold every
-// evaluation against the plain expression) and into out (the standalone
-// launch).  Bound: the launch; it reads n + 8 bytes (n is the number of
-// problems of a fit, 1 to a few thousand) and writes at most 9.
+// evaluation against the plain expression), the device's %globaltimer as
+// thread 0 read it on entry into stamps[k] (when given: ns, so consecutive
+// stamps bound one iteration of the loop on the device's clock) and cond
+// into out (the standalone launch).  Bound: the launch; it reads n + 8 bytes
+// (n is the number of problems of a fit, 1 to a few thousand) and writes at
+// most 17.
 //
 // The host functions build, around the graphs PyTorch captured for the
 // loop's init, body and tail (torch.cuda.CUDAGraph(keep_graph=True)), one
@@ -60,11 +63,18 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRuntimeBase = 10000;
 
+__device__ __forceinline__ long long global_timer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 __global__ void __launch_bounds__(kThreads)
 loop_cond_kernel(const unsigned char* __restrict__ done, long long n, const int* __restrict__ k,
                  int max_iters, cudaGraphConditionalHandle handle, int set_handle,
-                 int* __restrict__ count, int* __restrict__ log, int log_len,
-                 unsigned char* __restrict__ out) {
+                 int* __restrict__ count, int* __restrict__ log, long long* __restrict__ stamps,
+                 int log_len, unsigned char* __restrict__ out) {
+  const long long entered = (stamps != nullptr && threadIdx.x == 0) ? global_timer() : 0;
   int live = 0;
   for (long long i = threadIdx.x; i < n; i += kThreads) live |= done[i] == 0;
   live = __syncthreads_or(live);
@@ -74,6 +84,7 @@ loop_cond_kernel(const unsigned char* __restrict__ done, long long n, const int*
     if (set_handle) cudaGraphSetConditional(handle, cond);
     if (count != nullptr) *count += 1;
     if (log != nullptr && kk >= 0 && kk < log_len) log[kk] = (int)cond;
+    if (stamps != nullptr && kk >= 0 && kk < log_len) stamps[kk] = entered;
     if (out != nullptr) *out = (unsigned char)cond;
   }
 }
@@ -88,6 +99,7 @@ struct CondArgs {
   int set_handle;
   int* count;
   int* log;
+  long long* stamps;
   int log_len;
   unsigned char* out;
 };
@@ -130,8 +142,8 @@ int retain_primary(int ordinal, CUdevice* device, CUcontext* ctx) {
 
 int add_cond_node(CUgraph g, const CUgraphNode* deps, size_t ndeps, CUfunction fn, CondArgs a,
                   CUgraphNode* node) {
-  void* params[] = {&a.done, &a.n, &a.k, &a.max_iters, &a.handle,
-                    &a.set_handle, &a.count, &a.log, &a.log_len, &a.out};
+  void* params[] = {&a.done, &a.n, &a.k, &a.max_iters, &a.handle, &a.set_handle,
+                    &a.count, &a.log, &a.stamps, &a.log_len, &a.out};
   CUDA_KERNEL_NODE_PARAMS p;
   std::memset(&p, 0, sizeof p);
   p.func = fn;
@@ -216,7 +228,7 @@ int qrk_loop_cond(int device, const unsigned char* done, int64_t n, const int* k
     err = (int)guard.error();
     if (err == 0) {
       loop_cond_kernel<<<1, kThreads, 0, stream>>>(done, (long long)n, k, max_iters, 0, 0, nullptr,
-                                                   nullptr, 0, out);
+                                                   nullptr, nullptr, 0, out);
       const cudaError_t e = cudaGetLastError();
       err = e == cudaSuccess ? 0 : kRuntimeBase + (int)e;
     }
@@ -226,10 +238,11 @@ int qrk_loop_cond(int device, const unsigned char* done, int64_t n, const int* k
 }
 
 // Build the loop's graph around PyTorch's captured graphs; *out receives the
-// handle for qrk_loop_launch.
+// handle for qrk_loop_launch.  log (int32) and stamps (int64) hold log_len
+// entries each.
 int qrk_loop_build(int device, void* init_graph, void* body_graph, void* tail_graph,
                    const unsigned char* done, int64_t n, const int* k, int max_iters, int* count,
-                   int* log, int log_len, void** out) {
+                   int* log, long long* stamps, int log_len, void** out) {
   *out = nullptr;
   LoopGraph* lg = new (std::nothrow) LoopGraph;
   if (lg == nullptr) return kRuntimeBase + (int)cudaErrorMemoryAllocation;
@@ -238,7 +251,7 @@ int qrk_loop_build(int device, void* init_graph, void* body_graph, void* tail_gr
     destroy(lg);
     return err;
   }
-  const CondArgs a{done, (long long)n, k, max_iters, 0, 1, count, log, log_len, nullptr};
+  const CondArgs a{done, (long long)n, k, max_iters, 0, 1, count, log, stamps, log_len, nullptr};
   int err;
   {
     const ContextGuard ctx(lg->ctx);

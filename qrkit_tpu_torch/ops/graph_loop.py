@@ -16,7 +16,9 @@ device state:
   Each evaluation of the condition is one L1 launch inside the graph, which
   adds one to a device counter that the loop's tail fetches with its
   result: the loop program adds that count to ``loop_condition.launches``
-  (:class:`qrkit_tpu_torch._program.LoopProgram`).
+  (:class:`qrkit_tpu_torch._program.LoopProgram`).  Each evaluation also
+  stamps the device's clock (``%globaltimer``, ns) at index k, so the
+  stamps bound the loop's iterations on the device.
 * :func:`versions` reads the driver's and the toolkit's CUDA versions
   (conditional WHILE nodes need 12.3 in both).
 """
@@ -94,22 +96,29 @@ class LoopGraph:
     are cloned, so PyTorch's graphs may go, but the memory pool their
     addresses lie in must outlive this object.  ``done`` and ``k`` are the
     loop state the condition reads; each evaluation adds one to ``count``
-    (one int32, which ``init`` zeroes) and writes the condition into
-    ``log`` (int32, ``max_iters + 1``) at index k.  A failure to build,
-    instantiate or launch raises."""
+    (one int32, which ``init`` zeroes), writes the condition into ``log``
+    (int32, ``max_iters + 1``) at index k and the device's
+    ``%globaltimer`` on its entry into ``stamps`` (int64, as long as
+    ``log``) at index k.  A failure to build, instantiate or launch
+    raises."""
 
     def __init__(self, init: int, body: int, tail: int, done: torch.Tensor,
-                 k: torch.Tensor, max_iters: int, count: torch.Tensor, log: torch.Tensor):
+                 k: torch.Tensor, max_iters: int, count: torch.Tensor, log: torch.Tensor,
+                 stamps: torch.Tensor):
         _check(done, k)
-        for name, t in (("count", count), ("log", log)):
-            if t.dtype != torch.int32 or t.device != done.device or not t.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous int32 tensor on the state's device")
+        for name, t, dtype in (("count", count, torch.int32), ("log", log, torch.int32),
+                               ("stamps", stamps, torch.int64)):
+            if t.dtype != dtype or t.device != done.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {dtype} tensor on the state's device")
+        if stamps.numel() != log.numel():
+            raise ValueError(f"stamps must hold as many entries as log ({log.numel()}), "
+                             f"got {stamps.numel()}")
         self._lib = _build.load_graph_loop()
         self.device = done.device.index if done.device.index is not None else torch.cuda.current_device()
         self._handle = ctypes.c_void_p()
         _raise(self._lib, "qrk_loop_build", self._lib.qrk_loop_build(
             self.device, init, body, tail, done.data_ptr(), done.numel(), k.data_ptr(),
-            int(max_iters), count.data_ptr(), log.data_ptr(), log.numel(),
+            int(max_iters), count.data_ptr(), log.data_ptr(), stamps.data_ptr(), log.numel(),
             ctypes.byref(self._handle)))
 
     def launch(self) -> None:

@@ -18,16 +18,31 @@ the reads that make the host wait for the device; :func:`trace` writes a
 ``torch.profiler`` trace.  :func:`graph_nodes` lists the nodes of one call
 captured into a CUDA graph: its kernel launches, with their grid and
 cooperative attribute, and its memsets.
+
+Spans and set-up: :func:`span` names a part of the program's host work on
+a ``torch.profiler`` trace (``qrk.<layer>.<part>``, nested under the
+caller's range) and costs one check of the profiler's state without one;
+with ``setup=True`` it also adds the part's seconds to
+:func:`setup_seconds`, always.  Captured loops: while a profiler runs,
+each launch of a captured LM loop leaves its iterations' device
+timestamps in :func:`loop_records` (kernel L1 stamps each evaluation of
+the loop's condition); :func:`trace` writes them into its trace as the
+loop's interval and iterations, and :func:`loop_body_nodes` reads each
+cached loop's body graph.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import ctypes
+import json
+import os
 import statistics
 import struct
+import threading
 import time
-from collections import defaultdict
-from typing import Any, Callable, Dict, Tuple
+from collections import Counter, defaultdict, deque
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -41,7 +56,11 @@ __all__ = [
     "cuda_time_ms",
     "graph_nodes",
     "launch_counts",
+    "loop_body_nodes",
+    "loop_records",
     "reset_launch_counts",
+    "setup_seconds",
+    "span",
     "timed",
     "trace",
 ]
@@ -113,6 +132,103 @@ def _note_replay(launches: Dict[str, int], collectives: Dict[str, int] = None,
         _Replays.launches[name] += n
     for name, n in (collectives or {}).items():
         _COLLECTIVES[name] += n
+
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_INERT = contextlib.nullcontext()
+
+# set-up part -> [seconds, spans], and each thread's open set-up spans (the
+# seconds their inner set-up spans took)
+_SETUP: Dict[str, List] = {}
+_OPEN = threading.local()
+
+
+def span(name: str, setup: bool = False):
+    """A context manager naming a part of the program's host work
+    ``name`` (``qrk.<layer>.<part>``).  While a ``torch.profiler`` is
+    active it is a ``torch.profiler.record_function(name)`` range, nested
+    under the caller's; otherwise it does nothing beyond one check of the
+    profiler's state.
+
+    ``setup=True`` (``qrk.setup.<part>``, one-off paths only) also times
+    the block, always, and adds its seconds to the part's
+    :func:`setup_seconds`, less those of the set-up spans inside it: a
+    kernel build inside a first call counts as ``build`` alone.  The
+    context's ``seconds`` holds them after the block."""
+    if setup:
+        return _SetupSpan(name)
+    if not _profiler_enabled():
+        return _INERT
+    return torch.profiler.record_function(name)
+
+
+class _SetupSpan:
+    __slots__ = ("name", "seconds", "_mark", "_t0")
+
+    def __init__(self, name: str):
+        self.name, self.seconds = name, 0.0
+
+    def __enter__(self):
+        if not hasattr(_OPEN, "inner"):
+            _OPEN.inner = []
+        _OPEN.inner.append(0.0)
+        self._mark = span(self.name)
+        self._mark.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        elapsed = time.perf_counter() - self._t0
+        self._mark.__exit__(*exc)
+        self.seconds = elapsed - _OPEN.inner.pop()
+        if _OPEN.inner:
+            _OPEN.inner[-1] += elapsed
+        _note_setup(self.name.rsplit(".", 1)[-1], self.seconds)
+        return False
+
+
+def _note_setup(part: str, seconds: float) -> None:
+    entry = _SETUP.setdefault(part, [0.0, 0])
+    entry[0] += seconds
+    entry[1] += 1
+
+
+def setup_seconds() -> Dict[str, Tuple[float, int]]:
+    """The port's set-up since import, by part: ``(seconds, count)``.
+    Parts: ``import`` (the package's own), ``build`` (an nvcc run),
+    ``load`` (a library's ``ctypes.CDLL``), ``analysis`` (``auto_qr``'s
+    structure analysis and route choice), ``first_call`` (a program key's
+    eager first call, a device fit's eager first iteration) and
+    ``capture`` (a program's or a loop's warm-up, capture and
+    instantiate).  Each part's seconds leave out the parts inside it, so
+    they add up to no more than the wall time they cover."""
+    return {part: (seconds, count) for part, (seconds, count) in _SETUP.items()}
+
+
+# the captured loops' launches traced since import (the newest kept), and
+# how many were traced in all
+_LOOP_RECORDS: deque = deque(maxlen=4096)
+_LOOPS_TRACED = [0]
+
+
+def _note_loop(name: str, iterations: int, stamps) -> None:
+    """One traced launch of a captured loop: its ``iterations`` and the
+    stamps of L1's evaluations (ns, ``iterations + 1``)."""
+    _LOOP_RECORDS.append({"name": name, "iterations": int(iterations),
+                          "stamps": [int(t) for t in stamps]})
+    _LOOPS_TRACED[0] += 1
+
+
+def loop_records() -> List[dict]:
+    """Each launch of a captured loop made while a ``torch.profiler`` was
+    active, oldest first (the newest 4,096): ``name`` (the loop's),
+    ``iterations`` and ``stamps``, the time of each evaluation of the
+    loop's condition in ns (``iterations + 1`` of them; stamp 0 before the
+    first iteration, stamp k after iteration k).  On the card a stamp is
+    the device's ``%globaltimer``, read by L1; under a test backend, the
+    host's clock.  The records outlive the loops
+    (``lm.clear_programs()``)."""
+    return [dict(r, stamps=list(r["stamps"])) for r in _LOOP_RECORDS]
 
 
 def _sync() -> None:
@@ -276,6 +392,48 @@ _NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_eve
 _COOPERATIVE = 2  # CU_LAUNCH_ATTRIBUTE_COOPERATIVE
 
 
+class _Driver:
+    """The CUDA driver API (``libcuda``, by ctypes) for reading a graph's
+    nodes; a call that fails raises."""
+
+    def __init__(self):
+        self.cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(self, err, what):
+        if err:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+
+    def nodes(self, graph) -> list:
+        """``(node, type name)`` of each node of the ``cudaGraph_t``
+        ``graph`` (an int or a ``c_void_p``)."""
+        cu, count = self.cu, ctypes.c_size_t(0)
+        graph = ctypes.c_void_p(graph) if isinstance(graph, int) else graph
+        self.check(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+        handles = (ctypes.c_void_p * count.value)()
+        self.check(cu.cuGraphGetNodes(graph, handles, ctypes.byref(count)), "cuGraphGetNodes")
+        out = []
+        for node in map(ctypes.c_void_p, handles):
+            kind = ctypes.c_int(-1)
+            self.check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+            out.append((node, _NODE_TYPES[kind.value] if 0 <= kind.value < len(_NODE_TYPES)
+                        else kind.value))
+        return out
+
+    def node_types(self, graph) -> Counter:
+        """The nodes of ``graph`` by type, a child graph's counted in its
+        place."""
+        out: Counter = Counter()
+        for node, kind in self.nodes(graph):
+            if kind == "graph":
+                child = ctypes.c_void_p()
+                self.check(self.cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                           "cuGraphChildGraphNodeGetGraph")
+                out.update(self.node_types(child))
+            else:
+                out[kind] += 1
+        return out
+
+
 def graph_nodes(fn: Callable) -> list:
     """The nodes of one call of ``fn`` captured into a CUDA graph, which is
     never launched: a dict a node with its ``type`` (``"kernel"``,
@@ -293,22 +451,12 @@ def graph_nodes(fn: Callable) -> list:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-
-    def check(err, what):
-        if err:
-            raise RuntimeError(f"{what}: CUDA driver error {err}")
-
-    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * count.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    drv = _Driver()
+    cu, check = drv.cu, drv.check
     out = []
-    for node in map(ctypes.c_void_p, nodes):
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
-        rec = {"type": _NODE_TYPES[kind.value] if 0 <= kind.value < len(_NODE_TYPES) else kind.value}
-        if kind.value == 0:
+    for node, kind in drv.nodes(graph.raw_cuda_graph()):
+        rec = {"type": kind}
+        if kind == "kernel":
             params = (ctypes.c_uint8 * 72)()  # CUDA_KERNEL_NODE_PARAMS_v2
             check(cu.cuGraphKernelNodeGetParams_v2(node, params), "cuGraphKernelNodeGetParams_v2")
             func, kern = (ctypes.c_void_p.from_buffer(params, off).value for off in (0, 56))
@@ -327,19 +475,129 @@ def graph_nodes(fn: Callable) -> list:
     return out
 
 
+def loop_body_nodes() -> List[dict]:
+    """The body graph of each captured loop that :mod:`qrkit_tpu_torch.lm`
+    holds (its device fits), oldest first: ``name`` (the loop's) and
+    ``nodes``, the body's nodes by type (``"kernel"``, ``"memset"``, …; a
+    child graph's counted in its place), read through the CUDA driver API;
+    ``nodes`` is None for a loop that holds no body graph (a chunked loop,
+    a test backend's).  An iteration runs the body's nodes and one L1."""
+    from . import _program, lm
+
+    out, drv = [], None
+    for prog in lm._LOOPS.programs().values():
+        loop, nodes = prog._loop, None
+        if isinstance(loop, _program._CudaLoop) and loop.graphs:
+            drv = drv or _Driver()
+            nodes = dict(drv.node_types(loop.graphs[0].raw_cuda_graph()))
+        out.append({"name": prog.name, "nodes": nodes})
+    return out
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """A ``torch.profiler`` trace of the block (CPU ops and, where a card is
     present, its kernels) written to ``log_dir/trace.json`` (Chrome trace
-    format, Perfetto reads it)."""
-    import os
+    format, Perfetto reads it).
 
+    Each launch of a captured loop in the block (:func:`loop_records`) is
+    written into it as well, on a row of its own under the device: the
+    loop's interval (``qrk.loop <name>``, from its first device record to
+    its last) and each iteration's period between two evaluations of its
+    condition (``qrk.loop.iteration``), where the profiler itself keeps
+    only one iteration's records.  Each launch's stamps are put on the
+    trace's clock by its own L1 records (:func:`_place_loops`)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    first = _LOOPS_TRACED[0]
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    n = min(_LOOPS_TRACED[0] - first, len(_LOOP_RECORDS))
+    if n:
+        with open(path) as f:
+            doc = json.load(f)
+        doc["traceEvents"] += _place_loops(doc["traceEvents"], list(_LOOP_RECORDS)[-n:])
+        with open(path, "w") as f:
+            json.dump(doc, f)
+
+
+L1_RECORD = "loop_cond_kernel"  # the profiler's name of L1's records holds this
+_LOOP_ROW = 1 << 20  # the loop rows' thread ids: this plus the stream's
+_MATCH_US = 1.0  # a placed stamp lies this close to the start of its L1 record
+_RATE = 2e-3  # the stamps' clock and the trace's device clock run at rates this close
+
+
+def _place_loops(events: List[dict], records: List[dict]) -> List[dict]:
+    """The trace events of ``records`` (the block's loop launches, in order)
+    for a Chrome trace whose events are ``events``.  A launch's graph
+    records share its launch's correlation id, and the graphs holding L1
+    records are the same launches, in order (the init, the tail and
+    evaluation 0 run outside the WHILE node, so the profiler keeps their
+    records); none is placed where the counts differ.  A launch's interval
+    runs from its first record to its last, and its stamps are placed by
+    its L1 records (:func:`_place`)."""
+    by_launch: Dict[Any, List[dict]] = defaultdict(list)
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and corr:
+            by_launch[corr].append(e)
+    loops = sorted((g for g in by_launch.values()
+                    if any(e["cat"] == "kernel" and L1_RECORD in e["name"] for e in g)),
+                   key=lambda g: min(float(e["ts"]) for e in g))
+    if not loops or len(loops) != len(records):
+        return []
+    out, rows = [], set()
+    for rec, graph in zip(records, loops):
+        l1 = sorted((e for e in graph if e["cat"] == "kernel" and L1_RECORD in e["name"]),
+                    key=lambda e: float(e["ts"]))
+        stamps = [(t - rec["stamps"][0]) / 1e3 for t in rec["stamps"]]  # µs after stamp 0
+        lo = min(float(e["ts"]) for e in graph)
+        hi = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in graph)
+        at = _place([float(e["ts"]) for e in l1], stamps, lo, hi)
+        if at is None:
+            continue
+        pid, tid = l1[0]["pid"], _LOOP_ROW + int(l1[0]["tid"])
+        rows.add((pid, tid, l1[0]["tid"]))
+        out.append({"ph": "X", "cat": "qrk_loop", "name": f"qrk.loop {rec['name']}", "pid": pid,
+                    "tid": tid, "ts": lo, "dur": hi - lo,
+                    "args": {"iterations": rec["iterations"]}})
+        out += [{"ph": "X", "cat": "qrk_loop", "name": "qrk.loop.iteration", "pid": pid,
+                 "tid": tid, "ts": a, "dur": b - a, "args": {"iteration": i + 1}}
+                for i, (a, b) in enumerate(zip(at, at[1:]))]
+    out += [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+             "args": {"name": f"qrk loops (stream {stream})"}} for pid, tid, stream in rows]
+    return out
+
+
+def _place(l1: List[float], stamps: List[float], lo: float, hi: float):
+    """A launch's stamps (µs, increasing) on the trace's clock, or None.  The
+    two clocks differ by an offset and by a rate within ``_RATE``: the map
+    puts the launch's first L1 record start on one stamp and its last on a
+    later one, every stamp inside its graph's records ``[lo, hi]``, and the
+    most L1 records within ``_MATCH_US`` of a stamp (a tie: the earliest
+    pair).  One L1 record could be any evaluation's: it places the stamps
+    only of a loop that ran no iteration."""
+    if len(l1) < 2:
+        return [l1[0] + t - stamps[0] for t in stamps] if l1 and len(stamps) == 1 else None
+    best, out = 0, None
+    for i in range(len(stamps)):
+        for j in range(len(stamps) - 1, i, -1):
+            c = (l1[-1] - l1[0]) / (stamps[j] - stamps[i])
+            if abs(c - 1.0) > _RATE:
+                continue
+            at = [l1[0] + (t - stamps[i]) * c for t in stamps]
+            if at[0] < lo - _MATCH_US or at[-1] > hi + _MATCH_US:
+                continue  # the loop's evaluations lie inside its graph's records
+            n = 0
+            for q in l1:
+                k = bisect.bisect_left(at, q - _MATCH_US)
+                n += k < len(at) and at[k] <= q + _MATCH_US
+            if n > best:
+                best, out = n, at
+    return out

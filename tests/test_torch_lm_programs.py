@@ -14,8 +14,9 @@ On the CPU the calls run eagerly, so the bookkeeping runs through test-only
 backends: ``Recording`` (``tests/test_torch_dispatch_count.py``) for the
 programs and :class:`RecordingLoop` for the loops, whose launch runs init,
 then the body while the plain condition ``(k < max_iters) & ~done.all()``
-holds (counting each evaluation and writing it into the program's log, as
-L1 does), then the tail, under a mode that raises on what a capture on the
+holds (counting each evaluation and writing it into the program's log and
+the host's clock into its stamps, as L1 does with the device's), then the
+tail, under a mode that raises on what a capture on the
 card refuses.
 Each program is held against ``qrkit_tpu`` at fp64 rtol 1e-10 and bitwise
 against the same call under ``_program.eager()``; each fit's iterations
@@ -27,6 +28,8 @@ The ``cuda`` cases run the same on the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_lm_programs.py``
 (JAX is imported inside the reference helpers only).
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -67,6 +70,7 @@ class RecordingLoop:
                 cond = bool(graph_loop._loop_condition_plain(p.done, p.k, p.max_iters))
                 p.count.add_(int(self.l1_counts))
                 p.log[int(p.k)] = int(cond)
+                p.stamps[int(p.k)] = time.perf_counter_ns()
             if not cond:
                 break
             self._run(body)
