@@ -70,6 +70,15 @@ conditional WHILE node needs 12.3 in both), and then:
   and the mesh step below launch K3: once an iteration, once a replay,
   once a rank's step (its two mode launches); the mesh phase also holds
   the mesh step's gradient against ``mesh=None``'s;
+* the ellipse model (phase ``ellipse_eval_kernels``, kernels K4r, K4j, K4g of
+  ``qrkit_tpu_torch/ops/csrc/ellipse_eval.cu``: the residuals, the step's
+  Jacobian and residuals, the gradient ``Jᵀr̄``, one thread a point) against
+  their plain versions at the benchmark's shapes (500,000 points; 100
+  problems of 500), fp32 and fp64: bitwise, but for K4g's five sums
+  (within rtol of the sum of their terms' magnitudes); one kernel node a
+  call (K4g's memset beside it); fp32 times beside the plain versions' and
+  the byte bound.  Every ellipse fit runs K4r twice, K4j and K4g once an
+  iteration;
 * B1's ``b_scale`` / ``stepnorm`` options (phase ``blockdiag_lstsq_options``):
   every option combination against the plain version, every block shape,
   fp32 and fp64, and their time at the 1M-block point;
@@ -396,13 +405,15 @@ def phase_build():
     library of each block shape, the single banded library, which takes
     every banded shape (config 3's and the tests') as kernel arguments, the
     chain-scan library (K1, K2, every shape too), the graph-loop library
-    and the damped-step library (K3) of each step shape."""
+    the damped-step library (K3) of each step shape and the ellipse model's
+    library (K4)."""
     t0 = time.perf_counter()
     jobs = [lambda s=s: _build.build(*s) for s in KERNEL_SHAPES]
     jobs.append(lambda: _build.build_source(_build.BANDED_SOURCE))
     jobs.append(lambda: _build.build_source(_build.CHAIN_SOURCE))
     jobs.append(lambda: _build.build_source(_build.GRAPH_LOOP_SOURCE))
     jobs += [lambda s=s: _build.build_lm_step(*s) for s in LM_STEP_SHAPES]
+    jobs.append(lambda: _build.build_source(_build.ELLIPSE_SOURCE))
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = [f.result() for f in [pool.submit(job) for job in jobs]]
     for br, bc in KERNEL_SHAPES:
@@ -411,6 +422,7 @@ def phase_build():
     _build.load_chain()
     for shape in LM_STEP_SHAPES:
         _build.load_lm_step(*shape)
+    _build.load_ellipse_eval()
     driver, runtime = graph_loop.versions()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
@@ -1566,18 +1578,31 @@ def fit(pts, dtype=torch.float32):
     return result, params, time.perf_counter() - t0, lm.levenberg_marquardt_device.host_reads - reads0
 
 
-def first_fit_contract(label, iterations, reads, counts, k3=False):
+def k4_fit_launches(k, first):
+    """K4's launches in an ellipse fit of ``k`` iterations: a warm fit runs
+    K4r 2k + 1 times (the loop's start, then the trial residual and the
+    gradient's forward an iteration), K4j and K4g k times; a key's ``first``
+    fit adds its eager start, iteration 1 and the capture's warm-up body
+    (only the start and iteration 1 where iteration 1 finishes it)."""
+    if first and k <= 1:
+        return {K4R: 3, K4J: 1, K4G: 1}
+    extra = 2 if first else 0
+    return {K4R: 2 * (k + extra) + 1 + (1 if first else 0), K4J: k + extra, K4G: k + extra}
+
+
+def first_fit_contract(label, iterations, reads, counts, ellipse_fit=False):
     """A key's first fit: iteration 1 eager (one host read; a fit that it
     finishes ends there), iteration 2 the capture's warm-up, then the whole
     fit as one launch of the captured loop (one fetch; L1 once before the
-    loop and once an iteration, by its own count), with ``k3`` (the
-    ellipse fits' step) K3 once an iteration and once each for iteration 1
-    and the capture's warm-up body, no other kernel."""
+    loop and once an iteration, by its own count), with ``ellipse_fit`` K3
+    (the step) once an iteration and once each for iteration 1 and the
+    capture's warm-up body and K4 as ``k4_fit_launches``, no other kernel."""
     k = int(iterations)
     want_reads = 2 if k > 1 else 1
     want = {name: (k + 1 if name == "graph_loop_cond" and k > 1 else 0) for name in counts}
-    if k3:  # iteration 1's step, the warm-up's, one an iteration
+    if ellipse_fit:  # iteration 1's step, the warm-up's, one an iteration
         want[K3] = k + 2 if k > 1 else 1
+        want.update(k4_fit_launches(k, first=True))
     if reads != want_reads or counts != want:
         raise AssertionError(f"{label}: first fit of {k} iterations: {reads} host reads, launches "
                              f"{counts}; want {want_reads} and {want}")
@@ -1601,7 +1626,7 @@ def phase_ellipse_lm(smi):
         profiling.reset_launch_counts()
         result, params, first_s, reads = fit(pts)
         counts = profiling.launch_counts()
-        first_fit_contract(f"ellipse LM N={n}", result.iterations, reads, counts, k3=True)
+        first_fit_contract(f"ellipse LM N={n}", result.iterations, reads, counts, ellipse_fit=True)
         k3_launches_total += counts[K3]
         err = float(np.abs(params[n:] - np.array(ELLIPSE_TRUTH)).max())
         if not (np.isfinite(result.cost) and err < ELLIPSE_GATE and np.isfinite(params).all()):
@@ -1643,9 +1668,12 @@ def phase_ellipse_lm(smi):
     t0 = time.perf_counter()
     batch = ellipse.fit_ellipse_batch(pts_b, LM_CFG, dtype=torch.float32, device=DEVICE)
     batch_s = time.perf_counter() - t0
-    batch_k3, kb = profiling.launch_counts()[K3], int(np.max(batch.iterations))
-    if batch_k3 != (kb + 2 if kb > 1 else 1):  # one vmapped launch an iteration, as the solo fits
-        raise AssertionError(f"ellipse batch: K3 launched {batch_k3} times in {kb} iterations")
+    counts = profiling.launch_counts()
+    batch_k3, kb = counts[K3], int(np.max(batch.iterations))
+    k4 = {name: counts[name] for name in K4}
+    # one vmapped launch of each an iteration, as the solo fits
+    if batch_k3 != (kb + 2 if kb > 1 else 1) or k4 != k4_fit_launches(kb, first=True):
+        raise AssertionError(f"ellipse batch: K3 launched {batch_k3} times, K4 {k4}, in {kb} iterations")
     k3_launches_total += batch_k3
     worst, solo_s = 0.0, 0.0
     for i in range(nb):
@@ -1721,9 +1749,10 @@ def phase_ellipse_banded(smi):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = profiling.launch_counts()
-        if not launches_ok(counts, {"banded_chain_qr": 1}, SCAN_KERNELS):
+        want = {"banded_chain_qr": 1, K4J: 1}  # K4j: the damped system's Jacobian
+        if not launches_ok(counts, want, SCAN_KERNELS):
             raise AssertionError(f"banded ellipse step ({dtype}): launches {counts}, want "
-                                 f"{pin_text({'banded_chain_qr': 1}, SCAN_KERNELS)}")
+                                 f"{pin_text(want, SCAN_KERNELS)}")
         launches = {name: launches.get(name, 0) + n for name, n in counts.items()}
         tol = (0.0, 1e-8 / max(ref.abs().max().item(), 1e-300)) if dtype == torch.float64 else (1e-4, 1e-5)
         step_err, _ = compare(step, ref, dtype, tol)
@@ -3011,7 +3040,7 @@ def phase_mesh(rng, smi):
         res = ellipse._residuals(params, pts)
         add(mesh_check("ellipse_lane_major_step", lambda: ellipse._damped_step_aux(params, res, lam, pts),
                        lambda: ellipse._damped_step_aux(params, res, lam, pts, mesh=mesh), False, 10, smi,
-                       {K3: 1}, extra={"n": MESH_ELLIPSE_N}))
+                       {K3: 1, K4J: 1}, extra={"n": MESH_ELLIPSE_N}))
 
         # the mesh step's gradient (both forms, fp64) against mesh=None's
         add(mesh_step_grad(mesh, smi))
@@ -3590,6 +3619,117 @@ def phase_lm_step_kernels(smi):
     return worst, timings
 
 
+# --- the ellipse model's residuals, Jacobian and gradient (K4) ---
+
+ELLIPSE_EVAL_SOURCE = "qrkit_tpu_torch/ops/csrc/ellipse_eval.cu"
+K4R, K4G, K4J = "ellipse_residuals", "ellipse_residuals_vjp", "ellipse_jacobian"
+K4 = (K4R, K4G, K4J)
+K4_PARTS = {K4R: "residuals_kernel", K4G: "vjp_kernel", K4J: "jacobian_kernel"}
+K4_REPLACES = ("none: the ellipse model's jnp expressions under jax.jit, qrkit_tpu/examples/ellipse.py:65, "
+               "134, 147, and the gradient's jax.vjp, qrkit_tpu/lm.py")
+K4_CASES = ((500_000, 1), (500, 100))  # points, problems: the benchmark's two ellipse cells
+K4_SUM_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # of Σ|terms|: K4g's sums in another order
+
+
+def k4_operands(n, problems, dtype):
+    """The ellipse model's operands at a fit's start: points of
+    ``ellipse_points`` (the batch's truths as ``ellipse_batch_truth``), the
+    initial parameters, and their residuals as r̄ (the gradient's)."""
+    from qrkit_tpu_torch.ops import ellipse_eval as ee
+
+    if problems == 1:
+        pts_np = ellipse.ellipse_points(ellipse.Ellipse(*ELLIPSE_TRUTH), n)
+        params_np = ellipse.initial_params_np(pts_np)
+    else:
+        pts_np = ellipse_batch_points(problems, n)
+        params_np = np.stack([ellipse.initial_params_np(p) for p in pts_np])
+    params = torch.as_tensor(params_np, dtype=dtype, device=DEVICE)
+    pts = torch.as_tensor(pts_np, dtype=dtype, device=DEVICE)
+    return params, pts, ee._residuals_plain(params, pts)
+
+
+def k4_bytes(name, n, problems, itemsize):
+    """Bytes of one call, each input read once and each output written
+    once: K4r reads t and the points and writes 2 residuals a point, K4j
+    writes left, right and res (14 values a point), K4g reads t and r̄ and
+    writes g."""
+    per_point = {K4R: 1 + 2 + 2, K4J: 1 + 2 + 14, K4G: 1 + 2 + 1}[name]
+    return problems * (per_point * n + 5) * itemsize
+
+
+def phase_ellipse_eval_kernels(smi):
+    """K4 against its plain versions (``ops.ellipse_eval``'s torch formulas
+    on the same card) at the benchmark's ellipse shapes, 500,000 points and
+    100 problems of 500, at a fit's start, fp32 and fp64: K4r and K4j
+    bitwise, K4g's point entries bitwise and its five sums within rtol of
+    Σ|terms| (1e-5 fp32, 1e-12 fp64), two calls bitwise; one call of each
+    captured and read node by node (one kernel node each, K4g's memset
+    beside it).  fp32 times: each kernel as a replayed graph of 10 wrapper
+    calls (``graph_ms``), the profiler's time of its kernel, the plain
+    version the same way, bytes and bound.  Returns {(name, n, problems):
+    timing}."""
+    from qrkit_tpu_torch.ops import ellipse_eval as ee
+
+    timings = {}
+    for n, problems in K4_CASES:
+        case = f"{problems}x{n}" if problems > 1 else f"{n}"
+        for dtype in (torch.float32, torch.float64):
+            params, pts, rbar = k4_operands(n, problems, dtype)
+            calls = {K4R: lambda: ee.ellipse_residuals(params, pts),
+                     K4J: lambda: ee.ellipse_jacobian_residuals(params, pts),
+                     K4G: lambda: ee.ellipse_residuals_vjp(params, rbar)}
+            plain = {K4R: lambda: ee._residuals_plain(params, pts),
+                     K4J: lambda: ee._jacobian_residuals_plain(params, pts),
+                     K4G: lambda: ee._residuals_vjp_plain(params, rbar)}
+            for name in K4:
+                before = profiling.launch_counts()[name]
+                out, again, want = calls[name](), calls[name](), plain[name]()
+                torch.cuda.synchronize()
+                if profiling.launch_counts()[name] != before + 2:
+                    raise AssertionError(f"K4 {name} {case}: two calls counted "
+                                         f"{profiling.launch_counts()[name] - before}")
+                outs, agains, wants = (o if isinstance(o, tuple) else (o,) for o in (out, again, want))
+                repeat = all(torch.equal(a, b) for a, b in zip(outs, agains))
+                if name == K4G:
+                    left, right = ee._jacobian_plain(params, n)
+                    rb = rbar.reshape(*rbar.shape[:-1], n, 2)
+                    scale = ((right[..., 0, :, :] * rb[..., None, :, 0]).abs().sum(-1)
+                             + (right[..., 1, :, :] * rb[..., None, :, 1]).abs().sum(-1))
+                    sum_err = float(((out[..., n:] - want[..., n:]).abs() / scale).max())
+                    bitwise = torch.equal(out[..., :n], want[..., :n])
+                    ok = bitwise and sum_err <= K4_SUM_RTOL[dtype]
+                else:
+                    sum_err, bitwise = None, all(torch.equal(a, b) for a, b in zip(outs, wants))
+                    ok = bitwise
+                nodes = profiling.graph_nodes(calls[name])
+                kernels = [nd for nd in nodes if nd["type"] == "kernel"]
+                memsets = sum(nd["type"] == "memset" for nd in nodes)
+                census_ok = (len(kernels) == 1 and K4_PARTS[name] in kernels[0]["name"]
+                             and memsets == (name == K4G) and len(nodes) == 1 + memsets)
+                line = {"phase": "ellipse_eval_kernels", "kernel": name, "case": case,
+                        "dtype": str(dtype).split(".")[1], "bitwise_equal": bitwise,
+                        "sum_err_over_abs_terms": sum_err, "two_calls_bitwise": repeat,
+                        "kernel_nodes": len(kernels), "memset_nodes": memsets,
+                        "grid": kernels[0]["grid"] if kernels else None, "gpu": smi}
+                if dtype == torch.float32:
+                    nbytes = k4_bytes(name, n, problems, 4)
+                    bound_ms, _ = bound(nbytes, 0)
+                    device_ms, _, records = kernel_device_ms(calls[name], (K4_PARTS[name],))
+                    line.update(ms=graph_ms(calls[name]), plain_ms=graph_ms(plain[name], reps=3),
+                                device_ms=device_ms, device_records=records, bytes=nbytes,
+                                bound_ms=bound_ms, bound_by="bytes",
+                                roofline_pct=100 * bound_ms / device_ms if device_ms else None,
+                                method="ms / plain_ms: a replayed CUDA graph of 10 calls between events "
+                                       "over 10 (K4g's memset included); device_ms: torch.profiler's "
+                                       "kernel time a call; bound: bytes (inputs read once, outputs "
+                                       "written once) over 3.35 TB/s")
+                    timings[(name, n, problems)] = line
+                emit(line)
+                if not (ok and repeat and census_ok):
+                    raise AssertionError(f"K4 {name} {case} {dtype}: {line}")
+    return timings
+
+
 # --- one LM fit as one program (the captured loop, L1) ---
 
 GRAPH_LOOP_SOURCE = "qrkit_tpu_torch/ops/csrc/graph_loop.cu"
@@ -3648,7 +3788,8 @@ def drive_lm_program(label, fit, gate, smi):
     """One fit at full width: the eager loop (``_program.eager()``), the
     key's first fit (capture), a warm fit counted (one program, one host
     read, no host-issued launch, L1 once before the loop and once an
-    iteration, K3 once an iteration in the ellipse fits), each bitwise
+    iteration, K3 once an iteration and K4 as ``k4_fit_launches`` in the
+    ellipse fits), each bitwise
     equal to the eager fit, L1's log against the
     plain condition on every iteration, the gate; then eager and captured
     fits in turns (wall ms), device ms per fit under torch.profiler and
@@ -3682,8 +3823,10 @@ def drive_lm_program(label, fit, gate, smi):
     if d.programs != 1 or d.host_reads != 1 or warm_reads != 1 or any(d.host_launches.values()):
         problems.append(f"warm fit: {d.programs} programs, {d.host_reads} host reads (driver "
                         f"{warm_reads}), host launches {d.host_launches}; want 1, 1, none")
-    want = {"graph_loop_cond": k + 1, **({K3: k} if label.startswith("fit_ellipse") else {})}
-    if launches != want:  # the ellipse fits' step: K3 once an iteration
+    want = {"graph_loop_cond": k + 1}
+    if label.startswith("fit_ellipse"):  # the step: K3 once an iteration; the model: K4
+        want.update({K3: k, **k4_fit_launches(k, first=False)})
+    if launches != want:
         problems.append(f"warm fit launches {launches}, want {want}")
     if first_reads != (2 if k > 1 else 1):
         problems.append(f"first fit: {first_reads} host reads")
@@ -3818,6 +3961,7 @@ def main():
     banded_timings = phase_banded_timing(c3_ops, smi)
     scan_worst, scan_timings = phase_chain_kernels(smi)
     k3_worst, k3_timings = phase_lm_step_kernels(smi)
+    k4_timings = phase_ellipse_eval_kernels(smi)
     profiling.reset_launch_counts()
     replayed = phase_programs(rng, smi)
     program_counts = profiling.launch_counts()
@@ -3941,6 +4085,16 @@ def main():
         "program_launches": program_counts[K3], "replayed_warm_launches": replayed[K3],
         "mesh_steps": mesh_counts[K3],
     })
+    for name in K4:  # the ellipse cells' shapes, fp32
+        kernels.append({
+            "name": name, "route": "cuda", "source": ELLIPSE_EVAL_SOURCE, "replaces": K4_REPLACES,
+            "launches": lm_counts[name] + extra.get(name, 0),
+            "lm_program_launches": lm_counts[name],
+            **{f"n{n}" if p == 1 else f"b{p}_n{n}": {k: k4_timings[(name, n, p)][k] for k in (
+                "ms", "plain_ms", "device_ms", "bytes", "bound_ms", "roofline_pct", "grid")}
+               for n, p in K4_CASES},
+            "library_ms": None,  # no single PyTorch call evaluates the model
+        })
     kernels.append({
         "name": "graph_loop_cond", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
         "replaces": L1_REPLACES,

@@ -25,12 +25,16 @@ flags, so an edited source never loads a stale library.  Libraries go under
   back-substitution), one library per step shape (bl, bc, m2), compiled
   with ``-DQRK_BL -DQRK_BC -DQRK_M2`` so a point's work unrolls into
   registers (:func:`build_lm_step`, :func:`load_lm_step`).
+* ``ellipse_eval.cu``: the ellipse model's residuals, Jacobian and
+  gradient (K4), one pass over the points each, one library for every
+  shape (:func:`load_ellipse_eval`).
 
 Each launcher takes its operands' CUDA ordinal first, makes that device
 current for the launch and the caller's device current again after it, so
 the kernels run on any ``cuda:N`` and leave PyTorch's current device as it
 was.  :func:`blockdiag_launcher` / :func:`banded_launcher` /
-:func:`chain_launcher` / :func:`lm_step_launcher` bind a launcher
+:func:`chain_launcher` / :func:`lm_step_launcher` /
+:func:`ellipse_launcher` bind a launcher
 once (:class:`Launcher`); a call then costs one ctypes call and one read of
 the device's current stream.
 
@@ -53,8 +57,9 @@ import torch
 
 __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
-    "build_lm_step", "build_source", "chain_launcher", "current_stream", "find_nvcc", "load",
-    "load_banded", "load_chain", "load_graph_loop", "load_lm_step", "load_source",
+    "build_lm_step", "build_source", "chain_launcher", "current_stream", "ellipse_launcher",
+    "find_nvcc", "load", "load_banded", "load_chain", "load_ellipse_eval", "load_graph_loop",
+    "load_lm_step", "load_source",
     "lm_step_geometry", "lm_step_launcher",
 ]
 
@@ -75,6 +80,7 @@ BANDED_SOURCE = "banded_chain.cu"
 CHAIN_SOURCE = "chain_apply.cu"
 GRAPH_LOOP_SOURCE = "graph_loop.cu"
 LM_STEP_SOURCE = "lm_step.cu"
+ELLIPSE_SOURCE = "ellipse_eval.cu"
 # libraries a source links besides the static CUDA runtime (after the source)
 _LINK = {GRAPH_LOOP_SOURCE: ("-lcuda",)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -116,6 +122,15 @@ _LM_STEP_SIGNATURES = tuple(
     for dt in ("f32", "f64")
 ) + tuple((f"qrk_lm_geometry_{dt}", (_I64,) * 3 + (_PTR,)) for dt in ("f32", "f64")) + (
     ("qrk_lm_empty", (_DEV, _I64, _I64, _INT, _PTR)),
+)
+_ELLIPSE_SIGNATURES = tuple(
+    (f"qrk_ellipse_{kind}_{dt}", (_DEV, *args, _PTR))
+    for dt in ("f32", "f64")
+    for kind, args in (
+        ("residuals", (_PTR, _I64, _PTR, _I64, _I64, _PTR, _I64, _I64)),
+        ("jacobian", (_PTR, _I64, _PTR, _I64, _I64, _PTR, _PTR, _PTR, _I64, _I64)),
+        ("vjp", (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I64)),
+    )
 )
 _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
@@ -258,6 +273,12 @@ def load_chain() -> ctypes.CDLL:
     return load_source(CHAIN_SOURCE, (), _CHAIN_SIGNATURES)
 
 
+def load_ellipse_eval() -> ctypes.CDLL:
+    """Build (if needed) and load the ellipse model's kernels K4 (one
+    library for every shape)."""
+    return load_source(ELLIPSE_SOURCE, (), _ELLIPSE_SIGNATURES)
+
+
 def load_graph_loop() -> ctypes.CDLL:
     """Build (if needed) and load the graph-loop library (L1 and the
     conditional WHILE graphs)."""
@@ -314,6 +335,13 @@ def chain_launcher(kind: str, dtype) -> Launcher:
     chunked forms, ``join``: a level's boundary pass), built and bound at
     first use."""
     return Launcher(load_chain(), f"qrk_chain_{kind}_{_SUFFIX[dtype]}")
+
+
+@functools.lru_cache(maxsize=None)
+def ellipse_launcher(kind: str, dtype) -> Launcher:
+    """``qrk_ellipse_<kind>_<f32|f64>`` (``residuals``: K4r, ``jacobian``:
+    K4j, ``vjp``: K4g's memset and launch), built and bound at first use."""
+    return Launcher(load_ellipse_eval(), f"qrk_ellipse_{kind}_{_SUFFIX[dtype]}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,8 +7,9 @@ asynchronously, so every timer here ends in a real
 CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
 :mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded`,
-:mod:`qrkit_tpu_torch.ops.compact_wy`, :mod:`qrkit_tpu_torch.ops.graph_loop`
-and :mod:`qrkit_tpu_torch.ops.lm_step` keep; a replay of a captured program
+:mod:`qrkit_tpu_torch.ops.compact_wy`, :mod:`qrkit_tpu_torch.ops.graph_loop`,
+:mod:`qrkit_tpu_torch.ops.lm_step` and :mod:`qrkit_tpu_torch.ops.ellipse_eval`
+keep; a replay of a captured program
 (:mod:`qrkit_tpu_torch._program`) adds the launches its graph holds (a
 captured loop: per iteration, from its fetched loop counter), and the
 collectives it holds to :func:`collective_counts`.  :func:`count_dispatches` counts the
@@ -46,7 +47,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from .ops import banded, blockdiag, compact_wy, graph_loop, lm_step
+from .ops import banded, blockdiag, compact_wy, ellipse_eval, graph_loop, lm_step
 
 __all__ = [
     "DispatchCount",
@@ -76,6 +77,9 @@ _KERNEL_WRAPPERS = {
     "chain_two_seg": compact_wy.two_segment_apply,
     "chain_solve": banded.banded_solve_chunk,
     "lm_step": lm_step.damped_step_lane_major,
+    "ellipse_residuals": ellipse_eval.ellipse_residuals,
+    "ellipse_residuals_vjp": ellipse_eval.ellipse_residuals_vjp,
+    "ellipse_jacobian": ellipse_eval.ellipse_jacobian_residuals,
 }
 
 

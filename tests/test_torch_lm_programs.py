@@ -379,12 +379,22 @@ def _reads():
     return lm.levenberg_marquardt_device.host_reads
 
 
+def _k3_k4(iterations, starts):
+    """The ellipse fit's K3 and K4 launches over ``iterations`` iterations
+    and ``starts`` starts of the loop (K4r once each)."""
+    return {"lm_step": iterations, "ellipse_residuals": 2 * iterations + starts,
+            "ellipse_jacobian": iterations, "ellipse_residuals_vjp": iterations}
+
+
 def _drive_fit(fit, device=DEV, steps=False):
     """The first fit of the key (iteration 1 eager, the capture, the fit as
     one launch), then a warm fit counted; checks the loop's bookkeeping
     against the eager fit and returns (eager result, warm result).
-    ``steps``: the fit's damped step is K3, which launches once an
-    iteration on the card (on the CPU its plain version launches none)."""
+    ``steps``: the fit is the ellipse's, whose damped step K3 launches
+    once an iteration on the card and whose model K4 launches K4r twice
+    (the trial residual, the gradient's forward), K4j and K4g once an
+    iteration, K4r once more at the loop's start (on the CPU their plain
+    versions launch none)."""
     lm.clear_programs()
     with _program.eager():
         eager = fit()
@@ -395,8 +405,9 @@ def _drive_fit(fit, device=DEV, steps=False):
         first = fit()
     assert _reads() - reads == 2, (k, _reads() - reads)  # iteration 1, the fetch
     k3 = steps and device.type == "cuda"
-    # K3: iteration 1's step, the capture's warm-up body, then one an iteration
-    want = {"graph_loop_cond": k + 1, **({"lm_step": k + 2} if k3 else {})}
+    # K3 and K4: iteration 1, the capture's warm-up body, then the loop (K4r
+    # also at the eager start and the loop's)
+    want = {"graph_loop_cond": k + 1, **(_k3_k4(k + 2, starts=2) if k3 else {})}
     assert {n: v for n, v in d.launches.items() if v} == want
     (prog,) = lm._LOOPS.programs().values()
     assert _bitwise(first, eager)
@@ -409,7 +420,7 @@ def _drive_fit(fit, device=DEV, steps=False):
     assert _reads() - reads == 1  # the fetch (on the CPU not a device-to-host copy)
     assert d.programs == 1 and d.host_reads == (device.type == "cuda"), d
     assert not any(d.host_launches.values()), d.host_launches
-    want = {"graph_loop_cond": k + 1, **({"lm_step": k} if k3 else {})}
+    want = {"graph_loop_cond": k + 1, **(_k3_k4(k, starts=1) if k3 else {})}
     assert {n: v for n, v in d.launches.items() if v} == want
     assert _bitwise(warm, eager)
     # L1 against its plain condition on every iteration: true until the

@@ -313,5 +313,8 @@ def test_cuda_loop_body_nodes_match_the_graph(cuda_device):
     census = graphs.node_types(prog._loop.graphs[0].raw_cuda_graph())
     (body,) = profiling.loop_body_nodes()
     assert body["name"] == prog.name and body["nodes"] == dict(census)
-    assert sum(body["nodes"].get(t, 0) for t in graphs.DEVICE) > 100
+    # the ellipse iteration: its model is K4 (K4j, K4r twice, K4g and its
+    # memset), beside K3 and the LM driver's elementwise ops (71 nodes on
+    # the H100; over 100 before K4)
+    assert 60 < sum(body["nodes"].get(t, 0) for t in graphs.DEVICE) < 100
     lm.clear_programs()
