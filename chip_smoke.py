@@ -120,6 +120,9 @@ conditional WHILE node needs 12.3 in both), and then:
   seconds, pool bytes, wall ms of eager and captured fits in turns, device
   ms per fit and per iteration, and L1's device time inside the loop; then
   L1 against its plain version on its own (phase ``loop_cond``), timed;
+  then L2, a step's marks inside the loop's body (phase ``loop_marks``: a
+  warm BAL fit of 12 cameras and 3,000 points under the profiler, the
+  marks rising between L1's stamps, three L2 launches an iteration);
 * ``auto_qr`` and the CLI (phase ``auto_cli``): config 3 and config 2 (10,000
   blocks of 7×2, rows permuted) written as MatrixMarket files and run
   through ``qrkit_tpu_torch.__main__.main`` in this process (fp32,
@@ -236,7 +239,7 @@ import torch
 import qrkit_tpu_torch as qt
 from qrkit_tpu_torch import _program, dryrun, functional, lm, profiling
 from qrkit_tpu_torch.__main__ import main as cli_main
-from qrkit_tpu_torch.examples import bundle, ellipse
+from qrkit_tpu_torch.examples import bal, bundle, ellipse
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import banded as bk
 from qrkit_tpu_torch.ops import blockdiag as bd
@@ -3945,6 +3948,61 @@ def phase_loop_cond(smi, l1_in_loop):
     return out
 
 
+BAL_CFG = lm.LMConfig(max_iters=50, ftol=1e-6, xtol=1e-8)  # the BAL cell's
+BAL_SMOKE = (12, 3000, (2, 10))  # cameras, points, track lengths
+L2_REPLACES = "none: the reference's step has no marks (XLA's profile times its fusions)"
+
+
+def phase_loop_marks(smi):
+    """L2, a step's stamps inside the captured loop's body: a BAL fit
+    (``fit_bal_device``, fp32, 12 cameras, 3,000 points, tracks 2 to 10)
+    under the profiler, warm.  Each iteration's marks (the step's entry, its
+    bottom assembled, its TSQR done) rise between L1's stamps around it,
+    the fit launches L2 three times an iteration and nothing else than L1
+    and L2 among the port's kernels, and a warm fit is one launch and one
+    fetch."""
+    n_cams, n_pts, tracks = BAL_SMOKE
+    cams, pts, oc, op, uv = bal.make_scene(n_cams, n_pts, tracks, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    cams0 = cams + np.r_[[0.01] * 3, [0.05] * 3, [8.0], [0.0, 0.0]] * rng.normal(size=cams.shape)
+    pts0 = pts + 0.05 * rng.normal(size=pts.shape)
+
+    def fit():
+        return bal.fit_bal_device(cams0, pts0, oc, op, uv, BAL_CFG, device=DEVICE,
+                                  dtype=torch.float32)
+
+    fit()  # the first fit: iteration 1 eagerly, then the capture
+    reads = lm.levenberg_marquardt_device.host_reads
+    with profiling.count_dispatches() as d:
+        fit()
+    warm = {"programs": d.programs, "host_reads": lm.levenberg_marquardt_device.host_reads - reads}
+    profiling.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        res = fit()
+    counts = {k: v for k, v in profiling.launch_counts().items() if v}
+    rec = profiling.loop_records()[-1]
+    k, st, marks = res.iterations, rec["stamps"], rec.get("marks", [])
+    rising = len(marks) == k and all(st[i] < m["step"] < m["bottom"] < m["tsqr"] < st[i + 1]
+                                     for i, m in enumerate(marks))
+    part = lambda a, b: statistics.mean((m[b] - m[a]) / 1e3 for m in marks)  # noqa: E731
+    want = {"graph_loop_cond": k + 1, "loop_mark": 3 * k}
+    line = {"phase": "loop_marks", "scene": BAL_SMOKE, "iterations": k, "converged": res.converged,
+            "launches": counts, "want": want, "marks_rise": rising, "warm_fit": warm,
+            "left_us": part("step", "bottom") if marks else None,
+            "right_us": part("bottom", "tsqr") if marks else None,
+            "iteration_us": statistics.mean((b - a) / 1e3 for a, b in zip(st[1:], st[2:]))
+            if k > 1 else None,
+            "method": "one warm fit under torch.profiler; marks and stamps from "
+                      "profiling.loop_records(), launches from the program's counters",
+            "gpu": smi}
+    emit(line)
+    if not (rising and counts == want and res.converged
+            and warm == {"programs": 1, "host_reads": 1}):
+        raise AssertionError(f"loop_marks: {line}")
+    return counts["loop_mark"]
+
+
 def main():
     rng = np.random.default_rng(SEED)
     count_k3_launcher_calls()
@@ -3975,6 +4033,7 @@ def main():
     l1_in_loop = phase_lm_programs(smi)
     lm_counts = profiling.launch_counts()
     l1 = phase_loop_cond(smi, l1_in_loop)
+    l2_launches = phase_loop_marks(smi)
     c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
     cli_counts = phase_auto_cli(rng, c3, smi)
     sp_counts = phase_sparse_apply(rng, c3, smi)
@@ -4102,6 +4161,11 @@ def main():
         "mesh_launches": mesh_counts["graph_loop_cond"],
         "library_ms": None,  # no PyTorch call sets a graph's condition
         "in_loop_device_ms_each": l1_in_loop,
+    })
+    kernels.append({
+        "name": "loop_mark", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
+        "replaces": L2_REPLACES, "launches": l2_launches,
+        "library_ms": None,  # no PyTorch call stamps the device's clock
     })
     print(smi, flush=True)
     emit({"kernels": kernels})

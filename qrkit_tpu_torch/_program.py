@@ -114,6 +114,7 @@ import numpy as np
 import torch
 
 from . import profiling
+from .ops import graph_loop
 
 __all__ = ["LOOP_CHUNK", "LoopProgram", "Loops", "Program", "Programs", "eager", "loop_chunks"]
 
@@ -747,7 +748,11 @@ class LoopProgram:
     ``count`` (int32), writes the condition into ``log`` at index k
     (int32, ``max_iters + 1``, -1 where none ran) and its time into
     ``stamps`` at index k (int64 ns, as long as ``log``: on the card the
-    device's ``%globaltimer``; a chunked loop writes none).  ``held``: the tensors
+    device's ``%globaltimer``; a chunked loop writes none).  The body may
+    mark points inside an iteration (:func:`~qrkit_tpu_torch.ops.graph_loop.mark`,
+    kernel L2): its marks go to ``marks[k, slot]`` (int64 ns, ``[max_iters +
+    1, len(graph_loop.MARKS)]``, k the iteration's index from 0; a chunked
+    loop takes none).  ``held``: the tensors
     the captured functions read besides the inputs, kept alive for as long
     as the graph reads their addresses; ``buffers``: the loop's state
     tensors that the graphs read and write (allocated before the capture,
@@ -755,7 +760,8 @@ class LoopProgram:
 
     :meth:`run` is a whole loop from new inputs: one launch followed by one
     fetch of ``out``; while a ``torch.profiler`` runs it adds the launch's
-    stamps to :func:`qrkit_tpu_torch.profiling.loop_records`.
+    stamps (and marks, where the body made any) to
+    :func:`qrkit_tpu_torch.profiling.loop_records`.
     ``capture_seconds``: its set-up's ``capture`` part (the warm-up, the
     three captures and the build).  ``collective``: the warm-up issued
     collectives (a ``reduce=`` fit over a mesh), which the graphs then hold:
@@ -772,6 +778,9 @@ class LoopProgram:
         self.held, self.held_signature = tuple(held), _held_signature(held)
         self.log = torch.full((self.max_iters + 1,), -1, dtype=torch.int32, device=done.device)
         self.stamps = torch.zeros(self.max_iters + 1, dtype=torch.int64, device=done.device)
+        self.marks = torch.zeros((self.max_iters + 1, len(graph_loop.MARKS)),
+                                 dtype=torch.int64, device=done.device)
+        self.marked = False  # the body marked points of its iterations
         self.capture_seconds = 0.0  # set by the cache, which times the set-up
         self.capture_error_mode = _capture_mode(collective)
         self.chunked, self.reads = collective, 0
@@ -791,10 +800,18 @@ class LoopProgram:
                 self.collectives[part] = _delta(cafter, cbefore)
             return run
 
+        def marked(fn):
+            def run():
+                with graph_loop.marking(self.marks, self.k) as sink:
+                    fn()
+                self.marked = self.marked or sink.used
+            return run
+
         design = _ChunkedLoop if collective else (_LOOP_BACKEND or _CudaLoop)
+        body = counted("body", body if collective else marked(body))
         try:
-            self._loop = design(
-                counted("init", init), counted("body", body), counted("tail", tail), self, pool, stream)
+            self._loop = design(counted("init", init), body, counted("tail", tail), self, pool,
+                                stream)
         except RuntimeError as e:
             raise RuntimeError(f"{name}: capture failed: {e}") from e
 
@@ -837,7 +854,9 @@ class LoopProgram:
                     counts[name] = counts.get(name, 0) + n * times
         profiling._note_replay(launches, collectives, replays=chunks)
         if not self.chunked and profiling._profiler_enabled():
-            profiling._note_loop(self.name, iterations, self.stamps[: iterations + 1].tolist())
+            marks = self.marks[:iterations].tolist() if self.marked else None
+            profiling._note_loop(self.name, iterations, self.stamps[: iterations + 1].tolist(),
+                                 marks)
         return host
 
     def close(self) -> None:

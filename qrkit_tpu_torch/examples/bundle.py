@@ -52,18 +52,20 @@ __all__ = ["make_scene", "residuals", "fit_bundle", "fit_bundle_device"]
 
 
 def _rodrigues(w: torch.Tensor) -> torch.Tensor:
-    """Axis-angle [3] → rotation matrix [3, 3], smooth at w = 0 (both
-    branches are evaluated; the 1e-30 guards keep their tangents finite)."""
-    th2 = w @ w
+    """Axis-angle [..., 3] → rotation matrices [..., 3, 3], smooth at w = 0
+    (both branches are evaluated; the 1e-30 guards keep their tangents
+    finite)."""
+    th2 = (w * w).sum(-1)[..., None, None]
     th = torch.sqrt(th2 + 1e-30)
     a = torch.where(th2 < 1e-16, 1.0 - th2 / 6.0, torch.sin(th) / th)
     b = torch.where(th2 < 1e-16, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / (th2 + 1e-30))
-    z = torch.zeros_like(w[0])
+    w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(w0)
     K = torch.stack([
-        torch.stack([z, -w[2], w[1]]),
-        torch.stack([w[2], z, -w[0]]),
-        torch.stack([-w[1], w[0], z]),
-    ])
+        torch.stack([z, -w2, w1], -1),
+        torch.stack([w2, z, -w0], -1),
+        torch.stack([-w1, w0, z], -1),
+    ], -2)
     return torch.eye(3, dtype=w.dtype, device=w.device) + a * K + b * (K @ K)
 
 

@@ -52,6 +52,7 @@ from .ops.lm_step import _mesh_step_vjp, damped_step_lane_major
 
 __all__ = [
     "block_angular_lstsq",
+    "block_angular_lstsq_ragged",
     "block_diagonal_factorize",
     "block_diagonal_lstsq",
     "clear_programs",
@@ -220,11 +221,24 @@ def _sharded_bottom_r(bottom, tail_rows, n_shards: int, m2: int, mesh, axis: str
     return _tail_r(torch.cat([stack.reshape(-1, m2 + 1), tail_rows]), m2)
 
 
+def _tsqr_bottom_r(bottom, n_shards: int):
+    """R2 and y2 = (Q2ᵀ rhs)[:m2] of a block-angular system's bottom rows
+    ``[rows, m2 + 1]`` (J2 | rhs) by the TSQR
+    (:func:`~qrkit_tpu_torch.parallel.tsqr.tsqr_factorize`), the rows
+    zero-padded to whole shards."""
+    from .parallel.tsqr import tsqr_apply, tsqr_factorize  # tsqr imports the solvers
+
+    mbot, m2 = bottom.shape[0], bottom.shape[1] - 1
+    mloc = max(-(-mbot // n_shards), m2)
+    if mloc * n_shards != mbot:
+        bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
+    Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
+    return R2, tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
+
+
 @highest_precision()
 def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None, axis: str = "dp"):
     """Returns (x [m1+m2], R1 [nb,bc,bc], r12 [m1,m2], R2 [m2,m2])."""
-    from .parallel.tsqr import tsqr_apply, tsqr_factorize  # tsqr imports the solvers
-
     nb, br, bc = left_blocks.shape
     m2 = right.shape[1]
 
@@ -245,12 +259,7 @@ def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None,
         # the rank's complement rows; the replicated tail joins the second stage
         R2, y2 = _sharded_bottom_r(compl, rb[nb * br :], n_shards, m2, mesh, axis)
     else:
-        # right: TSQR of the bottom rows of J2, zero-padded to whole shards
-        mbot = bottom.shape[0]
-        mloc = max(-(-mbot // n_shards), m2)
-        bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
-        Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
-        y2 = tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
+        R2, y2 = _tsqr_bottom_r(bottom, n_shards)
 
     # back substitution: x2, then the structured x1
     x2 = _solve_upper(R2, y2)
@@ -391,6 +400,135 @@ def block_angular_lstsq(
         lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, n_shards, mesh, axis)[0],
         left_blocks, right, b, mesh=mesh, axis=axis,
     )
+
+
+@highest_precision()
+def _ragged_left(left, right, slots, b, dest, tail, tail_b, rows: int):
+    """The left of :func:`block_angular_lstsq_ragged`: each bucket's block
+    QR, its Q1ᵀ on the bucket's compact slabs and rhs, and the scatter of
+    the complement rows into the bottom.  Returns (R1 [nb, bc, bc], r12
+    [nb, bc, w·k], y1 [nb, bc] a bucket; the bottom ``[rows + t, m2 + 1]``,
+    the rhs its last column)."""
+    m2 = tail.shape[1]
+    m = rows + tail.shape[0]
+    # one row past the bottom takes the blocks' padding rows (zeros after Q1ᵀ)
+    buf = tail.new_zeros((m + 1, m2 + 1))
+    R1, r12, y1 = [], [], []
+    for lb, rb, sb, bb, db in zip(left, right, slots, b, dest):
+        nb, _, bc = lb.shape
+        k = sb.shape[1]
+        w = rb.shape[2] // k
+        Y, T, R = panel_qr_yt(lb)
+        slab = torch.cat([rb, bb[..., None]], dim=2)  # [nb, br, w·k + 1]
+        qt = slab + Y @ (T.mT @ (Y.mT @ slab))
+        R1.append(torch.triu(R[:, :bc]))
+        r12.append(qt[:, :bc, :-1])
+        y1.append(qt[:, :bc, -1])
+        cols = (sb[..., None] * w + torch.arange(w, device=sb.device)).reshape(nb, k * w)
+        cols = torch.cat([cols, cols.new_full((nb, 1), m2)], dim=1)
+        buf.index_put_((db[:, :, None], cols[:, None, :]), qt[:, bc:])
+    buf[rows:m, :m2] = tail
+    buf[rows:m, m2] = tail_b
+    return R1, r12, y1, buf[:m]
+
+
+@highest_precision()
+def _block_angular_lstsq_ragged(left, right, slots, b, dest, tail, tail_b, rows: int, marks):
+    from .ops.graph_loop import mark
+
+    R1, r12, y1, bottom = _ragged_left(left, right, slots, b, dest, tail, tail_b, rows)
+    if marks:
+        mark(marks[0])
+    R2, y2 = _tsqr_bottom_r(bottom, 1)
+    if marks:
+        mark(marks[1])
+    x2 = _solve_upper(R2, y2)
+    x1 = []
+    for R, r, y, sb in zip(R1, r12, y1, slots):
+        nb, k = sb.shape
+        x2_cols = x2.reshape(-1, r.shape[2] // k)[sb].reshape(nb, -1)  # each slot's block of x2
+        x1.append(_solve_upper(R, y - (r @ x2_cols[..., None])[..., 0]))
+    return tuple(x1), x2
+
+
+class _RaggedBlockAngular(torch.autograd.Function):
+    """:func:`block_angular_lstsq_ragged` where an operand requires grad:
+    the forward runs, the backward raises."""
+
+    @staticmethod
+    def forward(ctx, run, *operands):
+        x1, x2 = run()
+        return (*x1, x2)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "block_angular_lstsq_ragged has no backward: differentiate the residuals (the LM "
+            "drivers do), or use block_angular_lstsq on the dense system")
+
+
+def block_angular_lstsq_ragged(
+    left,
+    right,
+    slots,
+    b,
+    dest,
+    tail: torch.Tensor,
+    tail_b: torch.Tensor,
+    rows: int,
+    marks=None,
+):
+    """Block-angular least squares with ragged blocks and a compact right
+    block: bundle adjustment's damped step, whose points see different
+    numbers of cameras.
+
+    The blocks come in buckets ``i``, each of one shape:
+
+    * ``left[i] [nb, br, bc]``: the block-diagonal A1 blocks (every bucket
+      has the same ``bc``); rows past a block's own are zero padding, at
+      the end of the block (below its first ``bc`` rows);
+    * ``right[i] [nb, br, w·k]`` and ``slots[i] [nb, k]``: the block's rows
+      of A2 in compact form, ``k`` column blocks of width ``w`` each, slot
+      ``j`` being A2's column block ``slots[i][:, j]`` (A2 has ``m2 / w``
+      of them); a block's slots are distinct, and a padded slot's values
+      are zero;
+    * ``b[i] [nb, br]``: the blocks' rows of the rhs;
+    * ``dest[i] [nb, br - bc]``: the bottom row that each row of the
+      block's complement (its rows past ``bc`` after the block's Q1ᵀ)
+      goes to, ``rows + t`` for a padding row (dropped).
+
+    Under them lie ``tail [t, m2]`` (dense: the damping rows of A2) with
+    rhs ``tail_b [t]``.  ``rows`` counts the complement rows that the
+    blocks hand on, the padding rows left out.
+
+    Each bucket is factored by a batched compact-WY QR, and its Q1ᵀ is
+    applied to the compact slabs and the rhs: the top ``bc`` rows stay
+    compact (R12 ``[nb, bc, w·k]``), the complement rows are scattered at
+    their slots' columns into the dense bottom ``[rows + t, m2]``, the
+    tail rows under them.  The TSQR
+    (:func:`~qrkit_tpu_torch.parallel.tsqr.tsqr_factorize`, one shard)
+    factors the bottom and applies its Qᵀ to the rhs; then x2, and each
+    block's x1 from its compact R12.  No tensor is sized by the blocks'
+    count times the widest bucket, and A2 is never dense.
+
+    Returns ``(x1, x2)``: a ``[nb, bc]`` a bucket, and ``[m2]``.  The
+    function has no backward (the LM drivers differentiate the residuals,
+    not the step): a call whose operands require grad runs, and its
+    backward raises.  ``marks``: two names of
+    :data:`~qrkit_tpu_torch.ops.graph_loop.MARKS` that the solve marks
+    inside a captured loop's body, the bottom assembled and the bottom
+    factored (:func:`~qrkit_tpu_torch.ops.graph_loop.mark`); None marks
+    nothing."""
+    operands = (tuple(left), tuple(right), tuple(slots), tuple(b), tuple(dest), tail, tail_b)
+
+    def run():
+        return _block_angular_lstsq_ragged(*operands, rows, marks)
+
+    flat = [t for group in operands[:5] for t in group] + [tail, tail_b]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        *x1, x2 = _RaggedBlockAngular.apply(run, *flat)
+        return tuple(x1), x2
+    return run()
 
 
 def _as_lam(lam, like: torch.Tensor) -> torch.Tensor:

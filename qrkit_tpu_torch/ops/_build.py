@@ -17,9 +17,10 @@ flags, so an edited source never loads a stale library.  Libraries go under
   two-segment compact-WY apply (K1) and the blocked banded
   back-substitution (K2), in one launch or as the phases of their chunked
   forms, one library for every shape (:func:`load_chain`).
-* ``graph_loop.cu``: the LM loop's condition kernel (L1) and the host
-  functions that build a conditional WHILE graph around captured graphs,
-  linked against the driver (``-lcuda``; :func:`load_graph_loop`).
+* ``graph_loop.cu``: the LM loop's condition kernel (L1), the stamp
+  kernel a step runs inside the loop's body (L2) and the host functions
+  that build a conditional WHILE graph around captured graphs, linked
+  against the driver (``-lcuda``; :func:`load_graph_loop`).
 * ``lm_step.cu``: the lane-major damped LM step (K3: one cooperative
   launch a step, its point pass, carries, last-CTA finish and per-point
   back-substitution), one library per step shape (bl, bc, m2), compiled
@@ -136,6 +137,7 @@ _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
     ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _INT,
                         _PTR)),
+    ("qrk_loop_mark", (_DEV, _PTR, _PTR, _INT, _INT, _INT, _PTR)),
     ("qrk_loop_launch", (_PTR, _PTR)),
     ("qrk_loop_destroy", (_PTR,)),
     ("qrk_versions", (_PTR, _PTR)),

@@ -1,5 +1,6 @@
 // L1: the condition of the LM device loop, and the CUDA graph whose
-// conditional WHILE node runs that loop as one launch (sm_90a).
+// conditional WHILE node runs that loop as one launch (sm_90a); L2, the
+// stamps a step leaves inside the loop's body.
 //
 // Replaces no TPU kernel: on the TPU, XLA evaluates the predicate of
 // lax.while_loop itself (qrkit_tpu/lm.py:149-151, `it < max_iters and not
@@ -87,6 +88,13 @@ loop_cond_kernel(const unsigned char* __restrict__ done, long long n, const int*
     if (stamps != nullptr && kk >= 0 && kk < log_len) stamps[kk] = entered;
     if (out != nullptr) *out = (unsigned char)cond;
   }
+}
+
+__global__ void loop_mark_kernel(long long* __restrict__ marks, const int* __restrict__ k,
+                                 int slots, int slot, int rows) {
+  const long long now = global_timer();
+  const int kk = *k;
+  if (kk >= 0 && kk < rows) marks[(long long)kk * slots + slot] = now;
 }
 
 // The operands of every L1 node of the graph, in the kernel's order.
@@ -229,6 +237,27 @@ int qrk_loop_cond(int device, const unsigned char* done, int64_t n, const int* k
     if (err == 0) {
       loop_cond_kernel<<<1, kThreads, 0, stream>>>(done, (long long)n, k, max_iters, 0, 0, nullptr,
                                                    nullptr, nullptr, 0, out);
+      const cudaError_t e = cudaGetLastError();
+      err = e == cudaSuccess ? 0 : kRuntimeBase + (int)e;
+    }
+  }
+  cuDevicePrimaryCtxRelease(dev);
+  return err;
+}
+
+// L2: marks[k * slots + slot] = %globaltimer, one thread (k read on the
+// device; rows bounds k).
+int qrk_loop_mark(int device, long long* marks, const int* k, int slots, int slot, int rows,
+                  cudaStream_t stream) {
+  CUdevice dev;
+  CUcontext ctx;
+  if (int err = retain_primary(device, &dev, &ctx)) return err;
+  int err;
+  {
+    const ContextGuard guard(ctx);
+    err = (int)guard.error();
+    if (err == 0) {
+      loop_mark_kernel<<<1, 1, 0, stream>>>(marks, k, slots, slot, rows);
       const cudaError_t e = cudaGetLastError();
       err = e == cudaSuccess ? 0 : kRuntimeBase + (int)e;
     }

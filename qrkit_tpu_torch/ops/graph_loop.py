@@ -19,20 +19,33 @@ device state:
   (:class:`qrkit_tpu_torch._program.LoopProgram`).  Each evaluation also
   stamps the device's clock (``%globaltimer``, ns) at index k, so the
   stamps bound the loop's iterations on the device.
+* :func:`mark` (kernel L2) stamps the device's clock at a named point
+  (:data:`MARKS`) inside a captured loop's body, into the loop's
+  ``marks[k, slot]``: a step marks the ends of its parts, so the marks
+  time them on the clock of L1's stamps.  It does something only while
+  the loop program captures its body (:func:`marking`); elsewhere it is
+  free.
 * :func:`versions` reads the driver's and the toolkit's CUDA versions
   (conditional WHILE nodes need 12.3 in both).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import time
 from typing import Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["LoopGraph", "loop_condition", "versions"]
+__all__ = ["LoopGraph", "MARKS", "loop_condition", "mark", "marking", "versions"]
+
+# the points a loop's body may mark in each iteration, in the order of their
+# slots in the loop's ``marks``: a step's entry, its bottom assembled and its
+# bottom factored with Qᵀ on the rhs (the block-angular step's two parts)
+MARKS = ("step", "bottom", "tsqr")
 
 
 def _loop_condition_plain(done: torch.Tensor, k: torch.Tensor, max_iters: int) -> torch.Tensor:
@@ -71,6 +84,63 @@ loop_condition.launches = 0
 def _launcher() -> _build.Launcher:
     """The standalone L1 launcher, built and bound at first use."""
     return _build.Launcher(_build.load_graph_loop(), "qrk_loop_cond")
+
+
+class _Marks:
+    """Where :func:`mark` writes while a loop's body is captured: the
+    loop's ``marks [max_iters + 1, slots]`` (int64) and its counter ``k``;
+    ``used`` turns true at the first mark."""
+
+    __slots__ = ("marks", "k", "used")
+
+    def __init__(self, marks: torch.Tensor, k: torch.Tensor):
+        self.marks, self.k, self.used = marks, k, False
+
+
+_SINK = [None]
+
+
+@contextlib.contextmanager
+def marking(marks: torch.Tensor, k: torch.Tensor):
+    """Route :func:`mark` into ``marks`` at row ``k`` for the block (the
+    loop program wraps its body's capture in it); yields the sink, whose
+    ``used`` says whether the body marked anything."""
+    saved, _SINK[0] = _SINK[0], _Marks(marks, k)
+    try:
+        yield _SINK[0]
+    finally:
+        _SINK[0] = saved
+
+
+def mark(name: str) -> None:
+    """Stamp the clock into the capturing loop's ``marks[k, slot]``, the
+    slot of ``name`` in :data:`MARKS`: on the card kernel L2 (one thread,
+    the device's ``%globaltimer`` in ns, one launch counted in
+    ``mark.launches``), on a CPU loop the host's clock (no host read of
+    ``k``).  Outside :func:`marking`, nothing."""
+    if name not in MARKS:
+        raise ValueError(f"mark {name!r} is none of {MARKS}")
+    sink = _SINK[0]
+    if sink is None:
+        return
+    marks, k, slot = sink.marks, sink.k, MARKS.index(name)
+    sink.used = True
+    if marks.device.type == "cpu":
+        row = k.to(torch.int64).reshape(1)
+        marks.index_put_((row, torch.tensor([slot])), torch.tensor([time.perf_counter_ns()]))
+        return
+    _mark_launcher()(marks.device.index, marks.data_ptr(), k.data_ptr(), marks.shape[1], int(slot),
+                     marks.shape[0])
+    mark.launches += 1
+
+
+mark.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _mark_launcher() -> _build.Launcher:
+    """The L2 launcher, built and bound at first use."""
+    return _build.Launcher(_build.load_graph_loop(), "qrk_loop_mark")
 
 
 def _raise(lib, what: str, err: int) -> None:

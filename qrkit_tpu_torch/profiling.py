@@ -74,6 +74,7 @@ _KERNEL_WRAPPERS = {
     "banded_apply_w": banded.segment_apply_w,
     "banded_chain_qr": banded.chain_qr,
     "graph_loop_cond": graph_loop.loop_condition,
+    "loop_mark": graph_loop.mark,
     "chain_two_seg": compact_wy.two_segment_apply,
     "chain_solve": banded.banded_solve_chunk,
     "lm_step": lm_step.damped_step_lane_major,
@@ -215,11 +216,16 @@ _LOOP_RECORDS: deque = deque(maxlen=4096)
 _LOOPS_TRACED = [0]
 
 
-def _note_loop(name: str, iterations: int, stamps) -> None:
-    """One traced launch of a captured loop: its ``iterations`` and the
-    stamps of L1's evaluations (ns, ``iterations + 1``)."""
-    _LOOP_RECORDS.append({"name": name, "iterations": int(iterations),
-                          "stamps": [int(t) for t in stamps]})
+def _note_loop(name: str, iterations: int, stamps, marks=None) -> None:
+    """One traced launch of a captured loop: its ``iterations``, the
+    stamps of L1's evaluations (ns, ``iterations + 1``) and, where its body
+    marked points, each iteration's marks (ns, a row of
+    ``graph_loop.MARKS``'s slots an iteration)."""
+    record = {"name": name, "iterations": int(iterations), "stamps": [int(t) for t in stamps]}
+    if marks is not None:
+        record["marks"] = [{n: int(t) for n, t in zip(graph_loop.MARKS, row) if t}
+                           for row in marks]
+    _LOOP_RECORDS.append(record)
     _LOOPS_TRACED[0] += 1
 
 
@@ -228,11 +234,17 @@ def loop_records() -> List[dict]:
     active, oldest first (the newest 4,096): ``name`` (the loop's),
     ``iterations`` and ``stamps``, the time of each evaluation of the
     loop's condition in ns (``iterations + 1`` of them; stamp 0 before the
-    first iteration, stamp k after iteration k).  On the card a stamp is
-    the device's ``%globaltimer``, read by L1; under a test backend, the
-    host's clock.  The records outlive the loops
+    first iteration, stamp k after iteration k), and ``marks`` where the
+    loop's body marked points of its iterations
+    (:func:`~qrkit_tpu_torch.ops.graph_loop.mark`, kernel L2): a dict an
+    iteration, ns at each point's name (a point the body left unmarked
+    absent).  On
+    the card a stamp or mark is the device's ``%globaltimer``; under a test
+    backend, the host's clock.  The records outlive the loops
     (``lm.clear_programs()``)."""
-    return [dict(r, stamps=list(r["stamps"])) for r in _LOOP_RECORDS]
+    return [{**r, "stamps": list(r["stamps"]),
+             **({"marks": [dict(m) for m in r["marks"]]} if "marks" in r else {})}
+            for r in _LOOP_RECORDS]
 
 
 def _sync() -> None:

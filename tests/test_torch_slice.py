@@ -202,7 +202,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
         "banded_chain_qr", "graph_loop_cond", "chain_two_seg", "chain_solve", "lm_step",
-        "ellipse_residuals", "ellipse_residuals_vjp", "ellipse_jacobian",
+        "ellipse_residuals", "ellipse_residuals_vjp", "ellipse_jacobian", "loop_mark",
     }
     assert not any(profiling.launch_counts().values())
 
