@@ -122,7 +122,13 @@ conditional WHILE node needs 12.3 in both), and then:
   L1 against its plain version on its own (phase ``loop_cond``), timed;
   then L2, a step's marks inside the loop's body (phase ``loop_marks``: a
   warm BAL fit of 12 cameras and 3,000 points under the profiler, the
-  marks rising between L1's stamps, three L2 launches an iteration);
+  marks rising between L1's stamps, three L2 launches an iteration and
+  K5's plan an iteration); then K5, the ragged step's R-only tall-skinny
+  QR (phase ``tall_qr``: at BAL Venice-52's bottom, 694,814 × 469 fp32,
+  against its plain version and a float64 Gram, two calls bitwise, timed
+  in turns with the plain version, the TSQR it replaced and
+  ``torch.linalg.qr(mode="r")`` beside its bounds; one BAL step read node
+  by node, no ``geqrf``; K5's launches in a warm 3-iteration BAL fit);
 * ``auto_qr`` and the CLI (phase ``auto_cli``): config 3 and config 2 (10,000
   blocks of 7×2, rows permuted) written as MatrixMarket files and run
   through ``qrkit_tpu_torch.__main__.main`` in this process (fp32,
@@ -221,6 +227,7 @@ summary ``{"kernels": [...]}`` (B1–B5, L1, K1, K2, K3) and ``{"ok": true,
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import io
@@ -246,6 +253,7 @@ from qrkit_tpu_torch.ops import blockdiag as bd
 from qrkit_tpu_torch.ops import chain_plan
 from qrkit_tpu_torch.ops import compact_wy as cw
 from qrkit_tpu_torch.ops import graph_loop
+from qrkit_tpu_torch.ops import tall_qr
 from qrkit_tpu_torch.solvers import segmented_factorize
 
 SEED = 0
@@ -408,8 +416,8 @@ def phase_build():
     library of each block shape, the single banded library, which takes
     every banded shape (config 3's and the tests') as kernel arguments, the
     chain-scan library (K1, K2, every shape too), the graph-loop library
-    the damped-step library (K3) of each step shape and the ellipse model's
-    library (K4)."""
+    the damped-step library (K3) of each step shape, the ellipse model's
+    library (K4) and the tall-skinny QR's (K5)."""
     t0 = time.perf_counter()
     jobs = [lambda s=s: _build.build(*s) for s in KERNEL_SHAPES]
     jobs.append(lambda: _build.build_source(_build.BANDED_SOURCE))
@@ -417,6 +425,7 @@ def phase_build():
     jobs.append(lambda: _build.build_source(_build.GRAPH_LOOP_SOURCE))
     jobs += [lambda s=s: _build.build_lm_step(*s) for s in LM_STEP_SHAPES]
     jobs.append(lambda: _build.build_source(_build.ELLIPSE_SOURCE))
+    jobs.append(lambda: _build.build_source(_build.TALL_QR_SOURCE))
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         paths = [f.result() for f in [pool.submit(job) for job in jobs]]
     for br, bc in KERNEL_SHAPES:
@@ -426,6 +435,7 @@ def phase_build():
     for shape in LM_STEP_SHAPES:
         _build.load_lm_step(*shape)
     _build.load_ellipse_eval()
+    _build.load_tall_qr()
     driver, runtime = graph_loop.versions()
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
@@ -3957,10 +3967,10 @@ def phase_loop_marks(smi):
     """L2, a step's stamps inside the captured loop's body: a BAL fit
     (``fit_bal_device``, fp32, 12 cameras, 3,000 points, tracks 2 to 10)
     under the profiler, warm.  Each iteration's marks (the step's entry, its
-    bottom assembled, its TSQR done) rise between L1's stamps around it,
-    the fit launches L2 three times an iteration and nothing else than L1
-    and L2 among the port's kernels, and a warm fit is one launch and one
-    fetch."""
+    bottom assembled, its R2 and y2 done) rise between L1's stamps around it,
+    the fit launches L2 three times an iteration, K5 its plan's launches an
+    iteration and nothing else than L1, L2 and K5 among the port's kernels,
+    and a warm fit is one launch and one fetch."""
     n_cams, n_pts, tracks = BAL_SMOKE
     cams, pts, oc, op, uv = bal.make_scene(n_cams, n_pts, tracks, seed=SEED)
     rng = np.random.default_rng(SEED)
@@ -3986,7 +3996,8 @@ def phase_loop_marks(smi):
     rising = len(marks) == k and all(st[i] < m["step"] < m["bottom"] < m["tsqr"] < st[i + 1]
                                      for i, m in enumerate(marks))
     part = lambda a, b: statistics.mean((m[b] - m[a]) / 1e3 for m in marks)  # noqa: E731
-    want = {"graph_loop_cond": k + 1, "loop_mark": 3 * k}
+    want = {"graph_loop_cond": k + 1, "loop_mark": 3 * k,
+            "tall_qr": k * tall_qr.plan(*bal_bottom_shape(oc, n_cams)).launches}
     line = {"phase": "loop_marks", "scene": BAL_SMOKE, "iterations": k, "converged": res.converged,
             "launches": counts, "want": want, "marks_rise": rising, "warm_fit": warm,
             "left_us": part("step", "bottom") if marks else None,
@@ -4001,6 +4012,138 @@ def phase_loop_marks(smi):
             and warm == {"programs": 1, "host_reads": 1}):
         raise AssertionError(f"loop_marks: {line}")
     return counts["loop_mark"]
+
+
+TALL_QR_SOURCE = "qrkit_tpu_torch/ops/csrc/tall_qr.cu"
+K5 = "tall_qr"
+K5_REPLACES = ("none: the ragged block-angular step exists only in the port; K5 takes its bottom's "
+               "TSQR (geqrf, the T factors, Q^T on the rhs: functional._tsqr_bottom_r, kept for "
+               "the dense step) and keeps R2 and y2 alone")
+BAL_BOTTOM = (694_814, 468)  # Venice-52: 2 x 347,173 observation rows + 468 damping rows, 9 x 52 columns
+TALL_QR_REPS = 5
+
+
+def bal_bottom_shape(obs_cam, n_cams):
+    """(rows, columns) of a BAL step's bottom: two rows an observation and
+    the camera damping, 9 columns a camera (the rhs past them)."""
+    m2 = bal.CAMERA * n_cams
+    return 2 * len(obs_cam) + m2, m2
+
+
+def tall_qr_cost(m, n, itemsize=4):
+    """(bytes, operations) of K5 on ``[m, n + 1]``: the operand read once,
+    R2 and y2 written; Householder QR of the m × n J2 (2mn² − 2n³/3) and
+    Qᵀ on the rhs (4mn)."""
+    return itemsize * (m * (n + 1) + n * n + n), 2 * m * n * n - 2 * n ** 3 / 3 + 4 * m * n
+
+
+def phase_tall_qr(smi):
+    """K5 at BAL Venice-52's bottom ``[694,814, 469]`` (fp32; columns
+    scaled over two decades): against its plain version on the same card
+    (R2, y2) and R's Gram residual against float64; two calls bitwise
+    equal; CUDA-event times of one call on a fresh copy of the operand (the
+    copy outside the events), in turns: K5, the plain version, the TSQR it
+    replaced (``functional._tsqr_bottom_r``, one shard) and
+    ``torch.linalg.qr(mode="r")`` of the operand (``library_ms``: timed,
+    never called by the port), beside the bounds (operations at the fp32
+    rate, bytes at the HBM rate).  Then one BAL step at the smoke scene
+    captured and read node by node (K5's kernels, no ``geqrf`` kernel), and
+    K5's launches in a warm 3-iteration BAL fit (its plan's an
+    iteration)."""
+    m, n = BAL_BOTTOM
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a = torch.randn((m, n + 1), generator=g, device=DEVICE) * torch.logspace(
+        0, 2, n + 1, device=DEVICE)
+    work = torch.empty_like(a)
+    calls = {
+        "kernel": lambda w: tall_qr.r_and_qtb(w),
+        "plain": lambda w: tall_qr._r_and_qtb_plain(w),
+        "tsqr": lambda w: functional._tsqr_bottom_r(w, 1),
+        "library": lambda w: (torch.linalg.qr(w, mode="r")[1],),
+    }
+
+    def once(name):
+        work.copy_(a)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = calls[name](work)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    _, (R2, y2) = once("kernel")
+    _, (R2b, y2b) = once("kernel")
+    _, (pR2, py2) = once("plain")
+    repeat = bool(torch.equal(R2, R2b) and torch.equal(y2, y2b))
+    scale = float(pR2.abs().max())
+    err = max(float((R2 - pR2).abs().max()), float((y2 - py2).abs().max())) / scale
+    J = a[:, :n].double()
+    gram = J.mT @ J
+    gram_res = float(torch.linalg.matrix_norm(R2.double().mT @ R2.double() - gram)
+                     / torch.linalg.matrix_norm(gram))
+    del J, gram, pR2, py2, R2b, y2b
+    once("tsqr")
+    once("library")
+    rounds = {name: [] for name in calls}
+    for _ in range(TALL_QR_REPS):
+        for name in ("kernel", "plain", "tsqr", "library", "library", "tsqr", "plain", "kernel"):
+            rounds[name].append(once(name)[0])
+    nbytes, flops = tall_qr_cost(m, n)
+    ms = statistics.median(rounds["kernel"])
+    plan = tall_qr.plan(m, n)
+
+    # one BAL step at the smoke scene: its nodes
+    n_cams, n_pts, tracks = BAL_SMOKE
+    cams, pts, oc, op, uv = bal.make_scene(n_cams, n_pts, tracks, seed=SEED)
+    cam_d, pt_d, order, buckets, inverse, rows = bal._device_plan(oc, op, n_pts, n_cams, DEVICE)
+    aux = (cam_d, pt_d, torch.as_tensor(uv, dtype=torch.float32, device=DEVICE)[order], buckets,
+           inverse, n_cams, rows)
+    x0 = torch.as_tensor(np.concatenate([pts.ravel(), cams.ravel()]), dtype=torch.float32,
+                         device=DEVICE)
+    r0 = bal._residuals_aux(x0, aux)
+    lam = torch.tensor(1e-3, dtype=torch.float32, device=DEVICE)
+    nodes = profiling.graph_nodes(lambda: bal._damped_step_aux(x0, r0, lam, aux))
+    names = [nd.get("name", "") for nd in nodes if nd["type"] == "kernel"]
+    k5_nodes = sum("level_kernel" in nm for nm in names)
+    geqrf_nodes = sum(any(k in nm.lower() for k in ("geqr", "larf", "orgqr", "ormqr")) for nm in names)
+    smoke_plan = tall_qr.plan(*bal_bottom_shape(oc, n_cams))
+
+    # K5's launches in a warm 3-iteration fit
+    rng = np.random.default_rng(SEED)
+    cams0 = cams + np.r_[[0.01] * 3, [0.05] * 3, [8.0], [0.0, 0.0]] * rng.normal(size=cams.shape)
+    pts0 = pts + 0.05 * rng.normal(size=pts.shape)
+    cfg3 = lm.LMConfig(max_iters=3, ftol=0.0, xtol=0.0)
+
+    def fit():
+        return bal.fit_bal_device(cams0, pts0, oc, op, uv, cfg3, device=DEVICE, dtype=torch.float32)
+
+    fit()
+    profiling.reset_launch_counts()
+    res = fit()
+    fit_launches = profiling.launch_counts()[K5]
+    out = {"ms": ms, "plain_ms": statistics.median(rounds["plain"]),
+           "tsqr_ms": statistics.median(rounds["tsqr"]),
+           "library_ms": statistics.median(rounds["library"]),
+           "bound_ms": bound(nbytes, flops)[0], "bound_by": bound(nbytes, flops)[1],
+           "ops_bound_ms": flops / FP32_FLOPS_PER_S * 1e3, "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "roofline_pct": 100 * bound(nbytes, flops)[0] / ms, "max_abs_err": err}
+    line = {"phase": "tall_qr", "shape": [m, n + 1], "dtype": "float32", **out,
+            "rounds": rounds, "repeat_bitwise": repeat, "gram_residual": gram_res,
+            "plan": plan._asdict(), "step_kernel_nodes": len(names), "step_k5_nodes": k5_nodes,
+            "step_library_qr_nodes": geqrf_nodes,
+            "step_kernel_names": collections.Counter(nm[:60] for nm in names).most_common(8),
+            "smoke_plan_launches": smoke_plan.launches,
+            "fit_iterations": res.iterations, "fit_launches": fit_launches,
+            "fit_launches_want": res.iterations * smoke_plan.launches,
+            "method": "CUDA events around one call on a fresh copy of the operand, median of "
+                      f"{TALL_QR_REPS} rounds in turns; bound: operations at 67 TFLOP/s and bytes at "
+                      "3.35 TB/s; err: max |K5 - plain| over max |R2| (plain)", "gpu": smi}
+    emit(line)
+    if not (repeat and err < 1e-4 and gram_res < 1e-5 and k5_nodes == smoke_plan.launches
+            and geqrf_nodes == 0 and res.iterations == 3
+            and fit_launches == res.iterations * smoke_plan.launches):
+        raise AssertionError(f"tall_qr: {line}")
+    return {**out, "launches": fit_launches, "plan": plan._asdict()}
 
 
 def main():
@@ -4034,6 +4177,7 @@ def main():
     lm_counts = profiling.launch_counts()
     l1 = phase_loop_cond(smi, l1_in_loop)
     l2_launches = phase_loop_marks(smi)
+    k5 = phase_tall_qr(smi)
     c3 = banded_matrix(rng, C3_NB, C3_BR, C3_BC, C3_OV)
     cli_counts = phase_auto_cli(rng, c3, smi)
     sp_counts = phase_sparse_apply(rng, c3, smi)
@@ -4166,6 +4310,11 @@ def main():
         "name": "loop_mark", "route": "cuda", "source": GRAPH_LOOP_SOURCE,
         "replaces": L2_REPLACES, "launches": l2_launches,
         "library_ms": None,  # no PyTorch call stamps the device's clock
+    })
+    kernels.append({
+        "name": K5, "route": "cuda", "source": TALL_QR_SOURCE, "replaces": K5_REPLACES,
+        **k5, "case": "BAL Venice-52's bottom [694,814, 469], fp32",
+        "library_call": "torch.linalg.qr(a, mode='r')",
     })
     print(smi, flush=True)
     emit({"kernels": kernels})

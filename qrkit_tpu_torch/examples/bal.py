@@ -22,11 +22,11 @@ point's rows touch its 3 columns and the 9 of each camera that sees it.
 QR of each bucket's ``[2k + 3, 3]`` point blocks, their Q1ᵀ on the
 compact camera slabs ``[2k + 3, 9k]``, the complement rows scattered into
 the dense bottom ``[2·N_obs + 9C, 9C]`` under which the camera damping
-lies, and its TSQR.  The Jacobian blocks (``[2, 3]`` a point, ``[2, 9]``
+lies, and its R-only QR (kernel K5 on the card, ``ops/tall_qr.py``).  The Jacobian blocks (``[2, 3]`` a point, ``[2, 9]``
 a camera, per observation) come from ``torch.func.jacfwd``.  The fit runs
 :func:`~qrkit_tpu_torch.lm.levenberg_marquardt_device`: on the card one
 captured loop a fit, one launch and one fetch when warm; each step marks
-its entry, its bottom assembled and its TSQR done inside the loop's body
+its entry, its bottom assembled and its R2 and y2 done inside the loop's body
 (kernel L2, ``profiling.loop_records()``'s ``marks``).
 """
 from __future__ import annotations

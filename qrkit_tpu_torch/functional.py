@@ -435,11 +435,12 @@ def _ragged_left(left, right, slots, b, dest, tail, tail_b, rows: int):
 @highest_precision()
 def _block_angular_lstsq_ragged(left, right, slots, b, dest, tail, tail_b, rows: int, marks):
     from .ops.graph_loop import mark
+    from .ops.tall_qr import r_and_qtb
 
     R1, r12, y1, bottom = _ragged_left(left, right, slots, b, dest, tail, tail_b, rows)
     if marks:
         mark(marks[0])
-    R2, y2 = _tsqr_bottom_r(bottom, 1)
+    R2, y2 = r_and_qtb(bottom)  # K5 on the card; the bottom is the step's own, overwritten
     if marks:
         mark(marks[1])
     x2 = _solve_upper(R2, y2)
@@ -505,9 +506,9 @@ def block_angular_lstsq_ragged(
     applied to the compact slabs and the rhs: the top ``bc`` rows stay
     compact (R12 ``[nb, bc, w·k]``), the complement rows are scattered at
     their slots' columns into the dense bottom ``[rows + t, m2]``, the
-    tail rows under them.  The TSQR
-    (:func:`~qrkit_tpu_torch.parallel.tsqr.tsqr_factorize`, one shard)
-    factors the bottom and applies its Qᵀ to the rhs; then x2, and each
+    tail rows under them.  A QR that keeps R alone
+    (:func:`~qrkit_tpu_torch.ops.tall_qr.r_and_qtb`, kernel K5 on the
+    card) gives R2 and Qᵀ on the rhs of the bottom; then x2, and each
     block's x1 from its compact R12.  No tensor is sized by the blocks'
     count times the widest bucket, and A2 is never dense.
 

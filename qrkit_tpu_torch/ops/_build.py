@@ -29,13 +29,16 @@ flags, so an edited source never loads a stale library.  Libraries go under
 * ``ellipse_eval.cu``: the ellipse model's residuals, Jacobian and
   gradient (K4), one pass over the points each, one library for every
   shape (:func:`load_ellipse_eval`).
+* ``tall_qr.cu``: the R-only tall-skinny QR of the ragged block-angular
+  step's bottom (K5: panels, tiles and a tree of their R blocks), one
+  library for every shape (:func:`load_tall_qr`).
 
 Each launcher takes its operands' CUDA ordinal first, makes that device
 current for the launch and the caller's device current again after it, so
 the kernels run on any ``cuda:N`` and leave PyTorch's current device as it
 was.  :func:`blockdiag_launcher` / :func:`banded_launcher` /
 :func:`chain_launcher` / :func:`lm_step_launcher` /
-:func:`ellipse_launcher` bind a launcher
+:func:`ellipse_launcher` / :func:`tall_qr_launcher` bind a launcher
 once (:class:`Launcher`); a call then costs one ctypes call and one read of
 the device's current stream.
 
@@ -60,8 +63,8 @@ __all__ = [
     "NVCC_FLAGS", "Launcher", "banded_launcher", "blockdiag_launcher", "build",
     "build_lm_step", "build_source", "chain_launcher", "current_stream", "ellipse_launcher",
     "find_nvcc", "load", "load_banded", "load_chain", "load_ellipse_eval", "load_graph_loop",
-    "load_lm_step", "load_source",
-    "lm_step_geometry", "lm_step_launcher",
+    "load_lm_step", "load_source", "load_tall_qr",
+    "lm_step_geometry", "lm_step_launcher", "tall_qr_launcher", "tall_qr_plan",
 ]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -82,6 +85,7 @@ CHAIN_SOURCE = "chain_apply.cu"
 GRAPH_LOOP_SOURCE = "graph_loop.cu"
 LM_STEP_SOURCE = "lm_step.cu"
 ELLIPSE_SOURCE = "ellipse_eval.cu"
+TALL_QR_SOURCE = "tall_qr.cu"
 # libraries a source links besides the static CUDA runtime (after the source)
 _LINK = {GRAPH_LOOP_SOURCE: ("-lcuda",)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -133,6 +137,10 @@ _ELLIPSE_SIGNATURES = tuple(
         ("vjp", (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I64)),
     )
 )
+_TALL_QR_SIGNATURES = tuple(
+    (f"qrk_tall_qr_{dt}", (_DEV, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR, _I64, _PTR))
+    for dt in ("f32", "f64")
+) + (("qrk_tall_qr_plan", (_I64, _I64, _PTR)),)
 _GRAPH_LOOP_SIGNATURES = (
     ("qrk_loop_cond", (_DEV, _PTR, _I64, _PTR, _INT, _PTR, _PTR)),
     ("qrk_loop_build", (_DEV, _PTR, _PTR, _PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _INT,
@@ -281,6 +289,12 @@ def load_ellipse_eval() -> ctypes.CDLL:
     return load_source(ELLIPSE_SOURCE, (), _ELLIPSE_SIGNATURES)
 
 
+def load_tall_qr() -> ctypes.CDLL:
+    """Build (if needed) and load the tall-skinny QR kernel K5 (one library
+    for every shape)."""
+    return load_source(TALL_QR_SOURCE, (), _TALL_QR_SIGNATURES)
+
+
 def load_graph_loop() -> ctypes.CDLL:
     """Build (if needed) and load the graph-loop library (L1 and the
     conditional WHILE graphs)."""
@@ -344,6 +358,21 @@ def ellipse_launcher(kind: str, dtype) -> Launcher:
     """``qrk_ellipse_<kind>_<f32|f64>`` (``residuals``: K4r, ``jacobian``:
     K4j, ``vjp``: K4g's memset and launch), built and bound at first use."""
     return Launcher(load_ellipse_eval(), f"qrk_ellipse_{kind}_{_SUFFIX[dtype]}")
+
+
+@functools.lru_cache(maxsize=None)
+def tall_qr_launcher(dtype) -> Launcher:
+    """``qrk_tall_qr_<f32|f64>`` (K5: a panel's leaf and tree levels, every
+    panel), built and bound at first use."""
+    return Launcher(load_tall_qr(), f"qrk_tall_qr_{_SUFFIX[dtype]}")
+
+
+def tall_qr_plan(m: int, n: int) -> Tuple[int, int, int, int, int]:
+    """K5's schedule of an ``[m, n + 1]`` operand as the library computes it:
+    (tiles, levels, panels, launches, scratch blocks)."""
+    out = (ctypes.c_int64 * 5)()
+    load_tall_qr().qrk_tall_qr_plan(m, n, out)
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)

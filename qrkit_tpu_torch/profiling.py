@@ -8,8 +8,8 @@ CUDA events.  :func:`launch_counts` / :func:`reset_launch_counts` read and
 clear the per-kernel launch counters that the kernel wrappers in
 :mod:`qrkit_tpu_torch.ops.blockdiag`, :mod:`qrkit_tpu_torch.ops.banded`,
 :mod:`qrkit_tpu_torch.ops.compact_wy`, :mod:`qrkit_tpu_torch.ops.graph_loop`,
-:mod:`qrkit_tpu_torch.ops.lm_step` and :mod:`qrkit_tpu_torch.ops.ellipse_eval`
-keep; a replay of a captured program
+:mod:`qrkit_tpu_torch.ops.lm_step`, :mod:`qrkit_tpu_torch.ops.ellipse_eval` and
+:mod:`qrkit_tpu_torch.ops.tall_qr` keep; a replay of a captured program
 (:mod:`qrkit_tpu_torch._program`) adds the launches its graph holds (a
 captured loop: per iteration, from its fetched loop counter), and the
 collectives it holds to :func:`collective_counts`.  :func:`count_dispatches` counts the
@@ -47,7 +47,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from .ops import banded, blockdiag, compact_wy, ellipse_eval, graph_loop, lm_step
+from .ops import banded, blockdiag, compact_wy, ellipse_eval, graph_loop, lm_step, tall_qr
 
 __all__ = [
     "DispatchCount",
@@ -81,6 +81,7 @@ _KERNEL_WRAPPERS = {
     "ellipse_residuals": ellipse_eval.ellipse_residuals,
     "ellipse_residuals_vjp": ellipse_eval.ellipse_residuals_vjp,
     "ellipse_jacobian": ellipse_eval.ellipse_jacobian_residuals,
+    "tall_qr": tall_qr.r_and_qtb,
 }
 
 

@@ -19,6 +19,7 @@ from qrkit_tpu_torch import convert, profiling
 from qrkit_tpu_torch.ops import _build
 from qrkit_tpu_torch.ops import blockdiag as bd
 from qrkit_tpu_torch.ops import graph_loop
+from qrkit_tpu_torch.ops import tall_qr
 
 from generators import block_diagonal_matrix, tall_banded_matrix
 
@@ -182,6 +183,7 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     monkeypatch.setattr(_build, "load_chain", no_build)
     monkeypatch.setattr(_build, "load_graph_loop", no_build)
     monkeypatch.setattr(_build, "load_lm_step", no_build)
+    monkeypatch.setattr(_build, "load_tall_qr", no_build)
     profiling.reset_launch_counts()
     blocks = rng.uniform(0.5, 5.0, size=(8, 7, 2))
     mat = qt.BlockDiagonal.from_dense_batch(blocks, device=DEV)
@@ -199,10 +201,11 @@ def test_cpu_tensors_launch_no_kernel(rng, monkeypatch):
     assert seg._scan_kernel and plain._scan_kernel
     step = [torch.as_tensor(rng.normal(size=shape)) for shape in ((2, 1, 9), (2, 5, 9), (2, 9))]
     qt.functional.lm_damped_step_blockdiag(*step, 0.5)
+    tall_qr.r_and_qtb(torch.as_tensor(rng.normal(size=(300, 11))))
     assert set(profiling.launch_counts()) == {
         "blockdiag_lstsq", "blockdiag_qr_r", "banded_segment_chains", "banded_apply_w",
         "banded_chain_qr", "graph_loop_cond", "chain_two_seg", "chain_solve", "lm_step",
-        "ellipse_residuals", "ellipse_residuals_vjp", "ellipse_jacobian", "loop_mark",
+        "ellipse_residuals", "ellipse_residuals_vjp", "ellipse_jacobian", "loop_mark", "tall_qr",
     }
     assert not any(profiling.launch_counts().values())
 
