@@ -158,8 +158,9 @@ conditional WHILE node needs 12.3 in both), and then:
   geometry (4,096 blocks of 10×4 overlapping 2, 8 per segment; B3, B4, B5),
   ``DenseHouseholderQR`` / ``DenseColPivQR`` at 24×8 and 20,000×32,
   config 4's fused dense compute and solve at N = 100,000, the functional
-  programs (``block_diagonal_factorize``, ``block_angular_lstsq``,
-  ``lm_damped_step_blockdiag(1)``) at the ellipse's width (100,000 points)
+  programs (``block_diagonal_factorize``, ``block_angular_lstsq`` with
+  K5's plan a call, its graph read node by node: K5's nodes and no
+  ``geqrf``, ``lm_damped_step_blockdiag(1)``) at the ellipse's width (100,000 points)
   and config 4's lane-major compute, solve and compute_solve: the first call's
   time (eager), the second's (warm-up + capture) and the capture's, a warm
   call's replays, ATen ops, host-issued launches and host reads (one
@@ -254,6 +255,7 @@ from qrkit_tpu_torch.ops import chain_plan
 from qrkit_tpu_torch.ops import compact_wy as cw
 from qrkit_tpu_torch.ops import graph_loop
 from qrkit_tpu_torch.ops import tall_qr
+from qrkit_tpu_torch.parallel import tsqr
 from qrkit_tpu_torch.solvers import segmented_factorize
 
 SEED = 0
@@ -1603,19 +1605,24 @@ def k4_fit_launches(k, first):
     return {K4R: 2 * (k + extra) + 1 + (1 if first else 0), K4J: k + extra, K4G: k + extra}
 
 
-def first_fit_contract(label, iterations, reads, counts, ellipse_fit=False):
+def first_fit_contract(label, iterations, reads, counts, ellipse_fit=False, k5_step=0):
     """A key's first fit: iteration 1 eager (one host read; a fit that it
     finishes ends there), iteration 2 the capture's warm-up, then the whole
     fit as one launch of the captured loop (one fetch; L1 once before the
     loop and once an iteration, by its own count), with ``ellipse_fit`` K3
     (the step) once an iteration and once each for iteration 1 and the
-    capture's warm-up body and K4 as ``k4_fit_launches``, no other kernel."""
+    capture's warm-up body and K4 as ``k4_fit_launches``, with ``k5_step``
+    (a dense block-angular step's K5 launches) K5 as often as K3 would be
+    times that, no other kernel."""
     k = int(iterations)
     want_reads = 2 if k > 1 else 1
     want = {name: (k + 1 if name == "graph_loop_cond" and k > 1 else 0) for name in counts}
-    if ellipse_fit:  # iteration 1's step, the warm-up's, one an iteration
-        want[K3] = k + 2 if k > 1 else 1
+    steps = k + 2 if k > 1 else 1  # iteration 1's step, the warm-up's, one an iteration
+    if ellipse_fit:
+        want[K3] = steps
         want.update(k4_fit_launches(k, first=True))
+    if k5_step:
+        want[K5] = k5_step * steps
     if reads != want_reads or counts != want:
         raise AssertionError(f"{label}: first fit of {k} iterations: {reads} host reads, launches "
                              f"{counts}; want {want_reads} and {want}")
@@ -1867,14 +1874,15 @@ def phase_bundle(smi):
         if not (np.isfinite(res.cost) and rms < BUNDLE_RMS_GATE and np.isfinite(x_np).all()):
             raise AssertionError(f"bundle {loop} P={n_pts}: cost {res.cost}, rms {rms}")
         # the host loop makes one damped step, so one B2 launch, an
-        # iteration; the device loop's fused step runs no kernel, its
-        # captured loop L1 once before the loop and once an iteration
+        # iteration; the device loop's fused dense step launches K5's plan,
+        # its captured loop L1 once before the loop and once an iteration
         if loop == "host_loop":
             expected = {name: (it if name == "blockdiag_qr_r" else 0) for name in counts}
             if counts != expected or it < 1:
                 raise AssertionError(f"bundle {loop} P={n_pts}: launches {counts} in {it} iterations")
         else:
-            first_fit_contract(f"bundle {loop} P={n_pts}", it, loop_reads, counts)
+            first_fit_contract(f"bundle {loop} P={n_pts}", it, loop_reads, counts,
+                               k5_step=bundle_step_k5(n_pts, BUNDLE_CAMS))
         if loop == "host_loop":
             b2, iters = counts["blockdiag_qr_r"], it
         t0 = time.perf_counter()
@@ -3068,9 +3076,14 @@ def phase_mesh(rng, smi):
 
         # the reduce= fit's first run: iteration 1 eager, then the whole fit
         # as the chunks of its captured loop (L1 once a gated iteration)
+        def fit_want():  # K5: iteration 1's step, the warm-up's, one a gated iteration
+            gated = _program.LOOP_CHUNK * _program.loop_chunks(fits[False].iterations,
+                                                               BUNDLE_CFG.max_iters)
+            return {"graph_loop_cond": gated,
+                    K5: (gated + 2) * bundle_step_k5(MESH_BUNDLE_P, BUNDLE_CAMS, world=1)}
+
         add(mesh_check("bundle_device_fit", lambda: fit_b(None), lambda: fit_b(mesh), False, 1, smi,
-                       lambda: {"graph_loop_cond": _program.LOOP_CHUNK * _program.loop_chunks(
-                           fits[False].iterations, BUNDLE_CFG.max_iters)},
+                       fit_want,
                        extra={"n_pts": MESH_BUNDLE_P, "n_cams": BUNDLE_CAMS}))
         costs = (fits[True].cost, fits[False].cost)
         rms = float(np.sqrt(2.0 * fits[False].cost / (2 * MESH_BUNDLE_P * BUNDLE_CAMS)))
@@ -3094,6 +3107,7 @@ def phase_mesh(rng, smi):
         step_n, step_m = bundle._make_damped_step(1), bundle._make_damped_step(1, mesh, "dp")
         add(mesh_check("bundle_step_100k", lambda: step_n(x0, rb, lam, uvt),
                        lambda: step_m(x0, rb, lam, uvt), False, 5, smi,
+                       {K5: bundle_step_k5(MESH_DRYRUN_BUNDLE_P, 2, world=1)},
                        extra={"n_pts": MESH_DRYRUN_BUNDLE_P, "n_cams": 2}))
         add(mesh_programs(mesh, smi))
     finally:
@@ -3349,11 +3363,15 @@ def functional_and_soa_programs(rng, drive, dev):
     lam = torch.tensor(1e-3, dtype=torch.float32, device=DEVICE)
     functional.clear_programs()
     path = f"functional_{n}"
+
+    def angular():
+        return functional.block_angular_lstsq(blocks, right, rhs, 1, 5)
+
+    k5_want = dense_step_k5(2 * n, 5, BA_M2)  # the bottom [2N + 5, 6]: K5's plan
     for label, programs, call in (
         ("block_diagonal_factorize", functional._FACTORIZE_PROGRAMS,
          lambda: functional.block_diagonal_factorize(blocks)),
-        ("block_angular_lstsq", functional._ANGULAR_PROGRAMS,
-         lambda: functional.block_angular_lstsq(blocks, right, rhs, 1, 5)),
+        ("block_angular_lstsq", functional._ANGULAR_PROGRAMS, angular),
         ("lm_damped_step_blockdiag", functional._STEP_PROGRAMS,
          lambda: functional.lm_damped_step_blockdiag(left3, sright, res, lam)),
         ("lm_damped_step_blockdiag1", functional._STEP1_PROGRAMS,
@@ -3361,7 +3379,16 @@ def functional_and_soa_programs(rng, drive, dev):
     ):
         drive(path, label, programs, f"functional.{label}", call,
               lambda out: concat(*(t.float() for t in (out if isinstance(out, tuple) else (out,)))),
-              {K3: 1} if label.startswith("lm_") else {}, 20, 20)
+              {K3: 1} if label.startswith("lm_") else {K5: k5_want} if label == "block_angular_lstsq"
+              else {}, 20, 20)
+    k5_nodes, library_qr_nodes, names = qr_node_census(eagerly(angular))
+    emit({"phase": "programs", "path": path, "call": "block_angular_lstsq_nodes",
+          "kernel_nodes": len(names), "k5_nodes": k5_nodes, "k5_want": k5_want,
+          "library_qr_nodes": library_qr_nodes,
+          "kernel_names": collections.Counter(nm[:60] for nm in names).most_common(8)})
+    if k5_nodes != k5_want or library_qr_nodes:
+        raise AssertionError(f"programs {path}: the dense step's graph holds {k5_nodes} K5 nodes "
+                             f"(want {k5_want}) and {library_qr_nodes} library QR nodes (want 0)")
     blocks_np, a2_np, b_np = block_angular_problem(rng, n)
     soa = qt.BlockMatrix1x2(
         qt.BlockDiagonal.from_soa(dev(blocks_np.transpose(1, 2, 0).reshape(2, n)), 2, 1, nrows=2 * n),
@@ -3802,7 +3829,7 @@ def drive_lm_program(label, fit, gate, smi):
     key's first fit (capture), a warm fit counted (one program, one host
     read, no host-issued launch, L1 once before the loop and once an
     iteration, K3 once an iteration and K4 as ``k4_fit_launches`` in the
-    ellipse fits), each bitwise
+    ellipse fits, K5's plan a step in the bundle fits), each bitwise
     equal to the eager fit, L1's log against the
     plain condition on every iteration, the gate; then eager and captured
     fits in turns (wall ms), device ms per fit under torch.profiler and
@@ -3839,6 +3866,8 @@ def drive_lm_program(label, fit, gate, smi):
     want = {"graph_loop_cond": k + 1}
     if label.startswith("fit_ellipse"):  # the step: K3 once an iteration; the model: K4
         want.update({K3: k, **k4_fit_launches(k, first=False)})
+    if label.startswith("fit_bundle_device_"):  # the dense step: K5's plan an iteration
+        want[K5] = k * bundle_step_k5(int(label.rsplit("_", 1)[1]), BUNDLE_CAMS)
     if launches != want:
         problems.append(f"warm fit launches {launches}, want {want}")
     if first_reads != (2 if k > 1 else 1):
@@ -4016,9 +4045,9 @@ def phase_loop_marks(smi):
 
 TALL_QR_SOURCE = "qrkit_tpu_torch/ops/csrc/tall_qr.cu"
 K5 = "tall_qr"
-K5_REPLACES = ("none: the ragged block-angular step exists only in the port; K5 takes its bottom's "
-               "TSQR (geqrf, the T factors, Q^T on the rhs: functional._tsqr_bottom_r, kept for "
-               "the dense step) and keeps R2 and y2 alone")
+K5_REPLACES = ("none: the block-angular steps' bottom [J2 | rhs] in the reference is a TSQR "
+               "(geqrf, the T factors, Q^T on the rhs: parallel.tsqr.tsqr_factorize + tsqr_apply, "
+               "kept for TSQRDenseQR); K5 keeps R2 and y2 alone, for the ragged and the dense step")
 BAL_BOTTOM = (694_814, 468)  # Venice-52: 2 x 347,173 observation rows + 468 damping rows, 9 x 52 columns
 TALL_QR_REPS = 5
 
@@ -4028,6 +4057,42 @@ def bal_bottom_shape(obs_cam, n_cams):
     the camera damping, 9 columns a camera (the rhs past them)."""
     m2 = bal.CAMERA * n_cams
     return 2 * len(obs_cam) + m2, m2
+
+
+def dense_step_k5(compl, tail, m2, world=0):
+    """K5's launches in one dense block-angular step
+    (``functional.block_angular_lstsq``) of ``m2`` right columns whose
+    blocks hand on ``compl`` complement rows (a rank's, with ``world``
+    ranks of a mesh) with ``tail`` rows under them: one R-only QR of the
+    bottom; over a mesh one of the rank's rows and one of the gathered
+    ``[R | y]`` stack with the tail."""
+    if not world:
+        return tall_qr.plan(compl + tail, m2).launches
+    return tall_qr.plan(compl, m2).launches + tall_qr.plan(world * m2 + tail, m2).launches
+
+
+def bundle_step_k5(n_pts, n_cams, world=0):
+    """:func:`dense_step_k5` of the bundle's dense step (``bundle._damped_step``):
+    2C complement rows a point, 6C camera columns and damping rows."""
+    return dense_step_k5(2 * n_cams * n_pts, 6 * n_cams, 6 * n_cams, world)
+
+
+def tsqr_r_and_qtb(w):
+    """R2 and y2 of ``w = [J2 | rhs]`` by the TSQR on one shard
+    (``parallel.tsqr``: ``geqrf``, the T factors and Qᵀ on the rhs), the
+    route K5 replaced, timed beside it."""
+    n = w.shape[1] - 1
+    Yl, Tl, Y2, T2, R2 = tsqr.tsqr_factorize(w[:, :n], 1)
+    return R2, tsqr.tsqr_apply(Yl, Tl, Y2, T2, w[:, n], 1, True)[:n]
+
+
+def qr_node_census(fn):
+    """(K5's kernel nodes, library QR nodes, every kernel node's name) of
+    one call of ``fn`` captured into a graph (``profiling.graph_nodes``)."""
+    names = [nd.get("name", "") for nd in profiling.graph_nodes(fn) if nd["type"] == "kernel"]
+    return (sum("level_kernel" in nm for nm in names),
+            sum(any(k in nm.lower() for k in ("geqr", "larf", "orgqr", "ormqr")) for nm in names),
+            names)
 
 
 def tall_qr_cost(m, n, itemsize=4):
@@ -4043,7 +4108,7 @@ def phase_tall_qr(smi):
     (R2, y2) and R's Gram residual against float64; two calls bitwise
     equal; CUDA-event times of one call on a fresh copy of the operand (the
     copy outside the events), in turns: K5, the plain version, the TSQR it
-    replaced (``functional._tsqr_bottom_r``, one shard) and
+    replaced (:func:`tsqr_r_and_qtb`, one shard) and
     ``torch.linalg.qr(mode="r")`` of the operand (``library_ms``: timed,
     never called by the port), beside the bounds (operations at the fp32
     rate, bytes at the HBM rate).  Then one BAL step at the smoke scene
@@ -4058,7 +4123,7 @@ def phase_tall_qr(smi):
     calls = {
         "kernel": lambda w: tall_qr.r_and_qtb(w),
         "plain": lambda w: tall_qr._r_and_qtb_plain(w),
-        "tsqr": lambda w: functional._tsqr_bottom_r(w, 1),
+        "tsqr": tsqr_r_and_qtb,
         "library": lambda w: (torch.linalg.qr(w, mode="r")[1],),
     }
 
@@ -4102,10 +4167,7 @@ def phase_tall_qr(smi):
                          device=DEVICE)
     r0 = bal._residuals_aux(x0, aux)
     lam = torch.tensor(1e-3, dtype=torch.float32, device=DEVICE)
-    nodes = profiling.graph_nodes(lambda: bal._damped_step_aux(x0, r0, lam, aux))
-    names = [nd.get("name", "") for nd in nodes if nd["type"] == "kernel"]
-    k5_nodes = sum("level_kernel" in nm for nm in names)
-    geqrf_nodes = sum(any(k in nm.lower() for k in ("geqr", "larf", "orgqr", "ormqr")) for nm in names)
+    k5_nodes, geqrf_nodes, names = qr_node_census(lambda: bal._damped_step_aux(x0, r0, lam, aux))
     smoke_plan = tall_qr.plan(*bal_bottom_shape(oc, n_cams))
 
     # K5's launches in a warm 3-iteration fit

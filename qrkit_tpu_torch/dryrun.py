@@ -6,7 +6,8 @@ result on the same inputs:
 
 1. ``ellipse_block_angular``: the ellipse LM step through
    :func:`~qrkit_tpu_torch.functional.block_angular_lstsq`, the rank's left
-   blocks and their rows, TSQR over the ranks; it must descend;
+   blocks and their rows, the bottom's R-only QR on each rank and on the
+   gathered factors; it must descend;
 2. ``ellipse_lane_major``: the lane-major damped step
    (``examples.ellipse._damped_step_aux``) with the points sharded over
    lanes; it must descend;
@@ -376,7 +377,7 @@ def time_collectives(mesh, reps: int = 50, axis: str = "dp") -> dict:
     CUDA events on the current stream, the median of ``reps`` (the captured
     one a replay of a graph holding it alone, captured after a warm-up, in
     ``"thread_local"`` mode).  The widths: ``all_gather_into_tensor`` of
-    the TSQR stack of the bundle step ([12, 13] float32 a rank) and of
+    the ``[R | Qᵀy]`` stack of the bundle step ([12, 13] float32 a rank) and of
     config 3's CAQR R factors at 80 segments ([80/world, 8, 8]);
     ``all_reduce`` of a scalar (an LM cost) and of the bundle fit's
     gradient at 20,000 points × 8 cameras ([60,048])."""

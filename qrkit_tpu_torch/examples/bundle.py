@@ -26,8 +26,8 @@ host LM loop over the class stack; :func:`fit_bundle_device` keeps the LM
 state on the device with the fused ``block_angular_lstsq`` step; with
 ``mesh=`` the point axis of the scene is sharded over the ranks of a
 ``DeviceMesh``: each rank holds its points' observations, Jacobian blocks
-and block QR, the camera-block TSQR's all-gather of ``[6C, 6C]`` R factors
-is the step's only collective, and the LM cost and gradient are
+and block QR, the all-gather of each rank's ``[6C, 6C + 1]`` factor ``[R |
+Qᵀy]`` of the camera block's bottom is the step's only collective, and the LM cost and gradient are
 all-reduced, so every rank returns the same result; on the card the step
 and the whole fit are captured programs with those collectives inside.
 """
@@ -262,8 +262,8 @@ def _make_damped_step(n_shards: int, mesh=None, axis: str = "dp"):
     as a dense ``[n1 + 6C, 6C]`` operand on the device (6C columns: dense is
     the right layout at this width) and solved by the fused
     :func:`~qrkit_tpu_torch.functional.block_angular_lstsq`, ``n_shards``
-    row shards of its TSQR (on one device; with ``mesh=``, over the ranks,
-    ``uv`` and ``r`` being the rank's points and the step global).  With
+    passed on (with ``mesh=`` the ranks' count, ``uv`` and ``r`` being the
+    rank's points and the step global).  With
     ``mesh=`` the step is one captured program on the card holding the
     step's all-gathers (the reference jits the sharded step whole)."""
     if mesh is None:
@@ -316,8 +316,8 @@ def fit_bundle_device(
     ``mesh``/``axis`` shard the point axis over the ranks of a
     ``DeviceMesh`` (every rank passes the whole scene; the point count must
     divide over the ranks): each rank keeps its points' observations and
-    block QR, the camera-block TSQR all-gather is the step's only
-    collective, and the cost and gradient are all-reduced, so every rank
+    block QR, the all-gather of the camera block's ``[R | Qᵀy]`` factors is
+    the step's only collective, and the cost and gradient are all-reduced, so every rank
     returns the same :class:`LMResult`.  On the card such a fit is a
     captured loop as well, its collectives inside its graphs: when warm, one
     launch and one fetch a chunk of 8 iterations on every rank."""

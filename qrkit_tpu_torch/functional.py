@@ -5,9 +5,12 @@ Counterpart of ``qrkit_tpu/functional.py`` (``block_diagonal_factorize``,
 ``block_diagonal_lstsq``, ``block_angular_lstsq`` and their custom VJPs,
 ``_soa_tall_qr_solve``, here in :mod:`~qrkit_tpu_torch.ops.lm_step`,
 ``lm_damped_step_blockdiag(1)``).  As in the
-reference the factorize and least-squares paths run no device kernel of
-their own: they are batched plain torch (compact-WY QR, Qᵀ through the
-implicit Y/T factors, batched triangular solves) on either device.  The LM
+reference the block-diagonal factorize and least-squares paths run no
+device kernel of their own: they are batched plain torch (compact-WY QR, Qᵀ
+through the implicit Y/T factors, batched triangular solves) on either
+device.  The block-angular steps reduce their bottom ``[J2 | rhs]`` by the
+R-only tall-skinny QR :func:`~qrkit_tpu_torch.ops.tall_qr.r_and_qtb`
+(kernel K5 on the card), which keeps R2 and Qᵀ on the rhs alone.  The LM
 steps keep the reference's lane-major layout (the point axis last and
 contiguous) and run kernel K3 on the card
 (:func:`~qrkit_tpu_torch.ops.lm_step.damped_step_lane_major`: one
@@ -28,8 +31,9 @@ arguments and operand shapes, four shapes kept per function until
 ``block_angular_lstsq`` and ``lm_damped_step_blockdiag`` take a keyword-only
 ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``), where the reference only
 places its inputs sharded: each rank then passes its own blocks (points) and
-their rows, the skinny bottom panel reduces across ranks by TSQR (a local QR,
-one all-gather of the R factors, a replicated second stage), and the block
+their rows, the skinny bottom panel reduces across ranks as a tree (a local
+R-only QR, one all-gather of the ``[R | Qᵀy]`` factors, a replicated second
+R-only QR), and the block
 part of x is gathered, so every rank returns the global x.  The sharded
 ``block_angular_lstsq`` has its backward too (the reference's ``custom_vjp``
 runs under SPMD): one all-reduce of an m2-vector; so has the sharded damped
@@ -41,7 +45,6 @@ import torch
 
 from ._program import Programs
 from .ops.householder import (
-    apply_wy,
     build_t_factor,
     colpiv_householder_qr,
     form_q,
@@ -49,6 +52,7 @@ from .ops.householder import (
     panel_qr_yt,
 )
 from .ops.lm_step import _mesh_step_vjp, damped_step_lane_major
+from .ops.tall_qr import r_and_qtb
 
 __all__ = [
     "block_angular_lstsq",
@@ -190,54 +194,8 @@ def _solve_upper(R: torch.Tensor, y: torch.Tensor, transpose: bool = False) -> t
     return torch.linalg.solve_triangular(R, y[..., None], upper=True)[..., 0]
 
 
-def _tail_r(stack: torch.Tensor, m2: int):
-    """Second TSQR stage of a gathered ``[rows, m2 + 1]`` stack of local
-    ``[R | Qᵀy]`` factors (and any replicated rows under them): R2 [m2, m2]
-    and y2 = (Q2ᵀ y)[:m2]."""
-    Y2, T2, R2 = panel_qr_yt(stack[:, :m2])
-    y2 = apply_wy(Y2, T2, stack[:, m2:], transpose=True)[:m2, 0]
-    return torch.triu(R2)[:m2], y2
-
-
 @highest_precision()
-def _sharded_bottom_r(bottom, tail_rows, n_shards: int, m2: int, mesh, axis: str):
-    """The right block's R2 and y2 of a block-angular system whose bottom
-    rows ``[rows, m2 + 1]`` (J2 | rhs) are this rank's, over ``n_shards /
-    world`` local shards each: a local TSQR stage, one all-gather of the
-    ``[R | Qᵀy]`` stacks, and the replicated ``tail_rows`` (the same on every
-    rank) under them in the second stage."""
-    from .parallel.mesh import all_gather_leading, mesh_rank
-
-    world = mesh_rank(mesh, axis)[1]
-    if n_shards % world:
-        raise ValueError(f"n_shards={n_shards} does not divide over the {world} ranks of the mesh")
-    s = n_shards // world
-    rows = bottom.shape[0]
-    mloc = max(-(-rows // s), m2)
-    bottom = torch.cat([bottom, bottom.new_zeros((mloc * s - rows, m2 + 1))]).reshape(s, mloc, m2 + 1)
-    Yl, Tl, Rl = panel_qr_yt(bottom[..., :m2])
-    qty = apply_wy(Yl, Tl, bottom[..., m2:], transpose=True)[:, :m2]
-    stack = all_gather_leading(torch.cat([torch.triu(Rl[:, :m2]), qty], dim=2), mesh, axis)
-    return _tail_r(torch.cat([stack.reshape(-1, m2 + 1), tail_rows]), m2)
-
-
-def _tsqr_bottom_r(bottom, n_shards: int):
-    """R2 and y2 = (Q2ᵀ rhs)[:m2] of a block-angular system's bottom rows
-    ``[rows, m2 + 1]`` (J2 | rhs) by the TSQR
-    (:func:`~qrkit_tpu_torch.parallel.tsqr.tsqr_factorize`), the rows
-    zero-padded to whole shards."""
-    from .parallel.tsqr import tsqr_apply, tsqr_factorize  # tsqr imports the solvers
-
-    mbot, m2 = bottom.shape[0], bottom.shape[1] - 1
-    mloc = max(-(-mbot // n_shards), m2)
-    if mloc * n_shards != mbot:
-        bottom = torch.cat([bottom, bottom.new_zeros((mloc * n_shards - mbot, m2 + 1))], dim=0)
-    Yl, Tl, Y2, T2, R2 = tsqr_factorize(bottom[:, :m2], n_shards)
-    return R2, tsqr_apply(Yl, Tl, Y2, T2, bottom[:, m2], n_shards, True)[:m2]
-
-
-@highest_precision()
-def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None, axis: str = "dp"):
+def _block_angular_lstsq_primal(left_blocks, right, b, mesh=None, axis: str = "dp"):
     """Returns (x [m1+m2], R1 [nb,bc,bc], r12 [m1,m2], R2 [m2,m2])."""
     nb, br, bc = left_blocks.shape
     m2 = right.shape[1]
@@ -252,21 +210,24 @@ def _block_angular_lstsq_primal(left_blocks, right, b, n_shards: int, mesh=None,
     qt_body = body + Y1 @ (T1.mT @ (Y1.mT @ body))
     econ = qt_body[:, :bc].reshape(nb * bc, m2 + 1)
     compl = qt_body[:, bc:].reshape(nb * (br - bc), m2 + 1)
-    bottom = torch.cat([compl, rb[nb * br :]], dim=0)  # [nb*(br-bc)+tail, m2+1]
     r12, y1 = econ[:, :m2], econ[:, m2]
 
-    if mesh is not None:
-        # the rank's complement rows; the replicated tail joins the second stage
-        R2, y2 = _sharded_bottom_r(compl, rb[nb * br :], n_shards, m2, mesh, axis)
+    # R2 and y2 of the bottom [J2 | rhs], the complement rows over the tail rows: K5 on the
+    # card, which overwrites its operand (each one here is the step's own)
+    if mesh is None:
+        R2, y2 = r_and_qtb(torch.cat([compl, rb[nb * br :]]))
     else:
-        R2, y2 = _tsqr_bottom_r(bottom, n_shards)
+        from .parallel.mesh import all_gather_leading
+
+        # each rank's [R | y], gathered, the tail rows (the same on every rank) under the stack
+        R, y = r_and_qtb(compl)
+        stack = all_gather_leading(torch.cat([R, y[:, None]], dim=1), mesh, axis)
+        R2, y2 = r_and_qtb(torch.cat([stack.reshape(-1, m2 + 1), rb[nb * br :]]))
 
     # back substitution: x2, then the structured x1
     x2 = _solve_upper(R2, y2)
     x1 = _solve_upper(R1, (y1 - r12 @ x2).reshape(nb, bc))
     if mesh is not None:
-        from .parallel.mesh import all_gather_leading
-
         x1 = all_gather_leading(x1, mesh, axis)
     return torch.cat([x1.reshape(-1), x2]), R1, r12, R2
 
@@ -293,8 +254,8 @@ class _BlockAngularLstsq(torch.autograd.Function):
     backward (the reference's ``jax.custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, left_blocks, right, b, n_shards, tail):
-        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b, n_shards)
+    def forward(ctx, left_blocks, right, b, tail):
+        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b)
         ctx.tail = tail
         ctx.save_for_backward(left_blocks, right, b, x, R1, r12, R2)
         return x
@@ -318,7 +279,7 @@ class _BlockAngularLstsq(torch.autograd.Function):
         u1 = _solve_upper(R1, (w1.reshape(m1) - r12 @ u2).reshape(nb, bc))
         grads = _angular_grads(left_blocks, right, b, x[:m1].reshape(nb, bc), x[m1:], u1, u2,
                                ctx.tail)
-        return grads + (None, None)
+        return grads + (None,)
 
 
 class _ShardedBlockAngularLstsq(torch.autograd.Function):
@@ -330,8 +291,8 @@ class _ShardedBlockAngularLstsq(torch.autograd.Function):
     the all-reduce (sum) of the m2-vector R12ᵀ w1 before the R2 solves."""
 
     @staticmethod
-    def forward(ctx, left_blocks, right, b, n_shards, tail, mesh, axis):
-        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b, n_shards, mesh, axis)
+    def forward(ctx, left_blocks, right, b, tail, mesh, axis):
+        x, R1, r12, R2 = _block_angular_lstsq_primal(left_blocks, right, b, mesh, axis)
         ctx.tail, ctx.mesh, ctx.axis = tail, mesh, axis
         ctx.save_for_backward(left_blocks, right, b, x, R1, r12, R2)
         return x
@@ -354,7 +315,7 @@ class _ShardedBlockAngularLstsq(torch.autograd.Function):
         u1 = _solve_upper(R1, (w1.reshape(m1) - r12 @ u2).reshape(nb, bc))
         grads = _angular_grads(left_blocks, right, b, x[lo : lo + m1].reshape(nb, bc), x[top:],
                                u1, u2, ctx.tail)
-        return grads + (None,) * 4
+        return grads + (None,) * 3
 
 
 def block_angular_lstsq(
@@ -367,20 +328,22 @@ def block_angular_lstsq(
     mesh=None,
     axis: str = "dp",
 ) -> torch.Tensor:
-    """Fused block-angular least-squares solve: batched left QR, TSQR of the
-    right block's bottom rows, block back-substitution.
+    """Fused block-angular least-squares solve: batched left QR, an R-only
+    QR of the right block's bottom rows
+    (:func:`~qrkit_tpu_torch.ops.tall_qr.r_and_qtb`, K5 on the card), block
+    back-substitution.
 
     ``left_blocks [nb, br, bc]`` is the block-diagonal A1 body, ``right
     [nb*br + tail, m2]`` the dense A2 (``tail`` rows below the blocks) and
     ``b [nb*br + tail]``; returns x ``[nb*bc + m2]``.  ``n_shards`` is the
-    TSQR's shard count (a batch axis on one device).  Differentiable w.r.t.
+    reference's TSQR shard count: it does not change the arithmetic here
+    (with ``mesh=`` it must divide over the ranks).  Differentiable w.r.t.
     ``left_blocks``, ``right`` and ``b`` through an implicit-function-theorem
     backward against the saved composite R (full column rank assumed).
 
     With ``mesh=`` each rank passes its own blocks and their rows of
     ``right`` and ``b``, followed by the ``tail`` rows, which are the same on
-    every rank; ``n_shards`` (divisible by the mesh size) counts TSQR shards
-    over all ranks.  Every rank returns the global x ``[world·nb·bc + m2]``.
+    every rank.  Every rank returns the global x ``[world·nb·bc + m2]``.
     The sharded form is differentiable too: x is replicated, so its
     cotangent must be the same on every rank (every rank differentiates the
     same function of x); each rank gets the gradients of its own blocks and
@@ -390,14 +353,20 @@ def block_angular_lstsq(
 
     Without a mesh, on card operands that do not require grad, the call is
     one captured program (the module docstring)."""
+    if mesh is not None:
+        from .parallel.mesh import mesh_rank
+
+        world = mesh_rank(mesh, axis)[1]
+        if n_shards % world:
+            raise ValueError(f"n_shards={n_shards} does not divide over the {world} ranks of the mesh")
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (left_blocks, right, b))
     if grad and mesh is None:
-        return _BlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail)
+        return _BlockAngularLstsq.apply(left_blocks, right, b, tail)
     if grad:
-        return _ShardedBlockAngularLstsq.apply(left_blocks, right, b, n_shards, tail, mesh, axis)
+        return _ShardedBlockAngularLstsq.apply(left_blocks, right, b, tail, mesh, axis)
     return _ANGULAR_PROGRAMS.solve(
-        None, "functional.block_angular_lstsq", (n_shards, tail, axis),
-        lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, n_shards, mesh, axis)[0],
+        None, "functional.block_angular_lstsq", (tail, axis),
+        lambda _, lb, r, v: _block_angular_lstsq_primal(lb, r, v, mesh, axis)[0],
         left_blocks, right, b, mesh=mesh, axis=axis,
     )
 
@@ -435,7 +404,6 @@ def _ragged_left(left, right, slots, b, dest, tail, tail_b, rows: int):
 @highest_precision()
 def _block_angular_lstsq_ragged(left, right, slots, b, dest, tail, tail_b, rows: int, marks):
     from .ops.graph_loop import mark
-    from .ops.tall_qr import r_and_qtb
 
     R1, r12, y1, bottom = _ragged_left(left, right, slots, b, dest, tail, tail_b, rows)
     if marks:

@@ -1,13 +1,15 @@
-"""The R-only tall-skinny QR of the ragged block-angular step's bottom:
-kernel K5 and its plain version.
+"""The R-only tall-skinny QR of the block-angular steps' bottom: kernel K5
+and its plain version.
 
-No Pallas counterpart: the ragged step exists only in the port
-(:func:`~qrkit_tpu_torch.functional.block_angular_lstsq_ragged`), and the
-dense step's TSQR (:mod:`~qrkit_tpu_torch.parallel.tsqr`, ``geqrf``, the
-compact-WY T factors and Qᵀ on the rhs) keeps Q for its other callers.
-The ragged step needs only R2 and y2 = (Q2ᵀ rhs)[:n] of its bottom
-``[J2 | rhs]``; :func:`r_and_qtb` computes them by Householder reflections
-and keeps nothing else.
+No Pallas counterpart: the reference's block-angular step reduces its
+bottom by a TSQR (here :mod:`~qrkit_tpu_torch.parallel.tsqr`, ``geqrf``,
+the compact-WY T factors and Qᵀ on the rhs), which keeps Q; the port keeps
+that for :class:`~qrkit_tpu_torch.parallel.TSQRDenseQR`.  The steps of
+:mod:`~qrkit_tpu_torch.functional` (the dense
+:func:`~qrkit_tpu_torch.functional.block_angular_lstsq`, one device or
+``mesh=``, and the ragged ``block_angular_lstsq_ragged``) need only R2 and
+y2 = (Q2ᵀ rhs)[:n] of their bottom ``[J2 | rhs]``; :func:`r_and_qtb`
+computes them by Householder reflections and keeps nothing else.
 
 The schedule (``csrc/tall_qr.cu``, panel CAQR keeping R): the n columns in
 panels of ``PANEL`` (the last one narrower), the rhs always a trailing

@@ -50,6 +50,15 @@ def test_block_angular_lstsq_matches(rng, n_shards, tail):
     close(x, want)
 
 
+@pytest.mark.parametrize("tail", [0, 5])
+def test_block_angular_lstsq_n_shards_bitwise(rng, tail):
+    """On one device ``n_shards`` does not change the arithmetic: the bottom
+    is one R-only QR (``ops.tall_qr.r_and_qtb``) whatever the shard count."""
+    args = tuple(torch.as_tensor(t) for t in _angular(rng, nb=50, tail=tail))
+    xs = [tf.block_angular_lstsq(*args, n_shards, tail) for n_shards in (1, 2, 4)]
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+
+
 @pytest.mark.parametrize("n_shards,tail", [(1, 5), (2, 0)])
 def test_block_angular_lstsq_gradient_matches_jax(rng, n_shards, tail):
     blocks, right, b = _angular(rng, tail=tail)
